@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Smoke run of clsim_tpu_torch on one CUDA GPU.
+
+    python3 chip_smoke.py            # build, check and drive the main path
+    python3 chip_smoke.py --sweep    # also time iters_per_call choices
+
+Phases (any failure raises and exits non-zero):
+  0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
+     no CUDA device is an error (there is no CPU path);
+  1. build the CUDA kernels from csrc/ (nvcc) and print the build time;
+  2. the propagation kernel against its plain PyTorch version on the same
+     tensors and the same (T, 8, N) uniform stream, at the main path's
+     262,144 slots: equal generated counts (within 1e-5 on the main-path
+     configuration), hits within max(2, 1%), histogram L1 <= 2e-3 of the
+     total;
+  3. the main path: Simulation.simulate of a 100 TeV EMinus cascade at the
+     centre of hex61 (61 strings, 3,660 DOMs) in a seeded 171-layer ice,
+     262,144 slots; the kernel must have been launched, the photon yield
+     must match the PPC formula, nothing dropped or abandoned;
+  4. the bench workload (262,144 slots x 200 photons on hex61) through the
+     port, and a statistical comparison of the kernel with the plain version
+     (hits per generated photon, |z| < 5) at 16,384 slots x 50 photons.
+The line before the last is {"kernels": [...]}; the last line is
+{"ok": true, "device": {...}}.
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_SLOTS = 262144
+L1_TOL = 2e-3
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn):
+    """Run fn once between CUDA events; returns (result, milliseconds)."""
+    import torch
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def seeded_ice(n_layers, z_start, layer_height, device, seed=3):
+    """Ice with per-layer variation, made like tests/test_kernel.py's."""
+    import torch
+    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
+    medium = make_homogeneous_ice(n_layers=n_layers, z_start=z_start,
+                                  layer_height=layer_height, device=device)
+    r = np.random.default_rng(seed)
+    t = lambda a: torch.as_tensor(a.astype(np.float32), device=device)
+    return medium._replace(b400=t(0.02 + 0.03 * r.random(n_layers)),
+                           a_dust400=t(0.004 + 0.006 * r.random(n_layers)),
+                           delta_tau=t(0.5 + r.random(n_layers))), r
+
+
+def small_workload(n, T, aniso, tilt, device):
+    """tests/test_kernel.py::_workload, rebuilt on the port at n slots."""
+    import torch
+    from clsim_tpu_torch.geometry import hexagonal_geometry
+    from clsim_tpu_torch.medium.anisotropy import AnisotropyParams
+    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
+    from clsim_tpu_torch.medium.tilt import TiltParams
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    from clsim_tpu_torch.types import PropagationConfig
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    medium, r = seeded_ice(12, -300.0, 50.0, device)
+    if aniso:
+        medium = medium._replace(anisotropy=AnisotropyParams(
+            azimuth=f32(3.9), mag_along=f32(0.04), mag_perp=f32(-0.08),
+            enabled=True))
+    if tilt:
+        medium = medium._replace(tilt=TiltParams(
+            distances=f32([-800.0, -200.0, 300.0, 900.0]),
+            first_z=f32(-400.0), z_spacing=f32(100.0),
+            z_corrections=f32((20.0 * r.standard_normal((4, 9))).tolist()),
+            azimuth_cos=f32(math.cos(3.93)), azimuth_sin=f32(math.sin(3.93)),
+            enabled=True))
+    geo = hexagonal_geometry(n_rings=1, string_spacing=60.0,
+                             doms_per_string=12, dom_spacing=15.0,
+                             z_top=80.0, oversize=8.0, device=device)
+    spectra = stack_spectra([make_cherenkov_spectrum(
+        DEFAULT_ICE_REF_INDEX, 265.0, 675.0)], device=device)
+    cfg = PropagationConfig(
+        n_slots=n, pancake_factor=4.0, hist_t_min=0.0, hist_t_max=1600.0,
+        hist_n_bins=64, max_layer_steps=6, max_segment_m=120.0)
+    rr = np.random.default_rng(7)
+    costh = rr.uniform(-1, 1, n)
+    sinth = np.sqrt(1 - costh ** 2)
+    phi = rr.uniform(0, 2 * np.pi, n)
+    steps = step_batch(n, device, x=7.0, y=-3.0, z=11.0, length=2.0,
+                       dir_x=sinth * np.cos(phi), dir_y=sinth * np.sin(phi),
+                       dir_z=costh, num_photons=3)
+    uni = torch.as_tensor(rr.random((T, 8, n)).astype(np.float32),
+                          device=device)
+    return medium, geo, spectra, cfg, steps, uni
+
+
+def step_batch(n, device, x, y, z, length, dir_x, dir_y, dir_z, num_photons):
+    from clsim_tpu_torch.convert import steps_from_numpy
+    full = lambda v: np.broadcast_to(np.asarray(v, np.float64), (n,))
+    return steps_from_numpy(dict(
+        x=full(x), y=full(y), z=full(z), t=full(0.0), dir_x=full(dir_x),
+        dir_y=full(dir_y), dir_z=full(dir_z), length=full(length),
+        beta=full(1.0), num_photons=full(num_photons), weight=full(1.0),
+        identifier=full(0), source_type=full(0)), device)
+
+
+def hex61(device):
+    from clsim_tpu_torch.geometry import hexagonal_geometry
+    return hexagonal_geometry(n_rings=4, string_spacing=125.0,
+                              doms_per_string=60, dom_spacing=17.0,
+                              z_top=500.0, oversize=5.0, device=device)
+
+
+def bench_workload(n, photons_per_slot, device):
+    """bench.py::build_workload (hex61) rebuilt on clsim_tpu_torch."""
+    from clsim_tpu_torch.hits.acceptance import icecube_dom_acceptance
+    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
+    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    from clsim_tpu_torch.sources.ppc import (_rotate_by_angle,
+                                             sample_cascade_angles)
+    from clsim_tpu_torch.types import PropagationConfig
+    medium = make_homogeneous_ice(n_layers=171, z_start=-855.0,
+                                  layer_height=10.0, device=device)
+    geo = hex61(device)
+    acc = icecube_dom_acceptance(dom_radius=geo.om_radius * geo.oversize)
+    nb = acc.values.shape[0]
+    bias_x = float(acc.first_x) + float(acc.dx) * np.arange(nb)
+    spectra = stack_spectra([make_cherenkov_spectrum(
+        DEFAULT_ICE_REF_INDEX, medium.min_wlen, medium.max_wlen,
+        bias_wlen_nm=bias_x, bias_values=acc.values.numpy())], device=device)
+    cfg = PropagationConfig(n_slots=n, pancake_factor=5.0, hist_n_bins=512,
+                            max_layer_steps=4, max_segment_m=35.0,
+                            hit_compact_capacity=4096)
+    rng = np.random.default_rng(1234)
+    c, s = sample_cascade_angles(rng, n)
+    dx, dy, dz = _rotate_by_angle(c, s, np.full(n, 0.6), np.zeros(n),
+                                  np.full(n, 0.8), rng.random(n))
+    longi = 0.63 * rng.standard_gamma(4.5, n)
+    steps = step_batch(n, device, x=longi * 0.6, y=0.0, z=longi * 0.8,
+                       length=1e-3, dir_x=dx, dir_y=dy, dir_z=dz,
+                       num_photons=photons_per_slot)
+    return medium, geo, spectra, cfg, steps
+
+
+def compare(name, c_k, h_k, c_p, h_p, gen_rtol=0.0):
+    from clsim_tpu_torch.propagate import kernel as K
+    gen_k, gen_p = float(c_k[K.CNT_GEN]), float(c_p[K.CNT_GEN])
+    nh_k, nh_p = float(c_k[K.CNT_HITS]), float(c_p[K.CNT_HITS])
+    hp = h_p.double()
+    l1 = float((h_k.double() - hp).abs().sum())
+    tot = float(hp.sum())
+    err = float((h_k.double() - hp).abs().max())
+    log(f"  {name}: generated {gen_k:.0f} / {gen_p:.0f}, hits {nh_k:.0f} / "
+        f"{nh_p:.0f}, hist L1 {l1:.6g} of total {tot:.6g} (kernel / plain), "
+        f"max abs {err:.3g}")
+    if abs(gen_k - gen_p) > gen_rtol * gen_p:
+        raise AssertionError(f"{name}: generated counts differ")
+    if nh_p <= 20:
+        raise AssertionError(f"{name}: too few hits to compare")
+    if abs(nh_k - nh_p) > max(2.0, 0.01 * nh_p):
+        raise AssertionError(f"{name}: hit counts differ")
+    if l1 > L1_TOL * tot + 1e-6:
+        raise AssertionError(f"{name}: histogram L1 {l1} > {L1_TOL} x {tot}")
+    return err
+
+
+def phase2(device):
+    """Kernel against plain version, same tensors and uniform stream."""
+    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.types import PropagationConfig
+    import torch
+    T = 32
+    cases = []
+    for aniso, tilt in ((False, False), (True, True)):
+        cases.append((f"test_kernel workload aniso={aniso} tilt={tilt}",
+                      small_workload(N_SLOTS, T, aniso, tilt, device), 0.0))
+    # the main path's configuration: hex61, seeded 171-layer ice, defaults
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    b_medium, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
+    cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0)
+    uni = torch.rand((T, 8, N_SLOTS), generator=torch.Generator(
+        device=device).manual_seed(5), device=device)
+    # generated counts within 1e-5: the kernel contracts a*b+c into FMAs
+    # where torch rounds op by op, and over 32 iterations of 10 m layers a
+    # few of ~2e6 photons end a step earlier or later in one than the other
+    cases.append(("main-path config (hex61, 171 layers, 90 m segments)",
+                  (medium, geo, spectra, cfg, steps, uni), 1e-5))
+    max_err, timings = 0.0, {}
+    for name, (medium, geo, spectra, cfg, steps, uni), gen_rtol in cases:
+        spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, N_SLOTS, T)
+        tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+        state0, steps_p = K.init_state(steps), K.pack_steps(steps)
+        run_k = lambda: K.run_fused_iterations(state0.clone(), steps_p,
+                                               tables, spec, uniforms=uni)
+        run_p = lambda: K.run_fused_iterations_plain(
+            state0.clone(), steps_p, tables, spec, uniforms=uni)
+        run_p()      # warm-up: plain, kernel; timed: kernel, plain
+        run_k()
+        (_, h_k, c_k), ms_k = cuda_ms(run_k)
+        (_, h_p, c_p), ms_p = cuda_ms(run_p)
+        max_err = max(max_err, compare(name, c_k, h_k, c_p, h_p, gen_rtol))
+        log(f"  {name}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms "
+            f"({N_SLOTS} slots x {T} iterations)")
+        timings[name] = (ms_k, ms_p)
+    return max_err, timings[cases[-1][0]]
+
+
+def phase3(device):
+    """The main path at full width through Simulation.simulate."""
+    import torch
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.sources import Particle, ParticleType
+    from clsim_tpu_torch.types import PropagationConfig
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    sim = Simulation(medium=medium, geometry=hex61(device),
+                     config=PropagationConfig(n_slots=N_SLOTS))
+    energy = 1.0e5   # GeV
+    cascade = Particle.cascade(ParticleType.EMinus, pos=(0.0, 0.0, 0.0),
+                               time=0.0, energy=energy, zenith=1.9,
+                               azimuth=0.7)
+    torch.cuda.synchronize()
+    K.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = sim.simulate([cascade], seed=11)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = K.LAUNCHES
+    diag = res.diagnostics
+    n_gen = float(res.n_generated)
+    ppm = sim.step_generator.mean_photons_per_meter[0]
+    expected = ppm * 5.21 * 0.924 / 0.9216 * energy
+    hsum = float(res.hist.double().sum())
+    log(f"  launches {launches}, generated {n_gen:.0f} (expected "
+        f"{expected:.0f}), hits {float(res.n_hits):.0f}, weight "
+        f"{float(res.weight_hits):.6g}, hist sum {hsum:.6g}, dropped "
+        f"{diag['dropped']:.0f}, abandoned {diag['abandoned']:.0f}, "
+        f"iterations {res.n_iterations}")
+    if launches <= 0:
+        raise AssertionError("the main path did not launch the kernel")
+    if abs(n_gen / expected - 1.0) > 0.1:
+        raise AssertionError("photon yield off the PPC formula by > 10%")
+    if not float(res.n_hits) > 0:
+        raise AssertionError("no hits")
+    if not bool(torch.isfinite(res.hist).all()):
+        raise AssertionError("non-finite histogram")
+    if tuple(res.hist.shape) != (3660, 512):
+        raise AssertionError(f"histogram shape {tuple(res.hist.shape)}")
+    if abs(hsum / float(res.weight_hits) - 1.0) > 1e-4:
+        raise AssertionError("histogram sum differs from the hit weight")
+    if diag["dropped"] != 0 or diag["abandoned"] != 0:
+        raise AssertionError("photons dropped or abandoned")
+    # the same call split into its two stages, for the time breakdown
+    t0 = time.perf_counter()
+    batches = sim.steps_from_particles([cascade], np.random.default_rng(11))
+    t1 = time.perf_counter()
+    sim.run_steps(batches, 11)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    log(f"  simulate {wall:.3f} s = {n_gen / wall:.6g} photons/s end to end; "
+        f"steps {t1 - t0:.3f} s, propagation {t2 - t1:.3f} s = "
+        f"{n_gen / (t2 - t1):.6g} photons/s")
+    return launches
+
+
+def run_plain_to_drain(steps, medium, geo, spectra, cfg, seed, ipc=1024):
+    """The fused call loop with the plain version on CUDA tensors."""
+    from clsim_tpu_torch.propagate import kernel as K
+    spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg,
+                                  int(steps.x.shape[0]), ipc)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    state, steps_p = K.init_state(steps), K.pack_steps(steps)
+    hist, tot = None, 0.0
+    for call_no in range(256):
+        state, hist, c = K.run_fused_iterations_plain(
+            state, steps_p, tables, spec, seed=seed, call_no=call_no,
+            hist=hist)
+        tot = tot + c
+        if float(c[K.CNT_ALIVE]) == 0.0:
+            return tot
+    raise AssertionError("plain run did not drain")
+
+
+def phase4(device, sweep):
+    import torch
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.propagate.dispatch import propagate_auto
+    medium, geo, spectra, cfg, steps = bench_workload(N_SLOTS, 200, device)
+
+    def run(**opts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = propagate_auto(steps, medium, geo, spectra, 0, cfg, **opts)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    run()   # warm-up (table build, first launches)
+    res, sec = run()
+    diag = res.diagnostics
+    log(f"  generated {diag['generated']:.0f}, hits {diag['hits']:.0f}, "
+        f"abandoned {diag['abandoned']:.0f}, iterations {res.n_iterations}: "
+        f"{sec:.4f} s = {diag['generated'] / sec:.6g} photons/s")
+    if diag["generated"] != N_SLOTS * 200:
+        raise AssertionError("bench workload: generated != 52,428,800")
+    if diag["abandoned"] != 0:
+        raise AssertionError("bench workload: photons abandoned")
+    if sweep:
+        for ipc in (256, 1024, 4096, 16384):
+            for _ in range(2):
+                r, s = run(iters_per_call=ipc)
+                log(f"  sweep iters_per_call={ipc}: {s:.4f} s = "
+                    f"{float(r.n_generated) / s:.6g} photons/s, "
+                    f"launches {r.n_iterations // ipc}")
+    # statistics: kernel (Philox) against plain (torch.Generator)
+    n, pps = 16384, 50
+    m, g, sp, c, st = bench_workload(n, pps, device)
+    res_k = propagate_auto(st, m, g, sp, 21, c)
+    tot_p = run_plain_to_drain(st, m, g, sp, c, seed=22)
+    pk = float(res_k.n_hits) / float(res_k.n_generated)
+    pp = float(tot_p[K.CNT_HITS]) / float(tot_p[K.CNT_GEN])
+    var = (pk * (1 - pk) / float(res_k.n_generated)
+           + pp * (1 - pp) / float(tot_p[K.CNT_GEN]))
+    z = (pk - pp) / math.sqrt(var)
+    log(f"  hits per photon: kernel {pk:.6g}, plain {pp:.6g}, z = {z:.3f}")
+    if abs(z) >= 5:
+        raise AssertionError("kernel and plain version disagree (|z| >= 5)")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+                 "false); this script runs only on a GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    log(smi.stdout.strip())
+    log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from clsim_tpu_torch import _build
+    log("phase 1: build")
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"  built {_build.BUILD_INFO['path']} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in _build.BUILD_INFO["log"].splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  " + line.strip())
+
+    log("phase 2: kernel against plain version")
+    max_err, (ms_k, ms_p) = phase2(device)
+    log("phase 3: main path (Simulation.simulate, hex61, 100 TeV cascade)")
+    launches = phase3(device)
+    log("phase 4: bench workload")
+    phase4(device, sweep="--sweep" in sys.argv[1:])
+
+    print(json.dumps({"kernels": [{
+        "name": "propagate", "route": "cuda",
+        "source": "clsim_tpu_torch/csrc/propagate.cu",
+        "replaces": "clsim_tpu/propagate/kernel.py:2427",
+        "launches": launches, "max_abs_err": max_err,
+        "ms": ms_k, "plain_ms": ms_p}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,94 @@
+"""Build and load the CUDA kernels of csrc/ (nvcc into a shared library with
+a plain C interface, loaded with ctypes).
+
+The library is compiled at first use into build/clsim_tpu_torch/ at the
+repository root; its name carries a hash of the sources and flags, so an
+edited source is rebuilt.  Only the sources in the repository and the
+installed CUDA toolkit are used.  Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "clsim_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIB = None
+BUILD_INFO = {}   # path, seconds and compiler log of the last build/load
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libclsim_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless the library for these sources exists."""
+    lib = library_path()
+    if lib.exists():
+        BUILD_INFO.update(path=str(lib), seconds=0.0, log="(cached)")
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    BUILD_INFO.update(path=str(lib), seconds=seconds,
+                      log=(proc.stdout + proc.stderr).strip())
+    return lib
+
+
+def load():
+    """The loaded kernel library with argtypes declared (builds on first
+    use)."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(build()))
+    vp = ctypes.c_void_p
+    lib.clsim_propagate.argtypes = [vp] * 13
+    lib.clsim_propagate.restype = ctypes.c_int
+    lib.clsim_error_string.argtypes = [ctypes.c_int]
+    lib.clsim_error_string.restype = ctypes.c_char_p
+    lib.clsim_params_size.argtypes = []
+    lib.clsim_params_size.restype = ctypes.c_int
+    from .propagate.kernel import _Params
+    if lib.clsim_params_size() != ctypes.sizeof(_Params):
+        raise RuntimeError(
+            f"parameter block size mismatch: kernel "
+            f"{lib.clsim_params_size()} bytes, ctypes "
+            f"{ctypes.sizeof(_Params)} bytes")
+    _LIB = lib
+    return lib

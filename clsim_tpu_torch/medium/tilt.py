@@ -1,0 +1,64 @@
+"""Ice-layer tilt: z-shift scalar field over (distance-along-tilt-azimuth, z).
+
+PyTorch counterpart of clsim_tpu.medium.tilt (the reference's
+I3CLSimScalarFieldIceTiltZShift, I3CLSimScalarFieldIceTiltZShift.cxx:145-285).
+The photon's effective z for the medium-layer lookup is
+z - tilt_z_shift(x, y, z): bilinear interpolation over a uniform z grid and a
+small non-uniform distance grid, with linear extrapolation outside the
+distance range and clamped-index extrapolation in z.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class TiltParams(NamedTuple):
+    distances: torch.Tensor    # (nd,) distances along the tilt azimuth [m]
+    first_z: torch.Tensor      # () first z coordinate of the grid [m]
+    z_spacing: torch.Tensor    # () uniform z spacing [m]
+    z_corrections: torch.Tensor  # (nd, nz) z-shift values [m]
+    azimuth_cos: torch.Tensor  # () cos of the tilt direction azimuth
+    azimuth_sin: torch.Tensor
+    enabled: bool = True       # False -> zero shift
+
+
+def tilt_z_shift(p: TiltParams, x, y, z):
+    if not p.enabled:
+        return torch.zeros_like(z)
+    nd, nz = p.z_corrections.shape
+
+    z_rescaled = (z - p.first_z) / p.z_spacing
+    k = torch.clamp(torch.floor(z_rescaled).to(torch.int64), 0, nz - 2)
+    fz_above = z_rescaled - k.to(z_rescaled.dtype)
+    fz_below = 1.0 - fz_above
+
+    nr = p.azimuth_cos * x + p.azimuth_sin * y
+
+    # first j in [1, nd-1] with nr < distances[j], else nd-1
+    j = torch.clamp(torch.searchsorted(p.distances, nr.contiguous(),
+                                       right=True), 1, nd - 1)
+
+    zc = p.z_corrections
+    d_lo, d_hi = p.distances[j - 1], p.distances[j]
+    q_ll, q_lh = zc[j - 1, k], zc[j - 1, k + 1]
+    q_hl, q_hh = zc[j, k], zc[j, k + 1]
+
+    frac_lo = (d_hi - nr) / (d_hi - d_lo)
+    frac_hi = 1.0 - frac_lo
+    val_lo = q_lh * fz_above + q_ll * fz_below
+    val_hi = q_hh * fz_above + q_hl * fz_below
+    return val_hi * frac_hi + val_lo * frac_lo
+
+
+def disabled_tilt(device="cpu"):
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
+    return TiltParams(
+        distances=torch.zeros(2, dtype=torch.float32, device=device),
+        first_z=f32(0.0), z_spacing=f32(1.0),
+        z_corrections=torch.zeros((2, 2), dtype=torch.float32, device=device),
+        azimuth_cos=f32(1.0), azimuth_sin=f32(0.0),
+        enabled=False,
+    )

@@ -1,0 +1,84 @@
+"""Backend dispatch: the CUDA propagation kernel for CUDA tensors, the torch
+engine for CPU tensors (PyTorch counterpart of clsim_tpu.propagate.dispatch).
+
+On a CUDA device, "auto" takes the kernel when the configuration is
+supported and otherwise raises with the reason: a GPU run never quietly
+drops to the engine.  backend="engine" asks for the engine explicitly;
+backend="fused" runs the fused call loop on any device (on CPU tensors the
+wrapper runs the kernel's plain version).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from ..geometry import DetectorGeometry
+from ..medium.properties import MediumProperties
+from ..ops.spectrum import SpectrumTable
+from ..types import PropagationConfig, StepBatch
+from .engine import PropagationResult, propagate
+from .kernel import (fused_spec, fused_supported, propagate_fused,
+                     spec_unsupported)
+
+
+def backend_reason(medium: MediumProperties, spectra: SpectrumTable,
+                   cfg: PropagationConfig, geo: DetectorGeometry,
+                   n_slots: int) -> Optional[str]:
+    """None if the CUDA kernel will serve this request, else why not."""
+    reason = fused_supported(medium, spectra, cfg)
+    if reason:
+        return reason
+    spec, _ = fused_spec(medium, geo, spectra, cfg, n_slots, 1)
+    return spec_unsupported(spec)
+
+
+# Iterations per kernel launch.  A drained thread leaves its loop, so a long
+# launch costs nothing once its slot is empty; between launches the host
+# reads the alive count (a sync).  On the bench workload (262,144 slots x 200
+# photons, H100 80GB HBM3 at 700 W) 256, 1024, 4096 and 16384 gave 1.01-1.04,
+# 0.98-1.01, 1.09-1.11 and 1.09-1.10 e9 photons/s (two runs each, PERF.md):
+# one launch that covers a slot's whole workload is best.
+ITERS_PER_CALL = 4096
+
+
+def check_diagnostics(res: PropagationResult, raise_on_loss: bool = False):
+    """Validate a fused run's counters (syncs): warn -- or raise -- when
+    photons were abandoned (max_calls exhausted before the workload drained)
+    or hits dropped.  Returns the diagnostics dict (None on the engine
+    path, which can neither drop nor abandon)."""
+    diag = res.diagnostics
+    if diag is None:
+        return None
+    problems = []
+    if diag["dropped"] > 0:
+        problems.append(f"{diag['dropped']:.0f} hits dropped")
+    if diag["abandoned"] > 0:
+        problems.append(f"{diag['abandoned']:.0f} photons abandoned "
+                        "(max_calls exhausted before draining)")
+    if problems:
+        msg = "fused propagation lost data: " + "; ".join(problems)
+        if raise_on_loss:
+            raise RuntimeError(msg)
+        import warnings
+        warnings.warn(msg, RuntimeWarning, stacklevel=2)
+    return diag
+
+
+def propagate_auto(steps: StepBatch, medium: MediumProperties,
+                   geo: DetectorGeometry, spectra: SpectrumTable,
+                   seed: int, cfg: PropagationConfig,
+                   backend: str = "auto",
+                   **fused_opts) -> PropagationResult:
+    """propagate() with backend selection by the tensors' device.
+
+    `backend`: "auto", "engine", or "fused".  Extra kwargs go to
+    propagate_fused."""
+    if backend not in ("auto", "engine", "fused"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "engine" or (backend == "auto"
+                               and steps.x.device.type == "cpu"):
+        return propagate(steps, medium, geo, spectra, seed, cfg)
+    fused_opts.setdefault("iters_per_call", ITERS_PER_CALL)
+    res, _ = propagate_fused(steps, medium, geo, spectra, seed, cfg,
+                             **fused_opts)
+    return res

@@ -1,0 +1,556 @@
+"""The photon propagation engine in plain PyTorch (detect estimator).
+
+PyTorch counterpart of clsim_tpu.propagate.engine, and the CPU twin of the
+CUDA propagation kernel (csrc/propagate.cu): the kernel's plain version
+(propagate/kernel.py::run_fused_iterations_plain) is this module's
+`_iteration` run on the kernel's state layout.  The execution model is the
+JAX package's:
+
+  * one photon slot per lane; a slot spawns a fresh photon from its assigned
+    step the moment the previous one dies,
+  * segments are capped at `max_segment_m` (exponential scatter distances
+    are memoryless, so truncating a segment and re-sampling is
+    statistically identical to the reference's unbounded segments),
+  * the layered-ice optical-depth -> meters conversion walks at most
+    max_layer_steps + 1 layers (propagation_kernel.c.cl:646-676),
+  * DOM collision: a dense 2-D cull over all strings, then the sphere test
+    against every DOM of the top-K nearest strings,
+  * hits are deposited into per-DOM time histograms with index_add_.
+
+Per-photon wavelength-derived constants (bias weight w0, scattering factor
+gs, absorption factors pa/qa/ra, group slowness) are computed once at spawn
+and carried in SlotState, as the kernel does; the values are the same
+functions of the wavelength that the JAX engine recomputes each iteration.
+
+Randomness: each iteration consumes an (8, N) block of uniforms, either
+from a torch.Generator or from an external (T, 8, N) stream shared with the
+JAX engine and the kernel (the parity contract).  Row meanings: u0 emission
+point along the step, u1 wavelength, u2 Cherenkov azimuth, u3 absorption
+budget, u4 scattering budget, u5 phase-function branch, u6 scattering-angle
+sample, u7 scattering azimuth.
+
+Not ported yet (NotImplementedError): the expected estimator with soft
+binning and the score function (ROADMAP.md queue A item 17), photon records
+and history rings (queue A item 12).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..constants import C_LIGHT
+from ..geometry import DetectorGeometry
+from ..medium.anisotropy import (abs_len_scaling, post_scatter_transform,
+                                 pre_scatter_transform)
+from ..medium.properties import MEDIA_ITEM, MediumProperties
+from ..medium.tilt import tilt_z_shift
+from ..ops.rotations import safe_sqrt, scatter_direction_by_angle
+from ..ops.samplers import mixed_cos
+from ..ops.spectrum import (SpectrumTable, sample_wavelength_dispatch,
+                            wavelength_bias)
+from ..types import PropagationConfig, StepBatch
+
+EPSILON = 1e-5  # matches the reference kernel's single-precision EPSILON
+BIG = 1e30
+
+EXPECTED_ITEM = ("the expected estimator, soft binning and the score "
+                 "function are queued (ROADMAP.md queue A item 17)")
+RECORDS_ITEM = ("photon records and history rings are queued (ROADMAP.md "
+                "queue A item 12)")
+
+
+class SlotState(NamedTuple):
+    """Per-slot propagation state; every field is a float32 (N,) tensor.
+    The CUDA kernel keeps the same fields, stacked as an (NSF, N) tensor
+    (propagate/kernel.py)."""
+    photons_left: torch.Tensor  # photons this slot still has to spawn
+    in_flight: torch.Tensor     # 1.0 while a live photon occupies the slot
+    x: torch.Tensor
+    y: torch.Tensor
+    z: torch.Tensor
+    t: torch.Tensor
+    dx: torch.Tensor
+    dy: torch.Tensor
+    dz: torch.Tensor
+    w0: torch.Tensor            # hit weight: step.weight / bias(lambda)
+    inv_gv: torch.Tensor        # group slowness [ns/m]
+    abs_left: torch.Tensor      # remaining absorption budget [abs. lengths]
+    gs: torch.Tensor            # 1/l_sca = gs * b400[layer]
+    pa: torch.Tensor            # 1/l_abs = pa*a_dust400 + qa + ra*delta_tau
+    qa: torch.Tensor
+    ra: torch.Tensor
+
+
+class Accumulators(NamedTuple):
+    hist: torch.Tensor         # (n_doms * n_bins,) float32 weighted hits
+    n_generated: torch.Tensor  # () float64 photons spawned
+    n_hits: torch.Tensor       # () float64 photons detected
+    weight_hits: torch.Tensor  # () float64 sum of deposited weights
+    n_work: torch.Tensor       # () float64 slot-iterations with a photon
+
+
+class PropagationResult(NamedTuple):
+    hist: torch.Tensor          # (n_doms, n_bins)
+    n_generated: torch.Tensor
+    n_hits: torch.Tensor
+    weight_hits: torch.Tensor
+    n_iterations: int
+    # fused-path counter vector (propagate/kernel.py CNT_* layout, float64,
+    # on the device); None on the engine path
+    diag_totals: Optional[torch.Tensor] = None
+
+    @property
+    def diagnostics(self) -> Optional[dict]:
+        """Host-side dict of the fused counters (syncs the device)."""
+        if self.diag_totals is None:
+            return None
+        t = self.diag_totals.detach().cpu().numpy().astype(np.float64)
+        return {"generated": t[0], "hits": t[1], "weight_sum": t[2],
+                "dropped": t[3], "abandoned": t[4], "queued": t[5],
+                "work": t[6]}
+
+
+def check_supported(cfg: PropagationConfig, medium: MediumProperties):
+    """Raise NotImplementedError for configurations the port lacks."""
+    if medium.medium_kind != "icecube" or medium.scattering.kind != "icecube":
+        raise NotImplementedError(MEDIA_ITEM)
+    if (cfg.estimator != "detect" or cfg.soft_binning or cfg.score_function
+            or cfg.expected_angular_poly is not None):
+        raise NotImplementedError(EXPECTED_ITEM)
+    if cfg.save_photons or cfg.photon_history_entries > 0:
+        raise NotImplementedError(RECORDS_ITEM)
+
+
+# ---------------------------------------------------------------------------
+# photon creation (createPhotonFromTrack, propagation_kernel.c.cl:132-184)
+# ---------------------------------------------------------------------------
+
+def _create_photons(state: SlotState, steps: StepBatch,
+                    medium: MediumProperties, spectra: SpectrumTable,
+                    cfg: PropagationConfig, u, fresh):
+    """Spawn a new photon from each slot's step where `fresh` is set."""
+    u_shift, u_wlen, u_azi, u_abs = u[0], u[1], u[2], u[3]
+
+    shift = steps.length * u_shift
+    px = steps.x + steps.dir_x * shift
+    py = steps.y + steps.dir_y * shift
+    pz = steps.z + steps.dir_z * shift
+    # time advance at the particle's speed (c * beta)
+    pt = steps.t + shift / (C_LIGHT * steps.beta)
+
+    wlen = sample_wavelength_dispatch(spectra, steps.source_type, u_wlen)
+
+    n_phase = medium.phase_ref_index(wlen)
+    cos_c = torch.clamp(1.0 / (steps.beta * n_phase), max=1.0)
+    sin_c = safe_sqrt(1.0 - cos_c * cos_c)
+    cdx, cdy, cdz = scatter_direction_by_angle(
+        cos_c, sin_c, steps.dir_x, steps.dir_y, steps.dir_z, u_azi)
+    # flasher sources (source_type >= 1) keep the step direction untouched
+    is_cherenkov = steps.source_type == 0
+    ndx = torch.where(is_cherenkov, cdx, steps.dir_x)
+    ndy = torch.where(is_cherenkov, cdy, steps.dir_y)
+    ndz = torch.where(is_cherenkov, cdz, steps.dir_z)
+
+    inv_gv = 1.0 / medium.group_velocity(wlen)
+    if cfg.fixed_abs_lens > 0.0:
+        # PROPAGATE_FOR_FIXED_NUMBER_OF_ABSORPTION_LENGTHS
+        abs_init = torch.full_like(px, cfg.fixed_abs_lens)
+    else:
+        abs_init = -torch.log(1.0 - u_abs)
+    gs = medium.scat_coeff(wlen)
+    pa, qa, ra = medium.abs_coeffs(wlen)
+    # saveHit weight contract (propagation_kernel.c.cl:370)
+    w0 = steps.weight / torch.clamp(wavelength_bias(spectra, wlen), min=1e-20)
+
+    sel = lambda new, old: torch.where(fresh, new, old)
+    return state._replace(
+        x=sel(px, state.x), y=sel(py, state.y), z=sel(pz, state.z),
+        t=sel(pt, state.t),
+        dx=sel(ndx, state.dx), dy=sel(ndy, state.dy), dz=sel(ndz, state.dz),
+        w0=sel(w0, state.w0), inv_gv=sel(inv_gv, state.inv_gv),
+        abs_left=sel(abs_init, state.abs_left),
+        gs=sel(gs, state.gs), pa=sel(pa, state.pa), qa=sel(qa, state.qa),
+        ra=sel(ra, state.ra))
+
+
+# ---------------------------------------------------------------------------
+# layered-ice optical depth walk (propagation_kernel.c.cl:598-696)
+# ---------------------------------------------------------------------------
+
+def _segment_distances(state: SlotState, medium: MediumProperties,
+                       cfg: PropagationConfig, sca_budget, abs_budget):
+    """Convert the scattering budget (in scattering lengths) and absorption
+    budget (in absorption lengths, anisotropy-corrected) to meters through
+    the layered medium, both capped at cfg.max_segment_m.
+
+    Returns (d_prop, absorbed, scattered, abs_left_after): d_prop is the
+    distance this segment covers before collision limiting, abs_left_after
+    the remaining (corrected) absorption budget after d_prop."""
+    T = medium.layer_height
+    L = medium.n_layers
+
+    shift = tilt_z_shift(medium.tilt, state.x, state.y, state.z)
+    z_eff = state.z - shift
+    j0 = medium.layer_for_z(z_eff)
+
+    dz = state.dz
+    going_up = dz >= 0.0
+    dirsign = torch.where(going_up, 1, -1)
+    abs_dz = torch.abs(dz)
+    vertical = abs_dz < EPSILON
+
+    big = torch.full_like(dz, BIG)
+    boundary_z = medium.layer_bottom_z(j0) + torch.where(
+        going_up, T, torch.zeros_like(T))
+    safe_dz = torch.where(vertical, torch.ones_like(dz), dz)
+    t_bound0 = torch.where(vertical, big, (boundary_z - z_eff) / safe_dz)
+    # photons outside the layer grid can get a negative first boundary
+    # distance; the reference's walk never runs in that situation either
+    t_bound0 = torch.where(t_bound0 < 0.0, big, t_bound0)
+    t_step = torch.where(vertical, big, T / torch.clamp(abs_dz, min=1e-20))
+
+    def layer_vals(k):
+        """(inv_s, inv_a) of layer j0 + k*dirsign, edge-clamped."""
+        j = torch.clamp(j0 + k * dirsign, 0, L - 1)
+        return (state.gs * medium.b400[j],
+                state.pa * medium.a_dust400[j] + state.qa
+                + state.ra * medium.delta_tau[j])
+
+    K = cfg.max_layer_steps
+    max_seg = cfg.max_segment_m
+    zeros = torch.zeros_like(dz)
+    t_done, t_bound = zeros, t_bound0
+    tau_s, tau_a = sca_budget, abs_budget
+    done = torch.zeros_like(going_up)
+    d_scat, d_abs = zeros, zeros
+    inv_a = torch.ones_like(dz)
+    for k in range(K + 1):
+        inv_s_k, inv_a_k = layer_vals(k)
+        d_s = t_done + tau_s / inv_s_k
+        d_a = t_done + tau_a / inv_a_k
+        # stop walking at the extreme layers (the reference extends them to
+        # infinity), when either budget exhausts before the boundary, or
+        # once past the segment cap
+        cur_j = j0 + k * dirsign
+        at_edge = torch.where(going_up, cur_j >= L - 1, cur_j <= 0)
+        exhaust = t_bound >= torch.minimum(d_s, d_a)
+        past_cap = t_bound >= max_seg
+        cross = (~done) & (~at_edge) & (~exhaust) & (~past_cap)
+        finalize = (~done) & (~cross)
+
+        d_scat = torch.where(finalize, d_s, d_scat)
+        d_abs = torch.where(finalize, d_a, d_abs)
+        inv_a = torch.where(finalize, inv_a_k, inv_a)
+
+        dt = t_bound - t_done
+        tau_s = torch.where(cross, tau_s - dt * inv_s_k, tau_s)
+        tau_a = torch.where(cross, tau_a - dt * inv_a_k, tau_a)
+        t_done = torch.where(cross, t_bound, t_done)
+        t_bound = torch.where(cross, t_bound + t_step, t_bound)
+        done = done | finalize
+    # lanes that crossed K+1 times without finalizing: close them in the
+    # outermost layer of the window
+    inv_s_last, inv_a_last = layer_vals(K)
+    d_scat = torch.where(done, d_scat, t_done + tau_s / inv_s_last)
+    d_abs = torch.where(done, d_abs, t_done + tau_a / inv_a_last)
+    inv_a = torch.where(done, inv_a, inv_a_last)
+
+    absorbed = d_abs < d_scat
+    d_prop = torch.clamp(torch.minimum(d_scat, d_abs), max=max_seg)
+    capped = (~absorbed & (d_scat > max_seg)) | (absorbed & (d_abs > max_seg))
+    absorbed = absorbed & ~capped
+    scattered = (~absorbed) & (~capped)
+
+    abs_left_after = torch.clamp(tau_a - (d_prop - t_done) * inv_a, min=0.0)
+    abs_left_after = torch.where(absorbed, zeros, abs_left_after)
+    return d_prop, absorbed, scattered, abs_left_after
+
+
+# ---------------------------------------------------------------------------
+# collision detection (sparse_collision_kernel.c.cl)
+# ---------------------------------------------------------------------------
+
+def _check_collisions_bruteforce(state: SlotState, geo: DetectorGeometry,
+                                 cfg: PropagationConfig, d_prop, active):
+    """O(N x D) exact sphere test against every DOM -- the validation oracle
+    for the culled path and the right choice for small test geometries."""
+    R = geo.collision_radius
+    ox = geo.dom_x[None, :] - state.x[:, None]
+    oy = geo.dom_y[None, :] - state.y[:, None]
+    oz = geo.dom_z[None, :] - state.z[:, None]
+    dr2 = ox * ox + oy * oy + oz * oz
+    urdot = (ox * state.dx[:, None] + oy * state.dy[:, None]
+             + oz * state.dz[:, None])
+    discr = urdot * urdot - dr2 + R * R
+    sq = safe_sqrt(discr) / cfg.pancake_factor
+    smin1 = urdot - sq
+    has_xy = (state.dx * state.dx + state.dy * state.dy) > 0.0
+    good = (discr >= 0.0) & (urdot + sq >= 0.0) & (smin1 >= 0.0) \
+        & (smin1 < d_prop[:, None]) & active[:, None] & has_xy[:, None]
+    smin1 = torch.where(good, smin1, torch.full_like(smin1, BIG))
+    best, hit_dom = torch.min(smin1, dim=1)
+    hit = best < BIG
+    hit_dist = torch.where(hit, best, d_prop)
+    return hit, hit_dist, hit_dom
+
+
+def _check_collisions(state: SlotState, geo: DetectorGeometry,
+                      cfg: PropagationConfig, d_prop, active):
+    """Find the closest DOM intersection within d_prop along the ray: a dense
+    2-D cull + z cull over all strings, then the sphere test against every
+    DOM slot of the top-K nearest candidate strings.
+
+    Returns (hit, hit_dist, hit_dom): hit_dist <= d_prop is the entry-point
+    distance smin1 (sparse_collision_kernel.c.cl:109-158), hit_dom the flat
+    DOM index."""
+    x, y, z = state.x, state.y, state.z
+    dx, dy, dz = state.dx, state.dy, state.dz
+    n = x.shape[0]
+    R = geo.collision_radius
+    R2 = R * R
+    pancake = cfg.pancake_factor
+
+    dir_xy2 = dx * dx + dy * dy
+    has_xy = dir_xy2 > 0.0
+    inv_dir_xy2 = 1.0 / torch.clamp(dir_xy2, min=1e-20)
+
+    # ---- 2D string cull + ranking (dense over all strings) ----
+    sx = geo.string_x[None, :]   # (1, S)
+    sy = geo.string_y[None, :]
+    rx = sx - x[:, None]         # (N, S)
+    ry = sy - y[:, None]
+    # closest approach of the 2D ray, clamped to the STATIC segment cap (the
+    # cull ranks independently of this segment's d_prop, as in the kernel)
+    t2d = torch.clamp((rx * dx[:, None] + ry * dy[:, None])
+                      * inv_dir_xy2[:, None], 0.0, cfg.max_segment_m)
+    cx = x[:, None] + dx[:, None] * t2d - sx
+    cy = y[:, None] + dy[:, None] * t2d - sy
+    dist2 = cx * cx + cy * cy
+
+    pass_r = dist2 <= (geo.string_max_r[None, :] ** 2)
+    # z cull (…OnString, sparse_collision_kernel.c.cl:67-70)
+    pass_z = ~((dz[:, None] > 0) & (z[:, None] > geo.string_max_z[None, :] + R)) \
+        & ~((dz[:, None] < 0) & (z[:, None] < geo.string_min_z[None, :] - R))
+    candidate = pass_r & pass_z & has_xy[:, None] & active[:, None]
+    ranked = torch.where(candidate, dist2, torch.full_like(dist2, BIG))
+
+    hit_found = torch.zeros(n, dtype=torch.bool, device=x.device)
+    hit_dist = d_prop
+    hit_dom = torch.zeros(n, dtype=torch.int64, device=x.device)
+
+    M = geo.string_dom_rel.shape[1]
+    slot_iota = torch.arange(M, dtype=torch.float32, device=x.device)[None, :]
+    feats_all = geo.string_features[:, (0, 1, 4, 5, 6)]
+    for _k in range(cfg.strings_per_photon):
+        s_min, s_idx = torch.min(ranked, dim=1)                   # (N,)
+        s_ok = s_min < BIG
+        ranked = ranked.scatter(1, s_idx[:, None], BIG)
+
+        feats = feats_all[s_idx]                                  # (N, 5)
+        rel = geo.string_dom_rel[s_idx]                           # (N, M, 4)
+        dom_xx = feats[:, 0:1] + rel[:, :, 0]
+        dom_yy = feats[:, 1:2] + rel[:, :, 1]
+        dom_zz = feats[:, 2:3] + feats[:, 3:4] * slot_iota + rel[:, :, 2]
+        slot_dom = feats[:, 4:5] + slot_iota                      # flat idx
+        ox = dom_xx - x[:, None]
+        oy = dom_yy - y[:, None]
+        oz = dom_zz - z[:, None]
+        valid = (rel[:, :, 3] > 0.5) & s_ok[:, None]
+
+        dr2 = ox * ox + oy * oy + oz * oz
+        urdot = ox * dx[:, None] + oy * dy[:, None] + oz * dz[:, None]
+        discr = urdot * urdot - dr2 + R2
+        sq = safe_sqrt(discr) / pancake
+        smin1 = urdot - sq
+        smin2 = urdot + sq
+        good = valid & (discr >= 0.0) & (smin2 >= 0.0) & (smin1 >= 0.0) \
+            & (smin1 < hit_dist[:, None])
+        sm = torch.where(good, smin1, torch.full_like(smin1, BIG))
+        best, jm = torch.min(sm, dim=1)
+        dom_best = slot_dom.gather(1, jm[:, None])[:, 0]
+
+        found = best < BIG
+        hit_found = hit_found | found
+        hit_dom = torch.where(found, dom_best.to(torch.int64), hit_dom)
+        hit_dist = torch.where(found, best, hit_dist)
+
+    return hit_found, hit_dist, hit_dom
+
+
+# ---------------------------------------------------------------------------
+# one propagation loop iteration
+# ---------------------------------------------------------------------------
+
+def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
+               medium: MediumProperties, geo: Optional[DetectorGeometry],
+               spectra: SpectrumTable, cfg: PropagationConfig,
+               generator: Optional[torch.Generator] = None, uniforms=None,
+               collide=None):
+    """One iteration over all slots.  `uniforms` (T, 8, N): iteration i reads
+    row i; otherwise an (8, N) block is drawn from `generator`.  `collide`
+    replaces the dense collision test: collide(state, d_prop, active) ->
+    (hit, hit_dist, hit_dom) (the kernel's plain version passes its
+    SubPlan test)."""
+    n = state.x.shape[0]
+    if uniforms is not None:
+        u = uniforms[i]
+    else:
+        u = torch.rand((8, n), generator=generator, device=state.x.device,
+                       dtype=torch.float32)
+
+    # --- spawn new photons into empty slots ---
+    fresh = (state.in_flight < 0.5) & (state.photons_left > 0.5)
+    state = _create_photons(state, steps, medium, spectra, cfg, u, fresh)
+    freshf = fresh.to(state.x.dtype)
+    state = state._replace(in_flight=torch.maximum(state.in_flight, freshf),
+                           photons_left=state.photons_left - freshf)
+    active = state.in_flight > 0.5
+    acc = acc._replace(
+        n_generated=acc.n_generated + fresh.sum(),
+        n_work=acc.n_work + active.sum())
+
+    # --- anisotropy correction in/out (propagation_kernel.c.cl:615-694) ---
+    abs_corr = abs_len_scaling(medium.anisotropy, state.dx, state.dy, state.dz)
+    sca_budget = -torch.log(1.0 - u[4])
+    abs_budget = state.abs_left * abs_corr
+
+    d_prop, absorbed, scattered, abs_left = _segment_distances(
+        state, medium, cfg, sca_budget, abs_budget)
+
+    # --- collisions ---
+    if collide is not None:
+        hit, hit_dist, hit_dom = collide(state, d_prop, active)
+    elif cfg.collision_mode == "bruteforce":
+        hit, hit_dist, hit_dom = _check_collisions_bruteforce(
+            state, geo, cfg, d_prop, active)
+    else:
+        hit, hit_dist, hit_dom = _check_collisions(state, geo, cfg, d_prop,
+                                                   active)
+    hit = hit & active
+
+    if cfg.stop_on_detection:
+        d_prop = torch.where(hit, hit_dist, d_prop)
+        absorbed = absorbed & ~hit
+        scattered = scattered & ~hit
+        abs_left = torch.where(hit, torch.zeros_like(abs_left), abs_left)
+
+    abs_left = abs_left / abs_corr
+
+    # --- deposit hits (every lane adds; misses add weight 0 to bin 0, which
+    # keeps the deposit free of host syncs) ---
+    w_hit = torch.where(hit, state.w0, torch.zeros_like(state.w0))
+    t_hit = state.t + state.inv_gv * hit_dist
+    tbin_f = (t_hit - cfg.hist_t_min) / cfg.hist_dt
+    tbin = torch.clamp(tbin_f, 0.0, cfg.hist_n_bins - 1).to(torch.int64)
+    flat_idx = torch.where(hit, hit_dom * cfg.hist_n_bins + tbin,
+                           torch.zeros_like(tbin))
+    acc = acc._replace(
+        hist=acc.hist.index_add_(0, flat_idx, w_hit),
+        n_hits=acc.n_hits + hit.sum(),
+        weight_hits=acc.weight_hits + w_hit.sum(dtype=torch.float64))
+
+    # --- advance ---
+    dp = torch.where(active, d_prop, torch.zeros_like(d_prop))
+    state = state._replace(
+        x=state.x + state.dx * dp,
+        y=state.y + state.dy * dp,
+        z=state.z + state.dz * dp,
+        t=state.t + state.inv_gv * dp,
+        abs_left=torch.where(active, abs_left, state.abs_left))
+
+    # --- scatter survivors ---
+    do_scatter = scattered & active
+    pdx, pdy, pdz = pre_scatter_transform(medium.anisotropy,
+                                          state.dx, state.dy, state.dz)
+    cos_s = mixed_cos(medium.scattering.mean_cos,
+                      medium.scattering.liu_fraction, u[5], u[6])
+    sin_s = safe_sqrt(1.0 - cos_s * cos_s)
+    sdx, sdy, sdz = scatter_direction_by_angle(cos_s, sin_s, pdx, pdy, pdz,
+                                               u[7])
+    sdx, sdy, sdz = post_scatter_transform(medium.anisotropy, sdx, sdy, sdz)
+    state = state._replace(
+        dx=torch.where(do_scatter, sdx, state.dx),
+        dy=torch.where(do_scatter, sdy, state.dy),
+        dz=torch.where(do_scatter, sdz, state.dz))
+
+    # --- retire absorbed / detected photons (the reference kills a photon
+    # whenever its remaining budget drops below EPSILON,
+    # propagation_kernel.c.cl:536-596) ---
+    died = active & (absorbed | (state.abs_left < EPSILON))
+    if cfg.stop_on_detection:
+        died = died | hit
+    state = state._replace(in_flight=torch.where(
+        died, torch.zeros_like(state.in_flight), state.in_flight))
+    return state, acc
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+def _init_state(steps: StepBatch) -> SlotState:
+    n = steps.x.shape[0]
+    dev = steps.x.device
+    zf = torch.zeros(n, dtype=torch.float32, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    # benign finite coefficients for never-spawned slots (every use is gated
+    # on in_flight)
+    return SlotState(
+        photons_left=steps.num_photons.to(torch.float32),
+        in_flight=zf, x=zf, y=zf, z=zf, t=zf, dx=zf, dy=zf, dz=ones,
+        w0=zf, inv_gv=torch.full((n,), 1.0 / 0.2, dtype=torch.float32,
+                                 device=dev),
+        abs_left=zf, gs=ones, pa=zf, qa=ones, ra=zf)
+
+
+def _init_acc(n_doms: int, cfg: PropagationConfig, device) -> Accumulators:
+    z64 = lambda: torch.zeros((), dtype=torch.float64, device=device)
+    return Accumulators(
+        hist=torch.zeros(n_doms * cfg.hist_n_bins, dtype=torch.float32,
+                         device=device),
+        n_generated=z64(), n_hits=z64(), weight_hits=z64(), n_work=z64())
+
+
+def propagate(steps: StepBatch, medium: MediumProperties,
+              geo: DetectorGeometry, spectra: SpectrumTable,
+              seed: int, cfg: PropagationConfig,
+              max_iterations: int = 0,
+              uniforms=None) -> PropagationResult:
+    """Propagate all photons of a slot-assigned step batch (tensors on one
+    device; one step per slot, see sources.assign_steps_to_slots).
+
+    With max_iterations == 0 the loop runs until every slot is drained;
+    a positive value runs exactly that many iterations.  `uniforms`
+    ((T, 8, N) float32) replaces the generator stream and sets T
+    iterations: the shared-stream contract with the JAX engine and the
+    kernel."""
+    check_supported(cfg, medium)
+    device = steps.x.device
+    if uniforms is not None:
+        max_iterations = int(uniforms.shape[0])
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    state = _init_state(steps)
+    acc = _init_acc(geo.n_doms, cfg, device)
+
+    i = 0
+    while True:
+        if max_iterations > 0:
+            if i >= max_iterations:
+                break
+        elif not bool(((state.in_flight > 0.5)
+                       | (state.photons_left > 0.5)).any()):
+            break
+        state, acc = _iteration(i, state, acc, steps, medium, geo, spectra,
+                                cfg, generator=generator, uniforms=uniforms)
+        i += 1
+
+    return PropagationResult(
+        hist=acc.hist.reshape(geo.n_doms, cfg.hist_n_bins),
+        n_generated=acc.n_generated,
+        n_hits=acc.n_hits,
+        weight_hits=acc.weight_hits,
+        n_iterations=i)

@@ -1,0 +1,856 @@
+"""The fused propagation kernel's host side, its plain version and its
+wrapper (PyTorch counterpart of clsim_tpu.propagate.kernel).
+
+The JAX package runs `iters_per_call` propagation iterations per launch of
+one Pallas kernel (clsim_tpu/propagate/kernel.py::_make_kernel).  Here the
+same work is the hand-written CUDA kernel csrc/propagate.cu: one thread per
+photon slot, which spawns, walks the layers, tests for collision, deposits
+its hit into the histogram with atomicAdd and scatters, up to
+`iters_per_call` times per launch.  There is no hit queue, so
+compact_scatter_add and the queue flush have no counterpart and
+CNT_DROPPED is always 0.
+
+This module holds
+  * the collision planning, ported from the JAX package (numpy; the same
+    SubPlans and cell tables),
+  * build_tables: flat float32 tables for the kernel (per-layer arrays,
+    spectrum CDF, bias grid, tilt grid, per-SubPlan cell->candidate table
+    [sx, sy, maxr^2, dom_offset]),
+  * run_fused_iterations: the wrapper.  On CUDA tensors it launches the
+    kernel (or raises); on CPU tensors it runs run_fused_iterations_plain,
+    the same function in plain PyTorch built on engine._iteration,
+  * propagate_fused / _run_fused: the call loop that launches the kernel
+    until no slot is alive or max_calls is reached.
+
+The kernel serves the main path's configuration only: the detect estimator
+with stop-on-detection, the icecube medium and scattering, one spectrum, a
+uniform bias grid and non-empty SubPlans; tilt and anisotropy may be on or
+off.  spec_unsupported() names the ROADMAP.md queue B item for any other
+configuration, and the wrapper raises rather than fall back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..geometry import DetectorGeometry, to_numpy
+from ..medium.properties import MediumProperties
+from ..ops.spectrum import SpectrumTable
+from ..types import PropagationConfig, StepBatch
+from . import engine as E
+
+STATE_FIELDS = list(E.SlotState._fields)
+NSF = len(STATE_FIELDS)
+STEP_FIELDS = ["x", "y", "z", "t", "dir_x", "dir_y", "dir_z",
+               "length", "beta", "weight", "source_type", "identifier"]
+NST = len(STEP_FIELDS)
+
+# counter vector layout, as in the JAX package (CNT_DROPPED stays 0: hits
+# go straight into the histogram; CNT_QUEUED counts deposited hits)
+(CNT_GEN, CNT_HITS, CNT_WSUM, CNT_DROPPED, CNT_ALIVE, CNT_QUEUED,
+ CNT_WORK) = range(7)
+
+# static limits of csrc/propagate.cu (array sizes in its parameter block)
+MAX_PLANS = 4
+MAX_ROUNDS = 4
+MAX_TILT_D = 16
+MAX_DOM_CAND = 16
+
+# launches of the CUDA kernel (the wrapper adds one per launch)
+LAUNCHES = 0
+
+
+# ---------------------------------------------------------------------------
+# collision planning (numpy, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+class SubPlan(NamedTuple):
+    """Static per-subdetector collision plan (hashable; lives inside
+    FusedSpec.sub_plans).  The form of the reference's per-subdetector
+    cell grids + per-stringset z-layer tables
+    (sparse_collision_kernel.c.cl:305-460 DO_CHECK macros,
+    I3CLSimHelperGenerateGeometrySource per-stringSet tables): strings are
+    grouped by their (z0, dz, nd) DOM grid, each group gets its OWN 2-D
+    cell cull, candidate count sized by its own dz, and a test-round count
+    PROVEN sufficient by static geometry -- so a dense infill (DeepCore)
+    no longer taxes every main-array lane with its fine z-granularity."""
+    n_cells: int          # padded cell-table width for this group
+    K_cand: int           # padded candidate strings per cell
+    x0: float
+    y0: float
+    inv_cell: float
+    nx: int
+    ny: int
+    n_dom_cand: int       # z-window candidates (from THIS group's dz)
+    rounds: int           # closest-string test rounds (static-geometry
+                          # bound: > max simultaneous culled strings never
+                          # helps, see _max_simultaneous)
+    uz_z0: float          # shared DOM z-grid of the group
+    uz_dz: float
+    uz_nd: float
+    minz: float           # z-extent for the cull's pass_z test
+    maxz: float
+    row_off: int          # first row of this group's block in cell_tab
+
+
+def fused_supported(medium: MediumProperties, spectra: SpectrumTable,
+                    cfg: PropagationConfig) -> Optional[str]:
+    """None if the fused driver handles this configuration, else the reason
+    (the configuration checks of the JAX package; the CUDA kernel's own,
+    narrower gate is spec_unsupported)."""
+    if medium.medium_kind != "icecube":
+        return f"medium kind {medium.medium_kind!r} (not ported)"
+    if cfg.estimator == "detect":
+        if cfg.soft_binning:
+            return "soft binning is fused only with estimator='expected'"
+    elif cfg.estimator != "expected":
+        return f"estimator {cfg.estimator!r} not fused"
+    if cfg.save_photons:
+        if cfg.estimator != "detect" or not cfg.stop_on_detection:
+            return "photon records fused only with stopping detect"
+        if cfg.photon_history_entries > 0:
+            return "photon scatter-history records not fused"
+    return None
+
+
+def _affine_collision_plan(geo: DetectorGeometry, cfg: PropagationConfig):
+    """(affine_ok, n_candidates): whether every DOM sits exactly at
+    z0 + m*dz on its (vertical) string, and how many candidate indices the
+    max segment length can overlap.  Mirrors the reference's geometry-
+    specialized codegen (GenerateGeometrySource emits per-stringset layer
+    tables only when the layout allows)."""
+    rel = to_numpy(geo.string_dom_rel)       # (S, M, 4): dx dy dz valid
+    valid = rel[:, :, 3] > 0.5
+    if not valid.any():
+        return False, 0
+    for c in range(3):
+        if np.abs(np.where(valid, rel[:, :, c], 0.0)).max() > 1e-4:
+            return False, 0
+    feats = to_numpy(geo.string_features)
+    nd = feats[:, 7]
+    dzf = feats[:, 5]
+    multi = nd > 1
+    if np.any(multi & (dzf == 0.0)):
+        return False, 0
+    min_dz = float(np.abs(dzf[multi]).min()) if multi.any() else 1.0
+    margin = geo.collision_radius + 1.0
+    # the kernel anchors its candidate enumeration at ceil(lowest needed
+    # index), so ceil(span) + 1 indices always cover the window (at most
+    # floor(span)+1 integers fit in a span, +1 for the fractional anchor)
+    n_cand = int(np.ceil((cfg.max_segment_m + 2 * margin) / min_dz)) + 1
+    if n_cand > 16:
+        return False, 0
+    return True, n_cand
+
+
+def _grid_search(sx, sy, reach, max_cells=512, n_feat=10):
+    """Pick the cheapest 2-D cell grid for one string set: per grid cell,
+    the candidate list is every string reachable from a segment starting in
+    that cell (within max_segment + string reach).  Returns
+    (cell, nx, ny, lists, Kp, NCp, gx0, gy0)."""
+    gx0 = float((sx - reach).min())
+    gx1 = float((sx + reach).max())
+    gy0 = float((sy - reach).min())
+    gy1 = float((sy + reach).max())
+    base = float(reach.max())
+
+    best = None
+    for mult in (0.5, 0.75, 1.0, 1.5, 2.0, 4.0, 1e9):
+        cell = base * mult
+        nx = max(int(np.ceil((gx1 - gx0) / cell)), 1)
+        ny = max(int(np.ceil((gy1 - gy0) / cell)), 1)
+        if nx * ny > max_cells:
+            continue
+        lists = []
+        kmax = 1
+        for i in range(nx):
+            bx0, bx1 = gx0 + i * cell, gx0 + (i + 1) * cell
+            ddx = np.maximum(np.maximum(bx0 - sx, sx - bx1), 0.0)
+            for j in range(ny):
+                by0, by1 = gy0 + j * cell, gy0 + (j + 1) * cell
+                ddy = np.maximum(np.maximum(by0 - sy, sy - by1), 0.0)
+                cand = np.nonzero(np.hypot(ddx, ddy) <= reach)[0]
+                lists.append(cand)
+                kmax = max(kmax, len(cand))
+        Kp = -(-kmax // 8) * 8
+        NCp = -(-(nx * ny) // 8) * 8
+        # the JAX package's cost model (tuned for its TPU kernel), kept
+        # unchanged so that both packages plan the same grid
+        tiles = -(-n_feat * Kp // 128)
+        cost = 2 * NCp + 26 * Kp + 6 * tiles * NCp
+        if best is None or cost < best[0]:
+            best = (cost, cell, nx, ny, lists, Kp, NCp)
+    _, cell, nx, ny, lists, Kp, NCp = best
+    return cell, nx, ny, lists, Kp, NCp, gx0, gy0
+
+
+def _max_simultaneous(sx, sy, maxr, seg) -> int:
+    """Static upper bound on how many strings of this set one segment can
+    cull simultaneously: two strings can both pass the point-to-segment
+    test only if their 2-D separation <= segment length + both radial
+    reaches, so any co-passing set lies inside every member's
+    possible-pair neighborhood -- the max neighborhood size (incl. self)
+    bounds the set.  Test rounds beyond this bound provably never find
+    anything (the reference tests every culled string,
+    sparse_collision_kernel.c.cl:462-587; engine parity holds because the
+    engine's extra global rounds also find nothing)."""
+    sx = np.asarray(sx, np.float64)
+    sy = np.asarray(sy, np.float64)
+    maxr = np.asarray(maxr, np.float64)
+    D = np.hypot(sx[:, None] - sx[None, :], sy[:, None] - sy[None, :])
+    possible = D <= seg + maxr[:, None] + maxr[None, :]
+    return int(possible.sum(axis=1).max())
+
+
+def plan_collision(geo: DetectorGeometry, cfg: PropagationConfig):
+    """Unified host-side collision planning: per-subdetector SubPlans when
+    the geometry allows, else the legacy single global cell plan.  Returns
+    (cell_tab_np, plan_dict); the CUDA kernel serves only SubPlans (the
+    global plan is ROADMAP.md B3, and spec_unsupported says so)."""
+    sub, reason = _subdet_plans(geo, cfg)
+    if sub is not None:
+        cell_tab, plans = sub
+        return cell_tab, dict(sub_plans=plans)
+    if reason is not None:
+        import warnings
+        warnings.warn(
+            "per-subdetector collision split unavailable for this geometry "
+            f"({reason}); using the single global collision plan "
+            "(reference handles <=9 subdetectors, "
+            "sparse_collision_kernel.c.cl DO_CHECK)",
+            UserWarning, stacklevel=3)
+    return _cell_plan(geo, cfg)
+
+
+def _subdet_plans(geo: DetectorGeometry, cfg: PropagationConfig):
+    """Build per-subdetector SubPlans when the geometry allows: affine
+    DOM placement and few (z0, dz, nd) groups, each uniform within itself.
+    Returns ((cell_tab, plans), None) or (None, reason) -- the caller
+    falls back to the legacy single global plan and surfaces the reason."""
+    affine_ok, _ = _affine_collision_plan(geo, cfg)
+    if not affine_ok:
+        return None, ("non-affine DOM placement (DOMs off the z0+m*dz "
+                      "ladder or z-candidate window > 16)")
+    feats = to_numpy(geo.string_features, np.float64)   # (S, 8)
+    keys = [tuple(np.round(feats[s, [4, 5, 7]], 6)) for s in
+            range(feats.shape[0])]
+    groups = {}
+    for s, k in enumerate(keys):
+        groups.setdefault(k, []).append(s)
+    if len(groups) > 4:
+        return None, (f"{len(groups)} (z0, dz, nd) string groups exceed "
+                      "the 4-SubPlan budget")
+    sxa = to_numpy(geo.string_x, np.float64)
+    sya = to_numpy(geo.string_y, np.float64)
+    smaxr = to_numpy(geo.string_max_r, np.float64)
+    margin = geo.collision_radius + 1.0
+    seg = float(cfg.max_segment_m)
+
+    plans = []
+    blocks = []
+    row_off = 0
+    width = 0
+    for key, idx in sorted(groups.items(), key=lambda kv: -len(kv[1])):
+        idx = np.asarray(idx)
+        z0, dzf, nd = key
+        dz_abs = abs(dzf) if nd > 1 else 1.0
+        n_cand = int(np.ceil((seg + 2 * margin) / dz_abs)) + 1
+        if n_cand > 16:
+            return None, (f"group dz={dz_abs:.1f} m needs {n_cand} "
+                          "z-candidates (> 16) at max_segment_m="
+                          f"{seg:.0f}")
+        rounds = min(cfg.strings_per_photon,
+                     _max_simultaneous(sxa[idx], sya[idx], smaxr[idx], seg))
+        reach = seg + smaxr[idx] + 1.0
+        cell, nx, ny, lists, Kp, NCp, gx0, gy0 = _grid_search(
+            sxa[idx], sya[idx], reach, n_feat=4)
+        # per-group table block: 4 feature-major rows [sx, sy, maxr2, off]
+        tab = np.zeros((4 * Kp, NCp), np.float32)
+        tab[2 * Kp:3 * Kp, :] = -1.0       # maxr2 padding fails the cull
+        maxr2 = smaxr ** 2
+        for ci, cand in enumerate(lists):
+            for k, s_local in enumerate(cand):
+                s = int(idx[s_local])
+                col = [feats[s, 0], feats[s, 1], maxr2[s], feats[s, 6]]
+                for f in range(4):
+                    tab[f * Kp + k, ci] = col[f]
+        z1 = z0 + dzf * (nd - 1)
+        plans.append(SubPlan(
+            n_cells=NCp, K_cand=Kp, x0=gx0, y0=gy0, inv_cell=1.0 / cell,
+            nx=nx, ny=ny, n_dom_cand=n_cand, rounds=rounds,
+            uz_z0=float(z0), uz_dz=float(dzf if dzf != 0.0 else 1.0),
+            uz_nd=float(nd), minz=float(min(z0, z1)),
+            maxz=float(max(z0, z1)), row_off=row_off))
+        blocks.append(tab)
+        row_off += tab.shape[0]
+        width = max(width, NCp)
+    # engine parity: the engine tests the global top-strings_per_photon by
+    # rank; the split tests up to sum(rounds) strings.  When every group's
+    # rounds equal its static max-simultaneous bound and the total fits in
+    # the engine's budget, both test the FULL culled set -- identical
+    # accept sets.  Otherwise fall back to the global plan.
+    if sum(p.rounds for p in plans) > cfg.strings_per_photon \
+            and len(plans) > 1:
+        return None, ("per-group round sum "
+                      f"{sum(p.rounds for p in plans)} exceeds the "
+                      f"engine's strings_per_photon="
+                      f"{cfg.strings_per_photon} parity budget")
+    cell_tab = np.zeros((row_off, width), np.float32)
+    r = 0
+    for tab in blocks:
+        # padding columns beyond a narrow group's width keep maxr2 = -1
+        cell_tab[r:r + tab.shape[0], :tab.shape[1]] = tab
+        cell_tab[r + (tab.shape[0] // 4) * 2:
+                 r + (tab.shape[0] // 4) * 3, tab.shape[1]:] = -1.0
+        r += tab.shape[0]
+    return (cell_tab, tuple(plans)), None
+
+
+def _cell_plan(geo: DetectorGeometry, cfg: PropagationConfig):
+    """Static 2-D cell-grid cull plan (numpy; geometry is static).
+
+    The analog of the reference's per-subdetector cell grid
+    (I3CLSimHelperGenerateGeometrySource.cxx cell tables;
+    sparse_collision_kernel.c.cl:194-460): precompute, per grid cell, every
+    string a segment *starting* in that cell could reach within
+    max_segment_m + string_max_r (string_max_r already includes the
+    collision radius).  Equivalent to the dense all-strings cull because a
+    string outside that reach can never pass the point-to-segment test.
+
+    Returns (cell_tab, plan): cell_tab is (10*K_cand, NC_pad) f32 with
+    feature-major rows [sx, sy, maxr2, off, minz, maxz, z0, dzf, nd, sidx]
+    per candidate (optional blocks last so specialized modes can fetch a
+    prefix); plan carries the static grid constants for the spec.
+    """
+    sx = to_numpy(geo.string_x, np.float64)
+    sy = to_numpy(geo.string_y, np.float64)
+    smaxr = to_numpy(geo.string_max_r, np.float64)
+    feats = to_numpy(geo.string_features, np.float64)   # (S, 8)
+    reach = float(cfg.max_segment_m) + smaxr + 1.0        # (S,) per string
+    cell, nx, ny, lists, Kp, NCp, gx0, gy0 = _grid_search(sx, sy, reach,
+                                                          n_feat=10)
+
+    tab = np.zeros((10 * Kp, NCp), np.float32)
+    tab[2 * Kp:3 * Kp, :] = -1.0          # maxr2: padding fails the cull
+    tab[7 * Kp:8 * Kp, :] = 1.0           # dzf: keep index math finite
+    tab[8 * Kp:9 * Kp, :] = 1.0           # nd
+    tab[9 * Kp:10 * Kp, :] = -1.0         # sidx: padding selects nothing
+    maxr2 = to_numpy(geo.string_max_r, np.float64) ** 2
+    for ci, cand in enumerate(lists):
+        for k, s in enumerate(cand):
+            # feature order [sx sy maxr2 off minz maxz z0 dzf nd sidx]:
+            # specialized modes fetch a prefix
+            col = [feats[s, 0], feats[s, 1], maxr2[s], feats[s, 6],
+                   feats[s, 2], feats[s, 3], feats[s, 4],
+                   feats[s, 5] if feats[s, 5] != 0.0 else 1.0,
+                   feats[s, 7], float(s)]
+            for f in range(10):
+                tab[f * Kp + k, ci] = col[f]
+    plan = dict(n_cull_cells=NCp, K_cand=Kp, cell_x0=gx0, cell_y0=gy0,
+                inv_cell=1.0 / cell, cell_nx=nx, cell_ny=ny)
+    return tab, plan
+
+
+# ---------------------------------------------------------------------------
+# kernel specialization and the spec gate
+# ---------------------------------------------------------------------------
+
+class FusedSpec(NamedTuple):
+    """Static kernel specialization: the fields of the JAX package's
+    FusedSpec that the CUDA kernel and its gate read."""
+    n_slots: int
+    iters_per_call: int
+    K: int                 # layer-walk window (max_layer_steps)
+    L: int                 # medium layers
+    n_spec: int            # spectrum table length
+    n_tables: int          # stacked spectra (flashers when > 1)
+    n_bias: int
+    bias_uniform: bool
+    nz_tilt: int           # tilt z-grid points (0 = tilt disabled)
+    nd_tilt: int
+    aniso: bool
+    hist_n_bins: int
+    n_doms: int
+    sub_plans: tuple       # per-subdetector SubPlans; () = global plan
+    expected: bool
+    stopping: bool
+    records: bool
+    fixed_abs: bool
+    medium_tables: bool
+    scat_table: bool
+    cfg: PropagationConfig
+
+
+def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
+               spectra: SpectrumTable, cfg: PropagationConfig,
+               n_slots: int, iters_per_call: int):
+    """Plan the collision test and build the kernel spec.  Returns
+    (spec, cell_tab) with cell_tab in the JAX package's layout."""
+    cell_tab, plan = plan_collision(geo, cfg)
+    bx = to_numpy(spectra.bias_x, np.float64)
+    tilt = medium.tilt
+    return FusedSpec(
+        n_slots=int(n_slots),
+        iters_per_call=int(iters_per_call),
+        K=cfg.max_layer_steps,
+        L=medium.n_layers,
+        n_spec=int(spectra.x.shape[1]),
+        n_tables=int(spectra.x.shape[0]),
+        n_bias=int(bx.shape[0]),
+        bias_uniform=bool(bx.shape[0] < 2 or np.allclose(
+            np.diff(bx), bx[1] - bx[0], rtol=1e-5)),
+        nz_tilt=int(tilt.z_corrections.shape[1]) if tilt.enabled else 0,
+        nd_tilt=int(tilt.distances.shape[0]) if tilt.enabled else 0,
+        aniso=bool(medium.anisotropy.enabled),
+        hist_n_bins=cfg.hist_n_bins,
+        n_doms=int(geo.n_doms),
+        sub_plans=tuple(plan.get("sub_plans", ())),
+        expected=cfg.estimator == "expected",
+        stopping=cfg.stop_on_detection,
+        records=bool(cfg.save_photons),
+        fixed_abs=cfg.fixed_abs_lens > 0,
+        medium_tables=medium.medium_kind != "icecube",
+        scat_table=medium.scattering.kind != "icecube",
+        cfg=cfg), cell_tab
+
+
+def spec_unsupported(spec: FusedSpec) -> Optional[str]:
+    """None if the CUDA kernel serves this spec, else why not (naming the
+    ROADMAP.md queue B item that adds it)."""
+    if spec.expected or not spec.stopping or spec.fixed_abs:
+        return ("expected estimator, non-stopping detect and fixed "
+                "absorption horizon are not in the CUDA kernel yet "
+                "(ROADMAP.md queue B item B6)")
+    if spec.records:
+        return "photon records are not in the CUDA kernel yet (ROADMAP.md B5)"
+    if spec.medium_tables or spec.scat_table:
+        return ("water / photonics media and tabulated scattering are not "
+                "in the CUDA kernel yet (ROADMAP.md B7)")
+    if spec.n_tables > 1 or not spec.bias_uniform or spec.n_bias < 2:
+        return ("flasher spectra and non-uniform (or single-point) bias "
+                "grids are not in the CUDA kernel yet (ROADMAP.md B4)")
+    if not spec.sub_plans:
+        return ("the global affine and general collision paths are not in "
+                "the CUDA kernel yet (ROADMAP.md B3): this geometry has no "
+                "per-subdetector SubPlans")
+    if (len(spec.sub_plans) > MAX_PLANS
+            or any(p.rounds > MAX_ROUNDS or p.n_dom_cand > MAX_DOM_CAND
+                   for p in spec.sub_plans)
+            or spec.nd_tilt > MAX_TILT_D):
+        return (f"spec exceeds the kernel's static limits (<= {MAX_PLANS} "
+                f"SubPlans, <= {MAX_ROUNDS} rounds, <= {MAX_DOM_CAND} DOM "
+                f"candidates, <= {MAX_TILT_D} tilt distances)")
+    return None
+
+
+# ---------------------------------------------------------------------------
+# tables
+# ---------------------------------------------------------------------------
+
+class FusedTables(NamedTuple):
+    """Device tables of one (medium, geometry, spectra, config)."""
+    medium: MediumProperties      # the plain version reads these two
+    spectra: SpectrumTable
+    layers: torch.Tensor          # (3, L): b400, a_dust400, delta_tau
+    spec_tab: torch.Tensor        # (3, n_spec): x, acu, beta
+    bias_y: torch.Tensor          # (n_bias,) on the uniform bias grid
+    tilt_zc: torch.Tensor         # (nd, nz) tilt z-corrections (or (1,))
+    cells: torch.Tensor           # flat (sum n_cells*K_cand, 4) candidates
+    plan_cells: tuple             # per SubPlan: (n_cells, K_cand, 4) view
+    plan_offsets: tuple           # per SubPlan: first candidate row
+    scalars: dict                 # float scalars of the parameter block
+
+
+def build_tables(spec: FusedSpec, medium: MediumProperties,
+                 geo: DetectorGeometry, spectra: SpectrumTable,
+                 cell_tab: np.ndarray) -> FusedTables:
+    """Flat float32 tables on the medium's device.  The cell table is
+    re-laid out from the JAX package's feature-major block per SubPlan
+    ([sx|sy|maxr2|off] rows x cells) to [cell][candidate][4], so a thread
+    reads its cell's candidates as consecutive 16-byte entries."""
+    dev = medium.b400.device
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
+                                    device=dev).contiguous()
+    blocks, views, offsets, off = [], [], [], 0
+    for p in spec.sub_plans:
+        blk = cell_tab[p.row_off:p.row_off + 4 * p.K_cand, :p.n_cells]
+        blk = blk.reshape(4, p.K_cand, p.n_cells).transpose(2, 1, 0)
+        blocks.append(blk.reshape(-1, 4))
+        offsets.append(off)
+        off += p.n_cells * p.K_cand
+    cells = f32(np.concatenate(blocks) if blocks
+                else np.zeros((1, 4), np.float32))
+    for p, o in zip(spec.sub_plans, offsets):
+        views.append(cells[o:o + p.n_cells * p.K_cand].view(
+            p.n_cells, p.K_cand, 4))
+
+    cfg = spec.cfg
+    an, tl = medium.anisotropy, medium.tilt
+    host = lambda t: float(torch.as_tensor(t).detach().cpu())
+    bx = to_numpy(spectra.bias_x, np.float64)
+    sc = dict(
+        z_start=host(medium.layers_z_start),
+        layer_h=host(medium.layer_height),
+        alpha=host(medium.alpha), kappa=host(medium.kappa),
+        abs_a=host(medium.abs_A), abs_b=host(medium.abs_B),
+        abs_d=host(medium.abs_D), abs_e=host(medium.abs_E),
+        mean_cos=host(medium.scattering.mean_cos),
+        liu_frac=host(medium.scattering.liu_fraction),
+        r=float(geo.collision_radius), r2=float(geo.collision_radius) ** 2,
+        inv_pancake=1.0 / cfg.pancake_factor,
+        max_seg=float(cfg.max_segment_m),
+        hist_t0=float(cfg.hist_t_min), hist_dt=float(cfg.hist_dt),
+        bias_x0=float(bx[0]),
+        bias_inv_dx=1.0 / float(bx[1] - bx[0]) if bx.shape[0] > 1 else 1.0,
+        n=[host(v) for v in medium.ref_index.n],
+        g=[host(v) for v in medium.ref_index.g])
+    if an.enabled:
+        k1 = torch.exp(torch.as_tensor(an.mag_along).cpu())
+        k2 = torch.exp(torch.as_tensor(an.mag_perp).cpu())
+        sc.update(an_ca=host(torch.cos(torch.as_tensor(an.azimuth).cpu())),
+                  an_sa=host(torch.sin(torch.as_tensor(an.azimuth).cpu())),
+                  an_k1=host(k1), an_k2=host(k2), an_kz=host(1.0 / (k1 * k2)))
+    if tl.enabled:
+        sc.update(tilt_z0=host(tl.first_z), tilt_dz=host(tl.z_spacing),
+                  tilt_ca=host(tl.azimuth_cos), tilt_sa=host(tl.azimuth_sin),
+                  tilt_d=[host(v) for v in tl.distances])
+    return FusedTables(
+        medium=medium, spectra=spectra,
+        layers=torch.stack([medium.b400, medium.a_dust400,
+                            medium.delta_tau]).to(torch.float32).contiguous(),
+        spec_tab=torch.stack([spectra.x[0], spectra.acu[0],
+                              spectra.beta[0]]).to(torch.float32).contiguous(),
+        bias_y=spectra.bias_y.to(torch.float32).contiguous(),
+        tilt_zc=(tl.z_corrections.to(torch.float32).contiguous()
+                 if tl.enabled else torch.zeros(1, device=dev)),
+        cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
+        scalars=sc)
+
+
+def pack_steps(steps: StepBatch) -> torch.Tensor:
+    """(NST, N) float32 step rows in STEP_FIELDS order."""
+    return torch.stack([getattr(steps, f).to(torch.float32)
+                        for f in STEP_FIELDS]).contiguous()
+
+
+def init_state(steps: StepBatch) -> torch.Tensor:
+    """(NSF, N) float32 slot state in STATE_FIELDS order."""
+    return torch.stack(list(E._init_state(steps))).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def _check_collisions_subplan(state: E.SlotState, tables: FusedTables,
+                              spec: FusedSpec, d_prop, active):
+    """The kernel's per-subdetector collision test in plain PyTorch
+    (clsim_tpu/propagate/kernel.py:1160-1269): per string group, the slot's cell
+    selects <= K_cand candidate strings, the 2-D cull ranks them, the
+    `rounds` closest get the ray-sphere test against the n_dom_cand DOMs of
+    the z-window, and the minimum entry distance over all groups wins."""
+    sc = tables.scalars
+    x, y, z = state.x, state.y, state.z
+    dx, dy, dz = state.dx, state.dy, state.dz
+    R, R2 = sc["r"], sc["r2"]
+    max_seg = sc["max_seg"]
+    dir_xy2 = dx * dx + dy * dy
+    live = active & (dir_xy2 > 0.0)
+    inv_dir_xy2 = 1.0 / torch.clamp(dir_xy2, min=1e-20)
+    best_all = d_prop
+    dom_all = torch.zeros_like(x, dtype=torch.int64)
+    margin = R + 1.0
+    for sp, cells in zip(spec.sub_plans, tables.plan_cells):
+        cxi = torch.clamp(torch.floor((x - sp.x0) * sp.inv_cell), 0, sp.nx - 1)
+        cyi = torch.clamp(torch.floor((y - sp.y0) * sp.inv_cell), 0, sp.ny - 1)
+        cand = cells[(cxi * sp.ny + cyi).to(torch.int64)]   # (N, K_cand, 4)
+        rx = cand[..., 0] - x[:, None]
+        ry = cand[..., 1] - y[:, None]
+        bd2 = rx * dx[:, None] + ry * dy[:, None]
+        A2 = rx * rx + ry * ry
+        pass_z = ~((dz > 0) & (z > sp.maxz + R)) & ~((dz < 0) & (z < sp.minz - R))
+        t2d = torch.clamp(bd2 * inv_dir_xy2[:, None], 0.0, max_seg)
+        cx = rx - dx[:, None] * t2d
+        cy = ry - dy[:, None] * t2d
+        d2 = cx * cx + cy * cy
+        ranked = torch.where((d2 <= cand[..., 2]) & (pass_z & live)[:, None],
+                             d2, torch.full_like(d2, E.BIG))
+        inv_dzf = 1.0 / sp.uz_dz
+        m1 = (z - sp.uz_z0) * inv_dzf
+        m2 = m1 + dz * (d_prop * inv_dzf)
+        mlo = torch.ceil(torch.minimum(m1, m2) - margin * abs(inv_dzf))
+        cand_m = torch.clamp(
+            mlo[:, None] + torch.arange(sp.n_dom_cand, device=x.device,
+                                        dtype=x.dtype), 0.0, sp.uz_nd - 1.0)
+        oz = sp.uz_z0 + sp.uz_dz * cand_m - z[:, None]          # (N, NC)
+        for _r in range(sp.rounds):
+            mi, sidx = torch.min(ranked, dim=1)
+            ranked = ranked.scatter(1, sidx[:, None], E.BIG)
+            pick = lambda a: a.gather(1, sidx[:, None])
+            urdot = pick(bd2) + oz * dz[:, None]
+            dr2 = pick(A2) + oz * oz
+            discr = urdot * urdot - dr2 + R2
+            smin1 = urdot - torch.sqrt(torch.clamp(discr, min=0.0)) \
+                * sc["inv_pancake"]
+            good = (mi < E.BIG)[:, None] & (discr >= 0.0) & (smin1 >= 0.0) \
+                & (smin1 < best_all[:, None])
+            best, jm = torch.min(torch.where(good, smin1,
+                                             torch.full_like(smin1, E.BIG)),
+                                 dim=1)
+            better = best < best_all
+            dom = pick(cand[..., 3])[:, 0].to(torch.int64) \
+                + cand_m.gather(1, jm[:, None])[:, 0].to(torch.int64)
+            best_all = torch.where(better, best, best_all)
+            dom_all = torch.where(better, dom, dom_all)
+    hit = best_all < d_prop
+    return hit, torch.where(hit, best_all, d_prop), dom_all
+
+
+def _seed64(seed: int, call_no: int) -> int:
+    return int(np.random.SeedSequence([int(seed) & (2 ** 63 - 1),
+                                       int(call_no)]).generate_state(
+        1, np.uint64)[0]) & (2 ** 63 - 1)
+
+
+def run_fused_iterations_plain(state, steps, tables: FusedTables,
+                               spec: FusedSpec, *, uniforms=None, seed=0,
+                               call_no=0, hist=None):
+    """The kernel's computation in plain PyTorch: up to iters_per_call
+    iterations of engine._iteration on the kernel's state layout, with the
+    kernel's SubPlan collision test.  Updates `state` in place and deposits
+    into `hist` (allocated when None).  Its random numbers come from a
+    torch.Generator unless `uniforms` (T, 8, N) is given."""
+    cfg = spec.cfg
+    dev = state.device
+    st = E.SlotState(*state.unbind(0))
+    sb = StepBatch(**{f: steps[k] for k, f in enumerate(STEP_FIELDS)},
+                   num_photons=st.photons_left)
+    acc = E._init_acc(spec.n_doms, cfg, dev)
+    if hist is not None:
+        acc = acc._replace(hist=hist)
+    generator = None
+    if uniforms is None:
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(_seed64(seed, call_no))
+    collide = lambda s, d, a: _check_collisions_subplan(s, tables, spec, d, a)
+    for i in range(spec.iters_per_call):
+        if i % 16 == 0 and not bool(((st.in_flight > 0.5)
+                                     | (st.photons_left > 0.5)).any()):
+            break
+        st, acc = E._iteration(i, st, acc, sb, tables.medium, None,
+                               tables.spectra, cfg, generator=generator,
+                               uniforms=uniforms, collide=collide)
+    state.copy_(torch.stack(list(st)))
+    alive = ((st.in_flight > 0.5) | (st.photons_left > 0.5)).sum()
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    counters = torch.stack([acc.n_generated, acc.n_hits, acc.weight_hits,
+                            zero, alive.to(torch.float64), acc.n_hits,
+                            acc.n_work]).to(torch.float64)
+    return state, acc.hist, counters
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's wrapper
+# ---------------------------------------------------------------------------
+
+class _Plan(ctypes.Structure):
+    """struct PlanParams of csrc/propagate.cu (all fields 4 bytes)."""
+    _fields_ = ([(n, ctypes.c_float) for n in (
+        "x0", "y0", "inv_cell", "uz_z0", "uz_dz", "inv_dz", "uz_nd", "minz",
+        "maxz")]
+        + [(n, ctypes.c_int) for n in (
+            "nx", "ny", "k_cand", "n_dom_cand", "rounds", "cell_off")])
+
+
+class _Params(ctypes.Structure):
+    """struct Params of csrc/propagate.cu (all fields 4 bytes)."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "n_slots", "iters", "K", "L", "n_spec", "n_bias", "nz_tilt",
+        "nd_tilt", "aniso", "nbins", "n_plans", "use_uniforms")]
+        + [(n, ctypes.c_uint) for n in ("it0", "seed_lo", "seed_hi")]
+        + [(n, ctypes.c_float) for n in (
+            "z_start", "layer_h", "alpha", "kappa", "abs_a", "abs_b",
+            "abs_d", "abs_e", "an_ca", "an_sa", "an_k1", "an_k2", "an_kz",
+            "mean_cos", "liu_frac", "r", "r2", "inv_pancake", "max_seg",
+            "hist_t0", "hist_dt", "tilt_z0", "tilt_dz", "tilt_ca",
+            "tilt_sa", "bias_x0", "bias_inv_dx")]
+        + [("n", ctypes.c_float * 5), ("g", ctypes.c_float * 5),
+           ("tilt_d", ctypes.c_float * MAX_TILT_D),
+           ("plans", _Plan * MAX_PLANS)])
+
+
+def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
+            seed: int, call_no: int) -> _Params:
+    sc = tables.scalars
+    p = _Params()
+    p.n_slots, p.iters, p.K, p.L = (spec.n_slots, spec.iters_per_call,
+                                    spec.K, spec.L)
+    p.n_spec, p.n_bias = spec.n_spec, spec.n_bias
+    p.nz_tilt, p.nd_tilt = spec.nz_tilt, spec.nd_tilt
+    p.aniso, p.nbins = int(spec.aniso), spec.hist_n_bins
+    p.n_plans, p.use_uniforms = len(spec.sub_plans), int(use_uniforms)
+    p.it0 = (call_no * spec.iters_per_call) & 0xFFFFFFFF
+    s = int(seed) & (2 ** 64 - 1)
+    p.seed_lo, p.seed_hi = s & 0xFFFFFFFF, s >> 32
+    for name, _ in _Params._fields_:
+        if name in sc and not isinstance(sc[name], list):
+            setattr(p, name, sc[name])
+    p.n[:] = sc["n"]
+    p.g[:] = sc["g"]
+    for j, d in enumerate(sc.get("tilt_d", [])):
+        p.tilt_d[j] = d
+    for k, (sp, off) in enumerate(zip(spec.sub_plans, tables.plan_offsets)):
+        q = p.plans[k]
+        q.x0, q.y0, q.inv_cell = sp.x0, sp.y0, sp.inv_cell
+        q.uz_z0, q.uz_dz, q.inv_dz = sp.uz_z0, sp.uz_dz, 1.0 / sp.uz_dz
+        q.uz_nd, q.minz, q.maxz = sp.uz_nd, sp.minz, sp.maxz
+        q.nx, q.ny, q.k_cand = sp.nx, sp.ny, sp.K_cand
+        q.n_dom_cand, q.rounds, q.cell_off = sp.n_dom_cand, sp.rounds, off
+    return p
+
+
+def _check_tensor(name, t, shape, dtype, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
+            seed, call_no, hist):
+    global LAUNCHES
+    reason = spec_unsupported(spec)
+    if reason:
+        raise NotImplementedError(reason)
+    dev = state.device
+    N = spec.n_slots
+    f32 = torch.float32
+    _check_tensor("state", state, (NSF, N), f32, dev)
+    _check_tensor("steps", steps, (NST, N), f32, dev)
+    for name in ("layers", "spec_tab", "bias_y", "tilt_zc", "cells"):
+        _check_tensor(name, getattr(tables, name), None, f32, dev)
+    if tables.layers.shape != (3, spec.L) or \
+            tables.spec_tab.shape != (3, spec.n_spec):
+        raise ValueError("tables do not match the spec")
+    if uniforms is not None:
+        _check_tensor("uniforms", uniforms, None, f32, dev)
+        if (uniforms.dim() != 3 or uniforms.shape[0] < spec.iters_per_call
+                or tuple(uniforms.shape[1:]) != (8, N)):
+            raise ValueError(f"uniforms must be (>= {spec.iters_per_call}, "
+                             f"8, {N}), got {tuple(uniforms.shape)}")
+    n_hist = spec.n_doms * spec.hist_n_bins
+    if hist is None:
+        hist = torch.zeros(n_hist, dtype=f32, device=dev)
+    _check_tensor("hist", hist, (n_hist,), f32, dev)
+    cnt_i = torch.zeros(4, dtype=torch.int64, device=dev)
+    cnt_w = torch.zeros(1, dtype=torch.float64, device=dev)
+    params = _params(spec, tables, uniforms is not None, seed, call_no)
+
+    from .._build import load
+    lib = load()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    rc = lib.clsim_propagate(
+        ctypes.addressof(params), ptr(state), ptr(steps), ptr(uniforms),
+        ptr(tables.layers), ptr(tables.spec_tab), ptr(tables.bias_y),
+        ptr(tables.tilt_zc), ptr(tables.cells), ptr(hist), ptr(cnt_i),
+        ptr(cnt_w), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("propagation kernel launch failed: "
+                           + lib.clsim_error_string(rc).decode())
+    LAUNCHES += 1
+    c = cnt_i.to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    counters = torch.stack([c[0], c[1], cnt_w[0], zero, c[2], c[1], c[3]])
+    return state, hist, counters
+
+
+def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
+                         *, uniforms=None, seed=0, call_no=0, hist=None):
+    """Run up to spec.iters_per_call propagation iterations on every slot.
+
+    state (NSF, N) float32 is updated in place; hits are deposited into
+    hist (n_doms * n_bins,) float32, allocated when None.  Returns
+    (state, hist, counters), counters a float64 (7,) tensor in the CNT_*
+    layout.  CUDA tensors launch the CUDA kernel (or raise); CPU tensors run
+    run_fused_iterations_plain."""
+    if state.device.type == "cuda":
+        return _launch(state, steps, tables, spec, uniforms, seed, call_no,
+                       hist)
+    if state.device.type == "cpu":
+        return run_fused_iterations_plain(
+            state, steps, tables, spec, uniforms=uniforms, seed=seed,
+            call_no=call_no, hist=hist)
+    raise ValueError(f"no propagation kernel for device {state.device}")
+
+
+# ---------------------------------------------------------------------------
+# driver
+# ---------------------------------------------------------------------------
+
+def _run_fused(state, steps_p, tables: FusedTables, spec: FusedSpec, seed,
+               max_calls: int, uniforms=None):
+    """Launch until no slot is alive or max_calls is reached; photons still
+    alive after the last call are reported as abandoned (CNT_ALIVE)."""
+    dev = state.device
+    hist = torch.zeros(spec.n_doms * spec.hist_n_bins, dtype=torch.float32,
+                       device=dev)
+    totals = torch.zeros(7, dtype=torch.float64, device=dev)
+    calls, alive = 0, 0.0
+    for call_no in range(max_calls):
+        state, hist, cnt = run_fused_iterations(
+            state, steps_p, tables, spec, uniforms=uniforms, seed=seed,
+            call_no=call_no, hist=hist)
+        totals += cnt
+        calls += 1
+        alive = float(cnt[CNT_ALIVE])
+        if alive == 0.0:
+            break
+    totals[CNT_ALIVE] = alive
+    return E.PropagationResult(
+        hist=hist.reshape(spec.n_doms, spec.hist_n_bins),
+        n_generated=totals[CNT_GEN], n_hits=totals[CNT_HITS],
+        weight_hits=totals[CNT_WSUM],
+        n_iterations=calls * spec.iters_per_call,
+        diag_totals=totals), totals
+
+
+def propagate_fused(steps: StepBatch, medium: MediumProperties,
+                    geo: DetectorGeometry, spectra: SpectrumTable,
+                    seed: int, cfg: PropagationConfig,
+                    iters_per_call: int = 4096,
+                    max_calls: int = 256,
+                    uniforms=None):
+    """Drive the fused kernel until all photons are drained.
+
+    `steps` are slot-assigned tensors on the propagation device.
+    `uniforms`: optional (T >= iters_per_call, 8, n_slots) float32 stream
+    (parity mode; requires max_calls=1).  Returns (PropagationResult,
+    totals) with totals the float64 CNT_* vector."""
+    reason = fused_supported(medium, spectra, cfg)
+    if reason:
+        raise ValueError(f"fused path unsupported: {reason}")
+    if uniforms is not None and max_calls != 1:
+        raise ValueError("external uniforms (parity mode) require "
+                         "max_calls=1: each call would replay the stream")
+    n = int(steps.x.shape[0])
+    if int(steps.num_photons.max()) >= 2 ** 24:
+        raise ValueError("per-slot photon counts must stay below 2^24 "
+                         "(float32 slot state); use more slots")
+    spec, cell_tab = fused_spec(medium, geo, spectra, cfg, n, iters_per_call)
+    reason = spec_unsupported(spec)
+    if reason:
+        raise NotImplementedError(reason)
+    tables = build_tables(spec, medium, geo, spectra, cell_tab)
+    return _run_fused(init_state(steps), pack_steps(steps), tables, spec,
+                      seed, max_calls, uniforms=uniforms)

@@ -1,0 +1,119 @@
+"""Contracts between clsim_tpu (JAX reference) and clsim_tpu_torch (port):
+config and batch field names and defaults, geometry tables, parameter
+carry-over, and the port's independence from JAX."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from clsim_tpu import geometry as GJ
+from clsim_tpu import types as TJ
+from clsim_tpu.medium.properties import make_homogeneous_ice as ice_j
+from clsim_tpu.medium.functions import DEFAULT_ICE_REF_INDEX as REF_J
+from clsim_tpu.ops.spectrum import (make_cherenkov_spectrum as cher_j,
+                                    stack_spectra as stack_j)
+
+from clsim_tpu_torch import convert as C
+from clsim_tpu_torch import geometry as GT
+from clsim_tpu_torch import types as TT
+
+torch.set_num_threads(1)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_propagation_config_fields_and_defaults_match():
+    fj = {f.name: f.default for f in dataclasses.fields(TJ.PropagationConfig)}
+    ft = {f.name: f.default for f in dataclasses.fields(TT.PropagationConfig)}
+    assert list(fj) == list(ft)
+    assert fj == ft
+    assert TT.PropagationConfig().hist_dt == TJ.PropagationConfig().hist_dt
+
+
+def test_step_and_photon_batch_fields_match():
+    assert TT.StepBatch._fields == TJ.StepBatch._fields
+    assert TT.PhotonBatch._fields == TJ.PhotonBatch._fields
+    ej, et = TJ.StepBatch.empty(5), TT.StepBatch.empty(5)
+    for f in TJ.StepBatch._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(ej, f)),
+                                      getattr(et, f))
+
+
+@pytest.mark.parametrize("n_rings", [1, 4])
+def test_geometry_tables_equal(n_rings):
+    kw = dict(n_rings=n_rings, string_spacing=125.0, doms_per_string=60,
+              dom_spacing=17.0, z_top=500.0, oversize=5.0)
+    gj, gt = GJ.hexagonal_geometry(**kw), GT.hexagonal_geometry(**kw)
+    assert gt.n_doms == gj.n_doms and gt.n_strings == gj.n_strings
+    for f in GJ.DetectorGeometry._fields:
+        a, b = getattr(gj, f), getattr(gt, f)
+        if isinstance(b, torch.Tensor):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=f)
+        else:
+            assert a == b, f
+    assert GT.advise_strings_per_photon(gt, 90.0, 2) == \
+        GJ.advise_strings_per_photon(gj, 90.0, 2)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, clsim_tpu_torch, clsim_tpu_torch.api, "
+            "clsim_tpu_torch.convert, clsim_tpu_torch._build, "
+            "clsim_tpu_torch.propagate.dispatch; "
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'clsim_tpu' "
+            "or m.startswith('clsim_tpu.')]; "
+            "assert not bad, bad")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_convert_round_trip():
+    rng = np.random.default_rng(0)
+    medium = ice_j(n_layers=7, z_start=-100.0, layer_height=30.0)
+    medium = medium._replace(b400=np.float32(0.02 + 0.03 * rng.random(7)))
+    mt = C.medium_from_numpy(C.numpy_tree(medium))
+    assert mt.n_layers == 7
+    for f in ("b400", "a_dust400", "delta_tau", "alpha", "kappa", "abs_A",
+              "abs_B", "abs_D", "abs_E", "layers_z_start", "layer_height"):
+        np.testing.assert_array_equal(np.asarray(getattr(medium, f)),
+                                      getattr(mt, f).numpy(), err_msg=f)
+    np.testing.assert_array_equal(np.asarray(medium.ref_index.n),
+                                  mt.ref_index.n.numpy())
+    assert mt.tilt.enabled == medium.tilt.enabled
+    assert mt.anisotropy.enabled == medium.anisotropy.enabled
+
+    gj = GJ.single_string_geometry(n_doms=10, oversize=3.0)
+    gt = C.geometry_from_numpy(C.numpy_tree(gj))
+    for f in GJ.DetectorGeometry._fields:
+        a, b = getattr(gj, f), getattr(gt, f)
+        if isinstance(b, torch.Tensor):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        else:
+            assert a == b
+
+    sj = stack_j([cher_j(REF_J, 265.0, 675.0)])
+    st = C.spectra_from_numpy(C.numpy_tree(sj))
+    for f in sj._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(sj, f)),
+                                      getattr(st, f).numpy())
+
+    steps = TJ.StepBatch.empty(4)._replace(
+        x=np.float32([1, 2, 3, 4]), num_photons=np.int32([5, 0, 7, 1]))
+    tt = C.steps_from_numpy(C.numpy_tree(steps))
+    assert tt.num_photons.dtype == torch.int32 and tt.x.dtype == torch.float32
+    back = {f: getattr(tt, f).numpy() for f in TT.StepBatch._fields}
+    for f in TJ.StepBatch._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(steps, f)), back[f])
+
+
+def test_non_icecube_medium_raises():
+    m = C.numpy_tree(ice_j())
+    m["medium_kind"] = "water"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        C.medium_from_numpy(m)
