@@ -19,38 +19,73 @@ Phases (any failure raises and exits non-zero):
      must match the PPC formula, nothing dropped or abandoned;
   4. the bench workload (262,144 slots x 200 photons on hex61) through the
      port, and a statistical comparison of the kernel with the plain version
-     (hits per generated photon, |z| < 5) at 16,384 slots x 50 photons.
+     (hits per generated photon, |z| < 5) at 16,384 slots x 50 photons;
+  5. photon records and MCPE hits (the kernel's record mode) at 262,144
+     slots:
+     a. the record mode against its plain version on phase 2's shared
+        stream (test_kernel workload with aniso + tilt, and the main-path
+        configuration, with save_photons): phase 2's checks, one record per
+        hit, record counts within max(2, 1%), records matched on (slot,
+        dom) within tests/test_kernel.py:523-529's tolerances (on the
+        test_kernel workload every record of the smaller set, a hit moved
+        by FMA contraction staying in the hit-count allowance; >= 99.9% of
+        them on the main-path one);
+     b. SAVE_ALL at prescale 0.5 with a record buffer smaller than the
+        records, so that launches stall: no record lost (count within
+        max(2, 1%) of the plain version's), nothing dropped, >= 1 stall;
+     c. Simulation.simulate_hits of phase 3's cascade with save_photons:
+        the record mode launched, records = hits, nothing dropped or
+        abandoned, the histogram rebuilt from the records equal to the
+        result's, accepted MCPEs against the sum of hit probabilities
+        (|z| < 5); wall times of simulate and simulate_hits;
+     d. simulate_photons -> npz -> simulate_hits_from_photons: MCPE count
+        against 5c's (|z| < 5), (string, om) round trip to the DOM index.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 N_SLOTS = 262144
+CASCADE_GEV = 1.0e5     # the main path's EMinus cascade
 L1_TOL = 2e-3
+# tests/test_kernel.py:523-529: (field, absolute tolerance), rtol 1e-3
+REC_TOLS = [("dom", 1e-6), ("time", 1e-2), ("wavelength", 1e-2),
+            ("weight", 1e-3), ("pos_x", 2e-2), ("pos_y", 2e-2),
+            ("pos_z", 2e-2), ("start_x", 2e-2), ("start_time", 1e-2),
+            ("num_scatters", 1e-6), ("dir_theta", 1e-3), ("dir_phi", 1e-3),
+            ("group_velocity", 2e-4), ("cherenkov_dist", 0.1),
+            ("dist_in_abs_lens", 2e-2), ("start_theta", 1e-3)]
 
 
 def log(*a):
     print(*a, flush=True)
 
 
-def cuda_ms(fn):
-    """Run fn once between CUDA events; returns (result, milliseconds)."""
+def cuda_ms(fn, reps=5):
+    """Run fn `reps` times, each between CUDA events; returns (the last
+    result, the median milliseconds)."""
     import torch
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    e0.record()
-    out = fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return out, e0.elapsed_time(e1)
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        e0.record()
+        out = fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return out, float(np.median(times))
 
 
 def seeded_ice(n_layers, z_start, layer_height, device, seed=3):
@@ -181,22 +216,57 @@ def compare(name, c_k, h_k, c_p, h_p, gen_rtol=0.0):
     return err
 
 
-def phase2(device):
-    """Kernel against plain version, same tensors and uniform stream."""
-    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
-    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
-                                              stack_spectra)
+def match_records(name, rows_k, rows_p, n_bins):
+    """Match kernel and plain records on (slot, dom, rank in time) and hold
+    each matched pair to REC_TOLS.  Returns (records matched within every
+    tolerance, kernel records, plain records)."""
     from clsim_tpu_torch.propagate import kernel as K
-    from clsim_tpu_torch.types import PropagationConfig
+
+    def host(rows):
+        rec = K.records_from_rows(rows, n_bins)
+        f = {k: v[0].double().cpu().numpy() for k, v in rec.items()}
+        slot = rows[:, K.REC_COLUMNS.index("slot")].cpu().numpy()
+        order = np.lexsort((f["time"], f["dom"], slot))
+        f = {k: v[order] for k, v in f.items()}
+        key = slot[order].astype(np.int64) * (1 << 24) + \
+            f["dom"].astype(np.int64) * 64
+        first = np.r_[True, key[1:] != key[:-1]]
+        start = np.maximum.accumulate(np.where(first, np.arange(len(key)), 0))
+        return f, key + np.minimum(np.arange(len(key)) - start, 63)
+
+    fk, key_k = host(rows_k)
+    fp, key_p = host(rows_p)
+    _, ik, ip = np.intersect1d(key_k, key_p, assume_unique=True,
+                               return_indices=True)
+    ok = np.ones(len(ik), bool)
+    worst = {}
+    for field, tol in REC_TOLS:
+        a, b = fk[field][ik], fp[field][ip]
+        ok &= np.abs(a - b) <= tol + 1e-3 * np.abs(b)
+        worst[field] = float(np.abs(a - b).max()) if len(a) else 0.0
+    log(f"  {name}: records {len(key_k)} / {len(key_p)} (kernel / plain), "
+        f"matched on (slot, dom) {len(ik)}, within tolerance {int(ok.sum())}"
+        f"; worst |diff| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+    return int(ok.sum()), len(key_k), len(key_p)
+
+
+PHASE2_T = 32
+
+
+def phase2_cases(device):
+    """Phase 2's workloads at N_SLOTS with a (PHASE2_T, 8, N) stream:
+    [(name, (medium, geo, spectra, cfg, steps, uniforms), gen_rtol)]."""
     import torch
-    T = 32
+    from clsim_tpu_torch.types import PropagationConfig
+    T = PHASE2_T
     cases = []
     for aniso, tilt in ((False, False), (True, True)):
         cases.append((f"test_kernel workload aniso={aniso} tilt={tilt}",
                       small_workload(N_SLOTS, T, aniso, tilt, device), 0.0))
     # the main path's configuration: hex61, seeded 171-layer ice, defaults
     medium, _ = seeded_ice(171, -855.0, 10.0, device)
-    b_medium, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
+    _, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
     cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0)
     uni = torch.rand((T, 8, N_SLOTS), generator=torch.Generator(
         device=device).manual_seed(5), device=device)
@@ -205,9 +275,17 @@ def phase2(device):
     # few of ~2e6 photons end a step earlier or later in one than the other
     cases.append(("main-path config (hex61, 171 layers, 90 m segments)",
                   (medium, geo, spectra, cfg, steps, uni), 1e-5))
+    return cases
+
+
+def phase2(device):
+    """Kernel against plain version, same tensors and uniform stream."""
+    from clsim_tpu_torch.propagate import kernel as K
     max_err, timings = 0.0, {}
+    cases = phase2_cases(device)
     for name, (medium, geo, spectra, cfg, steps, uni), gen_rtol in cases:
-        spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, N_SLOTS, T)
+        spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, N_SLOTS,
+                                      PHASE2_T)
         tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
         state0, steps_p = K.init_state(steps), K.pack_steps(steps)
         run_k = lambda: K.run_fused_iterations(state0.clone(), steps_p,
@@ -217,10 +295,10 @@ def phase2(device):
         run_p()      # warm-up: plain, kernel; timed: kernel, plain
         run_k()
         (_, h_k, c_k), ms_k = cuda_ms(run_k)
-        (_, h_p, c_p), ms_p = cuda_ms(run_p)
+        (_, h_p, c_p), ms_p = cuda_ms(run_p, reps=1)
         max_err = max(max_err, compare(name, c_k, h_k, c_p, h_p, gen_rtol))
-        log(f"  {name}: kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms "
-            f"({N_SLOTS} slots x {T} iterations)")
+        log(f"  {name}: kernel {ms_k:.3f} ms (median of 5), plain "
+            f"{ms_p:.3f} ms ({N_SLOTS} slots x {PHASE2_T} iterations)")
         timings[name] = (ms_k, ms_p)
     return max_err, timings[cases[-1][0]]
 
@@ -228,17 +306,9 @@ def phase2(device):
 def phase3(device):
     """The main path at full width through Simulation.simulate."""
     import torch
-    from clsim_tpu_torch.api import Simulation
     from clsim_tpu_torch.propagate import kernel as K
-    from clsim_tpu_torch.sources import Particle, ParticleType
-    from clsim_tpu_torch.types import PropagationConfig
-    medium, _ = seeded_ice(171, -855.0, 10.0, device)
-    sim = Simulation(medium=medium, geometry=hex61(device),
-                     config=PropagationConfig(n_slots=N_SLOTS))
-    energy = 1.0e5   # GeV
-    cascade = Particle.cascade(ParticleType.EMinus, pos=(0.0, 0.0, 0.0),
-                               time=0.0, energy=energy, zenith=1.9,
-                               azimuth=0.7)
+    sim, cascade = main_path_sim(device)
+    energy = CASCADE_GEV
     torch.cuda.synchronize()
     K.LAUNCHES = 0
     t0 = time.perf_counter()
@@ -284,20 +354,25 @@ def phase3(device):
 
 
 def run_plain_to_drain(steps, medium, geo, spectra, cfg, seed, ipc=1024):
-    """The fused call loop with the plain version on CUDA tensors."""
+    """The fused call loop with the plain version on CUDA tensors.  Returns
+    the summed counters and, with cfg.save_photons, the number of records."""
     from clsim_tpu_torch.propagate import kernel as K
     spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg,
                                   int(steps.x.shape[0]), ipc)
     tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
-    state, steps_p = K.init_state(steps), K.pack_steps(steps)
-    hist, tot = None, 0.0
+    state = K.init_state(steps, spec.records)
+    steps_p = K.pack_steps(steps)
+    hist, tot, n_rec = None, 0.0, 0
     for call_no in range(256):
-        state, hist, c = K.run_fused_iterations_plain(
+        out = K.run_fused_iterations_plain(
             state, steps_p, tables, spec, seed=seed, call_no=call_no,
             hist=hist)
+        state, hist, c = out[:3]
+        if spec.records:
+            n_rec += out[3].shape[0]
         tot = tot + c
         if float(c[K.CNT_ALIVE]) == 0.0:
-            return tot
+            return tot, n_rec
     raise AssertionError("plain run did not drain")
 
 
@@ -315,11 +390,16 @@ def phase4(device, sweep):
         return res, time.perf_counter() - t0
 
     run()   # warm-up (table build, first launches)
-    res, sec = run()
+    secs = []
+    for _ in range(3):
+        res, sec = run()
+        secs.append(sec)
+    sec = float(np.median(secs))
     diag = res.diagnostics
     log(f"  generated {diag['generated']:.0f}, hits {diag['hits']:.0f}, "
         f"abandoned {diag['abandoned']:.0f}, iterations {res.n_iterations}: "
-        f"{sec:.4f} s = {diag['generated'] / sec:.6g} photons/s")
+        f"{sec:.4f} s (median of " + ", ".join(f"{x:.4f}" for x in secs)
+        + f") = {diag['generated'] / sec:.6g} photons/s")
     if diag["generated"] != N_SLOTS * 200:
         raise AssertionError("bench workload: generated != 52,428,800")
     if diag["abandoned"] != 0:
@@ -335,7 +415,7 @@ def phase4(device, sweep):
     n, pps = 16384, 50
     m, g, sp, c, st = bench_workload(n, pps, device)
     res_k = propagate_auto(st, m, g, sp, 21, c)
-    tot_p = run_plain_to_drain(st, m, g, sp, c, seed=22)
+    tot_p, _ = run_plain_to_drain(st, m, g, sp, c, seed=22)
     pk = float(res_k.n_hits) / float(res_k.n_generated)
     pp = float(tot_p[K.CNT_HITS]) / float(tot_p[K.CNT_GEN])
     var = (pk * (1 - pk) / float(res_k.n_generated)
@@ -344,6 +424,210 @@ def phase4(device, sweep):
     log(f"  hits per photon: kernel {pk:.6g}, plain {pp:.6g}, z = {z:.3f}")
     if abs(z) >= 5:
         raise AssertionError("kernel and plain version disagree (|z| >= 5)")
+
+
+def phase5a(device):
+    """Record mode against its plain version on phase 2's shared stream."""
+    from clsim_tpu_torch.propagate import kernel as K
+    cases = phase2_cases(device)
+    max_err, timing = 0.0, None
+    # on the test_kernel workload every record of the smaller set must match
+    # (the kernel's FMA contraction may add or drop a hit, within compare's
+    # hit-count allowance); on the main-path configuration >= 99.9% of all
+    for (name, (medium, geo, spectra, cfg, steps, uni), gen_rtol), share in (
+            (cases[1], None), (cases[2], 0.999)):
+        cfg = dataclasses.replace(cfg, save_photons=True)
+        spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, N_SLOTS,
+                                      PHASE2_T)
+        tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+        state0, steps_p = K.init_state(steps, True), K.pack_steps(steps)
+        run_k = lambda: K.run_fused_iterations(state0.clone(), steps_p,
+                                               tables, spec, uniforms=uni)
+        run_p = lambda: K.run_fused_iterations_plain(
+            state0.clone(), steps_p, tables, spec, uniforms=uni)
+        run_p()      # warm-up: plain, kernel; timed: kernel, plain
+        run_k()
+        (_, h_k, c_k, r_k), ms_k = cuda_ms(run_k)
+        (_, h_p, c_p, r_p), ms_p = cuda_ms(run_p, reps=1)
+        name = name + " + records"
+        max_err = max(max_err, compare(name, c_k, h_k, c_p, h_p, gen_rtol))
+        log(f"  {name}: kernel {ms_k:.3f} ms (median of 5), plain "
+            f"{ms_p:.3f} ms ({N_SLOTS} slots x {PHASE2_T} iterations)")
+        for who, c, r in (("kernel", c_k, r_k), ("plain", c_p, r_p)):
+            if not (r.shape[0] == float(c[K.CNT_HITS])
+                    == float(c[K.CNT_QUEUED])):
+                raise AssertionError(f"{name}: {who} records != hits")
+            if float(c[K.CNT_DROPPED]) != 0.0:
+                raise AssertionError(f"{name}: {who} dropped records")
+        n_k, n_p = r_k.shape[0], r_p.shape[0]
+        if abs(n_k - n_p) > max(2.0, 0.01 * n_p):
+            raise AssertionError(f"{name}: record counts differ")
+        n_ok, n_k, n_p = match_records(name, r_k, r_p, cfg.hist_n_bins)
+        if (n_ok < min(n_k, n_p) if share is None
+                else n_ok < share * max(n_k, n_p)):
+            raise AssertionError(f"{name}: {n_ok} of {n_k} / {n_p} records "
+                                 "match")
+        timing = (ms_k, ms_p)
+    return max_err, timing
+
+
+def phase5b(device):
+    """SAVE_ALL, prescale 0.5, with a record buffer that fills: no record
+    may be lost across the stalled launches."""
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps, _ = small_workload(N_SLOTS, 1, False,
+                                                         False, device)
+    cfg = dataclasses.replace(cfg, save_photons=True, save_all_photons=True,
+                              save_all_prescale=0.5)
+    cap = N_SLOTS // 4   # below the ~1.5 records per slot SAVE_ALL makes
+    res, tot = K.propagate_fused(steps, medium, geo, spectra, 31, cfg,
+                                 rec_capacity=cap)
+    n_k = int(res.rec_count[0])
+    tot_p, n_p = run_plain_to_drain(steps, medium, geo, spectra, cfg, seed=32)
+    d = res.diagnostics
+    log(f"  records {n_k} (kernel, capacity {cap} per launch, "
+        f"{d['stalled']:.0f} stalled launches of {res.n_iterations // 4096})"
+        f" / {n_p} (plain); generated {d['generated']:.0f} / "
+        f"{float(tot_p[K.CNT_GEN]):.0f}, dropped {d['dropped']:.0f}, "
+        f"abandoned {d['abandoned']:.0f}")
+    if n_k != d["queued"] or not bool((res.rec["weight"] == 0).all()) or \
+            not bool((res.rec["dom"] == 0).all()):
+        raise AssertionError("SAVE_ALL records malformed")
+    if d["dropped"] != 0 or d["abandoned"] != 0:
+        raise AssertionError("SAVE_ALL: records dropped or photons abandoned")
+    if d["stalled"] < 1:
+        raise AssertionError("SAVE_ALL: no launch stalled (capacity too big)")
+    if d["generated"] != float(tot_p[K.CNT_GEN]):
+        raise AssertionError("SAVE_ALL: generated counts differ")
+    if abs(n_k - n_p) > max(2.0, 0.01 * n_p):
+        raise AssertionError("SAVE_ALL: record counts differ (records lost)")
+
+
+def main_path_sim(device, **cfg_kw):
+    """Phase 3's Simulation and cascade, with extra config fields."""
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.sources import Particle, ParticleType
+    from clsim_tpu_torch.types import PropagationConfig
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    sim = Simulation(medium=medium, geometry=hex61(device),
+                     config=PropagationConfig(n_slots=N_SLOTS, **cfg_kw))
+    cascade = Particle.cascade(ParticleType.EMinus, pos=(0.0, 0.0, 0.0),
+                               time=0.0, energy=CASCADE_GEV, zenith=1.9,
+                               azimuth=0.7)
+    return sim, cascade
+
+
+def timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def hit_probabilities(sim, rec):
+    """Per-record MCPE acceptance probability, clipped to [0, 1]."""
+    import torch
+    from clsim_tpu_torch.hits.mcpe import cos_impact, hit_probability
+    p = hit_probability(rec["weight"][0], rec["wavelength"][0],
+                        cos_impact(rec["dir_theta"][0], rec["dir_phi"][0]),
+                        sim.wlen_acceptance, sim.angular_coeffs)
+    return torch.clamp(p.double(), 0.0, 1.0)
+
+
+def phase5c(device):
+    """simulate_hits on the main path through the kernel's record mode."""
+    import torch
+    from clsim_tpu_torch.propagate import kernel as K
+    sim, cascade = main_path_sim(device, save_photons=True)
+    sim0, _ = main_path_sim(device)
+    cfg = sim.config
+    # the propagation stage alone, without and with records, in turns
+    # (without, with, with, without) after one warm-up of each
+    batches = sim.steps_from_particles([cascade], np.random.default_rng(11))
+    prop = {False: [], True: []}
+    for rec in (False, True, False, True, True, False):
+        s = sim if rec else sim0
+        _, sec = timed(lambda: s.run_steps(batches, 11))
+        prop[rec].append(sec)
+    t_prop = {k: float(np.median(v[1:])) for k, v in prop.items()}
+    log(f"  propagation stage {t_prop[False]:.4f} s without records, "
+        f"{t_prop[True]:.4f} s with (medians of 2 after a warm-up each)")
+    # end to end: simulate without and with records, then simulate_hits
+    _, t_plain = timed(lambda: sim0.simulate([cascade], seed=11))
+    res, t_rec = timed(lambda: sim.simulate([cascade], seed=11))
+    K.LAUNCHES = K.RECORD_LAUNCHES = 0
+    hits, t_hits = timed(lambda: sim.simulate_hits([cascade], seed=11))
+    launches = K.RECORD_LAUNCHES
+    diag = res.diagnostics
+    n_rec, n_hits = int(res.rec_count[0]), float(res.n_hits)
+    log(f"  simulate {t_plain:.4f} s without records, {t_rec:.4f} s with "
+        f"records ({n_rec / t_prop[True]:.6g} records/s in the propagation "
+        f"stage), simulate_hits "
+        f"{t_hits:.4f} s; record-mode launches {launches}, main-mode "
+        f"launches {K.LAUNCHES}; records {n_rec}, hits {n_hits:.0f}, "
+        f"generated {diag['generated']:.0f}, dropped {diag['dropped']:.0f}, "
+        f"abandoned {diag['abandoned']:.0f}, stalled {diag['stalled']:.0f}")
+    if launches <= 0 or K.LAUNCHES != 0:
+        raise AssertionError("simulate_hits did not run the record mode")
+    if n_rec != n_hits or n_rec <= 0:
+        raise AssertionError("records != hits")
+    if diag["dropped"] != 0 or diag["abandoned"] != 0:
+        raise AssertionError("records dropped or photons abandoned")
+    rec = res.rec
+    nb = cfg.hist_n_bins
+    tb = torch.clamp((rec["time"][0] - cfg.hist_t_min) / cfg.hist_dt, 0.0,
+                     nb - 1).to(torch.int64)
+    rebuilt = torch.zeros(res.hist.numel(), dtype=torch.float64,
+                          device=device).index_add_(
+        0, rec["dom"][0].to(torch.int64) * nb + tb, rec["weight"][0].double())
+    h = res.hist.reshape(-1).double()
+    err = float((rebuilt - h).abs().max())
+    log(f"  histogram from records: max |diff| {err:.3g} of max bin "
+        f"{float(h.max()):.6g}, sums {float(rebuilt.sum()):.8g} / "
+        f"{float(h.sum()):.8g}")
+    if not bool(((rebuilt - h).abs() <= 1e-4 * h.abs() + 1e-6).all()):
+        raise AssertionError("histogram rebuilt from records differs")
+    p = hit_probabilities(sim, rec)
+    mean, var = float(p.sum()), float((p * (1 - p)).sum())
+    n_mcpe = len(hits[0])
+    z = (n_mcpe - mean) / math.sqrt(var)
+    log(f"  MCPEs {n_mcpe}, expected {mean:.6g} (sum of hit probabilities),"
+        f" z = {z:.3f}")
+    if abs(z) >= 5 or not np.all(np.diff(hits[1]) >= 0):
+        raise AssertionError("MCPE count off its expectation (|z| >= 5) or "
+                             "MCPEs not time-ordered")
+    return launches, sim, cascade, res, n_mcpe, var
+
+
+def phase5d(sim, cascade, res, n_mcpe, var):
+    """Two-phase flow: simulate_photons -> npz -> simulate_hits_from_photons."""
+    from clsim_tpu_torch.hits.photons import (photon_batch_dom_index,
+                                              records_to_photon_batch)
+    geo = sim.geometry
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "photons.npz")
+        (batch, t_ph) = timed(lambda: sim.simulate_photons(
+            [cascade], seed=11, save_path=path))
+        (hits, t_h) = timed(lambda: sim.simulate_hits_from_photons(
+            path, seed=12))
+    n2 = len(hits[0])
+    z = (n2 - n_mcpe) / math.sqrt(2.0 * var)
+    idx = photon_batch_dom_index(batch, geo)
+    sid = geo.dom_string_id.cpu().numpy()
+    oid = geo.dom_om_id.cpu().numpy()
+    own = records_to_photon_batch(res.rec, res.rec_count, geo)
+    own_idx = photon_batch_dom_index(own, geo)
+    log(f"  simulate_photons {t_ph:.4f} s ({len(batch.time)} photons), "
+        f"simulate_hits_from_photons {t_h:.4f} s: MCPEs {n2} against "
+        f"{n_mcpe} in 5c, z = {z:.3f}")
+    if len(batch.time) != int(res.rec_count[0]) or abs(z) >= 5:
+        raise AssertionError("two-phase flow disagrees with simulate_hits")
+    if not ((sid[idx] == batch.string_id).all()
+            and (oid[idx] == batch.om_id).all()
+            and (own_idx == res.rec["dom"][0].cpu().numpy()).all()):
+        raise AssertionError("(string, om) does not round-trip to the DOM")
 
 
 def main():
@@ -377,13 +661,25 @@ def main():
     launches = phase3(device)
     log("phase 4: bench workload")
     phase4(device, sweep="--sweep" in sys.argv[1:])
+    log("phase 5a: record mode against plain version")
+    rec_err, (rec_ms_k, rec_ms_p) = phase5a(device)
+    log("phase 5b: SAVE_ALL with a record buffer that fills")
+    phase5b(device)
+    log("phase 5c: main path with records (Simulation.simulate_hits)")
+    rec_launches, *hits_run = phase5c(device)
+    log("phase 5d: simulate_photons -> npz -> simulate_hits_from_photons")
+    phase5d(*hits_run)
 
-    print(json.dumps({"kernels": [{
-        "name": "propagate", "route": "cuda",
-        "source": "clsim_tpu_torch/csrc/propagate.cu",
-        "replaces": "clsim_tpu/propagate/kernel.py:2427",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms_k, "plain_ms": ms_p}]}))
+    src = "clsim_tpu_torch/csrc/propagate.cu"
+    print(json.dumps({"kernels": [
+        {"name": "propagate", "route": "cuda", "source": src,
+         "replaces": "clsim_tpu/propagate/kernel.py:2427",
+         "launches": launches, "max_abs_err": max_err,
+         "ms": ms_k, "plain_ms": ms_p},
+        {"name": "propagate[records]", "route": "cuda", "source": src,
+         "replaces": "clsim_tpu/propagate/kernel.py:2427",
+         "launches": rec_launches, "max_abs_err": rec_err,
+         "ms": rec_ms_k, "plain_ms": rec_ms_p}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -80,15 +80,23 @@ def load():
     vp = ctypes.c_void_p
     lib.clsim_propagate.argtypes = [vp] * 13
     lib.clsim_propagate.restype = ctypes.c_int
+    lib.clsim_propagate_records.argtypes = [vp] * 16
+    lib.clsim_propagate_records.restype = ctypes.c_int
     lib.clsim_error_string.argtypes = [ctypes.c_int]
     lib.clsim_error_string.restype = ctypes.c_char_p
-    lib.clsim_params_size.argtypes = []
-    lib.clsim_params_size.restype = ctypes.c_int
-    from .propagate.kernel import _Params
+    for fn in ("clsim_params_size", "clsim_record_columns",
+               "clsim_record_state_rows"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
+    from .propagate.kernel import NRC, NRSF, _Params
     if lib.clsim_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError(
             f"parameter block size mismatch: kernel "
             f"{lib.clsim_params_size()} bytes, ctypes "
             f"{ctypes.sizeof(_Params)} bytes")
+    if (lib.clsim_record_columns(), lib.clsim_record_state_rows()) != \
+            (NRC, NRSF):
+        raise RuntimeError("record layout mismatch between csrc/ and "
+                           "propagate/kernel.py")
     _LIB = lib
     return lib

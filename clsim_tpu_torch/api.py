@@ -1,8 +1,11 @@
 """High-level user API (PyTorch counterpart of clsim_tpu.api): the
-equivalent of the reference's I3CLSimMakePhotons tray segment.
+equivalent of the reference's tray segments I3CLSimMakePhotons /
+I3CLSimMakeHits.
 
     sim = Simulation(medium=..., geometry=..., config=..., device="cuda")
     result = sim.simulate(particles, seed=1234)   # per-DOM hit histograms
+    doms, times, ids = sim.simulate_hits(particles, 42)   # MCPEs
+                                    # (needs config.save_photons=True)
 
 Wiring contract (I3CLSimMakePhotons.py:370-430, common.py setupDetector):
   * wavelength generation bias = DOM acceptance evaluated at radius
@@ -10,10 +13,10 @@ Wiring contract (I3CLSimMakePhotons.py:370-430, common.py setupDetector):
     * 1.35 * 1.01
   * PPC parameterization converts particles to steps (photons_per_step=200)
   * pancake factor = oversize
+  * MCPE conversion divides the bias back out via the saved weights
 
-The medium and geometry tensors must live on `device`.  Records and hits
-(simulate_hits, simulate_photons, simulate_hits_from_photons) and the
-multi-device mesh are queued in ROADMAP.md queue A (items 12 and 14).
+The medium and geometry tensors must live on `device`.  The multi-device
+mesh is queued in ROADMAP.md queue A (item 14).
 """
 
 from __future__ import annotations
@@ -22,10 +25,17 @@ import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from .convert import steps_from_numpy
 from .geometry import DetectorGeometry, advise_strings_per_photon, to_numpy
-from .hits.acceptance import HOLE_ICE_H2_50CM, icecube_dom_acceptance
+from .hits.acceptance import (HOLE_ICE_H2_50CM, dom_angular_sensitivity,
+                              icecube_dom_acceptance)
+from .hits.mcpe import (check_photon_positions, mcpes_to_numpy, merge_mcpes,
+                        sample_mcpes, sample_mcpes_from_batch)
+from .hits.photons import (compact_records, load_photons_npz,
+                           photon_batch_dom_index, records_to_photon_batch,
+                           save_photons_npz)
 from .medium.properties import MediumProperties
 from .ops.spectrum import (WavelengthSpectrum, make_cherenkov_spectrum,
                            stack_spectra)
@@ -38,9 +48,9 @@ from .sources.particles import Particle
 from .sources.ppc import PPCStepGenerator, assign_steps_to_slots
 from .types import PropagationConfig, StepBatch
 
-RECORDS_ITEM = ("photon records and MCPE hits are queued (ROADMAP.md queue "
-                "A item 12)")
 MESH_ITEM = "multi-device propagation is queued (ROADMAP.md queue A item 14)"
+# salt of the MCPE sampler's seed: (seed, "MCPE") as in the JAX package
+MCPE_SALT = 0x4d435045
 
 
 class Simulation:
@@ -112,6 +122,14 @@ class Simulation:
                                       self.flasher_generator),
             propagators=propagators)
 
+        # MCPE acceptance: evaluated at the *true* DOM radius; dividing the
+        # bias (oversized-radius acceptance) back out of the weights leaves
+        # the residual ratio <= 1 (I3CLSimMakeHitsFromPhotons.py wiring)
+        self.wlen_acceptance = icecube_dom_acceptance(
+            dom_radius=geometry.om_radius * geometry.oversize, efficiency=1.0,
+            device=self.device)
+        self.angular_coeffs = dom_angular_sensitivity(device=self.device)
+
     # ------------------------------------------------------------------
     def steps_from_particles(self, particles: Sequence[Particle],
                              rng: np.random.Generator) -> List[StepBatch]:
@@ -128,8 +146,14 @@ class Simulation:
                   ) -> Optional[PropagationResult]:
         """Propagate pre-assigned slot batches; accumulates over batches.
         Batch i's random stream is seeded from (seed, i) with numpy's
-        SeedSequence."""
-        total = None
+        SeedSequence.
+
+        With config.save_photons the records of every batch are kept,
+        compacted to the flat (1, R) contract and concatenated.  (The JAX
+        package's run_steps keeps only the last batch's records,
+        clsim_tpu/api.py:184-186, so a multi-batch simulate_hits there
+        undercounts; the port does not.)"""
+        total, records = None, []
         for i, batch in enumerate(slot_batches):
             bseed = int(np.random.SeedSequence([int(seed), i]).generate_state(
                 1, np.uint64)[0] & np.uint64(2 ** 63 - 1))
@@ -137,6 +161,8 @@ class Simulation:
             res = propagate_auto(steps, self.medium, self.geometry,
                                  self.spectra, bseed, self.config,
                                  backend=self.backend, **self.fused_opts)
+            if res.rec is not None:
+                records.append(compact_records(res.rec, res.rec_count))
             if total is None:
                 total = res
                 continue
@@ -153,6 +179,11 @@ class Simulation:
         if total is not None:
             # surface dropped/abandoned counts (warns on loss)
             check_diagnostics(total)
+            if records:
+                total = total._replace(
+                    rec={k: torch.cat([r[k] for r, _ in records], 1)
+                         for k in records[0][0]},
+                    rec_count=sum(c for _, c in records))
         return total
 
     def simulate(self, particles: Sequence[Particle], seed: int
@@ -165,11 +196,83 @@ class Simulation:
             return None
         return self.run_steps(slot_batches, seed)
 
-    def simulate_hits(self, *args, **kwargs):
-        raise NotImplementedError(RECORDS_ITEM)
+    def _mcpe_generator(self, seed: int) -> torch.Generator:
+        """The MCPE sampler's generator, seeded from (seed, MCPE_SALT)."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(int(np.random.SeedSequence(
+            [int(seed), MCPE_SALT]).generate_state(1, np.uint64)[0]
+            & np.uint64(2 ** 63 - 1)))
+        return g
 
-    def simulate_photons(self, *args, **kwargs):
-        raise NotImplementedError(RECORDS_ITEM)
+    def simulate_hits(self, particles: Sequence[Particle], seed: int,
+                      dom_efficiency: float = 1.0,
+                      per_dom_efficiency=None,
+                      merge_window_ns: Optional[float] = None):
+        """Particles -> (dom_indices, times, identifiers) MCPE arrays or,
+        with a merge window, (dom, time, npe, identifier).  The
+        I3CLSimMakeHits equivalent (requires save_photons=True config).
 
-    def simulate_hits_from_photons(self, *args, **kwargs):
-        raise NotImplementedError(RECORDS_ITEM)
+        `per_dom_efficiency` is an optional (n_doms,) calibration vector
+        (RDE x SPE compensation, I3PhotonToMCPEConverter.cxx:340-387);
+        `merge_window_ns` enables the reference's optional hit
+        time-merging (…cxx:520+)."""
+        if not self.config.save_photons:
+            raise ValueError("simulate_hits requires config.save_photons=True")
+        res = self.simulate(particles, seed)
+        if res is None:
+            return (np.zeros(0, np.int32), np.zeros(0, np.float32),
+                    np.zeros(0, np.int32))
+        if (self.config.pancake_factor == 1.0
+                and not self.config.save_all_photons):
+            # spherical-DOM sanity check (I3PhotonToMCPEConverter.cxx:415-455)
+            check_photon_positions(res.rec, res.rec_count,
+                                   self.geometry.collision_radius,
+                                   self.config.pancake_factor)
+        mcpes = sample_mcpes(res.rec, res.rec_count,
+                             self._mcpe_generator(seed),
+                             self.wlen_acceptance, self.angular_coeffs,
+                             efficiency=dom_efficiency,
+                             dom_efficiency=per_dom_efficiency)
+        dom, t, ident = mcpes_to_numpy(mcpes)
+        if merge_window_ns is not None:
+            return merge_mcpes(dom, t, ident, merge_window_ns)
+        return dom, t, ident
+
+    # -- two-phase flow (MakePhotons -> file -> MakeHitsFromPhotons,
+    #    python/traysegments/I3CLSimMakeHitsFromPhotons.py:55) -----------
+    def simulate_photons(self, particles: Sequence[Particle], seed: int,
+                         save_path=None):
+        """Particles -> PhotonBatch (host numpy arrays) with detector
+        (string_id, om_id) pairs remapped from flat device indices on
+        download (I3CLSimStepToPhotonConverterOpenCL.cxx:1563-1614).
+        Optionally persists to `save_path` (npz): the I3CLSimMakePhotons
+        half."""
+        if not self.config.save_photons:
+            raise ValueError(
+                "simulate_photons requires config.save_photons=True")
+        res = self.simulate(particles, seed)
+        if res is None:
+            raise ValueError("no light sources produced steps")
+        batch = records_to_photon_batch(res.rec, res.rec_count, self.geometry)
+        if save_path is not None:
+            save_photons_npz(save_path, batch)
+        return batch
+
+    def simulate_hits_from_photons(self, photons, seed: int,
+                                   dom_efficiency: float = 1.0,
+                                   per_dom_efficiency=None,
+                                   merge_window_ns: Optional[float] = None):
+        """PhotonBatch (or npz path) -> MCPE arrays: the
+        I3CLSimMakeHitsFromPhotons half, runnable later / elsewhere against
+        saved photon records."""
+        if isinstance(photons, (str, bytes)) or hasattr(photons, "__fspath__"):
+            photons = load_photons_npz(photons)
+        dom_index = photon_batch_dom_index(photons, self.geometry)
+        mcpes = sample_mcpes_from_batch(
+            photons, dom_index, self._mcpe_generator(seed),
+            self.wlen_acceptance, self.angular_coeffs,
+            efficiency=dom_efficiency, dom_efficiency=per_dom_efficiency)
+        dom, t, ident = mcpes_to_numpy(mcpes)
+        if merge_window_ns is not None:
+            return merge_mcpes(dom, t, ident, merge_window_ns)
+        return dom, t, ident

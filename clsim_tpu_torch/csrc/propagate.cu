@@ -31,6 +31,23 @@
 // (it0 + iteration, slot, block); or, in parity mode, an external (T, 8, N)
 // float32 stream read at [iteration, row, slot].
 //
+// Photon records (the RECORDS instantiation; the TPU kernel's `records`,
+// `rec_all` and `rec_prescale`: REC_STATE_FIELDS, the record position with
+// the pancake undone, SAVE_ALL and the record queue in `flush`).  The record
+// state (wavelength, emission point and direction, scatter count, absorption
+// depth) stays in registers for the launch and rides as extra state rows
+// between launches.  A photon that hits (or, with rec_all, is absorbed)
+// still deposits into the histogram, then its record of NRC floats is
+// appended to a device buffer at a slot taken by an atomicAdd on one
+// counter.  The host call loop sets the capacity: a thread whose append
+// finds it full keeps the record pending (the photon is dead, so its x/y/z
+// and t already hold the record; `pend` keeps the flat index) and leaves its
+// loop; the next launch writes the pending record first.  No record is lost
+// and the buffer stays bounded.  What bounds the mode beyond the main path:
+// one atomic per record on a single counter and 88 scattered bytes per
+// record, both small beside the photon's walk.  The main path's
+// instantiation (RECORDS = false) compiles none of this.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no fast-math: parity depends on logf/expf/powf).
 
@@ -63,12 +80,22 @@ struct Params {
   float n[5], g[5];
   float tilt_d[MAX_TILT_D];
   PlanParams plans[MAX_PLANS];
+  int rec_cap, rec_all;        // record mode: buffer capacity, SAVE_ALL
+  float rec_prescale, rec_fpk;  // SAVE_ALL prescale, (pancake - 1) / pancake
 };
 
 // slot-state rows (engine.SlotState field order) and step rows
 enum { F_LEFT, F_INF, F_X, F_Y, F_Z, F_T, F_DX, F_DY, F_DZ, F_W0, F_IGV,
        F_ABS, F_GS, F_PA, F_QA, F_RA, NSF };
-enum { S_X, S_Y, S_Z, S_T, S_DX, S_DY, S_DZ, S_LEN, S_BETA, S_W, S_SRC };
+enum { S_X, S_Y, S_Z, S_T, S_DX, S_DY, S_DZ, S_LEN, S_BETA, S_W, S_SRC,
+       S_ID };
+// record-mode state rows after the NSF rows (kernel.py REC_STATE_FIELDS)
+enum { R_WLEN, R_ABS0, R_NSCAT, R_DABS, R_SX, R_SY, R_SZ, R_ST, R_SDX, R_SDY,
+       R_SDZ, R_PEND, NRSF };
+// columns of one record (kernel.py REC_COLUMNS)
+enum { C_PX, C_PY, C_PZ, C_T, C_DX, C_DY, C_DZ, C_WLEN, C_ID, C_SX, C_SY,
+       C_SZ, C_ST, C_SDX, C_SDY, C_SDZ, C_IGV, C_NSCAT, C_DABS, C_IDX, C_W,
+       C_SLOT, NRC };
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -169,6 +196,31 @@ __device__ __forceinline__ float tilt_shift(const Params& p,
   return val_hi * frac_hi + val_lo * frac_lo;
 }
 
+// Record state of a slot's photon (kernel.py REC_STATE_FIELDS), kept in
+// registers for the launch.
+struct RecRegs {
+  float wlen, abs0, nscat, dabs, sx, sy, sz, st, sdx, sdy, sdz, pend;
+};
+
+// Append the record of a dead photon (its x/y/z hold the record position,
+// t the record time) at the next free buffer slot; false when the buffer of
+// `cap` records is full (the counter still counts the attempt).
+__device__ __forceinline__ bool push_record(
+    float* __restrict__ buf, unsigned long long* __restrict__ cnt, int cap,
+    const RecRegs& r, float x, float y, float z, float t, float dx, float dy,
+    float dz, float ident, float inv_gv, float idx, float w, int slot) {
+  const unsigned long long at = atomicAdd(cnt, 1ull);
+  if (at >= (unsigned long long)cap) return false;
+  const float v[NRC] = {x, y, z, t, dx, dy, dz, r.wlen, ident, r.sx, r.sy,
+                        r.sz, r.st, r.sdx, r.sdy, r.sdz, inv_gv, r.nscat,
+                        r.dabs, idx, w, (float)slot};
+  float* __restrict__ d = buf + at * NRC;
+#pragma unroll
+  for (int k = 0; k < NRC; ++k) d[k] = v[k];
+  return true;
+}
+
+template <bool RECORDS>
 __global__ void __launch_bounds__(BLOCK)
 propagate_kernel(const Params p, float* __restrict__ state,
                  const float* __restrict__ steps,
@@ -179,7 +231,9 @@ propagate_kernel(const Params p, float* __restrict__ state,
                  const float* __restrict__ tilt_zc,
                  const float4* __restrict__ cells, float* __restrict__ hist,
                  unsigned long long* __restrict__ cnt_i,
-                 double* __restrict__ cnt_w) {
+                 double* __restrict__ cnt_w,
+                 const float4* __restrict__ doms, float* __restrict__ rec_buf,
+                 unsigned long long* __restrict__ rec_cnt) {
   const int N = p.n_slots;
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
   long long n_gen = 0, n_hits = 0, n_work = 0, n_alive = 0;
@@ -215,7 +269,27 @@ propagate_kernel(const Params p, float* __restrict__ state,
     const float* __restrict__ sp_beta = spec_tab + 2 * ns;
     const uint2 key = make_uint2(p.seed_lo, p.seed_hi);
 
-    for (int it = 0; it < p.iters; ++it) {
+    // record state (RECORDS only; dead code otherwise)
+    RecRegs rr = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+    float* __restrict__ rs = state + (size_t)NSF * N + slot;
+    float ident = 0.0f;
+    int iters = p.iters;
+    if constexpr (RECORDS) {
+      rr = {rs[R_WLEN * N], rs[R_ABS0 * N], rs[R_NSCAT * N], rs[R_DABS * N],
+            rs[R_SX * N],   rs[R_SY * N],   rs[R_SZ * N],    rs[R_ST * N],
+            rs[R_SDX * N],  rs[R_SDY * N],  rs[R_SDZ * N],   rs[R_PEND * N]};
+      ident = steps[S_ID * N + slot];
+      if (rr.pend >= 0.0f) {  // the last launch's buffer was full: write first
+        if (push_record(rec_buf, rec_cnt, p.rec_cap, rr, x, y, z, t, dx, dy,
+                        dz, ident, inv_gv, rr.pend, p.rec_all ? 0.0f : w0,
+                        slot))
+          rr.pend = -1.0f;
+        else
+          iters = 0;  // still full: stay stalled
+      }
+    }
+
+    for (int it = 0; it < iters; ++it) {
       const bool fresh = inflight < 0.5f && left > 0.5f;
       if (!fresh && inflight < 0.5f) break;  // slot drained
 
@@ -281,6 +355,11 @@ propagate_kernel(const Params p, float* __restrict__ state,
         inflight = 1.0f;
         left -= 1.0f;
         ++n_gen;
+        if constexpr (RECORDS) {  // spawn-time record state
+          rr.wlen = wl; rr.abs0 = abs_left; rr.nscat = 0.0f;
+          rr.sx = x; rr.sy = y; rr.sz = z; rr.st = t;
+          rr.sdx = dx; rr.sdy = dy; rr.sdz = dz;
+        }
       }
       ++n_work;
 
@@ -428,6 +507,38 @@ propagate_kernel(const Params p, float* __restrict__ state,
         w_sum += (double)w0;
       }
 
+      // ---------- record: at the hit, or (rec_all) at the absorption
+      // point, prescaled on u7, dom 0 (engine._record_values) ----------
+      bool rec_now = false;
+      float rec_idx = 0.0f, rec_x = 0.0f, rec_y = 0.0f, rec_z = 0.0f;
+      if constexpr (RECORDS) {
+        int rdom = best_dom;
+        if (p.rec_all) {
+          rec_now = absorbed &&
+                    (p.rec_prescale >= 1.0f || u[7] < p.rec_prescale);
+          rdom = 0;
+        } else {
+          rec_now = hit;
+        }
+        if (rec_now) {
+          // the time bin of t + inv_gv * d_prop (d_prop is the hit
+          // distance for a hit)
+          const float tb = fminf(
+              fmaxf((t + inv_gv * d_prop - p.hist_t0) / p.hist_dt, 0.0f),
+              (float)(p.nbins - 1));
+          rec_idx = (float)(rdom * p.nbins + (int)tb);
+          // position relative to the DOM centre moved toward the
+          // closest-approach plane (the pancake un-correction)
+          const float4 c = doms[rdom];
+          const float pxr = x - c.x, pyr = y - c.y, pzr = z - c.z;
+          const float par = pxr * dx + pyr * dy + pzr * dz;
+          rec_x = x + d_prop * dx - (c.x + p.rec_fpk * (pxr - par * dx));
+          rec_y = y + d_prop * dy - (c.y + p.rec_fpk * (pyr - par * dy));
+          rec_z = z + d_prop * dz - (c.z + p.rec_fpk * (pzr - par * dz));
+          rr.dabs = rr.abs0 - abs_left;
+        }
+      }
+
       // ---------- advance ----------
       x += dx * d_prop;
       y += dy * d_prop;
@@ -459,10 +570,25 @@ propagate_kernel(const Params p, float* __restrict__ state,
         if (p.aniso)
           aniso_transform(p, 1.0f / p.an_k1, 1.0f / p.an_k2, 1.0f / p.an_kz,
                           &dx, &dy, &dz);
+        if constexpr (RECORDS) rr.nscat += 1.0f;
       }
 
       // ---------- retire ----------
       if (absorbed || abs_left < EPS || hit) inflight = 0.0f;
+
+      // ---------- append the record (the photon is dead: x/y/z keep the
+      // record position, t the record time; a full buffer stalls) ----------
+      if constexpr (RECORDS) {
+        if (rec_now) {
+          x = rec_x; y = rec_y; z = rec_z;
+          if (!push_record(rec_buf, rec_cnt, p.rec_cap, rr, x, y, z, t, dx,
+                           dy, dz, ident, inv_gv, rec_idx,
+                           p.rec_all ? 0.0f : w0, slot)) {
+            rr.pend = rec_idx;
+            break;
+          }
+        }
+      }
     }
 
     state[F_LEFT * N + slot] = left;
@@ -482,6 +608,14 @@ propagate_kernel(const Params p, float* __restrict__ state,
     state[F_QA * N + slot] = qa;
     state[F_RA * N + slot] = ra;
     n_alive = (inflight > 0.5f || left > 0.5f) ? 1 : 0;
+    if constexpr (RECORDS) {
+      rs[R_WLEN * N] = rr.wlen; rs[R_ABS0 * N] = rr.abs0;
+      rs[R_NSCAT * N] = rr.nscat; rs[R_DABS * N] = rr.dabs;
+      rs[R_SX * N] = rr.sx; rs[R_SY * N] = rr.sy; rs[R_SZ * N] = rr.sz;
+      rs[R_ST * N] = rr.st; rs[R_SDX * N] = rr.sdx; rs[R_SDY * N] = rr.sdy;
+      rs[R_SDZ * N] = rr.sdz; rs[R_PEND * N] = rr.pend;
+      if (rr.pend >= 0.0f) n_alive = 1;
+    }
   }
 
   // ---------- counters: warp, then block, then one atomic per block -------
@@ -528,12 +662,37 @@ int clsim_propagate(const Params* params, float* state, const float* steps,
                     long long* cnt_i, double* cnt_w, void* stream) {
   const int n = params->n_slots;
   const int grid = (n + BLOCK - 1) / BLOCK;
-  propagate_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+  propagate_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       *params, state, steps, uniforms, layers, spec_tab, bias_y, tilt_zc,
       reinterpret_cast<const float4*>(cells), hist,
-      reinterpret_cast<unsigned long long*>(cnt_i), cnt_w);
+      reinterpret_cast<unsigned long long*>(cnt_i), cnt_w, nullptr, nullptr,
+      nullptr);
   return (int)cudaGetLastError();
 }
+
+// The record mode: `state` has NSF + NRSF rows, `doms` is (n_doms, 4)
+// [x, y, z, 0], `rec_buf` holds params->rec_cap records of NRC floats and
+// `rec_cnt` (one zeroed int64) receives the number of appends tried.
+int clsim_propagate_records(const Params* params, float* state,
+                            const float* steps, const float* uniforms,
+                            const float* layers, const float* spec_tab,
+                            const float* bias_y, const float* tilt_zc,
+                            const float* cells, float* hist, long long* cnt_i,
+                            double* cnt_w, const float* doms, float* rec_buf,
+                            long long* rec_cnt, void* stream) {
+  const int n = params->n_slots;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  propagate_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+      *params, state, steps, uniforms, layers, spec_tab, bias_y, tilt_zc,
+      reinterpret_cast<const float4*>(cells), hist,
+      reinterpret_cast<unsigned long long*>(cnt_i), cnt_w,
+      reinterpret_cast<const float4*>(doms), rec_buf,
+      reinterpret_cast<unsigned long long*>(rec_cnt));
+  return (int)cudaGetLastError();
+}
+
+int clsim_record_columns(void) { return NRC; }
+int clsim_record_state_rows(void) { return NRSF; }
 
 const char* clsim_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

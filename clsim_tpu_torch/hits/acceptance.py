@@ -1,8 +1,9 @@
 """DOM acceptance curves: wavelength efficiency and angular sensitivity.
 
 PyTorch counterpart of clsim_tpu.hits.acceptance (IceCube DOM curves only;
-the Gen2, Antares and KM3NeT sensors wait for the records-and-hits item of
-ROADMAP.md queue A).  Equivalents of the reference's acceptance modules:
+the AngularSensitivity cutoff form and the Gen2, Antares and KM3NeT sensors
+wait for the media item of ROADMAP.md queue A).  Equivalents of the
+reference's acceptance modules:
   * icecube_dom_acceptance  <-> GetIceCubeDOMAcceptance.py:36-116 -- the
     photonics/ROMEO effective-area table (a physical-constants table,
     260..680nm in 10nm bins) divided by the DOM cross-section.
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from ..constants import DOM_RADIUS, PI
-from ..medium.functions import TableParams
+from ..medium.functions import TableParams, eval_polynomial
 
 # IceCube PMT+glass+gel effective area [m^2] at normal incidence, 260-680nm in
 # 10nm steps (the "dom2007a" ROMEO table adopted from photonics
@@ -72,6 +73,13 @@ def dom_angular_sensitivity(coefficients=None, device="cpu") -> torch.Tensor:
     if coefficients is None:
         coefficients = HOLE_ICE_H2_50CM["coefficients"]
     return torch.as_tensor(np.asarray(coefficients, np.float32), device=device)
+
+
+def angular_factor(coefficients, cos_eta):
+    """Angular acceptance at cos(eta) (clamped to [-1, 1]) for a plain
+    polynomial coefficient array, the IceCube hole-ice form (the polynomial
+    branch of clsim_tpu.hits.acceptance.angular_factor)."""
+    return eval_polynomial(coefficients, torch.clamp(cos_eta, -1.0, 1.0))
 
 
 def load_angular_sensitivity(path: str):

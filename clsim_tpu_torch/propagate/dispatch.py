@@ -2,8 +2,9 @@
 engine for CPU tensors (PyTorch counterpart of clsim_tpu.propagate.dispatch).
 
 On a CUDA device, "auto" takes the kernel when the configuration is
-supported and otherwise raises with the reason: a GPU run never quietly
-drops to the engine.  backend="engine" asks for the engine explicitly;
+supported (photon records included: the kernel's record mode) and otherwise
+raises with the reason (scatter-history rings, for one): a GPU run never
+quietly drops to the engine.  backend="engine" asks for the engine explicitly;
 backend="fused" runs the fused call loop on any device (on CPU tensors the
 wrapper runs the kernel's plain version).
 """
@@ -38,6 +39,16 @@ def backend_reason(medium: MediumProperties, spectra: SpectrumTable,
 # photons, H100 80GB HBM3 at 700 W) 256, 1024, 4096 and 16384 gave 1.01-1.04,
 # 0.98-1.01, 1.09-1.11 and 1.09-1.10 e9 photons/s (two runs each, PERF.md):
 # one launch that covers a slot's whole workload is best.
+#
+# Record mode (config.save_photons) takes the same 4096 iterations per
+# launch, and kernel.REC_CAPACITY (2**21 records, 185 MB) as the record
+# buffer of each launch, cut to the run's photon count: a launch whose
+# buffer fills stalls the threads that have a record left and is followed
+# by another launch, so the capacity trades memory against launches and
+# never loses a record.  The main path's 100 TeV cascade (1.8e7 photons on
+# hex61) makes 21,191 hit records (H100 80GB HBM3), one launch with room to
+# spare; SAVE_ALL at prescale 1 records every photon and takes about one
+# launch per 2**21 of them.
 ITERS_PER_CALL = 4096
 
 

@@ -29,9 +29,16 @@ point along the step, u1 wavelength, u2 Cherenkov azimuth, u3 absorption
 budget, u4 scattering budget, u5 phase-function branch, u6 scattering-angle
 sample, u7 scattering azimuth.
 
+Photon records (cfg.save_photons): a RecState carries the emission point,
+wavelength and scatter count of each slot's photon beside the SlotState, and
+a photon is recorded at its hit (or, with save_all_photons, at its
+absorption point).  propagate() writes the records into fixed-capacity rings
+per slot, as the JAX engine does; the kernel's plain version takes the same
+per-iteration record values through `emit` instead.
+
 Not ported yet (NotImplementedError): the expected estimator with soft
-binning and the score function (ROADMAP.md queue A item 17), photon records
-and history rings (queue A item 12).
+binning and the score function (ROADMAP.md queue A item 17) and the
+scatter-history rings (photon_history_entries).
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ from ..medium.anisotropy import (abs_len_scaling, post_scatter_transform,
                                  pre_scatter_transform)
 from ..medium.properties import MEDIA_ITEM, MediumProperties
 from ..medium.tilt import tilt_z_shift
-from ..ops.rotations import safe_sqrt, scatter_direction_by_angle
+from ..ops.rotations import (cart_to_sph, safe_sqrt,
+                             scatter_direction_by_angle)
 from ..ops.samplers import mixed_cos
 from ..ops.spectrum import (SpectrumTable, sample_wavelength_dispatch,
                             wavelength_bias)
@@ -58,8 +66,24 @@ BIG = 1e30
 
 EXPECTED_ITEM = ("the expected estimator, soft binning and the score "
                  "function are queued (ROADMAP.md queue A item 17)")
-RECORDS_ITEM = ("photon records and history rings are queued (ROADMAP.md "
-                "queue A item 12)")
+HISTORY_ITEM = ("photon scatter-history rings (photon_history_entries) are "
+                "queued (ROADMAP.md queue A item 12)")
+
+# raw record columns (the JAX kernel's REC_QUEUE_FIELDS): what the CUDA
+# kernel writes per record, and what the kernel's plain version takes from
+# the record block; records_from_rows derives the public fields from them
+REC_QUEUE_FIELDS = ["pos_x", "pos_y", "pos_z", "time", "dir_x", "dir_y",
+                    "dir_z", "wavelength", "identifier", "start_x",
+                    "start_y", "start_z", "start_time", "start_dx",
+                    "start_dy", "start_dz", "inv_gv", "num_scatters",
+                    "dist_in_abs_lens"]
+
+# public record fields (the JAX engine's ring fields, in its order)
+REC_FIELDS = ["pos_x", "pos_y", "pos_z", "time", "dir_theta", "dir_phi",
+              "wavelength", "cherenkov_dist", "num_scatters", "weight",
+              "identifier", "dom", "start_x", "start_y", "start_z",
+              "start_time", "start_theta", "start_phi", "group_velocity",
+              "dist_in_abs_lens"]
 
 
 class SlotState(NamedTuple):
@@ -84,12 +108,36 @@ class SlotState(NamedTuple):
     ra: torch.Tensor
 
 
+class RecState(NamedTuple):
+    """Per-slot record state, carried beside SlotState only when
+    cfg.save_photons (SlotState is the kernel's main-path layout and stays
+    as it is).  Every field is a float32 (N,) tensor.  The CUDA kernel's
+    record mode keeps every field but total_path as extra state rows
+    (propagate/kernel.py REC_STATE_FIELDS)."""
+    wlen: torch.Tensor          # wavelength [nm]
+    abs_init: torch.Tensor      # absorption budget at spawn [abs. lengths]
+    n_scat: torch.Tensor        # scatters so far
+    dist_abs: torch.Tensor      # abs_init - abs_left at the last record
+    start_x: torch.Tensor       # emission point, time and direction
+    start_y: torch.Tensor
+    start_z: torch.Tensor
+    start_t: torch.Tensor
+    start_dx: torch.Tensor
+    start_dy: torch.Tensor
+    start_dz: torch.Tensor
+    total_path: torch.Tensor    # path length so far [m] (engine rings only)
+
+
 class Accumulators(NamedTuple):
     hist: torch.Tensor         # (n_doms * n_bins,) float32 weighted hits
     n_generated: torch.Tensor  # () float64 photons spawned
     n_hits: torch.Tensor       # () float64 photons detected
     weight_hits: torch.Tensor  # () float64 sum of deposited weights
     n_work: torch.Tensor       # () float64 slot-iterations with a photon
+    # record rings, (N, photon_capacity_per_slot) float32 per REC_FIELDS
+    # entry, and the (N,) int32 records per slot; None without rings
+    rec_count: Optional[torch.Tensor] = None
+    rec: Optional[dict] = None
 
 
 class PropagationResult(NamedTuple):
@@ -101,6 +149,12 @@ class PropagationResult(NamedTuple):
     # fused-path counter vector (propagate/kernel.py CNT_* layout, float64,
     # on the device); None on the engine path
     diag_totals: Optional[torch.Tensor] = None
+    # photon records (cfg.save_photons): a dict of REC_FIELDS tensors and
+    # the record counts.  The engine gives (N, capacity) rings and (N,)
+    # counts; the fused path and Simulation.run_steps give one (1, R) row
+    # and [R] (hits/photons.compact_records)
+    rec_count: Optional[torch.Tensor] = None
+    rec: Optional[dict] = None
 
     @property
     def diagnostics(self) -> Optional[dict]:
@@ -110,7 +164,7 @@ class PropagationResult(NamedTuple):
         t = self.diag_totals.detach().cpu().numpy().astype(np.float64)
         return {"generated": t[0], "hits": t[1], "weight_sum": t[2],
                 "dropped": t[3], "abandoned": t[4], "queued": t[5],
-                "work": t[6]}
+                "work": t[6], "stalled": t[7]}
 
 
 def check_supported(cfg: PropagationConfig, medium: MediumProperties):
@@ -120,8 +174,8 @@ def check_supported(cfg: PropagationConfig, medium: MediumProperties):
     if (cfg.estimator != "detect" or cfg.soft_binning or cfg.score_function
             or cfg.expected_angular_poly is not None):
         raise NotImplementedError(EXPECTED_ITEM)
-    if cfg.save_photons or cfg.photon_history_entries > 0:
-        raise NotImplementedError(RECORDS_ITEM)
+    if cfg.photon_history_entries > 0:
+        raise NotImplementedError(HISTORY_ITEM)
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +185,8 @@ def check_supported(cfg: PropagationConfig, medium: MediumProperties):
 def _create_photons(state: SlotState, steps: StepBatch,
                     medium: MediumProperties, spectra: SpectrumTable,
                     cfg: PropagationConfig, u, fresh):
-    """Spawn a new photon from each slot's step where `fresh` is set."""
+    """Spawn a new photon from each slot's step where `fresh` is set.
+    Returns (state, wavelengths sampled for every lane)."""
     u_shift, u_wlen, u_azi, u_abs = u[0], u[1], u[2], u[3]
 
     shift = steps.length * u_shift
@@ -173,7 +228,94 @@ def _create_photons(state: SlotState, steps: StepBatch,
         w0=sel(w0, state.w0), inv_gv=sel(inv_gv, state.inv_gv),
         abs_left=sel(abs_init, state.abs_left),
         gs=sel(gs, state.gs), pa=sel(pa, state.pa), qa=sel(qa, state.qa),
-        ra=sel(ra, state.ra))
+        ra=sel(ra, state.ra)), wlen
+
+
+def _spawn_records(rstate: RecState, state: SlotState, wlen, fresh):
+    """Spawn-time record state of fresh photons (I3Photon start fields);
+    `state` already holds the fresh photons."""
+    sel = lambda new, old: torch.where(fresh, new, old)
+    zero = torch.zeros_like(wlen)
+    return RecState(
+        wlen=sel(wlen, rstate.wlen), abs_init=sel(state.abs_left,
+                                                  rstate.abs_init),
+        n_scat=sel(zero, rstate.n_scat), dist_abs=rstate.dist_abs,
+        start_x=sel(state.x, rstate.start_x),
+        start_y=sel(state.y, rstate.start_y),
+        start_z=sel(state.z, rstate.start_z),
+        start_t=sel(state.t, rstate.start_t),
+        start_dx=sel(state.dx, rstate.start_dx),
+        start_dy=sel(state.dy, rstate.start_dy),
+        start_dz=sel(state.dz, rstate.start_dz),
+        total_path=sel(zero, rstate.total_path))
+
+
+def _record_values(state: SlotState, rstate: RecState, steps: StepBatch,
+                   cfg: PropagationConfig, dom_xyz, u, active, hit, absorbed,
+                   hit_dist, hit_dom, d_prop, t_hit, w_hit, tbin):
+    """The record block (the JAX engine's, engine.py:634-681): which lanes
+    record this iteration and the raw record of every lane.
+
+    A lane records at its hit, or with save_all_photons at its absorption
+    point (prescaled on u7, dom 0, collision ignored,
+    propagation_kernel.c.cl:800-826).  The position is relative to the DOM
+    centre moved toward the closest-approach plane, which undoes the
+    pancake flattening (propagation_kernel.c.cl:340-355).  Returns
+    (rec_mask, raw, dist): raw maps REC_QUEUE_FIELDS and flat_idx (dom *
+    n_bins + time bin), weight, dom and slot to (N,) float32 tensors; dist
+    is the distance of the record point along the segment."""
+    if cfg.save_all_photons:
+        rec_mask = active & absorbed
+        if cfg.save_all_prescale < 1.0:
+            rec_mask = rec_mask & (u[7] < cfg.save_all_prescale)
+        dist = d_prop
+        dom = torch.zeros_like(hit_dom)
+    else:
+        rec_mask = hit & active
+        dist, dom = hit_dist, hit_dom
+    ctr = dom_xyz[dom]
+    ddx, ddy, ddz = ctr[:, 0], ctr[:, 1], ctr[:, 2]
+    if cfg.pancake_factor != 1.0:
+        pxr, pyr, pzr = state.x - ddx, state.y - ddy, state.z - ddz
+        par = pxr * state.dx + pyr * state.dy + pzr * state.dz
+        f = (cfg.pancake_factor - 1.0) / cfg.pancake_factor
+        ddx = ddx + f * (pxr - par * state.dx)
+        ddy = ddy + f * (pyr - par * state.dy)
+        ddz = ddz + f * (pzr - par * state.dz)
+    f32 = lambda a: a.to(torch.float32)
+    raw = dict(
+        pos_x=state.x + dist * state.dx - ddx,
+        pos_y=state.y + dist * state.dy - ddy,
+        pos_z=state.z + dist * state.dz - ddz,
+        time=t_hit, dir_x=state.dx, dir_y=state.dy, dir_z=state.dz,
+        wavelength=rstate.wlen, identifier=f32(steps.identifier),
+        start_x=rstate.start_x, start_y=rstate.start_y,
+        start_z=rstate.start_z, start_time=rstate.start_t,
+        start_dx=rstate.start_dx, start_dy=rstate.start_dy,
+        start_dz=rstate.start_dz, inv_gv=state.inv_gv,
+        num_scatters=rstate.n_scat,
+        dist_in_abs_lens=rstate.abs_init - state.abs_left,
+        flat_idx=f32(dom * cfg.hist_n_bins + tbin), weight=w_hit,
+        dom=f32(dom), slot=f32(torch.arange(dom.shape[0], device=dom.device)))
+    return rec_mask, raw, dist
+
+
+def _ring_write(acc: Accumulators, rec_mask, raw, rstate: RecState, dist,
+                cfg: PropagationConfig) -> Accumulators:
+    """Write the masked lanes' records into their rings at rec_count %
+    capacity (oldest overwritten), by index: each lane writes only its own
+    row, so the scatter is conflict-free and needs no host sync."""
+    theta, phi = cart_to_sph(raw["dir_x"], raw["dir_y"], raw["dir_z"])
+    s_theta, s_phi = cart_to_sph(raw["start_dx"], raw["start_dy"],
+                                 raw["start_dz"])
+    vals = dict(raw, dir_theta=theta, dir_phi=phi, start_theta=s_theta,
+                start_phi=s_phi, cherenkov_dist=rstate.total_path + dist,
+                group_velocity=1.0 / raw["inv_gv"])
+    lane = torch.arange(rec_mask.shape[0], device=rec_mask.device)
+    pos = (acc.rec_count % cfg.photon_capacity_per_slot).to(torch.int64)
+    for k, ring in acc.rec.items():
+        ring[lane, pos] = torch.where(rec_mask, vals[k], ring[lane, pos])
+    return acc._replace(rec_count=acc.rec_count + rec_mask.to(torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -388,12 +530,19 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
                medium: MediumProperties, geo: Optional[DetectorGeometry],
                spectra: SpectrumTable, cfg: PropagationConfig,
                generator: Optional[torch.Generator] = None, uniforms=None,
-               collide=None):
+               collide=None, rstate: Optional[RecState] = None,
+               dom_xyz=None, emit=None, enabled=None):
     """One iteration over all slots.  `uniforms` (T, 8, N): iteration i reads
     row i; otherwise an (8, N) block is drawn from `generator`.  `collide`
     replaces the dense collision test: collide(state, d_prop, active) ->
     (hit, hit_dist, hit_dom) (the kernel's plain version passes its
-    SubPlan test)."""
+    SubPlan test).
+
+    With cfg.save_photons, `rstate` and `dom_xyz` ((n_doms, 3) DOM
+    centres) are required; the iteration's records go to the rings in
+    `acc`, or, when `emit` is given, to emit(rec_mask, raw) (see
+    _record_values).  `enabled` ((N,) bool) leaves the other lanes
+    untouched this iteration.  Returns (state, acc, rstate)."""
     n = state.x.shape[0]
     if uniforms is not None:
         u = uniforms[i]
@@ -403,11 +552,18 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
 
     # --- spawn new photons into empty slots ---
     fresh = (state.in_flight < 0.5) & (state.photons_left > 0.5)
-    state = _create_photons(state, steps, medium, spectra, cfg, u, fresh)
+    if enabled is not None:
+        fresh = fresh & enabled
+    state, wlen = _create_photons(state, steps, medium, spectra, cfg, u,
+                                  fresh)
+    if rstate is not None:
+        rstate = _spawn_records(rstate, state, wlen, fresh)
     freshf = fresh.to(state.x.dtype)
     state = state._replace(in_flight=torch.maximum(state.in_flight, freshf),
                            photons_left=state.photons_left - freshf)
     active = state.in_flight > 0.5
+    if enabled is not None:
+        active = active & enabled
     acc = acc._replace(
         n_generated=acc.n_generated + fresh.sum(),
         n_work=acc.n_work + active.sum())
@@ -452,6 +608,18 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
         n_hits=acc.n_hits + hit.sum(),
         weight_hits=acc.weight_hits + w_hit.sum(dtype=torch.float64))
 
+    # --- photon records ---
+    if cfg.save_photons:
+        rec_mask, raw, rdist = _record_values(
+            state, rstate, steps, cfg, dom_xyz, u, active, hit, absorbed,
+            hit_dist, hit_dom, d_prop, t_hit, w_hit, tbin)
+        rstate = rstate._replace(dist_abs=torch.where(
+            rec_mask, raw["dist_in_abs_lens"], rstate.dist_abs))
+        if emit is not None:
+            emit(rec_mask, raw)
+        else:
+            acc = _ring_write(acc, rec_mask, raw, rstate, rdist, cfg)
+
     # --- advance ---
     dp = torch.where(active, d_prop, torch.zeros_like(d_prop))
     state = state._replace(
@@ -460,6 +628,8 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
         z=state.z + state.dz * dp,
         t=state.t + state.inv_gv * dp,
         abs_left=torch.where(active, abs_left, state.abs_left))
+    if rstate is not None:
+        rstate = rstate._replace(total_path=rstate.total_path + dp)
 
     # --- scatter survivors ---
     do_scatter = scattered & active
@@ -475,6 +645,9 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
         dx=torch.where(do_scatter, sdx, state.dx),
         dy=torch.where(do_scatter, sdy, state.dy),
         dz=torch.where(do_scatter, sdz, state.dz))
+    if rstate is not None:
+        rstate = rstate._replace(n_scat=rstate.n_scat + do_scatter.to(
+            rstate.n_scat.dtype))
 
     # --- retire absorbed / detected photons (the reference kills a photon
     # whenever its remaining budget drops below EPSILON,
@@ -484,7 +657,7 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
         died = died | hit
     state = state._replace(in_flight=torch.where(
         died, torch.zeros_like(state.in_flight), state.in_flight))
-    return state, acc
+    return state, acc, rstate
 
 
 # ---------------------------------------------------------------------------
@@ -506,12 +679,37 @@ def _init_state(steps: StepBatch) -> SlotState:
         abs_left=zf, gs=ones, pa=zf, qa=ones, ra=zf)
 
 
-def _init_acc(n_doms: int, cfg: PropagationConfig, device) -> Accumulators:
+def _init_rec_state(n: int, device) -> RecState:
+    zf = torch.zeros(n, dtype=torch.float32, device=device)
+    ones = torch.ones(n, dtype=torch.float32, device=device)
+    return RecState(wlen=torch.full((n,), 400.0, device=device),
+                    abs_init=ones, n_scat=zf, dist_abs=zf, start_x=zf,
+                    start_y=zf, start_z=zf, start_t=zf, start_dx=zf,
+                    start_dy=zf, start_dz=ones, total_path=zf)
+
+
+def _init_acc(n_doms: int, cfg: PropagationConfig, device,
+              n_rings: int = 0) -> Accumulators:
+    """Accumulators; with n_rings > 0 (and cfg.save_photons) also record
+    rings for that many slots."""
     z64 = lambda: torch.zeros((), dtype=torch.float64, device=device)
+    rec = rec_count = None
+    if cfg.save_photons and n_rings > 0:
+        shape = (n_rings, cfg.photon_capacity_per_slot)
+        rec = {f: torch.zeros(shape, dtype=torch.float32, device=device)
+               for f in REC_FIELDS}
+        rec_count = torch.zeros(n_rings, dtype=torch.int32, device=device)
     return Accumulators(
         hist=torch.zeros(n_doms * cfg.hist_n_bins, dtype=torch.float32,
                          device=device),
-        n_generated=z64(), n_hits=z64(), weight_hits=z64(), n_work=z64())
+        n_generated=z64(), n_hits=z64(), weight_hits=z64(), n_work=z64(),
+        rec_count=rec_count, rec=rec)
+
+
+def dom_centres(geo: DetectorGeometry) -> torch.Tensor:
+    """(n_doms, 3) float32 DOM centres (the record block's origin)."""
+    return torch.stack([geo.dom_x, geo.dom_y, geo.dom_z], 1).to(
+        torch.float32)
 
 
 def propagate(steps: StepBatch, medium: MediumProperties,
@@ -526,15 +724,20 @@ def propagate(steps: StepBatch, medium: MediumProperties,
     a positive value runs exactly that many iterations.  `uniforms`
     ((T, 8, N) float32) replaces the generator stream and sets T
     iterations: the shared-stream contract with the JAX engine and the
-    kernel."""
+    kernel.  With cfg.save_photons the result carries the record rings
+    (photon_capacity_per_slot per slot)."""
     check_supported(cfg, medium)
     device = steps.x.device
     if uniforms is not None:
         max_iterations = int(uniforms.shape[0])
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
+    n = steps.x.shape[0]
     state = _init_state(steps)
-    acc = _init_acc(geo.n_doms, cfg, device)
+    acc = _init_acc(geo.n_doms, cfg, device, n_rings=n)
+    rstate = dom_xyz = None
+    if cfg.save_photons:
+        rstate, dom_xyz = _init_rec_state(n, device), dom_centres(geo)
 
     i = 0
     while True:
@@ -544,8 +747,10 @@ def propagate(steps: StepBatch, medium: MediumProperties,
         elif not bool(((state.in_flight > 0.5)
                        | (state.photons_left > 0.5)).any()):
             break
-        state, acc = _iteration(i, state, acc, steps, medium, geo, spectra,
-                                cfg, generator=generator, uniforms=uniforms)
+        state, acc, rstate = _iteration(
+            i, state, acc, steps, medium, geo, spectra, cfg,
+            generator=generator, uniforms=uniforms, rstate=rstate,
+            dom_xyz=dom_xyz)
         i += 1
 
     return PropagationResult(
@@ -553,4 +758,4 @@ def propagate(steps: StepBatch, medium: MediumProperties,
         n_generated=acc.n_generated,
         n_hits=acc.n_hits,
         weight_hits=acc.weight_hits,
-        n_iterations=i)
+        n_iterations=i, rec_count=acc.rec_count, rec=acc.rec)

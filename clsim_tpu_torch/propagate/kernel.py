@@ -10,6 +10,13 @@ its hit into the histogram with atomicAdd and scatters, up to
 compact_scatter_add and the queue flush have no counterpart and
 CNT_DROPPED is always 0.
 
+Photon records (spec.records, B5) are the kernel's RECORDS instantiation:
+the record state rides as extra state rows, and each record is appended to
+a device buffer of REC_COLUMNS rows whose capacity per launch the call
+loop chooses.  A thread whose record finds the buffer full keeps it pending in
+its state and leaves its loop; the next launch writes it first, so no
+record is lost (the CUDA form of the TPU kernel's pending registers).
+
 This module holds
   * the collision planning, ported from the JAX package (numpy; the same
     SubPlans and cell tables),
@@ -25,7 +32,8 @@ This module holds
 The kernel serves the main path's configuration only: the detect estimator
 with stop-on-detection, the icecube medium and scattering, one spectrum, a
 uniform bias grid and non-empty SubPlans; tilt and anisotropy may be on or
-off.  spec_unsupported() names the ROADMAP.md queue B item for any other
+off, and photon records (with SAVE_ALL and its prescale) may be on.
+spec_unsupported() names the ROADMAP.md queue B item for any other
 configuration, and the wrapper raises rather than fall back.
 """
 
@@ -39,20 +47,39 @@ import torch
 
 from ..geometry import DetectorGeometry, to_numpy
 from ..medium.properties import MediumProperties
+from ..ops.rotations import cart_to_sph
 from ..ops.spectrum import SpectrumTable
 from ..types import PropagationConfig, StepBatch
 from . import engine as E
 
 STATE_FIELDS = list(E.SlotState._fields)
 NSF = len(STATE_FIELDS)
+# extra state rows of the record mode: the record state (without the
+# engine-only total_path) and `pend`, the flat (dom, time-bin) index of a
+# record that did not fit into its launch's buffer (-1: none).  A recorded
+# photon is dead, so x/y/z hold its record position, t its time, and the
+# pending record is rebuilt from the state rows.
+REC_STATE_FIELDS = list(E.RecState._fields[:-1]) + ["pend"]
+NRSF = len(REC_STATE_FIELDS)
 STEP_FIELDS = ["x", "y", "z", "t", "dir_x", "dir_y", "dir_z",
                "length", "beta", "weight", "source_type", "identifier"]
 NST = len(STEP_FIELDS)
 
+# columns of one record in the device buffer (float32 each): the JAX
+# kernel's 19 queue fields, the flat (dom, time-bin) index, the weight and
+# the slot (an internal column: records land in no fixed order, and tests
+# match them on (slot, dom))
+REC_QUEUE_FIELDS = E.REC_QUEUE_FIELDS
+REC_COLUMNS = REC_QUEUE_FIELDS + ["flat_idx", "weight", "slot"]
+NRC = len(REC_COLUMNS)
+
 # counter vector layout, as in the JAX package (CNT_DROPPED stays 0: hits
-# go straight into the histogram; CNT_QUEUED counts deposited hits)
+# go straight into the histogram; CNT_QUEUED counts deposited hits, or in
+# record mode the records written), plus CNT_STALLED: launches whose
+# record buffer filled (their stalled records went to the next launch)
 (CNT_GEN, CNT_HITS, CNT_WSUM, CNT_DROPPED, CNT_ALIVE, CNT_QUEUED,
- CNT_WORK) = range(7)
+ CNT_WORK, CNT_STALLED) = range(8)
+N_CNT = 8
 
 # static limits of csrc/propagate.cu (array sizes in its parameter block)
 MAX_PLANS = 4
@@ -60,8 +87,10 @@ MAX_ROUNDS = 4
 MAX_TILT_D = 16
 MAX_DOM_CAND = 16
 
-# launches of the CUDA kernel (the wrapper adds one per launch)
+# launches of the CUDA kernel's two instantiations (the wrapper adds one per
+# launch): the main path's, and the record mode's
 LAUNCHES = 0
+RECORD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------
@@ -379,6 +408,8 @@ class FusedSpec(NamedTuple):
     expected: bool
     stopping: bool
     records: bool
+    rec_all: bool          # SAVE_ALL_PHOTONS: record at the absorption point
+    rec_prescale: float    # SAVE_ALL_PHOTONS_PRESCALE
     fixed_abs: bool
     medium_tables: bool
     scat_table: bool
@@ -412,6 +443,8 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
         expected=cfg.estimator == "expected",
         stopping=cfg.stop_on_detection,
         records=bool(cfg.save_photons),
+        rec_all=bool(cfg.save_photons and cfg.save_all_photons),
+        rec_prescale=float(cfg.save_all_prescale),
         fixed_abs=cfg.fixed_abs_lens > 0,
         medium_tables=medium.medium_kind != "icecube",
         scat_table=medium.scattering.kind != "icecube",
@@ -425,8 +458,6 @@ def spec_unsupported(spec: FusedSpec) -> Optional[str]:
         return ("expected estimator, non-stopping detect and fixed "
                 "absorption horizon are not in the CUDA kernel yet "
                 "(ROADMAP.md queue B item B6)")
-    if spec.records:
-        return "photon records are not in the CUDA kernel yet (ROADMAP.md B5)"
     if spec.medium_tables or spec.scat_table:
         return ("water / photonics media and tabulated scattering are not "
                 "in the CUDA kernel yet (ROADMAP.md B7)")
@@ -462,6 +493,7 @@ class FusedTables(NamedTuple):
     cells: torch.Tensor           # flat (sum n_cells*K_cand, 4) candidates
     plan_cells: tuple             # per SubPlan: (n_cells, K_cand, 4) view
     plan_offsets: tuple           # per SubPlan: first candidate row
+    doms: torch.Tensor            # (n_doms, 4) DOM centres x, y, z, 0
     scalars: dict                 # float scalars of the parameter block
 
 
@@ -528,6 +560,8 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         tilt_zc=(tl.z_corrections.to(torch.float32).contiguous()
                  if tl.enabled else torch.zeros(1, device=dev)),
         cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
+        doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
+            dev).contiguous(),
         scalars=sc)
 
 
@@ -537,9 +571,33 @@ def pack_steps(steps: StepBatch) -> torch.Tensor:
                         for f in STEP_FIELDS]).contiguous()
 
 
-def init_state(steps: StepBatch) -> torch.Tensor:
-    """(NSF, N) float32 slot state in STATE_FIELDS order."""
-    return torch.stack(list(E._init_state(steps))).contiguous()
+def init_state(steps: StepBatch, records: bool = False) -> torch.Tensor:
+    """(NSF, N) float32 slot state in STATE_FIELDS order; with `records`
+    (NSF + NRSF, N), the REC_STATE_FIELDS rows after it."""
+    rows = list(E._init_state(steps))
+    if records:
+        n, dev = steps.x.shape[0], steps.x.device
+        rows += list(E._init_rec_state(n, dev))[:-1]
+        rows.append(torch.full((n,), -1.0, device=dev))
+    return torch.stack(rows).contiguous()
+
+
+def records_from_rows(rows: torch.Tensor, n_bins: int) -> dict:
+    """The public record dict (REC_FIELDS, each (1, R) float32) from raw
+    (R, NRC) record rows, derived on the rows' device as the JAX call loop
+    does on the host (kernel.py:2687-2714): directions as (theta, phi),
+    group velocity 1/inv_gv, cherenkov_dist (time - start_time) * group
+    velocity, dom from the flat index.  SAVE_ALL records carry weight 0."""
+    f = dict(zip(REC_COLUMNS, rows.to(torch.float32).unbind(1)))
+    theta, phi = cart_to_sph(f["dir_x"], f["dir_y"], f["dir_z"])
+    s_theta, s_phi = cart_to_sph(f["start_dx"], f["start_dy"],
+                                 f["start_dz"])
+    inv_gv = torch.clamp(f["inv_gv"], min=1e-20)
+    rec = dict(f, dir_theta=theta, dir_phi=phi, start_theta=s_theta,
+               start_phi=s_phi, group_velocity=1.0 / inv_gv,
+               cherenkov_dist=(f["time"] - f["start_time"]) / inv_gv,
+               dom=torch.floor(f["flat_idx"] / n_bins))
+    return {k: rec[k][None, :] for k in E.REC_FIELDS}
 
 
 # ---------------------------------------------------------------------------
@@ -616,17 +674,74 @@ def _seed64(seed: int, call_no: int) -> int:
         1, np.uint64)[0]) & (2 ** 63 - 1)
 
 
+# default record-buffer capacity per launch: 2**21 records of NRC float32
+# columns (185 MB).  Propagation in record mode drains in one launch when
+# its records fit; SAVE_ALL at the main path's 1.8e7 photons takes ~9
+# launches at prescale 1, each stall costing only a relaunch.
+REC_CAPACITY = 1 << 21
+
+
+def default_rec_capacity(spec: FusedSpec) -> int:
+    """Records one launch can produce at most: one per slot and iteration,
+    plus one pending record per slot, bounded by REC_CAPACITY."""
+    return min(REC_CAPACITY, spec.n_slots * (spec.iters_per_call + 1))
+
+
+class _RecordBuffer:
+    """The kernel's record buffer in plain PyTorch.  Records are written in
+    slot order until `capacity` are in; the lanes whose record does not fit
+    are returned and sit out the rest of the launch with it pending (the
+    CUDA kernel's stall rule, where the order is that of the atomics)."""
+
+    def __init__(self, capacity: int):
+        self.capacity, self.rows, self.n, self.stalled = capacity, [], 0, 0
+
+    def push(self, lanes, cols: dict):
+        room = max(self.capacity - self.n, 0)
+        fit = lanes[:room]
+        if fit.numel():
+            self.rows.append(torch.stack([cols[c][fit] for c in REC_COLUMNS],
+                                         1))
+            self.n += int(fit.numel())
+        self.stalled += int(lanes.numel() - fit.numel())
+        return lanes[room:]
+
+    def result(self, device):
+        return (torch.cat(self.rows) if self.rows
+                else torch.zeros((0, NRC), device=device))
+
+
+def _pending_columns(st: E.SlotState, rs: E.RecState, sb: StepBatch, pend,
+                     rec_all: bool) -> dict:
+    """Record columns rebuilt from the state rows of dead, recorded photons
+    (x/y/z hold the record position, t the record time)."""
+    n = st.x.shape[0]
+    return dict(
+        pos_x=st.x, pos_y=st.y, pos_z=st.z, time=st.t, dir_x=st.dx,
+        dir_y=st.dy, dir_z=st.dz, wavelength=rs.wlen,
+        identifier=sb.identifier.to(torch.float32), start_x=rs.start_x,
+        start_y=rs.start_y, start_z=rs.start_z, start_time=rs.start_t,
+        start_dx=rs.start_dx, start_dy=rs.start_dy, start_dz=rs.start_dz,
+        inv_gv=st.inv_gv, num_scatters=rs.n_scat, dist_in_abs_lens=rs.dist_abs,
+        flat_idx=pend, weight=torch.zeros_like(st.w0) if rec_all else st.w0,
+        slot=torch.arange(n, device=st.x.device, dtype=torch.float32))
+
+
 def run_fused_iterations_plain(state, steps, tables: FusedTables,
                                spec: FusedSpec, *, uniforms=None, seed=0,
-                               call_no=0, hist=None):
+                               call_no=0, hist=None, rec_capacity=None):
     """The kernel's computation in plain PyTorch: up to iters_per_call
     iterations of engine._iteration on the kernel's state layout, with the
     kernel's SubPlan collision test.  Updates `state` in place and deposits
     into `hist` (allocated when None).  Its random numbers come from a
-    torch.Generator unless `uniforms` (T, 8, N) is given."""
+    torch.Generator unless `uniforms` (T, 8, N) is given.
+
+    With spec.records the records of the engine's record block are kept
+    as (R, NRC) rows under the kernel's capacity rule (_RecordBuffer), and
+    the return value gains them (see run_fused_iterations)."""
     cfg = spec.cfg
     dev = state.device
-    st = E.SlotState(*state.unbind(0))
+    st = E.SlotState(*state[:NSF].unbind(0))
     sb = StepBatch(**{f: steps[k] for k, f in enumerate(STEP_FIELDS)},
                    num_photons=st.photons_left)
     acc = E._init_acc(spec.n_doms, cfg, dev)
@@ -637,19 +752,58 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
         generator = torch.Generator(device=dev)
         generator.manual_seed(_seed64(seed, call_no))
     collide = lambda s, d, a: _check_collisions_subplan(s, tables, spec, d, a)
+    rs = emit = enabled = None
+    if spec.records:
+        rows = state[NSF:].unbind(0)
+        rs = E.RecState(*rows[:-1], total_path=torch.zeros_like(st.x))
+        pend = rows[-1].clone()
+        buf = _RecordBuffer(default_rec_capacity(spec) if rec_capacity is None
+                            else rec_capacity)
+        enabled = torch.ones_like(pend, dtype=torch.bool)
+        # pending records from the last launch go first
+        lanes = torch.nonzero(pend >= 0.0)[:, 0]
+        if lanes.numel():
+            stalled = buf.push(lanes, _pending_columns(st, rs, sb, pend,
+                                                       spec.rec_all))
+            written = lanes[:lanes.numel() - stalled.numel()]
+            pend[written] = -1.0
+            enabled[stalled] = False
+        recorded = []
+        emit = lambda mask, raw: recorded.append((mask, raw))
     for i in range(spec.iters_per_call):
-        if i % 16 == 0 and not bool(((st.in_flight > 0.5)
-                                     | (st.photons_left > 0.5)).any()):
-            break
-        st, acc = E._iteration(i, st, acc, sb, tables.medium, None,
-                               tables.spectra, cfg, generator=generator,
-                               uniforms=uniforms, collide=collide)
-    state.copy_(torch.stack(list(st)))
-    alive = ((st.in_flight > 0.5) | (st.photons_left > 0.5)).sum()
+        if i % 16 == 0:
+            live = (st.in_flight > 0.5) | (st.photons_left > 0.5)
+            if not bool((live if enabled is None else live & enabled).any()):
+                break
+        st, acc, rs = E._iteration(
+            i, st, acc, sb, tables.medium, None, tables.spectra, cfg,
+            generator=generator, uniforms=uniforms, collide=collide,
+            rstate=rs, dom_xyz=tables.doms[:, :3], emit=emit,
+            enabled=enabled)
+        if spec.records:
+            # the photon is dead: its x/y/z keep the record position
+            mask, raw = recorded.pop()
+            st = st._replace(**{a: torch.where(mask, raw["pos_" + a], v)
+                                for a, v in (("x", st.x), ("y", st.y),
+                                             ("z", st.z))})
+            stalled = buf.push(torch.nonzero(mask)[:, 0], raw)
+            pend[stalled] = raw["flat_idx"][stalled]
+            enabled[stalled] = False
+    rows = list(st)
+    alive = (st.in_flight > 0.5) | (st.photons_left > 0.5)
+    if spec.records:
+        rows += list(rs)[:-1] + [pend]
+        alive = alive | (pend >= 0.0)
+    state.copy_(torch.stack(rows))
     zero = torch.zeros((), dtype=torch.float64, device=dev)
+    f64 = lambda v: torch.as_tensor(v, dtype=torch.float64, device=dev)
+    queued = f64(buf.n) if spec.records else acc.n_hits
+    stalled = f64(float(spec.records and buf.stalled > 0))
     counters = torch.stack([acc.n_generated, acc.n_hits, acc.weight_hits,
-                            zero, alive.to(torch.float64), acc.n_hits,
-                            acc.n_work]).to(torch.float64)
+                            zero, alive.sum().to(torch.float64), queued,
+                            acc.n_work, stalled]).to(torch.float64)
+    if spec.records:
+        return state, acc.hist, counters, buf.result(dev)
     return state, acc.hist, counters
 
 
@@ -680,11 +834,13 @@ class _Params(ctypes.Structure):
             "tilt_sa", "bias_x0", "bias_inv_dx")]
         + [("n", ctypes.c_float * 5), ("g", ctypes.c_float * 5),
            ("tilt_d", ctypes.c_float * MAX_TILT_D),
-           ("plans", _Plan * MAX_PLANS)])
+           ("plans", _Plan * MAX_PLANS)]
+        + [(n, ctypes.c_int) for n in ("rec_cap", "rec_all")]
+        + [(n, ctypes.c_float) for n in ("rec_prescale", "rec_fpk")])
 
 
 def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
-            seed: int, call_no: int) -> _Params:
+            seed: int, call_no: int, rec_capacity: int = 0) -> _Params:
     sc = tables.scalars
     p = _Params()
     p.n_slots, p.iters, p.K, p.L = (spec.n_slots, spec.iters_per_call,
@@ -710,6 +866,10 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
         q.uz_nd, q.minz, q.maxz = sp.uz_nd, sp.minz, sp.maxz
         q.nx, q.ny, q.k_cand = sp.nx, sp.ny, sp.K_cand
         q.n_dom_cand, q.rounds, q.cell_off = sp.n_dom_cand, sp.rounds, off
+    pancake = spec.cfg.pancake_factor
+    p.rec_cap, p.rec_all = rec_capacity, int(spec.rec_all)
+    p.rec_prescale = spec.rec_prescale
+    p.rec_fpk = (pancake - 1.0) / pancake   # the engine's un-pancake factor
     return p
 
 
@@ -728,18 +888,21 @@ def _check_tensor(name, t, shape, dtype, device):
 
 
 def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
-            seed, call_no, hist):
-    global LAUNCHES
+            seed, call_no, hist, rec_capacity=None):
+    global LAUNCHES, RECORD_LAUNCHES
     reason = spec_unsupported(spec)
     if reason:
         raise NotImplementedError(reason)
     dev = state.device
     N = spec.n_slots
     f32 = torch.float32
-    _check_tensor("state", state, (NSF, N), f32, dev)
+    rows = NSF + (NRSF if spec.records else 0)
+    _check_tensor("state", state, (rows, N), f32, dev)
     _check_tensor("steps", steps, (NST, N), f32, dev)
-    for name in ("layers", "spec_tab", "bias_y", "tilt_zc", "cells"):
+    for name in ("layers", "spec_tab", "bias_y", "tilt_zc", "cells", "doms"):
         _check_tensor(name, getattr(tables, name), None, f32, dev)
+    if tables.doms.shape != (spec.n_doms, 4):
+        raise ValueError("DOM table does not match the spec")
     if tables.layers.shape != (3, spec.L) or \
             tables.spec_tab.shape != (3, spec.n_spec):
         raise ValueError("tables do not match the spec")
@@ -755,42 +918,68 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     _check_tensor("hist", hist, (n_hist,), f32, dev)
     cnt_i = torch.zeros(4, dtype=torch.int64, device=dev)
     cnt_w = torch.zeros(1, dtype=torch.float64, device=dev)
-    params = _params(spec, tables, uniforms is not None, seed, call_no)
+    cap = 0
+    if spec.records:
+        cap = (default_rec_capacity(spec) if rec_capacity is None
+               else int(rec_capacity))
+        if cap < 1:
+            raise ValueError("record capacity must be positive")
+        rec_buf = torch.empty((cap, NRC), dtype=f32, device=dev)
+        rec_cnt = torch.zeros(1, dtype=torch.int64, device=dev)
+    params = _params(spec, tables, uniforms is not None, seed, call_no, cap)
 
     from .._build import load
     lib = load()
     ptr = lambda t: None if t is None else t.data_ptr()
-    rc = lib.clsim_propagate(
-        ctypes.addressof(params), ptr(state), ptr(steps), ptr(uniforms),
-        ptr(tables.layers), ptr(tables.spec_tab), ptr(tables.bias_y),
-        ptr(tables.tilt_zc), ptr(tables.cells), ptr(hist), ptr(cnt_i),
-        ptr(cnt_w), torch.cuda.current_stream(dev).cuda_stream)
+    args = [ctypes.addressof(params), ptr(state), ptr(steps), ptr(uniforms),
+            ptr(tables.layers), ptr(tables.spec_tab), ptr(tables.bias_y),
+            ptr(tables.tilt_zc), ptr(tables.cells), ptr(hist), ptr(cnt_i),
+            ptr(cnt_w)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if spec.records:
+        rc = lib.clsim_propagate_records(
+            *args, ptr(tables.doms), ptr(rec_buf), ptr(rec_cnt), stream)
+    else:
+        rc = lib.clsim_propagate(*args, stream)
     if rc != 0:
         raise RuntimeError("propagation kernel launch failed: "
                            + lib.clsim_error_string(rc).decode())
-    LAUNCHES += 1
     c = cnt_i.to(torch.float64)
     zero = torch.zeros((), dtype=torch.float64, device=dev)
-    counters = torch.stack([c[0], c[1], cnt_w[0], zero, c[2], c[1], c[3]])
-    return state, hist, counters
+    if not spec.records:
+        LAUNCHES += 1
+        counters = torch.stack([c[0], c[1], cnt_w[0], zero, c[2], c[1], c[3],
+                                zero])
+        return state, hist, counters
+    RECORD_LAUNCHES += 1
+    n_rec = int(rec_cnt)          # appends tried; those past cap stalled
+    n_written = min(n_rec, cap)
+    f64 = lambda v: torch.tensor(float(v), dtype=torch.float64, device=dev)
+    counters = torch.stack([c[0], c[1], cnt_w[0], zero, c[2], f64(n_written),
+                            c[3], f64(n_rec > cap)])
+    return state, hist, counters, rec_buf[:n_written].clone()
 
 
 def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
-                         *, uniforms=None, seed=0, call_no=0, hist=None):
+                         *, uniforms=None, seed=0, call_no=0, hist=None,
+                         rec_capacity=None):
     """Run up to spec.iters_per_call propagation iterations on every slot.
 
-    state (NSF, N) float32 is updated in place; hits are deposited into
-    hist (n_doms * n_bins,) float32, allocated when None.  Returns
-    (state, hist, counters), counters a float64 (7,) tensor in the CNT_*
-    layout.  CUDA tensors launch the CUDA kernel (or raise); CPU tensors run
-    run_fused_iterations_plain."""
+    state (NSF, N) float32 ((NSF + NRSF, N) with spec.records) is updated in
+    place; hits are deposited into hist (n_doms * n_bins,) float32,
+    allocated when None.  Returns (state, hist, counters), counters a
+    float64 (N_CNT,) tensor in the CNT_* layout; with spec.records
+    (state, hist, counters, rows), rows the (R, NRC) float32 records this
+    launch wrote (REC_COLUMNS; at most rec_capacity, default
+    default_rec_capacity(spec)).  CUDA tensors launch the CUDA kernel (or
+    raise); CPU tensors run run_fused_iterations_plain."""
     if state.device.type == "cuda":
         return _launch(state, steps, tables, spec, uniforms, seed, call_no,
-                       hist)
+                       hist, rec_capacity)
     if state.device.type == "cpu":
         return run_fused_iterations_plain(
             state, steps, tables, spec, uniforms=uniforms, seed=seed,
-            call_no=call_no, hist=hist)
+            call_no=call_no, hist=hist, rec_capacity=rec_capacity)
     raise ValueError(f"no propagation kernel for device {state.device}")
 
 
@@ -799,30 +988,42 @@ def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
 # ---------------------------------------------------------------------------
 
 def _run_fused(state, steps_p, tables: FusedTables, spec: FusedSpec, seed,
-               max_calls: int, uniforms=None):
+               max_calls: int, uniforms=None, rec_capacity=None):
     """Launch until no slot is alive or max_calls is reached; photons still
-    alive after the last call are reported as abandoned (CNT_ALIVE)."""
+    alive after the last call are reported as abandoned (CNT_ALIVE).  With
+    spec.records every launch's records are kept and the result carries
+    them in the flat contract: rec a dict of (1, R) tensors, rec_count
+    [R] (the JAX call loop's, kernel.py:2687-2722)."""
     dev = state.device
     hist = torch.zeros(spec.n_doms * spec.hist_n_bins, dtype=torch.float32,
                        device=dev)
-    totals = torch.zeros(7, dtype=torch.float64, device=dev)
-    calls, alive = 0, 0.0
+    totals = torch.zeros(N_CNT, dtype=torch.float64, device=dev)
+    calls, alive, chunks = 0, 0.0, []
     for call_no in range(max_calls):
-        state, hist, cnt = run_fused_iterations(
+        out = run_fused_iterations(
             state, steps_p, tables, spec, uniforms=uniforms, seed=seed,
-            call_no=call_no, hist=hist)
+            call_no=call_no, hist=hist, rec_capacity=rec_capacity)
+        state, hist, cnt = out[:3]
+        if spec.records:
+            chunks.append(out[3])
         totals += cnt
         calls += 1
         alive = float(cnt[CNT_ALIVE])
         if alive == 0.0:
             break
     totals[CNT_ALIVE] = alive
+    rec = rec_count = None
+    if spec.records:
+        rows = torch.cat(chunks)
+        rec = records_from_rows(rows, spec.hist_n_bins)
+        rec_count = torch.tensor([rows.shape[0]], dtype=torch.int32,
+                                 device=dev)
     return E.PropagationResult(
         hist=hist.reshape(spec.n_doms, spec.hist_n_bins),
         n_generated=totals[CNT_GEN], n_hits=totals[CNT_HITS],
         weight_hits=totals[CNT_WSUM],
         n_iterations=calls * spec.iters_per_call,
-        diag_totals=totals), totals
+        diag_totals=totals, rec_count=rec_count, rec=rec), totals
 
 
 def propagate_fused(steps: StepBatch, medium: MediumProperties,
@@ -830,13 +1031,17 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
                     seed: int, cfg: PropagationConfig,
                     iters_per_call: int = 4096,
                     max_calls: int = 256,
-                    uniforms=None):
+                    uniforms=None, rec_capacity: int = REC_CAPACITY):
     """Drive the fused kernel until all photons are drained.
 
     `steps` are slot-assigned tensors on the propagation device.
     `uniforms`: optional (T >= iters_per_call, 8, n_slots) float32 stream
-    (parity mode; requires max_calls=1).  Returns (PropagationResult,
-    totals) with totals the float64 CNT_* vector."""
+    (parity mode; requires max_calls=1).  With cfg.save_photons each launch
+    writes at most `rec_capacity` records (fewer when the workload has
+    fewer photons).  Returns (PropagationResult, totals) with totals the
+    float64 CNT_* vector."""
+    if cfg.photon_history_entries > 0:
+        raise NotImplementedError(E.HISTORY_ITEM)
     reason = fused_supported(medium, spectra, cfg)
     if reason:
         raise ValueError(f"fused path unsupported: {reason}")
@@ -852,5 +1057,10 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
     if reason:
         raise NotImplementedError(reason)
     tables = build_tables(spec, medium, geo, spectra, cell_tab)
-    return _run_fused(init_state(steps), pack_steps(steps), tables, spec,
-                      seed, max_calls, uniforms=uniforms)
+    if spec.records:
+        # a run records at most one photon per photon, plus nothing pending
+        rec_capacity = min(int(rec_capacity),
+                           int(steps.num_photons.sum()) + 1)
+    return _run_fused(init_state(steps, spec.records), pack_steps(steps),
+                      tables, spec, seed, max_calls, uniforms=uniforms,
+                      rec_capacity=rec_capacity)

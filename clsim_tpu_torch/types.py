@@ -18,7 +18,6 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
-import torch
 
 
 class StepBatch(NamedTuple):
@@ -82,34 +81,35 @@ class StepBatch(NamedTuple):
 
 
 class PhotonBatch(NamedTuple):
-    """Recorded photons at DOMs (fixed-capacity, validity-masked); the type
-    only -- the record path is queued (ROADMAP.md queue A item 12).
+    """Recorded photons at DOMs (validity-masked), as host numpy arrays:
+    hits/photons.records_to_photon_batch builds it from a propagation
+    result's records and load_photons_npz from a file.
 
     Field-for-field the information content of I3CLSimPhoton: hit position is
     stored relative to the hit DOM center with pancaking undone
     (propagation_kernel.c.cl:337-363), direction as (theta, phi)."""
-    valid: torch.Tensor        # (P,) bool
-    pos_x: torch.Tensor        # (P,) position relative to DOM center [m]
-    pos_y: torch.Tensor
-    pos_z: torch.Tensor
-    time: torch.Tensor         # (P,) arrival time [ns]
-    dir_theta: torch.Tensor
-    dir_phi: torch.Tensor
-    wavelength: torch.Tensor   # (P,) [nm]
-    cherenkov_dist: torch.Tensor  # (P,) total path length [m]
-    num_scatters: torch.Tensor
-    weight: torch.Tensor
-    identifier: torch.Tensor
-    string_id: torch.Tensor
-    om_id: torch.Tensor
-    start_x: torch.Tensor      # photon emission point / time / direction
-    start_y: torch.Tensor
-    start_z: torch.Tensor
-    start_time: torch.Tensor
-    start_theta: torch.Tensor
-    start_phi: torch.Tensor
-    group_velocity: torch.Tensor  # [m/ns]
-    dist_in_abs_lens: torch.Tensor
+    valid: np.ndarray        # (P,) bool
+    pos_x: np.ndarray        # (P,) position relative to DOM center [m]
+    pos_y: np.ndarray
+    pos_z: np.ndarray
+    time: np.ndarray         # (P,) arrival time [ns]
+    dir_theta: np.ndarray
+    dir_phi: np.ndarray
+    wavelength: np.ndarray   # (P,) [nm]
+    cherenkov_dist: np.ndarray  # (P,) total path length [m]
+    num_scatters: np.ndarray
+    weight: np.ndarray
+    identifier: np.ndarray
+    string_id: np.ndarray
+    om_id: np.ndarray
+    start_x: np.ndarray      # photon emission point / time / direction
+    start_y: np.ndarray
+    start_z: np.ndarray
+    start_time: np.ndarray
+    start_theta: np.ndarray
+    start_phi: np.ndarray
+    group_velocity: np.ndarray  # [m/ns]
+    dist_in_abs_lens: np.ndarray
 
 
 @dataclasses.dataclass(frozen=True)

@@ -68,11 +68,12 @@ def test_cascade_yield_and_hit_rate_match_jax(results):
 
 
 def test_unported_entry_points_raise():
+    """The record entry points need save_photons=True (as in the JAX
+    package); the multi-device mesh is still queued."""
     sim = SimT(medium=ice_t(), geometry=string_t(**GEO),
                config=CfgT(n_slots=256))
-    for fn in (sim.simulate_hits, sim.simulate_photons,
-               sim.simulate_hits_from_photons):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for fn in (sim.simulate_hits, sim.simulate_photons):
+        with pytest.raises(ValueError, match="save_photons=True"):
             fn([], 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SimT(medium=ice_t(), geometry=string_t(**GEO), mesh=object())

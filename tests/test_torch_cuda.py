@@ -32,3 +32,40 @@ def test_cuda_kernel_matches_plain_version(aniso, tilt):
     assert K.LAUNCHES == launches + 1
     # tests/test_kernel.py::_compare tolerances
     chip_smoke.compare("cuda test", c_k, h_k, c_p, h_p)
+
+
+@pytest.mark.cuda
+def test_cuda_records_match_plain_version():
+    """The record mode (RECORDS instantiation) against its plain version on
+    the test_kernel workload with aniso + tilt and save_photons: the
+    histogram checks above, one record per hit, and the records matched on
+    (slot, dom) within tests/test_kernel.py:523-529's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    dev = torch.device("cuda", 0)
+    n, T = 8192, 16
+    medium, geo, spectra, cfg, steps, u = chip_smoke.small_workload(
+        n, T, True, True, dev)
+    cfg = dataclasses.replace(cfg, save_photons=True)
+    spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, n, T)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    steps_p, state0 = K.pack_steps(steps), K.init_state(steps, True)
+    launches = K.RECORD_LAUNCHES
+    _, h_k, c_k, r_k = K.run_fused_iterations(state0.clone(), steps_p,
+                                              tables, spec, uniforms=u)
+    _, h_p, c_p, r_p = K.run_fused_iterations_plain(state0.clone(), steps_p,
+                                                    tables, spec, uniforms=u)
+    torch.cuda.synchronize()
+    assert K.RECORD_LAUNCHES == launches + 1
+    chip_smoke.compare("cuda records test", c_k, h_k, c_p, h_p)
+    for c, r in ((c_k, r_k), (c_p, r_p)):
+        assert r.shape[0] == float(c[K.CNT_HITS]) == float(c[K.CNT_QUEUED])
+        assert float(c[K.CNT_DROPPED]) == 0.0
+    # every record of the smaller set matches (FMA contraction may move a
+    # hit, within compare's hit-count allowance)
+    n_ok, n_k, n_p = chip_smoke.match_records("cuda records test", r_k, r_p,
+                                              cfg.hist_n_bins)
+    assert n_ok == min(n_k, n_p)

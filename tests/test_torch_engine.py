@@ -71,7 +71,8 @@ def test_engine_drains_and_conserves():
 
 
 @pytest.mark.parametrize("change", [dict(estimator="expected"),
-                                    dict(save_photons=True),
+                                    dict(save_photons=True,
+                                         photon_history_entries=2),
                                     dict(soft_binning=True)])
 def test_unported_engine_options_raise(change):
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())

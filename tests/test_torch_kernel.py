@@ -104,7 +104,7 @@ def test_abandoned_photons_are_reported():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(records=True), "B5"),
+    (dict(fixed_abs=True), "B6"),
     (dict(expected=True), "B6"),
     (dict(medium_tables=True, scat_table=True), "B7"),
     (dict(n_tables=2), "B4"),
@@ -124,7 +124,8 @@ def test_cuda_wrapper_spec_gate_raises(change, item):
                    u, 0, 0, None)
 
 
-@pytest.mark.parametrize("change", [dict(save_photons=True),
+@pytest.mark.parametrize("change", [dict(save_photons=True,
+                                         photon_history_entries=2),
                                     dict(estimator="expected")])
 def test_propagate_fused_refuses_unported_configs(change):
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
@@ -138,9 +139,12 @@ def test_dispatch_backends():
     from clsim_tpu_torch.propagate import dispatch as D
     steps, medium, geo, spectra, cfg, _ = port_inputs(*TK._workload())
     assert D.backend_reason(medium, spectra, cfg, geo, TK.N) is None
-    assert "B5" in D.backend_reason(
-        medium, spectra, dataclasses.replace(cfg, save_photons=True), geo,
-        TK.N)
+    # records run in the kernel's record mode; history rings do not
+    rec = dataclasses.replace(cfg, save_photons=True)
+    assert D.backend_reason(medium, spectra, rec, geo, TK.N) is None
+    assert "history" in D.backend_reason(
+        medium, spectra, dataclasses.replace(rec, photon_history_entries=2),
+        geo, TK.N)
     with pytest.raises(ValueError, match="unknown backend"):
         D.propagate_auto(steps, medium, geo, spectra, 0, cfg, backend="tpu")
     # CPU tensors: "auto" is the engine (no counters), "fused" the call loop
