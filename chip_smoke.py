@@ -39,7 +39,34 @@ Phases (any failure raises and exits non-zero):
         result's, accepted MCPEs against the sum of hit probabilities
         (|z| < 5); wall times of simulate and simulate_hits;
      d. simulate_photons -> npz -> simulate_hits_from_photons: MCPE count
-        against 5c's (|z| < 5), (string, om) round trip to the DOM index.
+        against 5c's (|z| < 5), (string, om) round trip to the DOM index;
+  6. the differentiable ice fit on the fit workload (scripts/fit_demo.py's
+     setup with the seeded 171-layer ice, aniso + tilt: 19 strings,
+     131,072 one-photon emission points, expected estimator, 48
+     iterations):
+     a. the threefry stream: rng.make_uniform_stream's bits on the card
+        equal the CPU's; the threefry kernel against the kernel fed the
+        materialized stream (main-path configuration in expected mode, as
+        threefry is built with the expected estimator only, and the fit
+        workload):
+        equal generated and hit counts, histograms equal up to atomic
+        order (L1 <= 1e-5 of the total); the threefry kernel against its
+        plain version with phase 2's tolerances;
+     b. the B6 deposit modes against their plain version on a shared
+        stream, phase 2's tolerances: expected + soft + ang_poly
+        (test_kernel workload, aniso + tilt), expected + soft (fit
+        workload), non-stopping and fixed-horizon detect (main-path
+        configuration);
+     c. IceFit(forward='fused'): loss at truth on the common stream <= 1e-6
+        of the loss at a +-20% lognormal perturbation of the band's
+        a_dust400; the autograd gradient (kernel forward, engine backward)
+        of three band layers' log scale against central differences of the
+        kernel forward (rel GRAD_RTOL); ten Adam steps lower the loss and
+        launch the kernel; the gradient at their end point through the
+        stream-fed variant of propagate_expected_diff equals the threefry
+        one (rel 1e-3); one score-function step on b400 is finite;
+        scripts/bench_fit.py's three times (medians of 5), a profiler pass
+        and the peak memory.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -101,18 +128,13 @@ def seeded_ice(n_layers, z_start, layer_height, device, seed=3):
                            delta_tau=t(0.5 + r.random(n_layers))), r
 
 
-def small_workload(n, T, aniso, tilt, device):
-    """tests/test_kernel.py::_workload, rebuilt on the port at n slots."""
+def aniso_tilt(medium, r, aniso, tilt, device):
+    """tests/test_kernel.py::_workload's anisotropy and tilt (the tilt's
+    z-corrections drawn from `r`)."""
     import torch
-    from clsim_tpu_torch.geometry import hexagonal_geometry
     from clsim_tpu_torch.medium.anisotropy import AnisotropyParams
-    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
     from clsim_tpu_torch.medium.tilt import TiltParams
-    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
-                                              stack_spectra)
-    from clsim_tpu_torch.types import PropagationConfig
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
-    medium, r = seeded_ice(12, -300.0, 50.0, device)
     if aniso:
         medium = medium._replace(anisotropy=AnisotropyParams(
             azimuth=f32(3.9), mag_along=f32(0.04), mag_perp=f32(-0.08),
@@ -124,6 +146,19 @@ def small_workload(n, T, aniso, tilt, device):
             z_corrections=f32((20.0 * r.standard_normal((4, 9))).tolist()),
             azimuth_cos=f32(math.cos(3.93)), azimuth_sin=f32(math.sin(3.93)),
             enabled=True))
+    return medium
+
+
+def small_workload(n, T, aniso, tilt, device):
+    """tests/test_kernel.py::_workload, rebuilt on the port at n slots."""
+    import torch
+    from clsim_tpu_torch.geometry import hexagonal_geometry
+    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    from clsim_tpu_torch.types import PropagationConfig
+    medium, r = seeded_ice(12, -300.0, 50.0, device)
+    medium = aniso_tilt(medium, r, aniso, tilt, device)
     geo = hexagonal_geometry(n_rings=1, string_spacing=60.0,
                              doms_per_string=12, dom_spacing=15.0,
                              z_top=80.0, oversize=8.0, device=device)
@@ -161,25 +196,32 @@ def hex61(device):
                               z_top=500.0, oversize=5.0, device=device)
 
 
-def bench_workload(n, photons_per_slot, device):
-    """bench.py::build_workload (hex61) rebuilt on clsim_tpu_torch."""
+def biased_spectra(medium, geo, device):
+    """The Cherenkov spectrum biased by the (oversized) DOM acceptance, as
+    bench.py and scripts/fit_demo.py build it."""
     from clsim_tpu_torch.hits.acceptance import icecube_dom_acceptance
     from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
-    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
     from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
                                               stack_spectra)
+    acc = icecube_dom_acceptance(dom_radius=geo.om_radius * geo.oversize,
+                                 device="cpu")
+    nb = acc.values.shape[0]
+    bias_x = float(acc.first_x) + float(acc.dx) * np.arange(nb)
+    return stack_spectra([make_cherenkov_spectrum(
+        DEFAULT_ICE_REF_INDEX, medium.min_wlen, medium.max_wlen,
+        bias_wlen_nm=bias_x, bias_values=acc.values.numpy())], device=device)
+
+
+def bench_workload(n, photons_per_slot, device):
+    """bench.py::build_workload (hex61) rebuilt on clsim_tpu_torch."""
+    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
     from clsim_tpu_torch.sources.ppc import (_rotate_by_angle,
                                              sample_cascade_angles)
     from clsim_tpu_torch.types import PropagationConfig
     medium = make_homogeneous_ice(n_layers=171, z_start=-855.0,
                                   layer_height=10.0, device=device)
     geo = hex61(device)
-    acc = icecube_dom_acceptance(dom_radius=geo.om_radius * geo.oversize)
-    nb = acc.values.shape[0]
-    bias_x = float(acc.first_x) + float(acc.dx) * np.arange(nb)
-    spectra = stack_spectra([make_cherenkov_spectrum(
-        DEFAULT_ICE_REF_INDEX, medium.min_wlen, medium.max_wlen,
-        bias_wlen_nm=bias_x, bias_values=acc.values.numpy())], device=device)
+    spectra = biased_spectra(medium, geo, device)
     cfg = PropagationConfig(n_slots=n, pancake_factor=5.0, hist_n_bins=512,
                             max_layer_steps=4, max_segment_m=35.0,
                             hit_compact_capacity=4096)
@@ -299,8 +341,9 @@ def phase2(device):
         max_err = max(max_err, compare(name, c_k, h_k, c_p, h_p, gen_rtol))
         log(f"  {name}: kernel {ms_k:.3f} ms (median of 5), plain "
             f"{ms_p:.3f} ms ({N_SLOTS} slots x {PHASE2_T} iterations)")
-        timings[name] = (ms_k, ms_p)
-    return max_err, timings[cases[-1][0]]
+        timings[name] = dict(ms=ms_k, plain_ms=ms_p,
+                             bound=kernel_bound(spec, tables, c_k, "stream"))
+    return dict(timings[cases[-1][0]], err=max_err)
 
 
 def phase3(device):
@@ -467,8 +510,10 @@ def phase5a(device):
                 else n_ok < share * max(n_k, n_p)):
             raise AssertionError(f"{name}: {n_ok} of {n_k} / {n_p} records "
                                  "match")
-        timing = (ms_k, ms_p)
-    return max_err, timing
+        timing = dict(ms=ms_k, plain_ms=ms_p,
+                      bound=kernel_bound(spec, tables, c_k, "stream",
+                                         n_records=r_k.shape[0]))
+    return dict(timing, err=max_err)
 
 
 def phase5b(device):
@@ -630,6 +675,421 @@ def phase5d(sim, cascade, res, n_mcpe, var):
         raise AssertionError("(string, om) does not round-trip to the DOM")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the differentiable ice fit (expected estimator, threefry)
+# ---------------------------------------------------------------------------
+
+FIT_SLOTS = 131072
+FIT_T = 48
+FIT_KEY = (0, 2024)
+FIT_BAND = (-350.0, 350.0)     # fit the layers whose centres lie inside
+GRAD_LAYERS = (10, 35, 60)     # band layers of the gradient check
+GRAD_RTOL = 0.02               # tests/test_diff.py's tolerance
+ANG_POLY = (0.3, 0.6)          # the expected estimator's angular polynomial
+
+
+def fit_workload(device, n=None):
+    """scripts/fit_demo.py::build on the port, with chip_smoke's seeded
+    171-layer ice (10 m layers) in place of spice_lea, anisotropy and tilt
+    on as small_workload builds them: a 19-string hex, 131,072 isotropic
+    one-photon emission points (xy within 220 m, z in [-450, 450]), the
+    acceptance-biased spectrum, the expected estimator with soft binning
+    and an 8 absorption-length horizon, 128 bins over 3000 ns."""
+    from clsim_tpu_torch.geometry import hexagonal_geometry
+    from clsim_tpu_torch.types import PropagationConfig
+    n = n or FIT_SLOTS
+    medium, r = seeded_ice(171, -855.0, 10.0, device)
+    medium = aniso_tilt(medium, r, True, True, device)
+    geo = hexagonal_geometry(n_rings=2, string_spacing=125.0,
+                             doms_per_string=60, dom_spacing=17.0,
+                             z_top=500.0, oversize=5.0, device=device)
+    spectra = biased_spectra(medium, geo, device)
+    cfg = PropagationConfig(n_slots=n, estimator="expected",
+                            soft_binning=True, fixed_abs_lens=8.0,
+                            pancake_factor=5.0, hist_t_min=0.0,
+                            hist_t_max=3000.0, hist_n_bins=128,
+                            max_layer_steps=4, max_segment_m=35.0)
+    rr = np.random.default_rng(4242)
+    costh = rr.uniform(-1, 1, n)
+    sinth = np.sqrt(1 - costh ** 2)
+    phi = rr.uniform(0, 2 * np.pi, n)
+    r_xy = 220.0 * np.sqrt(rr.random(n))
+    a_xy = rr.uniform(0, 2 * np.pi, n)
+    steps = step_batch(n, device, x=r_xy * np.cos(a_xy),
+                       y=r_xy * np.sin(a_xy), z=rr.uniform(-450.0, 450.0, n),
+                       length=1e-3, dir_x=sinth * np.cos(phi),
+                       dir_y=sinth * np.sin(phi), dir_z=costh, num_photons=1)
+    return medium, geo, spectra, cfg, steps
+
+
+def kernel_run(medium, geo, spectra, cfg, steps, T, uniforms=None,
+               key=None, plain=False):
+    """One launch of T iterations (or its plain version) from fresh state;
+    returns a thunk for cuda_ms and the spec and tables."""
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    n = int(steps.x.shape[0])
+    spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, n, T,
+                                  threefry=key is not None)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    state0, steps_p = K.init_state(steps), K.pack_steps(steps)
+    keys = None if key is None else rng.key_table(key, T).to(state0.device)
+    fn = K.run_fused_iterations_plain if plain else K.run_fused_iterations
+    return (lambda: fn(state0.clone(), steps_p, tables, spec,
+                       uniforms=uniforms, keys=keys)), spec, tables
+
+
+# Operations of one slot-iteration of csrc/propagate.cu, counted from its
+# source (float and integer operations alike, transcendentals as one): the
+# least every live slot does in an iteration (budgets, one layer-walk step,
+# the cull of every candidate string of each SubPlan, advance, scatter,
+# retire; no DOM test), plus a spawn's work for each photon generated, plus
+# the random numbers: Philox 28, threefry 81 operations per uniform, none
+# for an external stream (4 uniforms an iteration, 4 more at a spawn).
+OPS_ITER, OPS_PER_CAND, OPS_PER_PLAN, OPS_SPAWN = 107, 14, 14, 130
+OPS_ANISO, OPS_TILT = 65, 30
+OPS_RNG = {"philox": 28, "stream": 0, "threefry": 81}
+FP32_PEAK = 67e12              # H100 SXM dense float32 peak
+HBM_BYTES_S = 3.35e12
+
+
+def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
+    """(bound_ms, bound_by): the larger of the operations this run needed
+    over the float32 peak and the bytes the launch must move (state read
+    and written, steps and tables read once, histogram and records written
+    once, and of an external stream the rows the run reads: rows 4-7 in
+    every live slot-iteration, rows 0-3 at every spawn, 16 bytes each)
+    over the HBM rate."""
+    from clsim_tpu_torch.propagate import kernel as K
+    N, T = spec.n_slots, spec.iters_per_call
+    work, gen = float(counters[K.CNT_WORK]), float(counters[K.CNT_GEN])
+    per_iter = (OPS_ITER + 4 * OPS_RNG[rng_mode]
+                + sum(OPS_PER_PLAN + OPS_PER_CAND * p.K_cand
+                      for p in spec.sub_plans)
+                + (OPS_ANISO if spec.aniso else 0)
+                + (OPS_TILT if spec.nz_tilt else 0))
+    ops = work * per_iter + gen * (OPS_SPAWN + 4 * OPS_RNG[rng_mode])
+    rows = K.NSF + (K.NRSF if spec.records else 0)
+    nbytes = 4 * (2 * rows * N + K.NST * N + spec.n_doms * spec.hist_n_bins
+                  + sum(t.numel() for t in (
+                      tables.layers, tables.spec_tab, tables.bias_y,
+                      tables.tilt_zc, tables.cells))
+                  + {"stream": 4 * (work + gen),
+                     "threefry": 2 * T}.get(rng_mode, 0)
+                  + K.NRC * n_records)
+    t_ops, t_bytes = ops / FP32_PEAK * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def device_busy(fn):
+    """(device busy share, kernel launches, wall seconds) of one call of fn
+    under torch.profiler: the summed time of the device kernels over the
+    wall time; None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.device_time for e in kernels)
+    return (dev_us * 1e-6 / wall if dev_us > 0 else None), len(kernels), wall
+
+
+def phase6a(device):
+    """The threefry stream: card against CPU bits, the threefry kernel
+    against the kernel fed the materialised stream, and against its plain
+    version."""
+    import torch
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    key = rng.as_key(FIT_KEY)
+    u_gpu = rng.make_uniform_stream(key.to(device), FIT_T, FIT_SLOTS)
+    u_cpu = rng.make_uniform_stream(key, FIT_T, FIT_SLOTS)
+    same = bool((u_gpu.cpu().view(torch.int32) == u_cpu.view(torch.int32))
+                .all())
+    log(f"  rng.make_uniform_stream {tuple(u_gpu.shape)}: card and CPU bits "
+        f"{'equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("threefry bits differ between card and CPU")
+    del u_cpu
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    _, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
+    from clsim_tpu_torch.types import PropagationConfig
+    # threefry is built with the expected estimator alone (the fit's
+    # forward), so the main-path configuration runs in that mode here
+    main_cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0,
+                                 estimator="expected", soft_binning=True)
+    fit = fit_workload(device)
+    out = {}
+    for name, (m, g, sp, cfg, st), T in (
+            ("main-path config (expected)", (medium, geo, spectra, main_cfg,
+                                             steps), PHASE2_T),
+            ("fit workload (expected)", fit, FIT_T)):
+        uni = rng.make_uniform_stream(key.to(device), T,
+                                      int(st.x.shape[0]))
+        run_tf, spec, tables = kernel_run(m, g, sp, cfg, st, T, key=key)
+        run_st, _, _ = kernel_run(m, g, sp, cfg, st, T, uniforms=uni)
+        run_tf()
+        (_, h_t, c_t), ms_t = cuda_ms(run_tf)
+        (_, h_s, c_s), ms_s = cuda_ms(run_st)
+        l1 = float((h_t.double() - h_s.double()).abs().sum())
+        tot = float(h_s.double().sum())
+        log(f"  {name}: threefry kernel {ms_t:.3f} ms, stream-fed kernel "
+            f"{ms_s:.3f} ms (medians of 5, {int(st.x.shape[0])} slots x {T}"
+            f"); generated {float(c_t[K.CNT_GEN]):.0f} / "
+            f"{float(c_s[K.CNT_GEN]):.0f}, hits {float(c_t[K.CNT_HITS]):.0f}"
+            f" / {float(c_s[K.CNT_HITS]):.0f}, hist L1 {l1:.6g} of {tot:.6g}")
+        if float(c_t[K.CNT_GEN]) != float(c_s[K.CNT_GEN]) or \
+                float(c_t[K.CNT_HITS]) != float(c_s[K.CNT_HITS]):
+            raise AssertionError(f"{name}: threefry and stream-fed kernel "
+                                 "counts differ")
+        if l1 > 1e-5 * tot:
+            raise AssertionError(f"{name}: threefry and stream-fed kernel "
+                                 "histograms differ beyond atomic order")
+        del uni
+        run_pl, _, _ = kernel_run(m, g, sp, cfg, st, T, key=key, plain=True)
+        (_, h_p, c_p), ms_p = cuda_ms(run_pl, reps=1)
+        err = compare(name + ", threefry kernel / plain", c_t, h_t, c_p, h_p,
+                      1e-5 if cfg is main_cfg else 0.0)
+        log(f"  {name}: threefry bound "
+            f"{kernel_bound(spec, tables, c_t, 'threefry')}, stream-fed "
+            f"bound {kernel_bound(spec, tables, c_s, 'stream')}")
+        out[name] = dict(ms=ms_t, plain_ms=ms_p, err=err,
+                         bound=kernel_bound(spec, tables, c_t, "threefry"))
+    return out["fit workload (expected)"]
+
+
+def phase6b(device):
+    """The B6 deposit modes against their plain version on a shared
+    stream (phase 2's tolerances)."""
+    import torch
+    from clsim_tpu_torch.types import PropagationConfig
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    _, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
+    main_cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0)
+    gen = torch.Generator(device=device).manual_seed(6)
+    uni = torch.rand((max(FIT_T, PHASE2_T), 8, max(N_SLOTS, FIT_SLOTS)),
+                     generator=gen, device=device)
+    m_s, g_s, s_s, c_s, st_s, _ = small_workload(N_SLOTS, 1, True, True,
+                                                 device)
+    c_s = dataclasses.replace(c_s, estimator="expected", soft_binning=True,
+                              expected_angular_poly=ANG_POLY)
+    fit = fit_workload(device)
+    cases = [
+        ("test_kernel workload aniso+tilt, expected + soft + ang_poly",
+         (m_s, g_s, s_s, c_s, st_s), PHASE2_T,
+         uni[:, :, :N_SLOTS].contiguous(), 0.0),
+        ("fit workload, expected + soft", fit, FIT_T,
+         uni[:, :, :FIT_SLOTS].contiguous(), 0.0),
+        ("main-path config, non-stopping detect",
+         (medium, geo, spectra,
+          dataclasses.replace(main_cfg, stop_on_detection=False), steps),
+         PHASE2_T, uni[:, :, :N_SLOTS].contiguous(), 1e-5),
+        ("main-path config, fixed_abs detect",
+         (medium, geo, spectra,
+          dataclasses.replace(main_cfg, fixed_abs_lens=8.0), steps),
+         PHASE2_T, uni[:, :, :N_SLOTS].contiguous(), 1e-5)]
+    # propagate[expected]'s err and times are those of the expected
+    # instantiation (the first two cases); the detect modes are other
+    # instantiations, checked here and reported on their own line
+    max_err, timing = {True: 0.0, False: 0.0}, None
+    for name, (m, g, sp, cfg, st), T, u, gen_rtol in cases:
+        u = u[:T].contiguous()
+        run_k, spec, tables = kernel_run(m, g, sp, cfg, st, T, uniforms=u)
+        run_p, _, _ = kernel_run(m, g, sp, cfg, st, T, uniforms=u,
+                                 plain=True)
+        run_p()
+        run_k()
+        (_, h_k, c_k), ms_k = cuda_ms(run_k)
+        (_, h_p, c_p), ms_p = cuda_ms(run_p, reps=1)
+        err = compare(name, c_k, h_k, c_p, h_p, gen_rtol)
+        max_err[spec.expected] = max(max_err[spec.expected], err)
+        log(f"  {name}: kernel {ms_k:.3f} ms (median of 5), plain "
+            f"{ms_p:.3f} ms ({spec.n_slots} slots x {T} iterations), "
+            f"bound {kernel_bound(spec, tables, c_k, 'stream')}")
+        if name.startswith("fit workload"):
+            timing = dict(ms=ms_k, plain_ms=ms_p,
+                          bound=kernel_bound(spec, tables, c_k, "stream"))
+    log(f"  max abs err: expected {max_err[True]:.3g}, detect modes "
+        f"{max_err[False]:.3g}")
+    return dict(timing, err=max_err[True])
+
+
+def phase6c(device):
+    """The fit itself at full width: IceFit(forward='fused') on the fit
+    workload, kernel forward and engine-autograd backward."""
+    import functools
+    import torch
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.parallel.mesh import IceFit
+    from clsim_tpu_torch.propagate import engine as E
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.propagate.diff import propagate_expected_diff
+    medium, geo, spectra, cfg, steps = fit_workload(device)
+    key = rng.as_key(FIT_KEY)
+    L = medium.n_layers
+    centres = float(medium.layers_z_start) + (np.arange(L) + 0.5) * \
+        float(medium.layer_height)
+    band = np.nonzero((centres > FIT_BAND[0]) & (centres < FIT_BAND[1]))[0]
+    lo, hi = int(band[0]), int(band[-1]) + 1
+    a_true, b_true = medium.a_dust400.clone(), medium.b400.clone()
+    pert = torch.as_tensor(np.random.default_rng(99).normal(
+        0.0, 0.2, hi - lo).astype(np.float32), device=device)
+
+    def band_field(true):
+        return lambda p: torch.cat([true[:lo], true[lo:hi] * torch.exp(
+            p["log_s"]), true[hi:]])
+
+    tf_a = lambda p: {"a_dust400": band_field(a_true)(p)}
+    tf_b = lambda p: {"b400": band_field(b_true)(p)}
+    torch.cuda.reset_peak_memory_stats()
+    fit = IceFit(cfg, geo, spectra, forward="fused", max_iterations=FIT_T,
+                 param_transform=tf_a)
+    # the target: the kernel forward at the truth on IceFit's stream
+    with torch.no_grad():
+        k0 = fit.step_key(key)
+        target = fit.one_forward(medium, steps, k0)
+        again = fit.one_forward(medium, steps, k0)
+    noise = float((target.double() - again.double()).abs().sum())
+    loss = lambda x: float(fit.loss_fn({"log_s": x}, medium, steps, key,
+                                       target))
+    zero = torch.zeros(hi - lo, device=device)
+    with torch.no_grad():
+        l_truth, l_start = loss(zero), loss(pert)
+    log(f"  target: hist sum {float(target.double().sum()):.6g}, "
+        f"{int((target > 0).sum())} of {target.numel()} bins filled; "
+        f"run-to-run L1 of two forwards {noise:.3g}; fit band layers "
+        f"[{lo}, {hi}); loss at truth {l_truth:.6g}, at the perturbed "
+        f"start {l_start:.6g} (ratio {l_truth / l_start:.3g})")
+    if not (l_start > 0 and l_truth <= 1e-6 * l_start):
+        raise AssertionError("loss at truth is not ~0 on the common stream")
+    # the gradient check: autograd (engine backward) against central
+    # differences of the kernel forward, at the perturbed start
+    x = pert.clone().requires_grad_(True)
+    g = torch.autograd.grad(fit.loss_fn({"log_s": x}, medium, steps, key,
+                                        target), x)[0]
+    h = 0.02
+    worst = 0.0
+    for j in GRAD_LAYERS:
+        e = torch.zeros_like(pert)
+        e[j] = h
+        with torch.no_grad():
+            fd = (loss(pert + e) - loss(pert - e)) / (2 * h)
+        rel = abs(float(g[j]) / fd - 1.0)
+        worst = max(worst, rel)
+        log(f"  d loss / d log a_dust400[{lo + j}]: autograd "
+            f"{float(g[j]):.6g}, central difference (h {h}) {fd:.6g}, "
+            f"rel {rel:.3g}")
+    if worst > GRAD_RTOL:
+        raise AssertionError(f"gradient off its finite difference by "
+                             f"{worst:.3g} > {GRAD_RTOL}")
+    # 10 Adam steps in log space from the perturbed start
+    adam = IceFit(cfg, geo, spectra, forward="fused", max_iterations=FIT_T,
+                  param_transform=tf_a,
+                  optimizer=functools.partial(torch.optim.Adam, lr=0.05))
+    p, losses = {"log_s": pert.clone()}, []
+    torch.cuda.synchronize()
+    K.LAUNCHES = K.RECORD_LAUNCHES = 0
+    K.MODE_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        p, l_k = adam.step(p, medium, steps, key, target)
+        losses.append(float(l_k))
+    torch.cuda.synchronize()
+    t_steps = time.perf_counter() - t0
+    # the gradient at the end point through both variants of
+    # propagate_expected_diff: in-kernel threefry (IceFit's) and the
+    # stream-fed kernel reading rng.make_uniform_stream of the same key.
+    # The backward is the engine on the same numbers and the forwards
+    # differ only in atomic order, so the two agree to rel 1e-3
+    k1 = adam.step_key(key)
+    grads = {}
+    for tf in (True, False):
+        x = p["log_s"].clone().requires_grad_(True)
+        h = propagate_expected_diff(steps, medium._replace(**tf_a(
+            {"log_s": x})), geo, spectra, k1, adam.cfg, n_iterations=FIT_T,
+            use_threefry=tf)
+        chi2 = ((h - target) ** 2).sum() / torch.clamp(target.sum(), min=1.0)
+        grads[tf] = torch.autograd.grad(chi2, x)[0]
+    torch.cuda.synchronize()
+    launches_e = K.MODE_LAUNCHES[K.DEP_EXPECTED]
+    launches_t = K.MODE_LAUNCHES[K.DEP_EXPECTED | K.MODE_THREEFRY]
+    g_rel = float((grads[False] - grads[True]).norm() / grads[True].norm())
+    log(f"  gradient at the end point, stream-fed against threefry forward:"
+        f" rel {g_rel:.3g} (norm {float(grads[True].norm()):.6g})")
+    if not g_rel <= 1e-3:
+        raise AssertionError("stream-fed and threefry gradients differ")
+    with torch.no_grad():
+        l_end = loss(p["log_s"])
+    dist0 = float(pert.norm())
+    dist1 = float(p["log_s"].norm())
+    log(f"  Adam (lr 0.05) 10 steps in {t_steps:.3f} s: loss "
+        + " ".join(f"{v:.5g}" for v in losses) + f" -> {l_end:.5g}; "
+        f"|log scale - truth| {dist0:.4f} -> {dist1:.4f}; kernel launches "
+        f"(ten steps and the two gradients) expected + stream {launches_e}, "
+        f"expected + threefry {launches_t}")
+    if not l_end < losses[0]:
+        raise AssertionError("the fit did not lower the loss")
+    if device.type == "cuda" and (launches_e <= 0 or launches_t <= 0):
+        raise AssertionError("the fit's forward did not launch the kernel")
+    # one score-function step on b400
+    fit_b = IceFit(cfg, geo, spectra, forward="fused", max_iterations=FIT_T,
+                   param_transform=tf_b, learning_rate=1e-3)
+    pb, l_b = fit_b.step({"log_s": pert.clone()}, medium, steps, key,
+                         target)
+    gb = (pert - pb["log_s"]) / 1e-3
+    log(f"  score-function step on b400 (score_function resolved to "
+        f"{fit_b.cfg.score_function}): loss {float(l_b):.6g}, gradient "
+        f"norm {float(gb.norm()):.6g}, finite {bool(torch.isfinite(gb).all())}")
+    if not fit_b.cfg.score_function or not bool(torch.isfinite(gb).all()):
+        raise AssertionError("score-function step not finite")
+    # scripts/bench_fit.py's three times, medians of 5
+    b_leaf = b_true.clone().requires_grad_(True)
+    m_b = medium._replace(b400=b_leaf)
+
+    def fwd_kernel():
+        with torch.no_grad():
+            return propagate_expected_diff(steps, medium, geo, spectra, key,
+                                           cfg, n_iterations=FIT_T).sum()
+
+    def fwd_engine():
+        with torch.no_grad():
+            return E.propagate(steps, medium, geo, spectra, 0, cfg,
+                               max_iterations=FIT_T, key=key).hist.sum()
+
+    def grad_step():
+        s = propagate_expected_diff(steps, m_b, geo, spectra, key, cfg,
+                                    n_iterations=FIT_T).sum()
+        return s, torch.autograd.grad(s, b_leaf)[0]
+
+    times = {}
+    for name, fn in (("kernel forward", fwd_kernel),
+                     ("engine forward", fwd_engine),
+                     ("grad step", grad_step)):
+        fn()
+        _, times[name] = cuda_ms(fn)
+    for name in ("kernel forward", "grad step"):
+        busy, n_kern, wall = device_busy(dict(
+            (("kernel forward", fwd_kernel), ("grad step", grad_step)))[name])
+        log(f"  torch.profiler over one {name}: wall {wall * 1e3:.2f} ms, "
+            f"{n_kern} kernel launches, device busy share "
+            + ("not measured (no device time in the trace)" if busy is None
+               else f"{busy:.4f}"))
+    mem = torch.cuda.max_memory_allocated()
+    log(f"  bench_fit times (medians of 5, {FIT_SLOTS} slots x {FIT_T} "
+        "iterations): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in times.items())
+        + f"; grad step / kernel forward {times['grad step'] / times['kernel forward']:.2f}"
+        f"; max memory allocated {mem / 2 ** 30:.3f} GiB")
+    return launches_e, launches_t
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -638,7 +1098,8 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
-    log(smi.stdout.strip())
+    card = smi.stdout.strip()
+    log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     device = torch.device("cuda", 0)
@@ -655,31 +1116,50 @@ def main():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
 
+    res = {}
     log("phase 2: kernel against plain version")
-    max_err, (ms_k, ms_p) = phase2(device)
+    res["2"] = phase2(device)
     log("phase 3: main path (Simulation.simulate, hex61, 100 TeV cascade)")
-    launches = phase3(device)
+    res["3"] = phase3(device)
     log("phase 4: bench workload")
     phase4(device, sweep="--sweep" in sys.argv[1:])
     log("phase 5a: record mode against plain version")
-    rec_err, (rec_ms_k, rec_ms_p) = phase5a(device)
+    res["5a"] = phase5a(device)
     log("phase 5b: SAVE_ALL with a record buffer that fills")
     phase5b(device)
     log("phase 5c: main path with records (Simulation.simulate_hits)")
-    rec_launches, *hits_run = phase5c(device)
+    res["5c"], *hits_run = phase5c(device)
     log("phase 5d: simulate_photons -> npz -> simulate_hits_from_photons")
     phase5d(*hits_run)
+    log("phase 6a: threefry stream (card / CPU bits, threefry / stream-fed "
+        "kernel, kernel / plain)")
+    res["6a"] = phase6a(device)
+    log("phase 6b: the B6 deposit modes against their plain version")
+    res["6b"] = phase6b(device)
+    log("phase 6c: the ice fit (IceFit, forward='fused') at full width")
+    res["6c"] = phase6c(device)
 
     src = "clsim_tpu_torch/csrc/propagate.cu"
+    at = "clsim_tpu/propagate/kernel.py:2427"
+
+    def entry(name, launches, err, ms, plain_ms, bound):
+        return {"name": name, "route": "cuda", "source": src,
+                "replaces": at, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": None}
+
+    p2, p5, e6, t6 = res["2"], res["5a"], res["6b"], res["6a"]
+    launches_e, launches_t = res["6c"]
+    log(f"kernel times on {card}")
     print(json.dumps({"kernels": [
-        {"name": "propagate", "route": "cuda", "source": src,
-         "replaces": "clsim_tpu/propagate/kernel.py:2427",
-         "launches": launches, "max_abs_err": max_err,
-         "ms": ms_k, "plain_ms": ms_p},
-        {"name": "propagate[records]", "route": "cuda", "source": src,
-         "replaces": "clsim_tpu/propagate/kernel.py:2427",
-         "launches": rec_launches, "max_abs_err": rec_err,
-         "ms": rec_ms_k, "plain_ms": rec_ms_p}]}))
+        entry("propagate", res["3"], p2["err"], p2["ms"], p2["plain_ms"],
+              p2["bound"]),
+        entry("propagate[records]", res["5c"], p5["err"], p5["ms"],
+              p5["plain_ms"], p5["bound"]),
+        entry("propagate[expected]", launches_e, e6["err"], e6["ms"],
+              e6["plain_ms"], e6["bound"]),
+        entry("propagate[threefry]", launches_t, t6["err"], t6["ms"],
+              t6["plain_ms"], t6["bound"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

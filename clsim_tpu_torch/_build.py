@@ -78,7 +78,7 @@ def load():
         return _LIB
     lib = ctypes.CDLL(str(build()))
     vp = ctypes.c_void_p
-    lib.clsim_propagate.argtypes = [vp] * 13
+    lib.clsim_propagate.argtypes = [ctypes.c_int] + [vp] * 14
     lib.clsim_propagate.restype = ctypes.c_int
     lib.clsim_propagate_records.argtypes = [vp] * 16
     lib.clsim_propagate_records.restype = ctypes.c_int

@@ -99,7 +99,7 @@ class Simulation:
                    hole_ice_peak * 1.35 * 1.01)
             acc = icecube_dom_acceptance(
                 dom_radius=geometry.om_radius * geometry.oversize,
-                efficiency=eff)
+                efficiency=eff, device=self.device)
             nb = acc.values.shape[0]
             bias_x = float(acc.first_x) + float(acc.dx) * np.arange(nb)
             bias_y = to_numpy(acc.values)

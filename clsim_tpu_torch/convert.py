@@ -49,7 +49,7 @@ def _tensor(v, device, dtype=torch.float32):
     return torch.as_tensor(np.array(v, copy=True), device=device).to(dtype)
 
 
-def geometry_from_numpy(m: Mapping, device="cpu") -> DetectorGeometry:
+def geometry_from_numpy(m: Mapping, device="cuda") -> DetectorGeometry:
     m = _fields(m)
     out = {}
     for f in DetectorGeometry._fields:
@@ -61,13 +61,13 @@ def geometry_from_numpy(m: Mapping, device="cpu") -> DetectorGeometry:
     return DetectorGeometry(**out)
 
 
-def spectra_from_numpy(m: Mapping, device="cpu") -> SpectrumTable:
+def spectra_from_numpy(m: Mapping, device="cuda") -> SpectrumTable:
     m = _fields(m)
     return SpectrumTable(**{f: _tensor(m[f], device)
                             for f in SpectrumTable._fields})
 
 
-def steps_from_numpy(m: Mapping, device="cpu") -> StepBatch:
+def steps_from_numpy(m: Mapping, device="cuda") -> StepBatch:
     """Host step arrays -> tensors (float32; int32 counts, ids and types)."""
     m = _fields(m)
     return StepBatch(**{f: _tensor(m[f], device,
@@ -76,7 +76,7 @@ def steps_from_numpy(m: Mapping, device="cpu") -> StepBatch:
                         for f in StepBatch._fields})
 
 
-def medium_from_numpy(m: Mapping, device="cpu") -> MediumProperties:
+def medium_from_numpy(m: Mapping, device="cuda") -> MediumProperties:
     m = _fields(m)
     kind = str(m.get("medium_kind", "icecube"))
     scat = _fields(m["scattering"])

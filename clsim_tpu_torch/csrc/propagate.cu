@@ -1,10 +1,14 @@
 // Photon propagation kernel for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel clsim_tpu/propagate/kernel.py::_make_kernel
-// (pl.pallas_call at clsim_tpu/propagate/kernel.py:2427) in the main path's
-// configuration: detect estimator with stop-on-detection, IceCube layered ice
-// with optional tilt and anisotropy, one Cherenkov spectrum with a uniform
-// bias grid, per-subdetector SubPlan collision.  Its plain PyTorch version is
+// (pl.pallas_call at clsim_tpu/propagate/kernel.py:2427) in these
+// configurations: IceCube layered ice with optional tilt and anisotropy, one
+// Cherenkov spectrum with a uniform bias grid, per-subdetector SubPlan
+// collision; the detect estimator with or without stop-on-detection and
+// with a sampled or fixed absorption budget, or the expected estimator
+// (survival-weight deposits, soft binning, angular polynomial); Philox, an
+// external stream or in-kernel threefry for the random numbers.  Its plain
+// PyTorch version is
 // clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
 //
 // Design.  One thread per photon slot.  Each launch runs up to `iters`
@@ -29,7 +33,31 @@
 //
 // Random numbers: Philox4x32-10 keyed by the wrapper's 64-bit seed, counter
 // (it0 + iteration, slot, block); or, in parity mode, an external (T, 8, N)
-// float32 stream read at [iteration, row, slot].
+// float32 stream read at [iteration, row, slot]; or, in the THREEFRY
+// instantiation (the TPU kernel's `threefry`, kernel.py:341-361, :447-456,
+// :758-773; built with DEP_EXPECTED only, the fit's forward, which is the
+// one entry point that draws in-kernel threefry), threefry2x32 keyed by the
+// host-folded key of the iteration
+// (a (2T,) uint32 table), counter (0, row * N + slot), the two output words
+// XORed and mapped to [0, 1) as jax.random.uniform does: bit-exact to
+// ops/rng.py and to jax.random, so the engine run with the same key (the
+// fit's backward) sees the same numbers.  Rows 0-3 are drawn only when the
+// slot spawns (the values are those of the full (8, N) block: a counter-
+// based draw depends on nothing but its counter); ~100 integer operations
+// per row.
+//
+// Deposit modes (the template's DEP; the TPU kernel's `expected`,
+// `stopping`, `soft`, `ang_poly`, `fixed_abs`, kernel.py:855-857,
+// :1478-1529).  DEP_STOP is the main path: a hit deposits w0 and kills the
+// photon.  DEP_PASS (non-stopping detect) deposits w0 and keeps flying.
+// DEP_EXPECTED deposits the survival weight w0 exp(-(tau_start + frac *
+// tau_seg)) at every DOM entry, times the clipped angular polynomial, into
+// one bin or (soft) two neighbouring bins; the photon passes through and
+// dies only at the fixed horizon.  FIXED sets the spawn budget to the
+// horizon in detect mode.  What bounds these modes beyond the main path:
+// coherent workloads (every photon of a beam crossing the same DOM in the
+// same iteration) make many threads add to the same bins at once, so the
+// atomics serialise there; sums stay exact up to their order.
 //
 // Photon records (the RECORDS instantiation; the TPU kernel's `records`,
 // `rec_all` and `rec_prescale`: REC_STATE_FIELDS, the record position with
@@ -60,6 +88,7 @@
 #define MAX_PLANS 4
 #define MAX_ROUNDS 4
 #define MAX_TILT_D 16
+#define MAX_ANG 8
 #define BLOCK 256
 
 // parameter block, mirrored field for field by the ctypes structures in
@@ -82,7 +111,16 @@ struct Params {
   PlanParams plans[MAX_PLANS];
   int rec_cap, rec_all;        // record mode: buffer capacity, SAVE_ALL
   float rec_prescale, rec_fpk;  // SAVE_ALL prescale, (pancake - 1) / pancake
+  float horizon;               // fixed absorption horizon [abs. lengths]
+  int soft, n_ang;             // soft binning; angular coefficients used
+  float ang[MAX_ANG];          // angular polynomial in cos(eta), ascending
+  float pmt_ax, pmt_ay, pmt_az;  // PMT axis of the angular polynomial
 };
+
+// deposit modes (template DEP) and the host's mode flags (kernel.py
+// kernel_mode: DEP | MODE_THREEFRY | MODE_FIXED)
+enum { DEP_STOP = 0, DEP_PASS = 1, DEP_EXPECTED = 2 };
+enum { MODE_THREEFRY = 4, MODE_FIXED = 8 };
 
 // slot-state rows (engine.SlotState field order) and step rows
 enum { F_LEFT, F_INF, F_X, F_Y, F_Z, F_T, F_DX, F_DY, F_DZ, F_W0, F_IGV,
@@ -109,6 +147,35 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
     k.y += 0xBB67AE85u;
   }
   return c;
+}
+
+// threefry2x32 (20 rounds) of counter (0, c1) under key (k0, k1), the two
+// output words XORed: jax.random's 32 random bits of element c1
+// (clsim_tpu/propagate/kernel.py::_threefry_bits)
+#define TF_ROUND(r) x0 += x1; x1 = __funnelshift_l(x1, x1, r) ^ x0;
+__device__ __forceinline__ unsigned int threefry_bits(unsigned int k0,
+                                                      unsigned int k1,
+                                                      unsigned int c1) {
+  const unsigned int k2 = 0x1BD11BDAu ^ k0 ^ k1;
+  unsigned int x0 = k0, x1 = c1 + k1;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k1; x1 += k2 + 1u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k2; x1 += k0 + 2u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k1; x1 += k2 + 4u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k2; x1 += k0 + 5u;
+  return x0 ^ x1;
+}
+#undef TF_ROUND
+
+// jax.random.uniform's float of 32 random bits: [1, 2) by the mantissa,
+// minus 1
+__device__ __forceinline__ float tf_u01(unsigned int bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
 }
 
 __device__ __forceinline__ float u01(unsigned int bits) {
@@ -220,11 +287,12 @@ __device__ __forceinline__ bool push_record(
   return true;
 }
 
-template <bool RECORDS>
+template <bool RECORDS, int DEP, bool THREEFRY, bool FIXED>
 __global__ void __launch_bounds__(BLOCK)
 propagate_kernel(const Params p, float* __restrict__ state,
                  const float* __restrict__ steps,
                  const float* __restrict__ uni,
+                 const unsigned int* __restrict__ tf_keys,
                  const float* __restrict__ layers,
                  const float* __restrict__ spec_tab,
                  const float* __restrict__ bias_y,
@@ -294,7 +362,18 @@ propagate_kernel(const Params p, float* __restrict__ state,
       if (!fresh && inflight < 0.5f) break;  // slot drained
 
       float u[8];
-      if (p.use_uniforms) {
+      if constexpr (THREEFRY) {
+        const unsigned int k0 = tf_keys[2 * it], k1 = tf_keys[2 * it + 1];
+        const unsigned int c = (unsigned int)slot, n = (unsigned int)N;
+        if (fresh) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            u[r] = tf_u01(threefry_bits(k0, k1, (unsigned int)r * n + c));
+        }
+#pragma unroll
+        for (int r = 4; r < 8; ++r)
+          u[r] = tf_u01(threefry_bits(k0, k1, (unsigned int)r * n + c));
+      } else if (p.use_uniforms) {
         const float* ui = uni + (size_t)it * 8 * N + slot;
         if (fresh) {
 #pragma unroll
@@ -344,7 +423,10 @@ propagate_kernel(const Params p, float* __restrict__ state,
         } else {
           dx = s_dx; dy = s_dy; dz = s_dz;
         }
-        abs_left = -logf(1.0f - u[3]);
+        if constexpr (DEP == DEP_EXPECTED || FIXED)
+          abs_left = p.horizon;  // fixed absorption horizon
+        else
+          abs_left = -logf(1.0f - u[3]);
         inv_gv = 1.0f / (C_LIGHT / n_group);
         // bias: linear interpolation on the uniform grid, clamped
         const float bxi = (wl - p.bias_x0) * p.bias_inv_dx;
@@ -493,18 +575,62 @@ propagate_kernel(const Params p, float* __restrict__ state,
       }
       const bool hit = best < d_prop;
 
-      // ---------- hit: deposit and stop (kernel.cl:307-404) ----------
-      if (hit) {
-        d_prop = best;
-        absorbed = false;
-        scattered = false;
-        abs_left_corr = 0.0f;
-        const float t_hit = t + inv_gv * best;
-        const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt, 0.0f),
-                                (float)(p.nbins - 1));
-        atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
-        ++n_hits;
-        w_sum += (double)w0;
+      if constexpr (DEP == DEP_STOP) {
+        // ---------- hit: deposit and stop (kernel.cl:307-404) ----------
+        if (hit) {
+          d_prop = best;
+          absorbed = false;
+          scattered = false;
+          abs_left_corr = 0.0f;
+          const float t_hit = t + inv_gv * best;
+          const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
+                                        0.0f), (float)(p.nbins - 1));
+          atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
+          ++n_hits;
+          w_sum += (double)w0;
+        }
+      } else if constexpr (DEP == DEP_PASS) {
+        // ---------- non-stopping detect: deposit, keep flying ----------
+        if (hit) {
+          const float t_hit = t + inv_gv * best;
+          const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
+                                        0.0f), (float)(p.nbins - 1));
+          atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
+          ++n_hits;
+          w_sum += (double)w0;
+        }
+      } else {
+        // ---------- expected: survival weight at the DOM entry, the
+        // photon passes through (engine.py expected block) ----------
+        if (hit) {
+          const float tau_start = p.horizon - abs_left;
+          const float tau_seg = abs_left - abs_left_corr / abs_corr;
+          const float frac = d_prop > 0.0f ? best / d_prop : 0.0f;
+          float w = w0 * expf(-(tau_start + frac * tau_seg));
+          if (p.n_ang > 0) {
+            const float ce = fminf(fmaxf(-(dx * p.pmt_ax + dy * p.pmt_ay +
+                                           dz * p.pmt_az), -1.0f), 1.0f);
+            float ang = 0.0f;
+            for (int k = p.n_ang - 1; k >= 0; --k) ang = ang * ce + p.ang[k];
+            w *= fmaxf(ang, 0.0f);
+          }
+          const float t_hit = t + inv_gv * best;
+          const float tbf = (t_hit - p.hist_t0) / p.hist_dt;
+          float* __restrict__ h = hist + (size_t)best_dom * p.nbins;
+          if (p.soft) {
+            const float fl = floorf(tbf);
+            const float fr_hi = fminf(fmaxf(tbf - fl, 0.0f), 1.0f);
+            const float lo = fminf(fmaxf(fl, 0.0f), (float)(p.nbins - 1));
+            const float hi = fminf(lo + 1.0f, (float)(p.nbins - 1));
+            atomicAdd(h + (int)lo, w * (1.0f - fr_hi));
+            atomicAdd(h + (int)hi, w * fr_hi);
+          } else {
+            atomicAdd(h + (int)fminf(fmaxf(tbf, 0.0f), (float)(p.nbins - 1)),
+                      w);
+          }
+          ++n_hits;
+          w_sum += (double)w;
+        }
       }
 
       // ---------- record: at the hit, or (rec_all) at the absorption
@@ -574,7 +700,8 @@ propagate_kernel(const Params p, float* __restrict__ state,
       }
 
       // ---------- retire ----------
-      if (absorbed || abs_left < EPS || hit) inflight = 0.0f;
+      if (absorbed || abs_left < EPS || (DEP == DEP_STOP && hit))
+        inflight = 0.0f;
 
       // ---------- append the record (the photon is dead: x/y/z keep the
       // record position, t the record time; a full buffer stalls) ----------
@@ -650,29 +777,65 @@ propagate_kernel(const Params p, float* __restrict__ state,
   }
 }
 
-extern "C" {
-
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  All
-// buffers are device pointers allocated by the caller; `uniforms` may be
-// null when params->use_uniforms is 0.
-int clsim_propagate(const Params* params, float* state, const float* steps,
-                    const float* uniforms, const float* layers,
-                    const float* spec_tab, const float* bias_y,
-                    const float* tilt_zc, const float* cells, float* hist,
-                    long long* cnt_i, double* cnt_w, void* stream) {
+template <bool RECORDS, int DEP, bool THREEFRY, bool FIXED>
+static int launch(const Params* params, float* state, const float* steps,
+                  const float* uniforms, const unsigned int* tf_keys,
+                  const float* layers, const float* spec_tab,
+                  const float* bias_y, const float* tilt_zc,
+                  const float* cells, float* hist, long long* cnt_i,
+                  double* cnt_w, const float* doms, float* rec_buf,
+                  long long* rec_cnt, void* stream) {
   const int n = params->n_slots;
   const int grid = (n + BLOCK - 1) / BLOCK;
-  propagate_kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      *params, state, steps, uniforms, layers, spec_tab, bias_y, tilt_zc,
-      reinterpret_cast<const float4*>(cells), hist,
-      reinterpret_cast<unsigned long long*>(cnt_i), cnt_w, nullptr, nullptr,
-      nullptr);
+  propagate_kernel<RECORDS, DEP, THREEFRY, FIXED>
+      <<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
+          *params, state, steps, uniforms, tf_keys, layers, spec_tab, bias_y,
+          tilt_zc, reinterpret_cast<const float4*>(cells), hist,
+          reinterpret_cast<unsigned long long*>(cnt_i), cnt_w,
+          reinterpret_cast<const float4*>(doms), rec_buf,
+          reinterpret_cast<unsigned long long*>(rec_cnt));
   return (int)cudaGetLastError();
 }
 
-// The record mode: `state` has NSF + NRSF rows, `doms` is (n_doms, 4)
-// [x, y, z, 0], `rec_buf` holds params->rec_cap records of NRC floats and
-// `rec_cnt` (one zeroed int64) receives the number of appends tried.
+extern "C" {
+
+// Launch on `stream` in `mode` (DEP | MODE_THREEFRY | MODE_FIXED); returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a mode
+// without an instantiation (threefry is built with DEP_EXPECTED alone, and
+// MODE_FIXED only in detect modes).  All buffers are device pointers allocated by
+// the caller; `uniforms` may be null when params->use_uniforms is 0, and
+// `tf_keys` ((2 * params->iters,) uint32) when the mode has no threefry.
+// Mode 0 is the main path's instantiation.
+int clsim_propagate(int mode, const Params* params, float* state,
+                    const float* steps, const float* uniforms,
+                    const float* layers, const float* spec_tab,
+                    const float* bias_y, const float* tilt_zc,
+                    const float* cells, float* hist, long long* cnt_i,
+                    double* cnt_w, const unsigned int* tf_keys,
+                    void* stream) {
+#define CLSIM_MODE(DEP, TF, FIX)                                             \
+  case DEP | (TF ? MODE_THREEFRY : 0) | (FIX ? MODE_FIXED : 0):             \
+    return launch<false, DEP, TF, FIX>(                                      \
+        params, state, steps, uniforms, tf_keys, layers, spec_tab, bias_y,   \
+        tilt_zc, cells, hist, cnt_i, cnt_w, nullptr, nullptr, nullptr,       \
+        stream);
+  switch (mode) {
+    CLSIM_MODE(DEP_STOP, false, false)
+    CLSIM_MODE(DEP_STOP, false, true)
+    CLSIM_MODE(DEP_PASS, false, false)
+    CLSIM_MODE(DEP_PASS, false, true)
+    CLSIM_MODE(DEP_EXPECTED, false, false)
+    CLSIM_MODE(DEP_EXPECTED, true, false)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CLSIM_MODE
+}
+
+// The record mode (stopping detect, Philox or an external stream): `state`
+// has NSF + NRSF rows, `doms` is (n_doms, 4) [x, y, z, 0], `rec_buf` holds
+// params->rec_cap records of NRC floats and `rec_cnt` (one zeroed int64)
+// receives the number of appends tried.
 int clsim_propagate_records(const Params* params, float* state,
                             const float* steps, const float* uniforms,
                             const float* layers, const float* spec_tab,
@@ -680,15 +843,9 @@ int clsim_propagate_records(const Params* params, float* state,
                             const float* cells, float* hist, long long* cnt_i,
                             double* cnt_w, const float* doms, float* rec_buf,
                             long long* rec_cnt, void* stream) {
-  const int n = params->n_slots;
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  propagate_kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      *params, state, steps, uniforms, layers, spec_tab, bias_y, tilt_zc,
-      reinterpret_cast<const float4*>(cells), hist,
-      reinterpret_cast<unsigned long long*>(cnt_i), cnt_w,
-      reinterpret_cast<const float4*>(doms), rec_buf,
-      reinterpret_cast<unsigned long long*>(rec_cnt));
-  return (int)cudaGetLastError();
+  return launch<true, DEP_STOP, false, false>(
+      params, state, steps, uniforms, nullptr, layers, spec_tab, bias_y,
+      tilt_zc, cells, hist, cnt_i, cnt_w, doms, rec_buf, rec_cnt, stream);
 }
 
 int clsim_record_columns(void) { return NRC; }

@@ -94,7 +94,7 @@ def build_geometry(string_ids, om_ids, xs, ys, zs,
                    om_radius: float = DOM_RADIUS,
                    oversize: float = 1.0,
                    max_layers: int = 1024,
-                   device="cpu") -> DetectorGeometry:
+                   device="cuda") -> DetectorGeometry:
     """Build culling tables from flat per-DOM arrays (the equivalent of
     I3CLSimSimpleGeometry, public/clsim/I3CLSimSimpleGeometry.h:39-61)."""
     string_ids = np.asarray(string_ids, np.int32)
@@ -236,7 +236,7 @@ def single_string_geometry(n_doms: int = 24, spacing: float = 17.0,
                            x: float = 0.0, y: float = 0.0,
                            z_top: float = 200.0, oversize: float = 1.0,
                            om_radius: float = DOM_RADIUS,
-                           device="cpu") -> DetectorGeometry:
+                           device="cuda") -> DetectorGeometry:
     """A minimal test detector: one vertical string of n DOMs (the analog of
     the reference benchmark's 24-DOM minimal GCD, resources/scripts/benchmark.py)."""
     zs = z_top - spacing * np.arange(n_doms)
@@ -251,7 +251,7 @@ def hexagonal_geometry(n_rings: int = 3, string_spacing: float = 125.0,
                        doms_per_string: int = 60, dom_spacing: float = 17.0,
                        z_top: float = 500.0, oversize: float = 1.0,
                        om_radius: float = DOM_RADIUS,
-                       device="cpu") -> DetectorGeometry:
+                       device="cuda") -> DetectorGeometry:
     """IceCube-like hexagonal string grid for tests/benchmarks (n_rings=5 is
     roughly the full 86-string array scale)."""
     centers = [(0.0, 0.0)]

@@ -40,7 +40,7 @@ DOM_ACCEPTANCE_STEP = 10.0          # nm
 
 def icecube_dom_acceptance(dom_radius: float = DOM_RADIUS,
                            efficiency: float = 1.0,
-                           device="cpu") -> TableParams:
+                           device="cuda") -> TableParams:
     """Wavelength acceptance = efficiency * eff_area / (pi * r^2) as an
     equidistant table (linear interp).  Pass dom_radius = R * oversize to
     fold the oversize factor into the bias exactly like the segments do
@@ -66,7 +66,7 @@ HOLE_ICE_H2_50CM = dict(
         -2.3538, -1.3564, 1.2098, 0.81569]))
 
 
-def dom_angular_sensitivity(coefficients=None, device="cpu") -> torch.Tensor:
+def dom_angular_sensitivity(coefficients=None, device="cuda") -> torch.Tensor:
     """Polynomial coefficients (ascending order) of the relative collection
     efficiency vs cos(impact angle); defaults to the hole-ice h2-50cm model.
     Evaluate with medium.functions.eval_polynomial."""

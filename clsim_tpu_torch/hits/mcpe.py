@@ -17,8 +17,9 @@ SURVEY.md section 2.5).
 
 The Bernoulli draw comes from an explicit torch.Generator, or from
 `uniforms` of the probabilities' shape (so a test can hand in the draw the
-JAX package makes).  expected_mcpe_factor, the differentiable path's
-factor, waits for the differentiable slice (ROADMAP.md queue A item 17).
+JAX package makes).  expected_mcpe_factor is the differentiable path's
+factor: the spectrum-averaged wavelength acceptance that scales an
+expected-estimator histogram to photoelectrons.
 """
 
 from __future__ import annotations
@@ -48,6 +49,19 @@ def hit_probability(weight, wavelength, cos_impact,
     p = weight * eval_table(wlen_acceptance, wavelength)
     p = p * angular_factor(angular_coeffs, cos_impact)
     return p * efficiency
+
+
+def expected_mcpe_factor(wlen_acceptance: TableParams, spectrum_x,
+                         spectrum_pdf):
+    """Spectrum-averaged wavelength acceptance, for scaling per-DOM time
+    histograms of the differentiable path (the per-photon wavelengths are
+    already marginalized into the histogram).  The angular factor is folded
+    in at propagation time through cfg.expected_angular_poly, not here."""
+    x = torch.as_tensor(spectrum_x, dtype=torch.float32)
+    pdf = torch.as_tensor(spectrum_pdf, dtype=torch.float32, device=x.device)
+    acc = eval_table(wlen_acceptance, x.to(wlen_acceptance.values.device))
+    w = pdf.to(acc.device) / pdf.sum()
+    return (acc * w).sum()
 
 
 def _accept(p, dom, valid, dom_efficiency, generator, uniforms):

@@ -131,7 +131,7 @@ def make_homogeneous_ice(n_layers: int = 2,
                          kappa: float = 1.08,
                          abs_A: float = 6954.0,
                          abs_B: float = 6618.0,
-                         device="cpu") -> MediumProperties:
+                         device="cuda") -> MediumProperties:
     """A simple uniform ice model.  Defaults are representative mid-depth
     SPICE values (the same as the JAX package's)."""
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)

@@ -53,7 +53,7 @@ def tilt_z_shift(p: TiltParams, x, y, z):
     return val_hi * frac_hi + val_lo * frac_lo
 
 
-def disabled_tilt(device="cpu"):
+def disabled_tilt(device="cuda"):
     f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=device)
     return TiltParams(
         distances=torch.zeros(2, dtype=torch.float32, device=device),

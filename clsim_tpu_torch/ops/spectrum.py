@@ -145,7 +145,7 @@ class SpectrumTable(NamedTuple):
     bias_y: torch.Tensor  # (nb,)
 
 
-def stack_spectra(spectra, device="cpu") -> SpectrumTable:
+def stack_spectra(spectra, device="cuda") -> SpectrumTable:
     n = max(np.shape(s.x)[0] for s in spectra)
 
     def pad(a):

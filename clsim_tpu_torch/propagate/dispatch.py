@@ -2,9 +2,10 @@
 engine for CPU tensors (PyTorch counterpart of clsim_tpu.propagate.dispatch).
 
 On a CUDA device, "auto" takes the kernel when the configuration is
-supported (photon records included: the kernel's record mode) and otherwise
-raises with the reason (scatter-history rings, for one): a GPU run never
-quietly drops to the engine.  backend="engine" asks for the engine explicitly;
+supported (photon records included: the kernel's record mode; the expected
+estimator, non-stopping detect and the fixed absorption horizon: its B6
+deposit modes) and otherwise raises with the reason (scatter-history rings,
+for one): a GPU run never quietly drops to the engine.  backend="engine" asks for the engine explicitly;
 backend="fused" runs the fused call loop on any device (on CPU tensors the
 wrapper runs the kernel's plain version).
 """

@@ -1,4 +1,4 @@
-"""The photon propagation engine in plain PyTorch (detect estimator).
+"""The photon propagation engine in plain PyTorch.
 
 PyTorch counterpart of clsim_tpu.propagate.engine, and the CPU twin of the
 CUDA propagation kernel (csrc/propagate.cu): the kernel's plain version
@@ -15,19 +15,37 @@ JAX package's:
     max_layer_steps + 1 layers (propagation_kernel.c.cl:646-676),
   * DOM collision: a dense 2-D cull over all strings, then the sphere test
     against every DOM of the top-K nearest strings,
-  * hits are deposited into per-DOM time histograms with index_add_.
+  * hits are deposited into per-DOM time histograms with index_add.
 
 Per-photon wavelength-derived constants (bias weight w0, scattering factor
 gs, absorption factors pa/qa/ra, group slowness) are computed once at spawn
 and carried in SlotState, as the kernel does; the values are the same
 functions of the wavelength that the JAX engine recomputes each iteration.
 
-Randomness: each iteration consumes an (8, N) block of uniforms, either
-from a torch.Generator or from an external (T, 8, N) stream shared with the
-JAX engine and the kernel (the parity contract).  Row meanings: u0 emission
-point along the step, u1 wavelength, u2 Cherenkov azimuth, u3 absorption
-budget, u4 scattering budget, u5 phase-function branch, u6 scattering-angle
-sample, u7 scattering azimuth.
+Randomness: each iteration consumes an (8, N) block of uniforms, from a
+torch.Generator, from an external (T, 8, N) stream shared with the JAX
+engine and the kernel (the parity contract), or, with `key=`, from the
+port's threefry (ops/rng.py): iteration i draws
+rng.uniforms(rng.iter_key(key, i), (N,), 8), bit-exact to the JAX engine's
+stream for the same key.  Row meanings: u0 emission point along the step,
+u1 wavelength, u2 Cherenkov azimuth, u3 absorption budget, u4 scattering
+budget, u5 phase-function branch, u6 scattering-angle sample, u7
+scattering azimuth.
+
+Estimators (cfg.estimator): "detect" is the reference's accept/reject
+(a photon that hits a DOM deposits its weight and, with
+stop_on_detection, dies; fixed_abs_lens > 0 replaces the sampled absorption
+budget by a fixed horizon).  "expected" is the differentiable estimator:
+photons fly to a fixed horizon (fixed_abs_lens, or 46 absorption lengths),
+pass through DOMs, and every DOM entry deposits the survival weight
+exp(-optical depth to the entry point), optionally times the angular
+acceptance polynomial (expected_angular_poly about pmt_axis) and soft
+binned in time.  Under autograd the expected estimator is a smooth function
+of the medium tensors: with detach_trajectories the sampled geometry is a
+fixed sample, and with score_function the likelihood-ratio term of the
+scattering law rides in a per-slot log-likelihood (ScoreState, engine only:
+the kernel's primal factor is exp(0) = 1).  Deposits use the functional
+index_add, and divisions are where-guarded, so gradients stay finite.
 
 Photon records (cfg.save_photons): a RecState carries the emission point,
 wavelength and scatter count of each slot's photon beside the SlotState, and
@@ -36,9 +54,8 @@ absorption point).  propagate() writes the records into fixed-capacity rings
 per slot, as the JAX engine does; the kernel's plain version takes the same
 per-iteration record values through `emit` instead.
 
-Not ported yet (NotImplementedError): the expected estimator with soft
-binning and the score function (ROADMAP.md queue A item 17) and the
-scatter-history rings (photon_history_entries).
+Not ported yet (NotImplementedError): the scatter-history rings
+(photon_history_entries).
 """
 
 from __future__ import annotations
@@ -54,6 +71,7 @@ from ..medium.anisotropy import (abs_len_scaling, post_scatter_transform,
                                  pre_scatter_transform)
 from ..medium.properties import MEDIA_ITEM, MediumProperties
 from ..medium.tilt import tilt_z_shift
+from ..ops import rng
 from ..ops.rotations import (cart_to_sph, safe_sqrt,
                              scatter_direction_by_angle)
 from ..ops.samplers import mixed_cos
@@ -64,8 +82,6 @@ from ..types import PropagationConfig, StepBatch
 EPSILON = 1e-5  # matches the reference kernel's single-precision EPSILON
 BIG = 1e30
 
-EXPECTED_ITEM = ("the expected estimator, soft binning and the score "
-                 "function are queued (ROADMAP.md queue A item 17)")
 HISTORY_ITEM = ("photon scatter-history rings (photon_history_entries) are "
                 "queued (ROADMAP.md queue A item 12)")
 
@@ -128,6 +144,13 @@ class RecState(NamedTuple):
     total_path: torch.Tensor    # path length so far [m] (engine rings only)
 
 
+class ScoreState(NamedTuple):
+    """Per-slot state of the score-function estimator (uses_score(cfg)),
+    carried beside SlotState by the engine only."""
+    log_lik: torch.Tensor       # log-likelihood of the photon's sampled
+                                # scatter events so far
+
+
 class Accumulators(NamedTuple):
     hist: torch.Tensor         # (n_doms * n_bins,) float32 weighted hits
     n_generated: torch.Tensor  # () float64 photons spawned
@@ -167,13 +190,30 @@ class PropagationResult(NamedTuple):
                 "work": t[6], "stalled": t[7]}
 
 
+def horizon(cfg: PropagationConfig) -> Optional[float]:
+    """The fixed absorption horizon [absorption lengths], or None when the
+    budget is sampled: fixed_abs_lens when set (the tabulator's
+    PROPAGATE_FOR_FIXED_NUMBER_OF_ABSORPTION_LENGTHS), else 46 for the
+    expected estimator (photonics' 1e-20 survival), as
+    clsim_tpu/propagate/engine.py:171-175."""
+    if cfg.fixed_abs_lens > 0.0:
+        return float(cfg.fixed_abs_lens)
+    return 46.0 if cfg.estimator == "expected" else None
+
+
+def uses_score(cfg: PropagationConfig) -> bool:
+    """Whether the score-function term is carried (it needs the expected
+    estimator with detached trajectories)."""
+    return bool(cfg.score_function and cfg.estimator == "expected"
+                and cfg.detach_trajectories)
+
+
 def check_supported(cfg: PropagationConfig, medium: MediumProperties):
     """Raise NotImplementedError for configurations the port lacks."""
     if medium.medium_kind != "icecube" or medium.scattering.kind != "icecube":
         raise NotImplementedError(MEDIA_ITEM)
-    if (cfg.estimator != "detect" or cfg.soft_binning or cfg.score_function
-            or cfg.expected_angular_poly is not None):
-        raise NotImplementedError(EXPECTED_ITEM)
+    if cfg.estimator not in ("detect", "expected"):
+        raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.photon_history_entries > 0:
         raise NotImplementedError(HISTORY_ITEM)
 
@@ -210,11 +250,11 @@ def _create_photons(state: SlotState, steps: StepBatch,
     ndz = torch.where(is_cherenkov, cdz, steps.dir_z)
 
     inv_gv = 1.0 / medium.group_velocity(wlen)
-    if cfg.fixed_abs_lens > 0.0:
-        # PROPAGATE_FOR_FIXED_NUMBER_OF_ABSORPTION_LENGTHS
-        abs_init = torch.full_like(px, cfg.fixed_abs_lens)
+    h = horizon(cfg)
+    if h is not None:
+        abs_init = torch.full_like(px, h)
     else:
-        abs_init = -torch.log(1.0 - u_abs)
+        abs_init = -torch.log(rng.uniform_oc(u_abs))
     gs = medium.scat_coeff(wlen)
     pa, qa, ra = medium.abs_coeffs(wlen)
     # saveHit weight contract (propagation_kernel.c.cl:370)
@@ -323,14 +363,22 @@ def _ring_write(acc: Accumulators, rec_mask, raw, rstate: RecState, dist,
 # ---------------------------------------------------------------------------
 
 def _segment_distances(state: SlotState, medium: MediumProperties,
-                       cfg: PropagationConfig, sca_budget, abs_budget):
+                       cfg: PropagationConfig, sca_budget, abs_budget,
+                       with_score: bool = False):
     """Convert the scattering budget (in scattering lengths) and absorption
     budget (in absorption lengths, anisotropy-corrected) to meters through
     the layered medium, both capped at cfg.max_segment_m.
 
     Returns (d_prop, absorbed, scattered, abs_left_after): d_prop is the
     distance this segment covers before collision limiting, abs_left_after
-    the remaining (corrected) absorption budget after d_prop."""
+    the remaining (corrected) absorption budget after d_prop.
+
+    with_score also returns (tau_s_traced, inv_s_fin, t_done), the
+    ingredients of the segment's scattering log-likelihood: the scattering
+    depth of the completed layer crossings with the coefficients traced and
+    the crossing lengths detached, the final layer's scattering
+    coefficient, and the distance of the completed crossings
+    (clsim_tpu/propagate/engine.py:201-340)."""
     T = medium.layer_height
     L = medium.n_layers
 
@@ -369,6 +417,7 @@ def _segment_distances(state: SlotState, medium: MediumProperties,
     done = torch.zeros_like(going_up)
     d_scat, d_abs = zeros, zeros
     inv_a = torch.ones_like(dz)
+    tau_s_traced, inv_s_fin = zeros, torch.ones_like(dz)
     for k in range(K + 1):
         inv_s_k, inv_a_k = layer_vals(k)
         d_s = t_done + tau_s / inv_s_k
@@ -386,10 +435,15 @@ def _segment_distances(state: SlotState, medium: MediumProperties,
         d_scat = torch.where(finalize, d_s, d_scat)
         d_abs = torch.where(finalize, d_a, d_abs)
         inv_a = torch.where(finalize, inv_a_k, inv_a)
+        if with_score:
+            inv_s_fin = torch.where(finalize, inv_s_k, inv_s_fin)
 
         dt = t_bound - t_done
         tau_s = torch.where(cross, tau_s - dt * inv_s_k, tau_s)
         tau_a = torch.where(cross, tau_a - dt * inv_a_k, tau_a)
+        if with_score:
+            tau_s_traced = torch.where(
+                cross, tau_s_traced + dt.detach() * inv_s_k, tau_s_traced)
         t_done = torch.where(cross, t_bound, t_done)
         t_bound = torch.where(cross, t_bound + t_step, t_bound)
         done = done | finalize
@@ -399,6 +453,8 @@ def _segment_distances(state: SlotState, medium: MediumProperties,
     d_scat = torch.where(done, d_scat, t_done + tau_s / inv_s_last)
     d_abs = torch.where(done, d_abs, t_done + tau_a / inv_a_last)
     inv_a = torch.where(done, inv_a, inv_a_last)
+    if with_score:
+        inv_s_fin = torch.where(done, inv_s_fin, inv_s_last)
 
     absorbed = d_abs < d_scat
     d_prop = torch.clamp(torch.minimum(d_scat, d_abs), max=max_seg)
@@ -406,8 +462,15 @@ def _segment_distances(state: SlotState, medium: MediumProperties,
     absorbed = absorbed & ~capped
     scattered = (~absorbed) & (~capped)
 
-    abs_left_after = torch.clamp(tau_a - (d_prop - t_done) * inv_a, min=0.0)
+    # score mode: the sampled segment length belongs to the trajectory law
+    # that the score term carries; letting it also flow into the absorption
+    # bookkeeping would count it twice (engine.py:326-333 of the JAX package)
+    d_for_abs = d_prop.detach() if with_score else d_prop
+    abs_left_after = torch.clamp(tau_a - (d_for_abs - t_done) * inv_a, min=0.0)
     abs_left_after = torch.where(absorbed, zeros, abs_left_after)
+    if with_score:
+        return (d_prop, absorbed, scattered, abs_left_after,
+                (tau_s_traced, inv_s_fin, t_done))
     return d_prop, absorbed, scattered, abs_left_after
 
 
@@ -526,14 +589,60 @@ def _check_collisions(state: SlotState, geo: DetectorGeometry,
 # one propagation loop iteration
 # ---------------------------------------------------------------------------
 
+def _score_of_scatter(medium: MediumProperties, cos_s, u_branch):
+    """Log-density of the sampled scattering angle under the Liu / HG
+    mixture, with the sample detached and the phase-function parameters
+    traced (the angle part of the score, engine.py:736-751 of the JAX
+    package)."""
+    g = medium.scattering.mean_cos
+    f = medium.scattering.liu_fraction
+    c = cos_s.detach()
+    beta_l = (1.0 - g) / (1.0 + g)
+    half = torch.clamp((1.0 + c) * 0.5, 1e-12, 1.0)
+    log_liu = -torch.log(2.0 * beta_l) + (1.0 / beta_l - 1.0) * torch.log(half)
+    denom = torch.clamp(1.0 + g * g - 2.0 * g * c, min=1e-12)
+    log_hg = (torch.log(torch.clamp(0.5 * (1.0 - g * g), min=1e-30))
+              - 1.5 * torch.log(denom))
+    fcl = torch.clamp(f, 1e-12, 1.0 - 1e-12)
+    return torch.where(u_branch < f, torch.log(fcl) + log_liu,
+                       torch.log(1.0 - fcl) + log_hg)
+
+
+def _deposit(hist, cfg: PropagationConfig, hit, hit_dom, t_hit, w_hit):
+    """Add the iteration's deposits to the flat histogram (functional
+    index_add: the histogram may carry gradients).  Misses add weight 0 to
+    bin 0 of DOM 0, which keeps the deposit free of host syncs.  Returns
+    (hist, time bin of each lane)."""
+    nb = cfg.hist_n_bins
+    tbin_f = (t_hit - cfg.hist_t_min) / cfg.hist_dt
+    base = hit_dom * nb
+    if not cfg.soft_binning:
+        tbin = torch.clamp(tbin_f, 0.0, nb - 1).to(torch.int64)
+        idx = torch.where(hit, base + tbin, torch.zeros_like(tbin))
+        return hist.index_add(0, idx, w_hit), tbin
+    # soft binning: split linearly between the bin and its upper neighbour
+    fl = torch.floor(tbin_f)
+    frac_hi = torch.clamp(tbin_f - fl, 0.0, 1.0)
+    lo = torch.clamp(fl, 0.0, nb - 1).to(torch.int64)
+    hi = torch.clamp(lo + 1, max=nb - 1)
+    zero = torch.zeros_like(lo)
+    hist = hist.index_add(0, torch.where(hit, base + lo, zero),
+                          w_hit * (1.0 - frac_hi))
+    hist = hist.index_add(0, torch.where(hit, base + hi, zero),
+                          w_hit * frac_hi)
+    return hist, lo
+
+
 def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
                medium: MediumProperties, geo: Optional[DetectorGeometry],
                spectra: SpectrumTable, cfg: PropagationConfig,
                generator: Optional[torch.Generator] = None, uniforms=None,
                collide=None, rstate: Optional[RecState] = None,
-               dom_xyz=None, emit=None, enabled=None):
-    """One iteration over all slots.  `uniforms` (T, 8, N): iteration i reads
-    row i; otherwise an (8, N) block is drawn from `generator`.  `collide`
+               dom_xyz=None, emit=None, enabled=None,
+               score: Optional[ScoreState] = None):
+    """One iteration over all slots.  `uniforms`: a (T, 8, N) tensor
+    (iteration i reads row i) or a callable i -> (8, N) block (the threefry
+    modes); otherwise an (8, N) block is drawn from `generator`.  `collide`
     replaces the dense collision test: collide(state, d_prop, active) ->
     (hit, hit_dist, hit_dom) (the kernel's plain version passes its
     SubPlan test).
@@ -542,13 +651,19 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
     centres) are required; the iteration's records go to the rings in
     `acc`, or, when `emit` is given, to emit(rec_mask, raw) (see
     _record_values).  `enabled` ((N,) bool) leaves the other lanes
-    untouched this iteration.  Returns (state, acc, rstate)."""
+    untouched this iteration.  `score` is required when uses_score(cfg).
+    Returns (state, acc, rstate, score)."""
     n = state.x.shape[0]
-    if uniforms is not None:
+    if callable(uniforms):
+        u = uniforms(i)
+    elif uniforms is not None:
         u = uniforms[i]
     else:
         u = torch.rand((8, n), generator=generator, device=state.x.device,
                        dtype=torch.float32)
+    expected = cfg.estimator == "expected"
+    detach = expected and cfg.detach_trajectories
+    use_score = uses_score(cfg)
 
     # --- spawn new photons into empty slots ---
     fresh = (state.in_flight < 0.5) & (state.photons_left > 0.5)
@@ -558,6 +673,10 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
                                   fresh)
     if rstate is not None:
         rstate = _spawn_records(rstate, state, wlen, fresh)
+    if use_score:
+        # a fresh photon starts with an empty sampled-event log-likelihood
+        score = ScoreState(log_lik=torch.where(
+            fresh, torch.zeros_like(score.log_lik), score.log_lik))
     freshf = fresh.to(state.x.dtype)
     state = state._replace(in_flight=torch.maximum(state.in_flight, freshf),
                            photons_left=state.photons_left - freshf)
@@ -570,11 +689,25 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
 
     # --- anisotropy correction in/out (propagation_kernel.c.cl:615-694) ---
     abs_corr = abs_len_scaling(medium.anisotropy, state.dx, state.dy, state.dz)
-    sca_budget = -torch.log(1.0 - u[4])
+    sca_budget = -torch.log(rng.uniform_oc(u[4]))
     abs_budget = state.abs_left * abs_corr
 
-    d_prop, absorbed, scattered, abs_left = _segment_distances(
-        state, medium, cfg, sca_budget, abs_budget)
+    if use_score:
+        d_prop, absorbed, scattered, abs_left, (tau_acc, inv_s_fin, t_done) \
+            = _segment_distances(state, medium, cfg, sca_budget, abs_budget,
+                                 with_score=True)
+        # this segment's scattering depth: traced coefficients times the
+        # detached geometry
+        tau_seg_s = tau_acc + torch.clamp(
+            (torch.clamp(d_prop, max=cfg.max_segment_m) - t_done).detach(),
+            min=0.0) * inv_s_fin
+    else:
+        d_prop, absorbed, scattered, abs_left = _segment_distances(
+            state, medium, cfg, sca_budget, abs_budget)
+    if detach:
+        # detached sampling: the path geometry is a fixed sample; gradients
+        # flow through the optical-depth weights, not chaotic positions
+        d_prop = d_prop.detach()
 
     # --- collisions ---
     if collide is not None:
@@ -587,7 +720,11 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
                                                    active)
     hit = hit & active
 
-    if cfg.stop_on_detection:
+    # absorption depth of this segment (uncorrected units) and before it,
+    # for the expected estimator, taken before the stopping rule zeroes it
+    tau_seg = state.abs_left - abs_left / abs_corr
+
+    if cfg.stop_on_detection and not expected:
         d_prop = torch.where(hit, hit_dist, d_prop)
         absorbed = absorbed & ~hit
         scattered = scattered & ~hit
@@ -595,16 +732,40 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
 
     abs_left = abs_left / abs_corr
 
-    # --- deposit hits (every lane adds; misses add weight 0 to bin 0, which
-    # keeps the deposit free of host syncs) ---
+    # --- deposit hits ---
     w_hit = torch.where(hit, state.w0, torch.zeros_like(state.w0))
+    if expected:
+        # continuous absorption: every DOM entry deposits the survival
+        # probability to the entry point, interpolated within the segment
+        # (propagation_kernel.c.cl:289-290); the photon passes through.
+        # where-guarded division: max(d, eps) would leave 1/eps^2 in the
+        # tangents of dead lanes (d_prop == 0)
+        tau_start = horizon(cfg) - state.abs_left
+        has_dp = d_prop > 0.0
+        frac = torch.where(
+            has_dp, hit_dist / torch.where(has_dp, d_prop,
+                                           torch.ones_like(d_prop)),
+            torch.zeros_like(d_prop))
+        w_hit = w_hit * torch.exp(-(tau_start + frac * tau_seg))
+        if use_score:
+            # likelihood-ratio factor exp(L - sg L) == 1 in the primal; its
+            # gradient is the score of every sampled event up to the deposit
+            l_dep = score.log_lik - frac.detach() * tau_seg_s
+            w_hit = w_hit * torch.exp(l_dep - l_dep.detach())
+        if cfg.expected_angular_poly is not None:
+            # the DOM's angular acceptance, folded in where the direction is
+            # known (I3PhotonToMCPEConverter.cxx:466-475)
+            ax, ay, az = cfg.pmt_axis
+            cos_eta = torch.clamp(-(state.dx * ax + state.dy * ay
+                                    + state.dz * az), -1.0, 1.0)
+            ang = torch.zeros_like(cos_eta)
+            for c in reversed(cfg.expected_angular_poly):
+                ang = ang * cos_eta + c
+            w_hit = w_hit * torch.clamp(ang, min=0.0)
     t_hit = state.t + state.inv_gv * hit_dist
-    tbin_f = (t_hit - cfg.hist_t_min) / cfg.hist_dt
-    tbin = torch.clamp(tbin_f, 0.0, cfg.hist_n_bins - 1).to(torch.int64)
-    flat_idx = torch.where(hit, hit_dom * cfg.hist_n_bins + tbin,
-                           torch.zeros_like(tbin))
+    hist, tbin = _deposit(acc.hist, cfg, hit, hit_dom, t_hit, w_hit)
     acc = acc._replace(
-        hist=acc.hist.index_add_(0, flat_idx, w_hit),
+        hist=hist,
         n_hits=acc.n_hits + hit.sum(),
         weight_hits=acc.weight_hits + w_hit.sum(dtype=torch.float64))
 
@@ -637,10 +798,22 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
                                           state.dx, state.dy, state.dz)
     cos_s = mixed_cos(medium.scattering.mean_cos,
                       medium.scattering.liu_fraction, u[5], u[6])
+    if use_score:
+        # this segment's sampled-event log-likelihood: the survival over
+        # the traveled distance, and for scattered lanes the distance
+        # density's log b_eff and the angle density at the detached cosine
+        d_l = -tau_seg_s + torch.where(
+            scattered, torch.log(torch.clamp(inv_s_fin, min=1e-30))
+            + _score_of_scatter(medium, cos_s, u[5]),
+            torch.zeros_like(tau_seg_s))
+        score = ScoreState(log_lik=torch.where(
+            active, score.log_lik + d_l, score.log_lik))
     sin_s = safe_sqrt(1.0 - cos_s * cos_s)
     sdx, sdy, sdz = scatter_direction_by_angle(cos_s, sin_s, pdx, pdy, pdz,
                                                u[7])
     sdx, sdy, sdz = post_scatter_transform(medium.anisotropy, sdx, sdy, sdz)
+    if detach:
+        sdx, sdy, sdz = sdx.detach(), sdy.detach(), sdz.detach()
     state = state._replace(
         dx=torch.where(do_scatter, sdx, state.dx),
         dy=torch.where(do_scatter, sdy, state.dy),
@@ -653,11 +826,11 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
     # whenever its remaining budget drops below EPSILON,
     # propagation_kernel.c.cl:536-596) ---
     died = active & (absorbed | (state.abs_left < EPSILON))
-    if cfg.stop_on_detection:
+    if cfg.stop_on_detection and not expected:
         died = died | hit
     state = state._replace(in_flight=torch.where(
         died, torch.zeros_like(state.in_flight), state.in_flight))
-    return state, acc, rstate
+    return state, acc, rstate, score
 
 
 # ---------------------------------------------------------------------------
@@ -716,28 +889,44 @@ def propagate(steps: StepBatch, medium: MediumProperties,
               geo: DetectorGeometry, spectra: SpectrumTable,
               seed: int, cfg: PropagationConfig,
               max_iterations: int = 0,
-              uniforms=None) -> PropagationResult:
+              uniforms=None, key=None) -> PropagationResult:
     """Propagate all photons of a slot-assigned step batch (tensors on one
     device; one step per slot, see sources.assign_steps_to_slots).
 
     With max_iterations == 0 the loop runs until every slot is drained;
-    a positive value runs exactly that many iterations.  `uniforms`
-    ((T, 8, N) float32) replaces the generator stream and sets T
-    iterations: the shared-stream contract with the JAX engine and the
-    kernel.  With cfg.save_photons the result carries the record rings
-    (photon_capacity_per_slot per slot)."""
+    a positive value runs exactly that many iterations.  Random numbers
+    come from a torch.Generator seeded with `seed`, unless
+      * `uniforms` ((T, 8, N) float32) replaces the stream and sets T
+        iterations: the shared-stream contract with the JAX engine and the
+        kernel, or
+      * `key` (a threefry key, ops/rng.py) draws iteration i's block as
+        rng.uniforms(rng.iter_key(key, i), (N,), 8): the JAX engine's
+        stream for the same key.
+    With cfg.save_photons the result carries the record rings
+    (photon_capacity_per_slot per slot).  Differentiable with respect to
+    the medium tensors (see the module docstring)."""
     check_supported(cfg, medium)
+    if uniforms is not None and key is not None:
+        raise ValueError("uniforms and key are exclusive")
     device = steps.x.device
+    n = steps.x.shape[0]
+    generator = None
     if uniforms is not None:
         max_iterations = int(uniforms.shape[0])
-    generator = torch.Generator(device=device)
-    generator.manual_seed(int(seed))
-    n = steps.x.shape[0]
+    elif key is not None:
+        k = rng.as_key(key, device)
+        uniforms = lambda i: rng.uniforms(rng.iter_key(k, i), (n,), 8)
+    else:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(seed))
     state = _init_state(steps)
     acc = _init_acc(geo.n_doms, cfg, device, n_rings=n)
-    rstate = dom_xyz = None
+    rstate = dom_xyz = score = None
     if cfg.save_photons:
         rstate, dom_xyz = _init_rec_state(n, device), dom_centres(geo)
+    if uses_score(cfg):
+        score = ScoreState(log_lik=torch.zeros(n, dtype=torch.float32,
+                                               device=device))
 
     i = 0
     while True:
@@ -747,10 +936,10 @@ def propagate(steps: StepBatch, medium: MediumProperties,
         elif not bool(((state.in_flight > 0.5)
                        | (state.photons_left > 0.5)).any()):
             break
-        state, acc, rstate = _iteration(
+        state, acc, rstate, score = _iteration(
             i, state, acc, steps, medium, geo, spectra, cfg,
             generator=generator, uniforms=uniforms, rstate=rstate,
-            dom_xyz=dom_xyz)
+            dom_xyz=dom_xyz, score=score)
         i += 1
 
     return PropagationResult(

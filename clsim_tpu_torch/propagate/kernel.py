@@ -29,17 +29,28 @@ This module holds
   * propagate_fused / _run_fused: the call loop that launches the kernel
     until no slot is alive or max_calls is reached.
 
-The kernel serves the main path's configuration only: the detect estimator
-with stop-on-detection, the icecube medium and scattering, one spectrum, a
+The expected estimator (spec.expected: survival-weight deposits, soft
+binning, the angular polynomial), non-stopping detect and the fixed
+absorption horizon (B6) are the kernel's deposit modes, and in-kernel
+threefry (spec.threefry, B8b, with the expected estimator only: the fit's
+forward) its third random-number mode: the kernel
+reads a (2T,) table of per-iteration keys folded on the host by ops/rng.py
+and draws bit-exactly the stream of rng.uniforms, so the engine run with
+the same key (the fit's backward, propagate/diff.py) consumes the same
+numbers without a materialized (T, 8, N) stream.
+
+The kernel serves the icecube medium and scattering, one spectrum, a
 uniform bias grid and non-empty SubPlans; tilt and anisotropy may be on or
-off, and photon records (with SAVE_ALL and its prescale) may be on.
-spec_unsupported() names the ROADMAP.md queue B item for any other
-configuration, and the wrapper raises rather than fall back.
+off, and photon records (with SAVE_ALL and its prescale) may be on with
+stopping detect.  spec_unsupported() names the ROADMAP.md queue B item for
+any other configuration, and the wrapper raises rather than fall back.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -47,6 +58,7 @@ import torch
 
 from ..geometry import DetectorGeometry, to_numpy
 from ..medium.properties import MediumProperties
+from ..ops import rng
 from ..ops.rotations import cart_to_sph
 from ..ops.spectrum import SpectrumTable
 from ..types import PropagationConfig, StepBatch
@@ -86,11 +98,16 @@ MAX_PLANS = 4
 MAX_ROUNDS = 4
 MAX_TILT_D = 16
 MAX_DOM_CAND = 16
+MAX_ANG = 8        # angular-polynomial coefficients in the parameter block
 
-# launches of the CUDA kernel's two instantiations (the wrapper adds one per
-# launch): the main path's, and the record mode's
+# launches of the CUDA kernel, one count per instantiation (the wrapper adds
+# one per launch): the main path's (stopping detect with Philox or an
+# external stream), the record mode's, and MODE_LAUNCHES[kernel_mode(spec)]
+# for each of the others (the B6 deposit modes, the fit's expected +
+# threefry).
 LAUNCHES = 0
 RECORD_LAUNCHES = 0
+MODE_LAUNCHES = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -410,7 +427,12 @@ class FusedSpec(NamedTuple):
     records: bool
     rec_all: bool          # SAVE_ALL_PHOTONS: record at the absorption point
     rec_prescale: float    # SAVE_ALL_PHOTONS_PRESCALE
-    fixed_abs: bool
+    fixed_abs: bool       # fixed horizon in detect mode (expected has one)
+    soft: bool            # soft time binning (expected)
+    ang_poly: tuple       # angular acceptance polynomial (expected)
+    pmt_axis: tuple
+    horizon: float        # fixed absorption horizon [absorption lengths]
+    threefry: bool        # in-kernel threefry draws from a key table
     medium_tables: bool
     scat_table: bool
     cfg: PropagationConfig
@@ -418,9 +440,10 @@ class FusedSpec(NamedTuple):
 
 def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
                spectra: SpectrumTable, cfg: PropagationConfig,
-               n_slots: int, iters_per_call: int):
-    """Plan the collision test and build the kernel spec.  Returns
-    (spec, cell_tab) with cell_tab in the JAX package's layout."""
+               n_slots: int, iters_per_call: int, threefry: bool = False):
+    """Plan the collision test and build the kernel spec (the estimator
+    fields as clsim_tpu/propagate/kernel.py:2160-2172 computes them).
+    Returns (spec, cell_tab) with cell_tab in the JAX package's layout."""
     cell_tab, plan = plan_collision(geo, cfg)
     bx = to_numpy(spectra.bias_x, np.float64)
     tilt = medium.tilt
@@ -445,7 +468,13 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
         records=bool(cfg.save_photons),
         rec_all=bool(cfg.save_photons and cfg.save_all_photons),
         rec_prescale=float(cfg.save_all_prescale),
-        fixed_abs=cfg.fixed_abs_lens > 0,
+        fixed_abs=cfg.fixed_abs_lens > 0 and cfg.estimator == "detect",
+        soft=bool(cfg.soft_binning),
+        ang_poly=tuple(float(c) for c in cfg.expected_angular_poly or ()),
+        pmt_axis=tuple(float(a) for a in cfg.pmt_axis),
+        horizon=(float(cfg.fixed_abs_lens) if cfg.fixed_abs_lens > 0
+                 else 46.0),
+        threefry=bool(threefry),
         medium_tables=medium.medium_kind != "icecube",
         scat_table=medium.scattering.kind != "icecube",
         cfg=cfg), cell_tab
@@ -454,10 +483,22 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
 def spec_unsupported(spec: FusedSpec) -> Optional[str]:
     """None if the CUDA kernel serves this spec, else why not (naming the
     ROADMAP.md queue B item that adds it)."""
-    if spec.expected or not spec.stopping or spec.fixed_abs:
-        return ("expected estimator, non-stopping detect and fixed "
-                "absorption horizon are not in the CUDA kernel yet "
-                "(ROADMAP.md queue B item B6)")
+    if spec.records and (spec.expected or not spec.stopping
+                         or spec.fixed_abs or spec.threefry):
+        return ("photon records are fused only with stopping detect, as in "
+                "the JAX package (clsim_tpu/propagate/kernel.py:1830-1834): "
+                "records with the B6 deposit modes, a fixed horizon or "
+                "threefry draws are not in the CUDA kernel")
+    if len(spec.ang_poly) > MAX_ANG:
+        return (f"the angular polynomial has {len(spec.ang_poly)} "
+                f"coefficients, the kernel takes <= {MAX_ANG} (ROADMAP.md B6)")
+    if spec.threefry and not spec.expected:
+        return ("in-kernel threefry is built with the expected estimator "
+                "only (the fit's forward, propagate/diff.py); detect modes "
+                "draw Philox or an external stream")
+    if spec.threefry and 8 * spec.n_slots >= 2 ** 32:
+        return ("threefry draws need 8 * n_slots < 2**32 (one 32-bit "
+                "counter per element of an iteration's (8, N) block)")
     if spec.medium_tables or spec.scat_table:
         return ("water / photonics media and tabulated scattering are not "
                 "in the CUDA kernel yet (ROADMAP.md B7)")
@@ -728,18 +769,24 @@ def _pending_columns(st: E.SlotState, rs: E.RecState, sb: StepBatch, pend,
 
 
 def run_fused_iterations_plain(state, steps, tables: FusedTables,
-                               spec: FusedSpec, *, uniforms=None, seed=0,
-                               call_no=0, hist=None, rec_capacity=None):
+                               spec: FusedSpec, *, uniforms=None, keys=None,
+                               seed=0, call_no=0, hist=None,
+                               rec_capacity=None):
     """The kernel's computation in plain PyTorch: up to iters_per_call
     iterations of engine._iteration on the kernel's state layout, with the
-    kernel's SubPlan collision test.  Updates `state` in place and deposits
-    into `hist` (allocated when None).  Its random numbers come from a
-    torch.Generator unless `uniforms` (T, 8, N) is given.
+    kernel's SubPlan collision test.  Updates `state` in place and returns
+    the histogram with this launch's deposits added to `hist` (allocated
+    when None).  Its random numbers come from a torch.Generator unless
+    `uniforms` (T, 8, N) is given, or, with spec.threefry, from `keys`, the
+    (2T,) table of per-iteration threefry keys (iteration i draws
+    rng.uniforms(keys[2i:2i+2], (N,), 8), as the kernel does).
 
     With spec.records the records of the engine's record block are kept
     as (R, NRC) rows under the kernel's capacity rule (_RecordBuffer), and
     the return value gains them (see run_fused_iterations)."""
-    cfg = spec.cfg
+    # the score function's primal factor is exp(0) = 1: the kernel and its
+    # plain version compute the primal only
+    cfg = dataclasses.replace(spec.cfg, score_function=False)
     dev = state.device
     st = E.SlotState(*state[:NSF].unbind(0))
     sb = StepBatch(**{f: steps[k] for k, f in enumerate(STEP_FIELDS)},
@@ -748,7 +795,12 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
     if hist is not None:
         acc = acc._replace(hist=hist)
     generator = None
-    if uniforms is None:
+    if spec.threefry:
+        if keys is None or uniforms is not None:
+            raise ValueError("threefry mode draws from `keys` alone")
+        n = st.x.shape[0]
+        uniforms = lambda i: rng.uniforms(keys[2 * i:2 * i + 2], (n,), 8)
+    elif uniforms is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(_seed64(seed, call_no))
     collide = lambda s, d, a: _check_collisions_subplan(s, tables, spec, d, a)
@@ -775,7 +827,7 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
             live = (st.in_flight > 0.5) | (st.photons_left > 0.5)
             if not bool((live if enabled is None else live & enabled).any()):
                 break
-        st, acc, rs = E._iteration(
+        st, acc, rs, _ = E._iteration(
             i, st, acc, sb, tables.medium, None, tables.spectra, cfg,
             generator=generator, uniforms=uniforms, collide=collide,
             rstate=rs, dom_xyz=tables.doms[:, :3], emit=emit,
@@ -836,7 +888,11 @@ class _Params(ctypes.Structure):
            ("tilt_d", ctypes.c_float * MAX_TILT_D),
            ("plans", _Plan * MAX_PLANS)]
         + [(n, ctypes.c_int) for n in ("rec_cap", "rec_all")]
-        + [(n, ctypes.c_float) for n in ("rec_prescale", "rec_fpk")])
+        + [(n, ctypes.c_float) for n in ("rec_prescale", "rec_fpk",
+                                         "horizon")]
+        + [(n, ctypes.c_int) for n in ("soft", "n_ang")]
+        + [("ang", ctypes.c_float * MAX_ANG)]
+        + [(n, ctypes.c_float) for n in ("pmt_ax", "pmt_ay", "pmt_az")])
 
 
 def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
@@ -870,7 +926,27 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.rec_cap, p.rec_all = rec_capacity, int(spec.rec_all)
     p.rec_prescale = spec.rec_prescale
     p.rec_fpk = (pancake - 1.0) / pancake   # the engine's un-pancake factor
+    p.horizon, p.soft = spec.horizon, int(spec.soft)
+    p.n_ang = len(spec.ang_poly)
+    for j, c in enumerate(spec.ang_poly):
+        p.ang[j] = c
+    p.pmt_ax, p.pmt_ay, p.pmt_az = spec.pmt_axis
     return p
+
+
+# kernel modes of csrc/propagate.cu (clsim_propagate's `mode` argument):
+# the deposit mode, plus flags for threefry draws and the fixed horizon
+DEP_STOP, DEP_PASS, DEP_EXPECTED = 0, 1, 2
+MODE_THREEFRY, MODE_FIXED = 4, 8
+
+
+def kernel_mode(spec: FusedSpec) -> int:
+    """The instantiation of the CUDA kernel that serves `spec` (records
+    aside): deposit mode | MODE_THREEFRY | MODE_FIXED."""
+    dep = (DEP_EXPECTED if spec.expected
+           else DEP_STOP if spec.stopping else DEP_PASS)
+    return (dep | (MODE_THREEFRY if spec.threefry else 0)
+            | (MODE_FIXED if spec.fixed_abs else 0))
 
 
 def _check_tensor(name, t, shape, dtype, device):
@@ -888,7 +964,7 @@ def _check_tensor(name, t, shape, dtype, device):
 
 
 def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
-            seed, call_no, hist, rec_capacity=None):
+            seed, call_no, hist, rec_capacity=None, keys=None):
     global LAUNCHES, RECORD_LAUNCHES
     reason = spec_unsupported(spec)
     if reason:
@@ -912,6 +988,15 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
                 or tuple(uniforms.shape[1:]) != (8, N)):
             raise ValueError(f"uniforms must be (>= {spec.iters_per_call}, "
                              f"8, {N}), got {tuple(uniforms.shape)}")
+    keys32 = None
+    if spec.threefry:
+        if keys is None or uniforms is not None:
+            raise ValueError("threefry mode draws from `keys` alone")
+        _check_tensor("keys", keys, (2 * spec.iters_per_call,), torch.int64,
+                      dev)
+        # the uint32 words as the int32 bit patterns the kernel reads
+        keys32 = torch.where(keys >= 2 ** 31, keys - 2 ** 32, keys).to(
+            torch.int32).contiguous()
     n_hist = spec.n_doms * spec.hist_n_bins
     if hist is None:
         hist = torch.zeros(n_hist, dtype=f32, device=dev)
@@ -936,18 +1021,22 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
             ptr(tables.tilt_zc), ptr(tables.cells), ptr(hist), ptr(cnt_i),
             ptr(cnt_w)]
     stream = torch.cuda.current_stream(dev).cuda_stream
+    mode = kernel_mode(spec)
     if spec.records:
         rc = lib.clsim_propagate_records(
             *args, ptr(tables.doms), ptr(rec_buf), ptr(rec_cnt), stream)
     else:
-        rc = lib.clsim_propagate(*args, stream)
+        rc = lib.clsim_propagate(mode, *args, ptr(keys32), stream)
     if rc != 0:
         raise RuntimeError("propagation kernel launch failed: "
                            + lib.clsim_error_string(rc).decode())
     c = cnt_i.to(torch.float64)
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     if not spec.records:
-        LAUNCHES += 1
+        if mode == DEP_STOP:
+            LAUNCHES += 1
+        else:
+            MODE_LAUNCHES[mode] += 1
         counters = torch.stack([c[0], c[1], cnt_w[0], zero, c[2], c[1], c[3],
                                 zero])
         return state, hist, counters
@@ -961,25 +1050,28 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
 
 
 def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
-                         *, uniforms=None, seed=0, call_no=0, hist=None,
-                         rec_capacity=None):
+                         *, uniforms=None, keys=None, seed=0, call_no=0,
+                         hist=None, rec_capacity=None):
     """Run up to spec.iters_per_call propagation iterations on every slot.
 
     state (NSF, N) float32 ((NSF + NRSF, N) with spec.records) is updated in
     place; hits are deposited into hist (n_doms * n_bins,) float32,
-    allocated when None.  Returns (state, hist, counters), counters a
+    allocated when None (the plain version returns a new tensor).  Returns (state, hist, counters), counters a
     float64 (N_CNT,) tensor in the CNT_* layout; with spec.records
     (state, hist, counters, rows), rows the (R, NRC) float32 records this
     launch wrote (REC_COLUMNS; at most rec_capacity, default
-    default_rec_capacity(spec)).  CUDA tensors launch the CUDA kernel (or
-    raise); CPU tensors run run_fused_iterations_plain."""
+    default_rec_capacity(spec)).  With spec.threefry the draws come from
+    `keys`, the (2 * iters_per_call,) int64 table of per-iteration threefry
+    keys (rng.key_table).  CUDA tensors launch the CUDA kernel (or raise);
+    CPU tensors run run_fused_iterations_plain."""
     if state.device.type == "cuda":
         return _launch(state, steps, tables, spec, uniforms, seed, call_no,
-                       hist, rec_capacity)
+                       hist, rec_capacity, keys=keys)
     if state.device.type == "cpu":
         return run_fused_iterations_plain(
-            state, steps, tables, spec, uniforms=uniforms, seed=seed,
-            call_no=call_no, hist=hist, rec_capacity=rec_capacity)
+            state, steps, tables, spec, uniforms=uniforms, keys=keys,
+            seed=seed, call_no=call_no, hist=hist,
+            rec_capacity=rec_capacity)
     raise ValueError(f"no propagation kernel for device {state.device}")
 
 
@@ -988,7 +1080,7 @@ def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
 # ---------------------------------------------------------------------------
 
 def _run_fused(state, steps_p, tables: FusedTables, spec: FusedSpec, seed,
-               max_calls: int, uniforms=None, rec_capacity=None):
+               max_calls: int, uniforms=None, rec_capacity=None, keys=None):
     """Launch until no slot is alive or max_calls is reached; photons still
     alive after the last call are reported as abandoned (CNT_ALIVE).  With
     spec.records every launch's records are kept and the result carries
@@ -1001,8 +1093,8 @@ def _run_fused(state, steps_p, tables: FusedTables, spec: FusedSpec, seed,
     calls, alive, chunks = 0, 0.0, []
     for call_no in range(max_calls):
         out = run_fused_iterations(
-            state, steps_p, tables, spec, uniforms=uniforms, seed=seed,
-            call_no=call_no, hist=hist, rec_capacity=rec_capacity)
+            state, steps_p, tables, spec, uniforms=uniforms, keys=keys,
+            seed=seed, call_no=call_no, hist=hist, rec_capacity=rec_capacity)
         state, hist, cnt = out[:3]
         if spec.records:
             chunks.append(out[3])
@@ -1031,12 +1123,18 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
                     seed: int, cfg: PropagationConfig,
                     iters_per_call: int = 4096,
                     max_calls: int = 256,
-                    uniforms=None, rec_capacity: int = REC_CAPACITY):
+                    uniforms=None, rec_capacity: int = REC_CAPACITY,
+                    threefry_key=None):
     """Drive the fused kernel until all photons are drained.
 
     `steps` are slot-assigned tensors on the propagation device.
     `uniforms`: optional (T >= iters_per_call, 8, n_slots) float32 stream
-    (parity mode; requires max_calls=1).  With cfg.save_photons each launch
+    (parity mode; requires max_calls=1).  `threefry_key`: optional threefry
+    key (ops/rng.py), exclusive with `uniforms` and taken only with
+    cfg.estimator='expected': the kernel draws in-kernel
+    the stream rng.make_uniform_stream(threefry_key, iters_per_call, N)
+    would hold, from the folded per-iteration keys (requires max_calls=1:
+    the key table covers one call's iterations).  With cfg.save_photons each launch
     writes at most `rec_capacity` records (fewer when the workload has
     fewer photons).  Returns (PropagationResult, totals) with totals the
     float64 CNT_* vector."""
@@ -1048,19 +1146,34 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
     if uniforms is not None and max_calls != 1:
         raise ValueError("external uniforms (parity mode) require "
                          "max_calls=1: each call would replay the stream")
+    if threefry_key is not None:
+        if cfg.estimator != "expected":
+            raise ValueError("threefry_key requires cfg.estimator="
+                             "'expected' (the fit's forward)")
+        if uniforms is not None:
+            raise ValueError("threefry_key and uniforms are exclusive")
+        if max_calls != 1:
+            raise ValueError("threefry_key requires max_calls=1 (the key "
+                             "table covers one call's iterations)")
     n = int(steps.x.shape[0])
     if int(steps.num_photons.max()) >= 2 ** 24:
         raise ValueError("per-slot photon counts must stay below 2^24 "
                          "(float32 slot state); use more slots")
-    spec, cell_tab = fused_spec(medium, geo, spectra, cfg, n, iters_per_call)
+    spec, cell_tab = fused_spec(medium, geo, spectra, cfg, n, iters_per_call,
+                                threefry=threefry_key is not None)
     reason = spec_unsupported(spec)
     if reason:
         raise NotImplementedError(reason)
     tables = build_tables(spec, medium, geo, spectra, cell_tab)
+    keys = None
+    if threefry_key is not None:
+        # per-iteration folded keys, bit-identical to rng.iter_key
+        keys = rng.key_table(threefry_key, iters_per_call).to(
+            steps.x.device)
     if spec.records:
         # a run records at most one photon per photon, plus nothing pending
         rec_capacity = min(int(rec_capacity),
                            int(steps.num_photons.sum()) + 1)
     return _run_fused(init_state(steps, spec.records), pack_steps(steps),
                       tables, spec, seed, max_calls, uniforms=uniforms,
-                      rec_capacity=rec_capacity)
+                      rec_capacity=rec_capacity, keys=keys)

@@ -36,8 +36,8 @@ def cascade(P, T):
 def results():
     sim_j = SimJ(medium=ice_j(b400=0.04, a_dust400=0.006),
                  geometry=string_j(**GEO), config=CfgJ(n_slots=2048))
-    sim_t = SimT(medium=ice_t(b400=0.04, a_dust400=0.006),
-                 geometry=string_t(**GEO), config=CfgT(n_slots=2048))
+    sim_t = SimT(medium=ice_t(device="cpu", b400=0.04, a_dust400=0.006),
+                 geometry=string_t(device="cpu", **GEO), config=CfgT(n_slots=2048))
     out = {}
     for name, sim, P, T in (("jax", sim_j, PartJ, PTJ),
                             ("torch", sim_t, PartT, PTT)):
@@ -70,20 +70,20 @@ def test_cascade_yield_and_hit_rate_match_jax(results):
 def test_unported_entry_points_raise():
     """The record entry points need save_photons=True (as in the JAX
     package); the multi-device mesh is still queued."""
-    sim = SimT(medium=ice_t(), geometry=string_t(**GEO),
+    sim = SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO),
                config=CfgT(n_slots=256))
     for fn in (sim.simulate_hits, sim.simulate_photons):
         with pytest.raises(ValueError, match="save_photons=True"):
             fn([], 0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimT(medium=ice_t(), geometry=string_t(**GEO), mesh=object())
+        SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO), mesh=object())
 
 
 def test_fused_backend_on_cpu_runs_plain_version():
     """backend='fused' drives the kernel's call loop; on CPU tensors every
     call runs the plain version, and the counters come back."""
-    sim = SimT(medium=ice_t(b400=0.04, a_dust400=0.006),
-               geometry=string_t(**GEO), config=CfgT(n_slots=2048),
+    sim = SimT(medium=ice_t(device="cpu", b400=0.04, a_dust400=0.006),
+               geometry=string_t(device="cpu", **GEO), config=CfgT(n_slots=2048),
                backend="fused")
     res = sim.simulate([cascade(PartT, PTT)], seed=3)
     diag = res.diagnostics

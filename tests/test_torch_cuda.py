@@ -69,3 +69,72 @@ def test_cuda_records_match_plain_version():
     n_ok, n_k, n_p = chip_smoke.match_records("cuda records test", r_k, r_p,
                                               cfg.hist_n_bins)
     assert n_ok == min(n_k, n_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [
+    dict(estimator="expected", soft_binning=True,
+         expected_angular_poly=(0.3, 0.6)),
+    dict(stop_on_detection=False), dict(fixed_abs_lens=8.0)])
+def test_cuda_deposit_modes_match_plain_version(change):
+    """The B6 deposit modes (expected, non-stopping, fixed horizon) against
+    their plain version on a shared stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    dev = torch.device("cuda", 0)
+    n, T = 8192, 16
+    medium, geo, spectra, cfg, steps, u = chip_smoke.small_workload(
+        n, T, True, True, dev)
+    cfg = dataclasses.replace(cfg, **change)
+    spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, n, T)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    steps_p = K.pack_steps(steps)
+    mode = K.kernel_mode(spec)
+    launches = K.MODE_LAUNCHES[mode]
+    _, h_k, c_k = K.run_fused_iterations(K.init_state(steps), steps_p,
+                                         tables, spec, uniforms=u)
+    _, h_p, c_p = K.run_fused_iterations_plain(K.init_state(steps), steps_p,
+                                               tables, spec, uniforms=u)
+    torch.cuda.synchronize()
+    assert K.MODE_LAUNCHES[mode] == launches + 1
+    chip_smoke.compare("cuda deposit mode", c_k, h_k, c_p, h_p)
+
+
+@pytest.mark.cuda
+def test_cuda_threefry_matches_stream_and_diff_runs():
+    """In-kernel threefry draws the stream rng.make_uniform_stream holds
+    (equal counts, histograms equal up to atomic order), and
+    propagate_expected_diff gives a finite gradient on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.propagate.diff import propagate_expected_diff
+    dev = torch.device("cuda", 0)
+    n, T, key = 8192, 16, (0x80000001, 5)
+    medium, geo, spectra, cfg, steps, _ = chip_smoke.small_workload(
+        n, T, True, True, dev)
+    cfg = dataclasses.replace(cfg, estimator="expected", soft_binning=True)
+    run_t, _, _ = chip_smoke.kernel_run(medium, geo, spectra, cfg, steps, T,
+                                        key=key)
+    run_s, _, _ = chip_smoke.kernel_run(
+        medium, geo, spectra, cfg, steps, T,
+        uniforms=rng.make_uniform_stream(rng.as_key(key, dev), T, n))
+    tf_mode = K.DEP_EXPECTED | K.MODE_THREEFRY
+    launches = K.MODE_LAUNCHES[tf_mode]
+    _, h_t, c_t = run_t()
+    _, h_s, c_s = run_s()
+    assert K.MODE_LAUNCHES[tf_mode] == launches + 1
+    assert float(c_t[K.CNT_GEN]) == float(c_s[K.CNT_GEN])
+    assert float(c_t[K.CNT_HITS]) == float(c_s[K.CNT_HITS])
+    assert float((h_t - h_s).abs().sum()) <= 1e-5 * float(h_s.sum())
+    b = medium.b400.clone().requires_grad_(True)
+    h = propagate_expected_diff(steps, medium._replace(b400=b), geo, spectra,
+                                key, cfg, n_iterations=T)
+    g = torch.autograd.grad(h.sum(), b)[0]
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0

@@ -20,10 +20,10 @@ torch.set_num_threads(1)
 
 
 def port_inputs(medium, geo, spectra, cfg, steps, uniforms):
-    return (C.steps_from_numpy(C.numpy_tree(steps)),
-            C.medium_from_numpy(C.numpy_tree(medium)),
-            C.geometry_from_numpy(C.numpy_tree(geo)),
-            C.spectra_from_numpy(C.numpy_tree(spectra)),
+    return (C.steps_from_numpy(C.numpy_tree(steps), device="cpu"),
+            C.medium_from_numpy(C.numpy_tree(medium), device="cpu"),
+            C.geometry_from_numpy(C.numpy_tree(geo), device="cpu"),
+            C.spectra_from_numpy(C.numpy_tree(spectra), device="cpu"),
             PropagationConfig(**dataclasses.asdict(cfg)),
             torch.as_tensor(uniforms))
 
@@ -70,12 +70,20 @@ def test_engine_drains_and_conserves():
     assert bool(torch.isfinite(res.hist).all())
 
 
-@pytest.mark.parametrize("change", [dict(estimator="expected"),
+@pytest.mark.parametrize("change", [dict(medium_kind="water"),
                                     dict(save_photons=True,
                                          photon_history_entries=2),
-                                    dict(soft_binning=True)])
+                                    dict(estimator="expected",
+                                         soft_binning=True,
+                                         photon_history_entries=3)])
 def test_unported_engine_options_raise(change):
+    """Media other than icecube and the scatter-history rings still raise
+    (the expected estimator and soft binning are ported:
+    tests/test_torch_expected.py)."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
+    med = {k: v for k, v in change.items() if k in medium._fields}
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in change.items()
+                                      if k not in med})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ET.propagate(steps, medium, geo, spectra, 0,
-                     dataclasses.replace(cfg, **change), uniforms=u)
+        ET.propagate(steps, medium._replace(**med), geo, spectra, 0, cfg,
+                     uniforms=u)

@@ -108,7 +108,7 @@ def test_sample_mcpes_matches_jax_with_jax_uniforms(per_dom):
 def test_sample_mcpes_from_batch_matches_jax_with_jax_uniforms():
     rec, count = random_records(seed=3)
     wj, aj, wt, at = tables()
-    geo_j, geo_t = string_j(**GEO), string_t(**GEO)
+    geo_j, geo_t = string_j(**GEO), string_t(device="cpu", **GEO)
     batch = PJ.records_to_photon_batch(rec, count, geo_j)
     idx = PJ.photon_batch_dom_index(batch, geo_j)
     key = jax.random.PRNGKey(11)
@@ -142,7 +142,7 @@ def test_photon_batch_both_contracts_and_npz_round_trip(tmp_path):
     the flat (1, R) contract (compact_records) to the same batch, remaps
     (string, om) to the DOM index and back, and survives npz exactly."""
     rec, count = random_records()
-    geo_j, geo_t = string_j(**GEO), string_t(**GEO)
+    geo_j, geo_t = string_j(**GEO), string_t(device="cpu", **GEO)
     bj = PJ.records_to_photon_batch(rec, count, geo_j)
     rec_t = {k: torch.as_tensor(v) for k, v in rec.items()}
     bt = PT.records_to_photon_batch(rec_t, torch.as_tensor(count), geo_t)
@@ -195,8 +195,8 @@ def cascade(P, T):
 def sims():
     # photons_per_step=20 at 100 slots: 30 GeV gives three slot batches
     kw = dict(photons_per_step=20)
-    sim_t = SimT(medium=ice_t(b400=0.04, a_dust400=0.02),
-                 geometry=string_t(**GEO), config=CfgT(**CFG), **kw)
+    sim_t = SimT(medium=ice_t(device="cpu", b400=0.04, a_dust400=0.02),
+                 geometry=string_t(device="cpu", **GEO), config=CfgT(**CFG), **kw)
     sim_j = SimJ(medium=ice_j(b400=0.04, a_dust400=0.02),
                  geometry=string_j(**GEO), config=CfgJ(**CFG), **kw)
     return sim_t, sim_j
@@ -258,12 +258,12 @@ def test_simulate_hits_and_two_phase_flow(sims, tmp_path):
 
 
 def test_record_entry_points_need_save_photons():
-    sim = SimT(medium=ice_t(), geometry=string_t(**GEO),
+    sim = SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO),
                config=CfgT(n_slots=128))
     for fn in (sim.simulate_hits, sim.simulate_photons):
         with pytest.raises(ValueError, match="save_photons=True"):
             fn([cascade(PartT, PTT)], 0)
-    sim = SimT(medium=ice_t(), geometry=string_t(**GEO),
+    sim = SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO),
                config=CfgT(**dict(CFG, photon_history_entries=2)))
     with pytest.raises(NotImplementedError, match="history"):
         sim.simulate([cascade(PartT, PTT)], 0)

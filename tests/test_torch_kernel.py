@@ -37,7 +37,7 @@ HEX61 = dict(n_rings=4, string_spacing=125.0, doms_per_string=60,
 ])
 def test_collision_plan_matches_jax(geo_kw, cfg_kw):
     cell_j, plan_j = KJ.plan_collision(hex_j(**geo_kw), CfgJ(**cfg_kw))
-    cell_t, plan_t = KT.plan_collision(hex_t(**geo_kw), CfgT(**cfg_kw))
+    cell_t, plan_t = KT.plan_collision(hex_t(device="cpu", **geo_kw), CfgT(**cfg_kw))
     np.testing.assert_array_equal(cell_j, cell_t)
     assert plan_j == plan_t
     assert len(plan_t["sub_plans"]) == 1
@@ -104,8 +104,8 @@ def test_abandoned_photons_are_reported():
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(fixed_abs=True), "B6"),
-    (dict(expected=True), "B6"),
+    (dict(records=True, fixed_abs=True), "B6"),
+    (dict(records=True, expected=True), "B6"),
     (dict(medium_tables=True, scat_table=True), "B7"),
     (dict(n_tables=2), "B4"),
     (dict(sub_plans=()), "B3"),
@@ -126,7 +126,8 @@ def test_cuda_wrapper_spec_gate_raises(change, item):
 
 @pytest.mark.parametrize("change", [dict(save_photons=True,
                                          photon_history_entries=2),
-                                    dict(estimator="expected")])
+                                    dict(estimator="expected",
+                                         expected_angular_poly=(0.1,) * 9)])
 def test_propagate_fused_refuses_unported_configs(change):
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -95,7 +95,8 @@ def test_anisotropy_scaling_and_transforms(rng):
 
 def test_spectrum_tables_yield_and_bias(rng):
     acc_j = AJ.icecube_dom_acceptance(AJ.DOM_RADIUS * 5.0, efficiency=0.36)
-    acc_t = AT.icecube_dom_acceptance(AT.DOM_RADIUS * 5.0, efficiency=0.36)
+    acc_t = AT.icecube_dom_acceptance(AT.DOM_RADIUS * 5.0, efficiency=0.36,
+                                      device="cpu")
     close(acc_j.values, acc_t.values)
     nb = np.asarray(acc_j.values).shape[0]
     bx = 260.0 + 10.0 * np.arange(nb)
@@ -112,7 +113,7 @@ def test_spectrum_tables_yield_and_bias(rng):
           SPT.photons_per_meter(FT.DEFAULT_ICE_REF_INDEX, bx, by, 265.0,
                                 675.0))
     tab_j = SPJ.stack_spectra([sj])
-    tab_t = spectra_from_numpy(tab_j._asdict())
+    tab_t = spectra_from_numpy(tab_j._asdict(), device="cpu")
     u = f32(rng, 0.0, 1.0)
     src = np.zeros(u.shape, np.int32)
     wl_j = SPJ.sample_wavelength_dispatch(tab_j, jnp.asarray(src),
@@ -165,10 +166,10 @@ def test_rotations_including_vertical(rng):
 
 def test_dom_acceptance_and_angular_sensitivity(rng):
     acc_j = AJ.icecube_dom_acceptance()
-    acc_t = AT.icecube_dom_acceptance()
+    acc_t = AT.icecube_dom_acceptance(device="cpu")
     wl = f32(rng, 250.0, 700.0)
     close(FJ.eval_table(acc_j, wl), FT.eval_table(acc_t, torch.as_tensor(wl)))
-    cj, ct = AJ.dom_angular_sensitivity(), AT.dom_angular_sensitivity()
+    cj, ct = AJ.dom_angular_sensitivity(), AT.dom_angular_sensitivity(device="cpu")
     close(cj, ct)
     c = f32(rng, -1.0, 1.0)
     close(FJ.eval_polynomial(cj, c), FT.eval_polynomial(ct, torch.as_tensor(c)),

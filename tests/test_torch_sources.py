@@ -33,7 +33,7 @@ def generators():
         ice_j(), cher_j(REF_J, 265.0, 675.0, BIAS_X, BIAS_Y),
         use_native=False)
     gt = PPCT.PPCStepGenerator(
-        ice_t(), cher_t(REF_T, 265.0, 675.0, BIAS_X, BIAS_Y))
+        ice_t(device="cpu"), cher_t(REF_T, 265.0, 675.0, BIAS_X, BIAS_Y))
     # the float32 yield integrals agree to 1e-5 (test_torch_physics); use
     # the same value so that the Poisson draws see the same mean
     np.testing.assert_allclose(gt.mean_photons_per_meter,
