@@ -66,7 +66,35 @@ Phases (any failure raises and exits non-zero):
         stream-fed variant of propagate_expected_diff equals the threefry
         one (rel 1e-3); one score-function step on b400 is finite;
         scripts/bench_fit.py's three times (medians of 5), a profiler pass
-        and the peak memory.
+        and the peak memory;
+  7. the global collision plans (B3) and tabulated media (B7) at 262,144
+     slots:
+     a. each new instantiation against its plain version on one shared
+        (32, 8, N) stream, phase 2's tolerances: ic86 (bench.py's IceCube
+        layout with DeepCore, 5,080 DOMs) at the default configuration with
+        the seeded 171-layer ice (global affine); jittered ic86 (every DOM
+        moved by a seeded Gaussian of 0.1 m: general); Antares water on
+        jittered ic86 (general x water); a photonics table of the seeded
+        ice on hex61 (SubPlans x photonics); the record mode on the first
+        three, records matched on (slot, dom) as in 5a;
+     b. Simulation.simulate of phase 3's cascade at the centre of ic86 with
+        PropagationConfig(n_slots=262144) and otherwise defaults: the
+        global-affine instantiation launched, generated = the steps'
+        photons, yield within 10% of the PPC formula, nothing dropped or
+        abandoned; wall time, propagation time and photons/s;
+     c. simulate_hits on jittered ic86 (surveyed positions): records =
+        hits, the histogram rebuilt from the records equal to the result's,
+        MCPEs against the sum of hit probabilities (|z| < 5);
+     d. a KM3NeT/ARCA building block (115 detection units of 18 DOMs at
+        ~90 m horizontal and 36 m vertical spacing, DOM radius 0.2159 m,
+        each DOM at a surveyed position) in Antares water with
+        save_photons: the water instantiations launched, generated = the
+        steps' photons, nothing dropped or abandoned; MCPEs with the KM3NeT
+        acceptance against the sum of hit probabilities, and the 31-PMT
+        multi-PMT hit count;
+     e. Simulation.simulate of the cascade on hex61 in the photonics-table
+        ice: the photonics instantiation launched, generated = the steps'
+        photons, nothing dropped or abandoned.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -353,12 +381,12 @@ def phase3(device):
     sim, cascade = main_path_sim(device)
     energy = CASCADE_GEV
     torch.cuda.synchronize()
-    K.LAUNCHES = 0
+    K.MODE_LAUNCHES.clear()
     t0 = time.perf_counter()
     res = sim.simulate([cascade], seed=11)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K.LAUNCHES
+    launches = K.MODE_LAUNCHES[0]
     diag = res.diagnostics
     n_gen = float(res.n_generated)
     ppm = sim.step_generator.mean_photons_per_meter[0]
@@ -602,19 +630,20 @@ def phase5c(device):
     # end to end: simulate without and with records, then simulate_hits
     _, t_plain = timed(lambda: sim0.simulate([cascade], seed=11))
     res, t_rec = timed(lambda: sim.simulate([cascade], seed=11))
-    K.LAUNCHES = K.RECORD_LAUNCHES = 0
+    K.MODE_LAUNCHES.clear()
     hits, t_hits = timed(lambda: sim.simulate_hits([cascade], seed=11))
-    launches = K.RECORD_LAUNCHES
+    launches, main_launches = (K.MODE_LAUNCHES[K.MODE_RECORDS],
+                               K.MODE_LAUNCHES[0])
     diag = res.diagnostics
     n_rec, n_hits = int(res.rec_count[0]), float(res.n_hits)
     log(f"  simulate {t_plain:.4f} s without records, {t_rec:.4f} s with "
         f"records ({n_rec / t_prop[True]:.6g} records/s in the propagation "
         f"stage), simulate_hits "
         f"{t_hits:.4f} s; record-mode launches {launches}, main-mode "
-        f"launches {K.LAUNCHES}; records {n_rec}, hits {n_hits:.0f}, "
+        f"launches {main_launches}; records {n_rec}, hits {n_hits:.0f}, "
         f"generated {diag['generated']:.0f}, dropped {diag['dropped']:.0f}, "
         f"abandoned {diag['abandoned']:.0f}, stalled {diag['stalled']:.0f}")
-    if launches <= 0 or K.LAUNCHES != 0:
+    if launches <= 0 or main_launches != 0:
         raise AssertionError("simulate_hits did not run the record mode")
     if n_rec != n_hits or n_rec <= 0:
         raise AssertionError("records != hits")
@@ -749,6 +778,36 @@ def kernel_run(medium, geo, spectra, cfg, steps, T, uniforms=None,
 OPS_ITER, OPS_PER_CAND, OPS_PER_PLAN, OPS_SPAWN = 107, 14, 14, 130
 OPS_ANISO, OPS_TILT = 65, 30
 OPS_RNG = {"philox": 28, "stream": 0, "threefry": 81}
+# The global plans (COLL 1, 2) and the tabulated media (MED 1, 2) count
+# their data-dependent work in the kernel's counters (kernel.py CNT_*), and
+# the bound charges only that: OPS_PER_PLAN for the cell lookup of a live
+# slot-iteration; OPS_PER_CAND (the SubPlan cull's 2-D point-to-segment
+# test) for each candidate of the cell's list (CNT_CAND: the padding after
+# the list is not read); OPS_ZPASS (z against the candidate's extent +- r)
+# for each that passes the 2-D cull (CNT_CULL); a round's set-up for each
+# string tested (CNT_TESTED); and one sphere test for each DOM tested
+# (CNT_ROWS): n_dom_cand ladder DOMs a string on the affine path (window
+# index, clamp, oz, urdot, dr2, discriminant, entry distance, compare), the
+# string's valid rows on the general path (the DOM position from the
+# residual row, the 3-D dot products, the same discriminant and entry
+# distance).  The ranking of the passes into the rounds is not charged.
+OPS_ZPASS, OPS_ROUND_AFFINE, OPS_ROUND_GENERAL = 4, 12, 4
+OPS_SPHERE_AFFINE, OPS_SPHERE_GENERAL = 16, 23
+# A tabulated medium's spawn lerps its factors where the closed form takes
+# pow/exp: OPS_SPAWN holds the closed form's gs, pa, qa, ra (13: two powf,
+# an expf, their divisions and products), a tabulated spawn does the grid
+# index (9: offset, scale, floor, clamps, fraction) and four lerps of 3
+# (21), and with `ref_table` two more lerps (6) in place of the index
+# polynomials (18: two degree-4 Horner forms, the scale, the product).
+OPS_FACTORS_CLOSED, OPS_FACTORS_TABLE = 13, 21
+OPS_INDEX_POLY, OPS_INDEX_TABLE = 18, 6
+# Sea water (MED 2) runs no HG/Liu choice: OPS_ITER's share of it (17: the
+# branch test and HG's solve, the longer branch) goes, and each scatter
+# (CNT_SCAT) draws one branch: Rayleigh's closed cubic (19 with its test,
+# CNT_RAYLEIGH) or the Petzold angle, located in its n_scat-point CDF (4 a
+# bisection step, 3 the clamp), solved as the wavelength is (22) and its
+# cosine taken (with the test, 27 besides the bisection).
+OPS_HG_LIU, OPS_RAYLEIGH, OPS_PETZOLD, OPS_BISECT = 17, 19, 27, 4
 FP32_PEAK = 67e12              # H100 SXM dense float32 peak
 HBM_BYTES_S = 3.35e12
 
@@ -759,21 +818,41 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
     and written, steps and tables read once, histogram and records written
     once, and of an external stream the rows the run reads: rows 4-7 in
     every live slot-iteration, rows 0-3 at every spawn, 16 bytes each)
-    over the HBM rate."""
+    over the HBM rate.  The global plans' collision work and sea water's
+    scatters count from the run's counters (CNT_CAND ... CNT_RAYLEIGH)."""
     from clsim_tpu_torch.propagate import kernel as K
     N, T = spec.n_slots, spec.iters_per_call
-    work, gen = float(counters[K.CNT_WORK]), float(counters[K.CNT_GEN])
+    cnt = lambda k: float(counters[k])
+    work, gen = cnt(K.CNT_WORK), cnt(K.CNT_GEN)
+    coll, med = K.kernel_coll(spec), K.kernel_med(spec)
     per_iter = (OPS_ITER + 4 * OPS_RNG[rng_mode]
                 + sum(OPS_PER_PLAN + OPS_PER_CAND * p.K_cand
                       for p in spec.sub_plans)
+                + (OPS_PER_PLAN if coll != K.COLL_SUBPLANS else 0)
+                - (OPS_HG_LIU if med == K.MED_WATER else 0)
                 + (OPS_ANISO if spec.aniso else 0)
                 + (OPS_TILT if spec.nz_tilt else 0))
-    ops = work * per_iter + gen * (OPS_SPAWN + 4 * OPS_RNG[rng_mode])
+    per_spawn = OPS_SPAWN + 4 * OPS_RNG[rng_mode]
+    if med != K.MED_CLOSED:
+        per_spawn += (OPS_FACTORS_TABLE - OPS_FACTORS_CLOSED
+                      + (OPS_INDEX_TABLE - OPS_INDEX_POLY
+                         if spec.ref_table else 0))
+    round_ops, sphere_ops = {
+        K.COLL_SUBPLANS: (0, 0),
+        K.COLL_AFFINE: (OPS_ROUND_AFFINE, OPS_SPHERE_AFFINE),
+        K.COLL_GENERAL: (OPS_ROUND_GENERAL, OPS_SPHERE_GENERAL)}[coll]
+    petzold = OPS_PETZOLD + OPS_BISECT * math.ceil(math.log2(spec.n_scat + 1))
+    ops = (work * per_iter + gen * per_spawn
+           + cnt(K.CNT_CAND) * OPS_PER_CAND + cnt(K.CNT_CULL) * OPS_ZPASS
+           + cnt(K.CNT_TESTED) * round_ops + cnt(K.CNT_ROWS) * sphere_ops
+           + cnt(K.CNT_RAYLEIGH) * OPS_RAYLEIGH
+           + (cnt(K.CNT_SCAT) - cnt(K.CNT_RAYLEIGH)) * petzold)
     rows = K.NSF + (K.NRSF if spec.records else 0)
     nbytes = 4 * (2 * rows * N + K.NST * N + spec.n_doms * spec.hist_n_bins
                   + sum(t.numel() for t in (
                       tables.layers, tables.spec_tab, tables.bias_y,
-                      tables.tilt_zc, tables.cells))
+                      tables.tilt_zc, tables.cells, tables.rel,
+                      tables.strings, tables.wtab, tables.scat))
                   + {"stream": 4 * (work + gen),
                      "threefry": 2 * T}.get(rng_mode, 0)
                   + K.NRC * n_records)
@@ -995,7 +1074,6 @@ def phase6c(device):
                   optimizer=functools.partial(torch.optim.Adam, lr=0.05))
     p, losses = {"log_s": pert.clone()}, []
     torch.cuda.synchronize()
-    K.LAUNCHES = K.RECORD_LAUNCHES = 0
     K.MODE_LAUNCHES.clear()
     t0 = time.perf_counter()
     for _ in range(10):
@@ -1090,6 +1168,431 @@ def phase6c(device):
     return launches_e, launches_t
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the global collision plans (B3) and tabulated media (B7)
+# ---------------------------------------------------------------------------
+
+JITTER_M = 0.1      # surveyed positions: sigma of the seeded DOM offsets
+
+
+def ic86(device, jitter=0.0):
+    """bench.py::icecube86_geometry rebuilt on the port (78 strings on a
+    perturbed 125 m hexagonal lattice, 60 DOMs at 17 m, and 8 DeepCore
+    strings of 50 DOMs at 7 m; oversize 5).  With `jitter`, every DOM moves
+    by a seeded Gaussian of that sigma in x, y and z."""
+    from clsim_tpu_torch.geometry import build_geometry
+    rng = np.random.default_rng(86)
+    centers = [(0.0, 0.0)]
+    ring = 1
+    while len(centers) < 78:
+        for k in range(6 * ring):
+            side, step = k // ring, k % ring
+            a0, a1 = np.pi / 3.0 * side, np.pi / 3.0 * (side + 2)
+            centers.append(((ring * np.cos(a0) + step * np.cos(a1)) * 125.0,
+                            (ring * np.sin(a0) + step * np.sin(a1)) * 125.0))
+            if len(centers) >= 78:
+                break
+        ring += 1
+    centers = np.asarray(centers) + rng.normal(0.0, 2.0, (78, 2))
+    sids, oids, xs, ys, zs = [], [], [], [], []
+    for si, (cx, cy) in enumerate(centers):
+        for d in range(60):
+            sids.append(si); oids.append(d)
+            xs.append(cx); ys.append(cy); zs.append(500.0 - d * 17.0)
+    for k in range(8):
+        a = 2 * np.pi * k / 8.0
+        cx, cy = (72.0 * np.cos(a), 72.0 * np.sin(a)) if k else (30.0, 10.0)
+        for d in range(50):
+            sids.append(78 + k); oids.append(d)
+            xs.append(cx); ys.append(cy); zs.append(-150.0 - d * 7.0)
+    pos = np.asarray([xs, ys, zs])
+    if jitter:
+        pos = pos + np.random.default_rng(87).normal(0.0, jitter, pos.shape)
+    return build_geometry(sids, oids, *pos, oversize=5.0, device=device)
+
+
+def arca_block(device):
+    """One KM3NeT/ARCA building block as the Letter of Intent (J. Phys. G
+    43 (2016) 084001) publishes it: 115 detection units on a ~90 m
+    triangular grid, 18 DOMs each 36 m apart, DOM radius 0.2159 m (oversize
+    5).  Each DOM sits at a surveyed position: the nominal one moved by a
+    seeded Gaussian of JITTER_M (acoustic positioning, lines in the
+    current)."""
+    from clsim_tpu_torch.geometry import build_geometry
+    pts = [(0.0, 0.0)]
+    ring = 1
+    while len(pts) < 115:
+        for k in range(6 * ring):
+            side, step = k // ring, k % ring
+            a0, a1 = np.pi / 3.0 * side, np.pi / 3.0 * (side + 2)
+            pts.append(((ring * np.cos(a0) + step * np.cos(a1)) * 90.0,
+                        (ring * np.sin(a0) + step * np.sin(a1)) * 90.0))
+            if len(pts) >= 115:
+                break
+        ring += 1
+    n = 115 * 18
+    sids = np.repeat(np.arange(115), 18)
+    oids = np.tile(np.arange(18), 115)
+    pos = np.asarray([np.repeat([p[0] for p in pts], 18),
+                      np.repeat([p[1] for p in pts], 18),
+                      np.tile(306.0 - 36.0 * np.arange(18), 115)])
+    pos = pos + np.random.default_rng(115).normal(0.0, JITTER_M, (3, n))
+    return build_geometry(sids, oids, *pos, om_radius=0.2159, oversize=5.0,
+                          device=device)
+
+
+def photonics_ice(device):
+    """The seeded 171-layer ice written as a photonics-format table (ABS,
+    effective SCAT at <cos> 0.9, tabulated N_PHASE / N_GROUP on 42 bins of
+    10 nm from 260 nm) and parsed by medium/photonics.py: a user's
+    photonics ice file, made from a seed."""
+    from clsim_tpu_torch.medium.photonics import parse_photonics_ice_table
+    medium, _ = seeded_ice(171, -855.0, 10.0, "cpu")
+    wl = torch_f32(265.0 + 10.0 * np.arange(42))
+    gs = medium.scat_coeff(wl)
+    pa, qa, ra = medium.abs_coeffs(wl)
+    b, a, t = medium.b400, medium.a_dust400, medium.delta_tau
+    absorb = (pa[None] * a[:, None] + qa[None] + ra[None] * t[:, None])
+    scat_eff = gs[None] * b[:, None] * (1.0 - 0.9)
+    n_ph, n_gr = medium.phase_ref_index(wl), medium.group_ref_index(wl)
+    row = lambda key, v: key + " " + " ".join(f"{x:.9g}" for x in v.tolist())
+    lines = ["NLAYER 171", "NWVL 42 260 10"]
+    for j in range(171):
+        z0 = -855.0 + 10.0 * j
+        lines += [f"LAYER {z0} {z0 + 10.0}", row("ABS", absorb[j]),
+                  row("SCAT", scat_eff[j]), "COS " + " ".join(["0.9"] * 42),
+                  row("N_GROUP", n_gr), row("N_PHASE", n_ph)]
+    return parse_photonics_ice_table("\n".join(lines), device=device)
+
+
+def torch_f32(a):
+    import torch
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def medium_spectra(medium, geo, device):
+    """The Cherenkov spectrum of the medium's own refractive index biased
+    by the (oversized) DOM acceptance, as Simulation builds it."""
+    from clsim_tpu_torch.hits.acceptance import icecube_dom_acceptance
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    acc = icecube_dom_acceptance(dom_radius=geo.om_radius * geo.oversize,
+                                 device="cpu")
+    bias_x = float(acc.first_x) + float(acc.dx) * np.arange(
+        acc.values.shape[0])
+    return stack_spectra([make_cherenkov_spectrum(
+        medium.ref_index, medium.min_wlen, medium.max_wlen,
+        bias_wlen_nm=bias_x, bias_values=acc.values.numpy())], device=device)
+
+
+def quiet(fn, *a, **kw):
+    """fn with the SubPlan fallback warning silenced (every phase 7 case
+    refuses SubPlans on purpose)."""
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return fn(*a, **kw)
+
+
+def phase7_cases(device):
+    """7a's workloads at N_SLOTS: [(entry name, inputs, records?)] with the
+    main path's cascade-cloud steps (bench_workload) and one shared
+    (PHASE2_T, 8, N) stream."""
+    import torch
+    from clsim_tpu_torch.medium.antares import make_antares_water
+    from clsim_tpu_torch.types import PropagationConfig
+    T = PHASE2_T
+    ice, _ = seeded_ice(171, -855.0, 10.0, device)
+    _, _, _, _, steps = bench_workload(N_SLOTS, 200, device)
+    cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0)
+    uni = torch.rand((T, 8, N_SLOTS), generator=torch.Generator(
+        device=device).manual_seed(7), device=device)
+    g86, gj = ic86(device), ic86(device, JITTER_M)
+    water = make_antares_water(device=device)
+    phot, h61 = photonics_ice(device), hex61(device)
+    w = lambda m, g: (m, g, medium_spectra(m, g, device), cfg, steps, uni)
+    return [("propagate[global]", "ic86, default config (global affine)",
+             w(ice, g86)),
+            ("propagate[general]", "jittered ic86 (general)", w(ice, gj)),
+            ("propagate[water]", "Antares water, jittered ic86 "
+             "(general x water)", w(water, gj)),
+            ("propagate[photonics]", "photonics table on hex61 "
+             "(SubPlans x photonics)", w(phot, h61))]
+
+
+def phase7a(device):
+    """Each new instantiation against its plain version on one shared
+    stream (phase 2's tolerances), the record mode on the first three."""
+    cases = phase7_cases(device)
+    return {entry: check_b3b7(name, inputs, entry.startswith(
+        "propagate[records")) for entry, name, inputs in cases + [
+            ("propagate[records," + e[10:], n + " + records", i)
+            for e, n, i in cases[:3]]}
+
+
+def check_b3b7(name, inputs, records):
+    """One B3/B7 instantiation (with or without records) against its plain
+    version on the inputs' shared stream: phase 2's checks, and with
+    records 5a's; returns its times, error, bound and mode."""
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps, uni = inputs
+    N = int(steps.x.shape[0])
+    cfg = dataclasses.replace(cfg, save_photons=records)
+    spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg, N,
+                           PHASE2_T)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    state0, steps_p = K.init_state(steps, records), K.pack_steps(steps)
+    run_k = lambda: K.run_fused_iterations(state0.clone(), steps_p,
+                                           tables, spec, uniforms=uni)
+    run_p = lambda: K.run_fused_iterations_plain(
+        state0.clone(), steps_p, tables, spec, uniforms=uni)
+    run_p()      # warm-up: plain, kernel; timed: kernel, plain
+    run_k()
+    (_, h_k, c_k, *r_k), ms_k = cuda_ms(run_k)
+    (_, h_p, c_p, *r_p), ms_p = cuda_ms(run_p, reps=1)
+    err = compare(name, c_k, h_k, c_p, h_p, 1e-5)
+    n_rec = 0
+    if records:
+        r_k, r_p = r_k[0], r_p[0]
+        n_rec = r_k.shape[0]
+        for who, c, r in (("kernel", c_k, r_k), ("plain", c_p, r_p)):
+            if not r.shape[0] == float(c[K.CNT_HITS]) \
+                    == float(c[K.CNT_QUEUED]):
+                raise AssertionError(f"{name}: {who} records != hits")
+        if abs(r_k.shape[0] - r_p.shape[0]) > max(2.0,
+                                                  0.01 * r_p.shape[0]):
+            raise AssertionError(f"{name}: record counts differ")
+        n_ok, nk, npl = match_records(name, r_k, r_p, cfg.hist_n_bins)
+        if n_ok < 0.999 * max(nk, npl):
+            raise AssertionError(f"{name}: {n_ok} of {nk} / {npl} "
+                                 "records match")
+    # the bound's counts (kernel / plain), held as the hit counts are
+    tallies = {t: (float(c_k[K.CNT_TESTED + i]), float(c_p[K.CNT_TESTED + i]))
+               for i, t in enumerate(K.TALLIES)}
+    bound = kernel_bound(spec, tables, c_k, "stream", n_records=n_rec)
+    log(f"  {name}: mode {K.kernel_mode(spec)} (COLL "
+        f"{K.kernel_coll(spec)}, MED {K.kernel_med(spec)}), K_cand "
+        f"{spec.K_cand}, n_dom_cand {spec.n_dom_cand}; work "
+        f"{float(c_k[K.CNT_WORK]):.0f}, spawns {float(c_k[K.CNT_GEN]):.0f}; "
+        + ", ".join(f"{t} {a:.0f} / {b:.0f}" for t, (a, b) in tallies.items())
+        + f"; kernel {ms_k:.3f} ms (median of 5), plain {ms_p:.3f} ms ({N} "
+        f"slots x {PHASE2_T} iterations); bound {bound[0]:.4f} ms by "
+        f"{bound[1]}")
+    if K.kernel_mode(spec) in (0, K.MODE_RECORDS):
+        raise AssertionError(f"{name}: not a B3/B7 instantiation")
+    for t, (a, b) in tallies.items():
+        if abs(a - b) > max(2.0, 0.01 * b):
+            raise AssertionError(f"{name}: kernel and plain {t} counts "
+                                 "differ")
+    return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound,
+                mode=K.kernel_mode(spec))
+
+
+def steps_photons(sim, cascade, seed):
+    """The photons of the steps Simulation.simulate(..., seed) propagates."""
+    return float(sum(int(b.num_photons.sum()) for b in
+                     sim.steps_from_particles([cascade],
+                                              np.random.default_rng(seed))))
+
+
+def check_run(name, res, photons):
+    diag = res.diagnostics
+    log(f"  {name}: generated {diag['generated']:.0f} (steps' photons "
+        f"{photons:.0f}), hits {diag['hits']:.0f}, dropped "
+        f"{diag['dropped']:.0f}, abandoned {diag['abandoned']:.0f}")
+    if diag["generated"] != photons:
+        raise AssertionError(f"{name}: generated != the steps' photons")
+    if diag["dropped"] != 0 or diag["abandoned"] != 0:
+        raise AssertionError(f"{name}: photons dropped or abandoned")
+    if not diag["hits"] > 0 or not bool(res.hist.isfinite().all()):
+        raise AssertionError(f"{name}: no hits or a non-finite histogram")
+
+
+def launched(modes):
+    """MODE_LAUNCHES of the given modes (read right after a path)."""
+    from clsim_tpu_torch.propagate import kernel as K
+    return {m: K.MODE_LAUNCHES[m] for m in modes}
+
+
+def reset_counts():
+    from clsim_tpu_torch.propagate import kernel as K
+    K.MODE_LAUNCHES.clear()
+
+
+def phase7b(device, modes):
+    """The full IceCube detector at its default configuration."""
+    import torch
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.types import PropagationConfig
+    _, cascade = main_path_sim(device)
+    ice, _ = seeded_ice(171, -855.0, 10.0, device)
+    sim = quiet(Simulation, medium=ice, geometry=ic86(device),
+                config=PropagationConfig(n_slots=N_SLOTS))
+    photons = steps_photons(sim, cascade, 11)
+    reset_counts()
+    res, wall = timed(lambda: quiet(sim.simulate, [cascade], seed=11))
+    n = launched([modes["propagate[global]"]])
+    check_run("ic86 default", res, photons)
+    ppm = sim.step_generator.mean_photons_per_meter[0]
+    expected = ppm * 5.21 * 0.924 / 0.9216 * CASCADE_GEV
+    batches = sim.steps_from_particles([cascade], np.random.default_rng(11))
+    _, t_prop = timed(lambda: quiet(sim.run_steps, batches, 11))
+    log(f"  launches {n}, other kernels {K_other()}; yield {photons:.0f} "
+        f"(PPC formula {expected:.0f}); simulate {wall:.3f} s = "
+        f"{photons / wall:.6g} photons/s end to end; propagation "
+        f"{t_prop:.3f} s = {photons / t_prop:.6g} photons/s")
+    if min(n.values()) <= 0:
+        raise AssertionError("ic86 default did not launch the global-affine "
+                             "instantiation")
+    if abs(photons / expected - 1.0) > 0.1:
+        raise AssertionError("photon yield off the PPC formula by > 10%")
+    if tuple(res.hist.shape) != (5080, 512):
+        raise AssertionError(f"histogram shape {tuple(res.hist.shape)}")
+    return n
+
+
+def K_other():
+    from clsim_tpu_torch.propagate import kernel as K
+    return dict(K.MODE_LAUNCHES)
+
+
+def mcpe_check(name, sim, res, n_mcpe, wlen_acceptance, angular):
+    """The MCPE count against the sum of the records' hit probabilities."""
+    import torch
+    from clsim_tpu_torch.hits.mcpe import cos_impact, hit_probability
+    rec = res.rec
+    p = torch.clamp(hit_probability(
+        rec["weight"][0], rec["wavelength"][0],
+        cos_impact(rec["dir_theta"][0], rec["dir_phi"][0]), wlen_acceptance,
+        angular).double(), 0.0, 1.0)
+    mean, var = float(p.sum()), float((p * (1 - p)).sum())
+    z = (n_mcpe - mean) / math.sqrt(max(var, 1e-12))
+    log(f"  {name}: MCPEs {n_mcpe}, expected {mean:.6g} (sum of hit "
+        f"probabilities), z = {z:.3f}")
+    if abs(z) >= 5:
+        raise AssertionError(f"{name}: MCPE count off its expectation")
+
+
+def check_records(name, res, cfg):
+    """Records = hits, the histogram rebuilt from the records equal to the
+    result's."""
+    import torch
+    rec, diag = res.rec, res.diagnostics
+    n_rec = int(res.rec_count[0])
+    nb = cfg.hist_n_bins
+    tb = torch.clamp((rec["time"][0] - cfg.hist_t_min) / cfg.hist_dt, 0.0,
+                     nb - 1).to(torch.int64)
+    rebuilt = torch.zeros(res.hist.numel(), dtype=torch.float64,
+                          device=rec["time"].device).index_add_(
+        0, rec["dom"][0].to(torch.int64) * nb + tb, rec["weight"][0].double())
+    h = res.hist.reshape(-1).double()
+    log(f"  {name}: records {n_rec}, hits {diag['hits']:.0f}; histogram "
+        f"from records max |diff| {float((rebuilt - h).abs().max()):.3g}")
+    if n_rec != diag["hits"] or n_rec <= 0:
+        raise AssertionError(f"{name}: records != hits")
+    if not bool(((rebuilt - h).abs() <= 1e-4 * h.abs() + 1e-6).all()):
+        raise AssertionError(f"{name}: histogram rebuilt from records "
+                             "differs")
+
+
+def phase7c(device, modes):
+    """Surveyed positions with records: simulate and simulate_hits on
+    jittered ic86."""
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.types import PropagationConfig
+    _, cascade = main_path_sim(device)
+    ice, _ = seeded_ice(171, -855.0, 10.0, device)
+    geo = ic86(device, JITTER_M)
+    mk = lambda rec: quiet(Simulation, medium=ice, geometry=geo,
+                           config=PropagationConfig(n_slots=N_SLOTS,
+                                                    save_photons=rec))
+    sim0, sim = mk(False), mk(True)
+    photons = steps_photons(sim, cascade, 11)
+    reset_counts()
+    res0, t0 = timed(lambda: quiet(sim0.simulate, [cascade], seed=11))
+    res, t1 = timed(lambda: quiet(sim.simulate, [cascade], seed=11))
+    hits, t2 = timed(lambda: quiet(sim.simulate_hits, [cascade], seed=11))
+    n = launched([modes["propagate[general]"],
+                  modes["propagate[records,general]"]])
+    log(f"  launches {n}, other kernels {K_other()}; simulate {t0:.3f} s "
+        f"= {photons / t0:.6g} photons/s, with records {t1:.3f} s, "
+        f"simulate_hits {t2:.3f} s")
+    check_run("jittered ic86", res0, photons)
+    check_run("jittered ic86 + records", res, photons)
+    check_records("jittered ic86", res, sim.config)
+    mcpe_check("jittered ic86", sim, res, len(hits[0]), sim.wlen_acceptance,
+               sim.angular_coeffs)
+    if min(n.values()) <= 0:
+        raise AssertionError("jittered ic86 did not launch the general "
+                             "instantiations")
+    return n
+
+
+def phase7d(device, modes):
+    """A sea-water telescope: one KM3NeT/ARCA building block in Antares
+    water, with and without records, MCPEs and multi-PMT hits."""
+    import torch
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.hits.acceptance import (
+        cos_cherenkov_angular_sensitivity, km3net_dom_acceptance)
+    from clsim_tpu_torch.hits.mcpe import mcpes_to_numpy, sample_mcpes
+    from clsim_tpu_torch.hits.multi_pmt import (km3net_31_pmt_layout,
+                                                sample_multi_pmt_hits)
+    from clsim_tpu_torch.medium.antares import make_antares_water
+    from clsim_tpu_torch.types import PropagationConfig
+    _, cascade = main_path_sim(device)
+    water, geo = make_antares_water(device=device), arca_block(device)
+    mk = lambda rec: quiet(Simulation, medium=water, geometry=geo,
+                           config=PropagationConfig(n_slots=N_SLOTS,
+                                                    save_photons=rec))
+    sim0, sim = mk(False), mk(True)
+    photons = steps_photons(sim, cascade, 11)
+    reset_counts()
+    res0, t0 = timed(lambda: quiet(sim0.simulate, [cascade], seed=11))
+    res, t1 = timed(lambda: quiet(sim.simulate, [cascade], seed=11))
+    n = launched([modes["propagate[water]"],
+                  modes["propagate[records,water]"]])
+    log(f"  ARCA block: {geo.n_strings} units, {geo.n_doms} DOMs; launches "
+        f"{n}, other kernels {K_other()}; simulate {t0:.3f} s = "
+        f"{photons / t0:.6g} photons/s, with records {t1:.3f} s")
+    check_run("ARCA block in water", res0, photons)
+    check_run("ARCA block in water + records", res, photons)
+    check_records("ARCA block", res, sim.config)
+    if min(n.values()) <= 0:
+        raise AssertionError("the water instantiations were not launched")
+    acc = km3net_dom_acceptance(device=device)
+    flat = torch.tensor([1.0], device=device)   # 31 PMTs: all directions
+    gen = torch.Generator(device=device).manual_seed(12)
+    m = sample_mcpes(res.rec, res.rec_count, gen, acc, flat)
+    mcpe_check("ARCA block, KM3NeT acceptance", sim, res,
+               len(mcpes_to_numpy(m)[0]), acc, flat)
+    accept, dom, pmt, t = sample_multi_pmt_hits(
+        res.rec, res.rec_count, gen, km3net_31_pmt_layout(device=device),
+        acc, cos_cherenkov_angular_sensitivity(device=device))
+    log(f"  31-PMT hits {int(accept.sum())} of {int(res.rec_count[0])} "
+        f"records ({int((pmt >= 0).sum())} on a cathode)")
+    return n
+
+
+def phase7e(device, modes):
+    """A photonics-table ice: the cascade on hex61."""
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.types import PropagationConfig
+    _, cascade = main_path_sim(device)
+    sim = Simulation(medium=photonics_ice(device), geometry=hex61(device),
+                     config=PropagationConfig(n_slots=N_SLOTS))
+    photons = steps_photons(sim, cascade, 11)
+    reset_counts()
+    res, wall = timed(lambda: sim.simulate([cascade], seed=11))
+    n = launched([modes["propagate[photonics]"]])
+    log(f"  launches {n}, other kernels {K_other()}; simulate {wall:.3f} s "
+        f"= {photons / wall:.6g} photons/s")
+    check_run("photonics ice on hex61", res, photons)
+    if min(n.values()) <= 0:
+        raise AssertionError("the photonics instantiation was not launched")
+    return n
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1138,12 +1641,29 @@ def main():
     res["6b"] = phase6b(device)
     log("phase 6c: the ice fit (IceFit, forward='fused') at full width")
     res["6c"] = phase6c(device)
+    log("phase 7a: the B3 and B7 instantiations against their plain "
+        "version")
+    res["7a"] = phase7a(device)
+    modes = {k: v["mode"] for k, v in res["7a"].items()}
+    launches7 = {}
+    log("phase 7b: the full IceCube detector at its default configuration "
+        "(Simulation.simulate, ic86, 100 TeV cascade)")
+    launches7.update(phase7b(device, modes))
+    log("phase 7c: surveyed positions with records (jittered ic86, "
+        "simulate_hits)")
+    launches7.update(phase7c(device, modes))
+    log("phase 7d: a sea-water telescope (KM3NeT/ARCA block in Antares "
+        "water)")
+    launches7.update(phase7d(device, modes))
+    log("phase 7e: a photonics-table ice (hex61)")
+    launches7.update(phase7e(device, modes))
 
-    src = "clsim_tpu_torch/csrc/propagate.cu"
     at = "clsim_tpu/propagate/kernel.py:2427"
 
     def entry(name, launches, err, ms, plain_ms, bound):
-        return {"name": name, "route": "cuda", "source": src,
+        # every instantiation's body is the kernel template
+        return {"name": name, "route": "cuda",
+                "source": "clsim_tpu_torch/csrc/propagate.cuh",
                 "replaces": at, "launches": launches, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None}
@@ -1159,7 +1679,10 @@ def main():
         entry("propagate[expected]", launches_e, e6["err"], e6["ms"],
               e6["plain_ms"], e6["bound"]),
         entry("propagate[threefry]", launches_t, t6["err"], t6["ms"],
-              t6["plain_ms"], t6["bound"])]}))
+              t6["plain_ms"], t6["bound"])]
+        + [entry(name, launches7[r["mode"]], r["err"], r["ms"],
+                 r["plain_ms"], r["bound"])
+           for name, r in res["7a"].items() if r["mode"] in launches7]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,8 +3,10 @@ a plain C interface, loaded with ctypes).
 
 The library is compiled at first use into build/clsim_tpu_torch/ at the
 repository root; its name carries a hash of the sources and flags, so an
-edited source is rebuilt.  Only the sources in the repository and the
-installed CUDA toolkit are used.  Nothing here runs at import time.
+edited source is rebuilt.  Each translation unit (csrc/*.cu) is compiled by
+its own nvcc, all started together, and the objects are linked into one
+library.  Only the sources in the repository and the installed CUDA toolkit
+are used.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "clsim_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = None
 BUILD_INFO = {}   # path, seconds and compiler log of the last build/load
@@ -50,23 +52,39 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile csrc/*.cu unless the library for these sources exists."""
+    """Compile csrc/*.cu unless the library for these sources exists: one
+    nvcc per translation unit, run in parallel, then one link."""
     lib = library_path()
     if lib.exists():
         BUILD_INFO.update(path=str(lib), seconds=0.0, log="(cached)")
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{u.stem}.o" for u in units]
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
+    try:
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(u)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for u, o in zip(units, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [u.name for u, p in zip(units, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n"
+                               + "\n".join(logs))
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    if link.returncode != 0:
+        raise RuntimeError("nvcc link failed:\n" + link.stdout + link.stderr)
     os.replace(tmp, lib)
-    BUILD_INFO.update(path=str(lib), seconds=seconds,
-                      log=(proc.stdout + proc.stderr).strip())
+    BUILD_INFO.update(path=str(lib), seconds=time.perf_counter() - t0,
+                      log="\n".join(logs).strip())
     return lib
 
 
@@ -78,9 +96,9 @@ def load():
         return _LIB
     lib = ctypes.CDLL(str(build()))
     vp = ctypes.c_void_p
-    lib.clsim_propagate.argtypes = [ctypes.c_int] + [vp] * 14
+    lib.clsim_propagate.argtypes = [ctypes.c_int] + [vp] * 18
     lib.clsim_propagate.restype = ctypes.c_int
-    lib.clsim_propagate_records.argtypes = [vp] * 16
+    lib.clsim_propagate_records.argtypes = [ctypes.c_int] + [vp] * 20
     lib.clsim_propagate_records.restype = ctypes.c_int
     lib.clsim_error_string.argtypes = [ctypes.c_int]
     lib.clsim_error_string.restype = ctypes.c_char_p

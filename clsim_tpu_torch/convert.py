@@ -21,7 +21,7 @@ import torch
 from .geometry import DetectorGeometry
 from .medium.anisotropy import AnisotropyParams
 from .medium.functions import RefIndexParams
-from .medium.properties import MEDIA_ITEM, MediumProperties, ScatteringAngleDist
+from .medium.properties import MediumProperties, ScatteringAngleDist
 from .medium.tilt import TiltParams
 from .ops.spectrum import SpectrumTable
 from .types import StepBatch
@@ -76,17 +76,23 @@ def steps_from_numpy(m: Mapping, device="cuda") -> StepBatch:
                         for f in StepBatch._fields})
 
 
+# the tabulated media's optional fields (None for the icecube kind)
+_MEDIUM_TABLES = ("water_scat_inv", "water_abs_inv", "fac_gs", "fac_pa",
+                  "fac_qa", "fac_ra", "ref_n_table", "ref_g_table")
+
+
 def medium_from_numpy(m: Mapping, device="cuda") -> MediumProperties:
+    """Every medium kind ("icecube", "water", "separable_table") and both
+    scattering kinds, field for field; a tabulated kind must carry its
+    tables."""
     m = _fields(m)
-    kind = str(m.get("medium_kind", "icecube"))
     scat = _fields(m["scattering"])
-    if kind != "icecube" or str(scat.get("kind", "icecube")) != "icecube":
-        raise NotImplementedError(MEDIA_ITEM)
     t = lambda v: _tensor(v, device)
+    opt = lambda v: None if v is None else t(v)
     ref = _fields(m["ref_index"])
     an = _fields(m["anisotropy"])
     tl = _fields(m["tilt"])
-    return MediumProperties(
+    out = MediumProperties(
         layers_z_start=t(m["layers_z_start"]),
         layer_height=t(m["layer_height"]),
         n_layers=int(np.asarray(m["n_layers"])),
@@ -96,8 +102,12 @@ def medium_from_numpy(m: Mapping, device="cuda") -> MediumProperties:
         b400=t(m["b400"]), a_dust400=t(m["a_dust400"]),
         delta_tau=t(m["delta_tau"]),
         ref_index=RefIndexParams(n=t(ref["n"]), g=t(ref["g"])),
-        scattering=ScatteringAngleDist(mean_cos=t(scat["mean_cos"]),
-                                       liu_fraction=t(scat["liu_fraction"])),
+        scattering=ScatteringAngleDist(
+            mean_cos=t(scat["mean_cos"]),
+            liu_fraction=t(scat["liu_fraction"]),
+            kind=str(scat.get("kind", "icecube")),
+            table_cos=opt(scat.get("table_cos")),
+            table_cdf=opt(scat.get("table_cdf"))),
         anisotropy=AnisotropyParams(
             azimuth=t(an["azimuth"]), mag_along=t(an["mag_along"]),
             mag_perp=t(an["mag_perp"]), enabled=bool(an["enabled"])),
@@ -109,4 +119,12 @@ def medium_from_numpy(m: Mapping, device="cuda") -> MediumProperties:
             azimuth_sin=t(tl["azimuth_sin"]), enabled=bool(tl["enabled"])),
         density=t(m["density"]), efficiency=t(m["efficiency"]),
         min_wlen=float(m.get("min_wlen", 265.0)),
-        max_wlen=float(m.get("max_wlen", 675.0)))
+        max_wlen=float(m.get("max_wlen", 675.0)),
+        medium_kind=str(m.get("medium_kind", "icecube")),
+        water_wlen_first=float(m.get("water_wlen_first", 290.0)),
+        water_wlen_step=float(m.get("water_wlen_step", 10.0)),
+        **{f: opt(m.get(f)) for f in _MEDIUM_TABLES})
+    reason = out.missing_tables()
+    if reason:
+        raise ValueError(f"medium cannot be carried across: {reason}")
+    return out

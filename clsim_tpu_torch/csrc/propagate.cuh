@@ -1,0 +1,1074 @@
+// Photon propagation kernel for NVIDIA Hopper (sm_90a): the kernel template
+// and its launcher.  The translation units propagate*.cu instantiate it (one
+// nvcc each, built in parallel by clsim_tpu_torch/_build.py); propagate.cu
+// holds the C entry points.
+//
+// Replaces the Pallas TPU kernel clsim_tpu/propagate/kernel.py::_make_kernel
+// (pl.pallas_call at clsim_tpu/propagate/kernel.py:2427) in these
+// configurations: IceCube layered ice with optional tilt and anisotropy, or
+// a tabulated medium (sea water, photonics-table ice); one Cherenkov
+// spectrum with a uniform bias grid; per-subdetector SubPlan collision or
+// the global cell plan (affine or general); the detect estimator with or
+// without stop-on-detection and with a sampled or fixed absorption budget,
+// or the expected estimator (survival-weight deposits, soft binning, angular
+// polynomial); Philox, an external stream or in-kernel threefry for the
+// random numbers.  Its plain PyTorch version is
+// clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
+//
+// Design.  One thread per photon slot.  Each launch runs up to `iters`
+// iterations; in each, a slot without a live photon spawns one from its step
+// (respawn in place), the photon walks the layered ice until its scattering
+// or absorption budget or the segment cap is used up, the segment is tested
+// against the DOMs of the strings its cell may reach, a hit is deposited into
+// the (dom, time-bin) histogram with a float atomicAdd and kills the photon,
+// and a survivor scatters.  A thread whose slot has drained leaves its loop.
+//
+// What bounds it on this card: latency, not bandwidth or arithmetic.  Every
+// thread runs data-dependent loops (layer walk, candidate strings, z-window
+// DOMs) with early exits, so warps diverge, and it reads the layer and cell
+// tables at random.  The design keeps all photon state in registers for the
+// whole launch (state is read and written once per launch), keeps the tables
+// small and read-only (`const __restrict__`, served from L1/L2), lays one
+// cell's candidate strings out as consecutive 16-byte entries, keeps only
+// the `rounds` closest candidates in registers (no per-thread arrays in
+// local memory), and reduces the counters per warp and block so that one
+// atomic per block reaches global memory.  Shared memory, TMA and warp
+// specialisation are later work.
+//
+// Random numbers: Philox4x32-10 keyed by the wrapper's 64-bit seed, counter
+// (it0 + iteration, slot, block); or, in parity mode, an external (T, 8, N)
+// float32 stream read at [iteration, row, slot]; or, in the THREEFRY
+// instantiation (the TPU kernel's `threefry`, kernel.py:341-361, :447-456,
+// :758-773; built with DEP_EXPECTED only, the fit's forward, which is the
+// one entry point that draws in-kernel threefry), threefry2x32 keyed by the
+// host-folded key of the iteration
+// (a (2T,) uint32 table), counter (0, row * N + slot), the two output words
+// XORed and mapped to [0, 1) as jax.random.uniform does: bit-exact to
+// ops/rng.py and to jax.random, so the engine run with the same key (the
+// fit's backward) sees the same numbers.  Rows 0-3 are drawn only when the
+// slot spawns (the values are those of the full (8, N) block: a counter-
+// based draw depends on nothing but its counter); ~100 integer operations
+// per row.
+//
+// Deposit modes (the template's DEP; the TPU kernel's `expected`,
+// `stopping`, `soft`, `ang_poly`, `fixed_abs`, kernel.py:855-857,
+// :1478-1529).  DEP_STOP is the main path: a hit deposits w0 and kills the
+// photon.  DEP_PASS (non-stopping detect) deposits w0 and keeps flying.
+// DEP_EXPECTED deposits the survival weight w0 exp(-(tau_start + frac *
+// tau_seg)) at every DOM entry, times the clipped angular polynomial, into
+// one bin or (soft) two neighbouring bins; the photon passes through and
+// dies only at the fixed horizon.  FIXED sets the spawn budget to the
+// horizon in detect mode.  What bounds these modes beyond the main path:
+// coherent workloads (every photon of a beam crossing the same DOM in the
+// same iteration) make many threads add to the same bins at once, so the
+// atomics serialise there; sums stay exact up to their order.
+//
+// Photon records (the RECORDS instantiation; the TPU kernel's `records`,
+// `rec_all` and `rec_prescale`: REC_STATE_FIELDS, the record position with
+// the pancake undone, SAVE_ALL and the record queue in `flush`).  The record
+// state (wavelength, emission point and direction, scatter count, absorption
+// depth) stays in registers for the launch and rides as extra state rows
+// between launches.  A photon that hits (or, with rec_all, is absorbed)
+// still deposits into the histogram, then its record of NRC floats is
+// appended to a device buffer at a slot taken by an atomicAdd on one
+// counter.  The host call loop sets the capacity: a thread whose append
+// finds it full keeps the record pending (the photon is dead, so its x/y/z
+// and t already hold the record; `pend` keeps the flat index) and leaves its
+// loop; the next launch writes the pending record first.  No record is lost
+// and the buffer stays bounded.  What bounds the mode beyond the main path:
+// one atomic per record on a single counter and 88 scattered bytes per
+// record, both small beside the photon's walk.  The main path's
+// instantiation (RECORDS = false) compiles none of this.
+//
+// Collision and media (the template's COLL and MED; the TPU kernel's
+// global plan, kernel.py:947-1003, :1270-1456, and media tables, :807-833,
+// :1606-1629).  COLL 0 is the SubPlan test above.  COLL 1 and 2 use one
+// global 2-D cell grid: a cell lists <= k_cand candidate strings as three
+// float4 each (position, cull radius, DOM offset; z extent and DOM ladder;
+// DOM count and string index), and its list ends at the first padding entry
+// (cull radius -1); the cull ranks by the static segment cap,
+// as the TPU kernel does, and the n_rounds closest culled strings stay in
+// sorted registers.  COLL 1 (affine: every DOM on its string's z0 + m*dz
+// ladder) tests the n_dom_cand ladder DOMs of the segment's z-window; COLL 2
+// (surveyed positions) tests every DOM row of the string from an (S, M)
+// float4 residual table beside a float4 per string.  The general path does
+// rounds x M sphere tests per live slot-iteration, 60 per string on IceCube,
+// against the affine path's rounds x n_dom_cand: more arithmetic and 16
+// bytes per DOM row, served from L1/L2 (a string's rows are contiguous).
+// MED 1 and 2 replace the closed-form wavelength factors at spawn by a lerp
+// of the (rows, n_wtab) wavelength table (gs, pa, qa, ra, and n, g when
+// tabulated); MED 2 (sea water) also replaces the Liu/HG scattering by the
+// Rayleigh cubic mixed with the tabulated Petzold angle, located in its CDF
+// by binary search and solved as the wavelength is.  The main path is
+// COLL 0, MED 0: none of this is compiled there.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+//        -Xcompiler -fPIC per translation unit, then one -shared link (no
+//        fast-math: parity depends on logf/expf/powf).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define BIG 1e30f
+#define EPS 1e-5f
+#define C_LIGHT 0.299792458f
+#define MAX_PLANS 4
+#define MAX_ROUNDS 4
+#define MAX_TILT_D 16
+#define MAX_ANG 8
+#define BLOCK 256
+
+// parameter block, mirrored field for field by the ctypes structures in
+// clsim_tpu_torch/propagate/kernel.py (every field is 4 bytes)
+struct PlanParams {
+  float x0, y0, inv_cell, uz_z0, uz_dz, inv_dz, uz_nd, minz, maxz;
+  int nx, ny, k_cand, n_dom_cand, rounds, cell_off;
+};
+
+struct Params {
+  int n_slots, iters, K, L, n_spec, n_bias, nz_tilt, nd_tilt, aniso, nbins,
+      n_plans, use_uniforms;
+  unsigned int it0, seed_lo, seed_hi;
+  float z_start, layer_h, alpha, kappa, abs_a, abs_b, abs_d, abs_e;
+  float an_ca, an_sa, an_k1, an_k2, an_kz, mean_cos, liu_frac, r, r2;
+  float inv_pancake, max_seg, hist_t0, hist_dt;
+  float tilt_z0, tilt_dz, tilt_ca, tilt_sa, bias_x0, bias_inv_dx;
+  float n[5], g[5];
+  float tilt_d[MAX_TILT_D];
+  PlanParams plans[MAX_PLANS];
+  int rec_cap, rec_all;        // record mode: buffer capacity, SAVE_ALL
+  float rec_prescale, rec_fpk;  // SAVE_ALL prescale, (pancake - 1) / pancake
+  float horizon;               // fixed absorption horizon [abs. lengths]
+  int soft, n_ang;             // soft binning; angular coefficients used
+  float ang[MAX_ANG];          // angular polynomial in cos(eta), ascending
+  float pmt_ax, pmt_ay, pmt_az;  // PMT axis of the angular polynomial
+  // the global cell plan (COLL 1, 2): grid, candidates per cell, DOM-window
+  // candidates (affine), test rounds, DOM rows per string (general)
+  float g_x0, g_y0, g_inv_cell;
+  int g_nx, g_ny, g_k_cand, n_dom_cand, n_rounds, m_rel;
+  // tabulated media (MED 1, 2): the uniform wavelength grid, its points,
+  // whether the phase/group index is tabulated, points of the angle CDF
+  float wtab_x0, wtab_inv_dx;
+  int n_wtab, ref_table, n_scat;
+};
+
+// collision (template COLL) and medium (template MED) instantiations
+enum { COLL_SUBPLANS = 0, COLL_AFFINE = 1, COLL_GENERAL = 2 };
+enum { MED_CLOSED = 0, MED_TABLES = 1, MED_WATER = 2 };
+
+// deposit modes (template DEP) and the host's mode flags (kernel.py
+// kernel_mode: DEP | MODE_THREEFRY | MODE_FIXED)
+enum { DEP_STOP = 0, DEP_PASS = 1, DEP_EXPECTED = 2 };
+enum { MODE_THREEFRY = 4, MODE_FIXED = 8, MODE_RECORDS = 16 };
+enum { COLL_SHIFT = 5, MED_SHIFT = 7 };
+
+// slot-state rows (engine.SlotState field order) and step rows
+enum { F_LEFT, F_INF, F_X, F_Y, F_Z, F_T, F_DX, F_DY, F_DZ, F_W0, F_IGV,
+       F_ABS, F_GS, F_PA, F_QA, F_RA, NSF };
+enum { S_X, S_Y, S_Z, S_T, S_DX, S_DY, S_DZ, S_LEN, S_BETA, S_W, S_SRC,
+       S_ID };
+// record-mode state rows after the NSF rows (kernel.py REC_STATE_FIELDS)
+enum { R_WLEN, R_ABS0, R_NSCAT, R_DABS, R_SX, R_SY, R_SZ, R_ST, R_SDX, R_SDY,
+       R_SDZ, R_PEND, NRSF };
+// columns of one record (kernel.py REC_COLUMNS)
+enum { C_PX, C_PY, C_PZ, C_T, C_DX, C_DY, C_DZ, C_WLEN, C_ID, C_SX, C_SY,
+       C_SZ, C_ST, C_SDX, C_SDY, C_SDZ, C_IGV, C_NSCAT, C_DABS, C_IDX, C_W,
+       C_SLOT, NRC };
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned int lo0 = 0xD2511F53u * c.x;
+    const unsigned int hi0 = __umulhi(0xD2511F53u, c.x);
+    const unsigned int lo1 = 0xCD9E8D57u * c.z;
+    const unsigned int hi1 = __umulhi(0xCD9E8D57u, c.z);
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// threefry2x32 (20 rounds) of counter (0, c1) under key (k0, k1), the two
+// output words XORed: jax.random's 32 random bits of element c1
+// (clsim_tpu/propagate/kernel.py::_threefry_bits)
+#define TF_ROUND(r) x0 += x1; x1 = __funnelshift_l(x1, x1, r) ^ x0;
+__device__ __forceinline__ unsigned int threefry_bits(unsigned int k0,
+                                                      unsigned int k1,
+                                                      unsigned int c1) {
+  const unsigned int k2 = 0x1BD11BDAu ^ k0 ^ k1;
+  unsigned int x0 = k0, x1 = c1 + k1;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k1; x1 += k2 + 1u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k2; x1 += k0 + 2u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k0; x1 += k1 + 3u;
+  TF_ROUND(17) TF_ROUND(29) TF_ROUND(16) TF_ROUND(24)
+  x0 += k1; x1 += k2 + 4u;
+  TF_ROUND(13) TF_ROUND(15) TF_ROUND(26) TF_ROUND(6)
+  x0 += k2; x1 += k0 + 5u;
+  return x0 ^ x1;
+}
+#undef TF_ROUND
+
+// jax.random.uniform's float of 32 random bits: [1, 2) by the mantissa,
+// minus 1
+__device__ __forceinline__ float tf_u01(unsigned int bits) {
+  return __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
+}
+
+__device__ __forceinline__ float u01(unsigned int bits) {
+  return (float)(bits >> 8) * (1.0f / 16777216.0f);  // [0, 1)
+}
+
+__device__ __forceinline__ float poly4(const float* c, float x) {
+  return c[0] + x * (c[1] + x * (c[2] + x * (c[3] + x * c[4])));
+}
+
+// ops/rotations.scatter_direction_by_angle, including its vertical branch
+__device__ __forceinline__ void scatter_dir(float cosa, float sina, float dx,
+                                            float dy, float dz, float u_az,
+                                            float* ox, float* oy, float* oz) {
+  const float b = 2.0f * 3.14159265358979323846f * u_az;
+  const float cosb = cosf(b), sinb = sinf(b);
+  const float sinth = sqrtf(fmaxf(1.0f - dz * dz, 0.0f));
+  float nx, ny, nz;
+  if (sinth > 0.0f) {
+    nx = dx * cosa - (dy * cosb + dz * dx * sinb) * sina / sinth;
+    ny = dy * cosa + (dx * cosb - dz * dy * sinb) * sina / sinth;
+    nz = dz * cosa + sina * sinb * sinth;
+  } else {
+    nx = sina * cosb;
+    ny = sina * sinb;
+    nz = cosa * (dz > 0.0f ? 1.0f : (dz < 0.0f ? -1.0f : 0.0f));
+  }
+  const float inv = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz);
+  *ox = nx * inv;
+  *oy = ny * inv;
+  *oz = nz * inv;
+}
+
+// anisotropy frame transform: normalize(T^T diag(d1, d2, d3) T dir)
+__device__ __forceinline__ void aniso_transform(const Params& p, float d1,
+                                                float d2, float d3, float* x,
+                                                float* y, float* z) {
+  const float n1 = (p.an_ca * *x + p.an_sa * *y) * d1;
+  const float n2 = (-p.an_sa * *x + p.an_ca * *y) * d2;
+  const float n3 = *z * d3;
+  const float ox = p.an_ca * n1 - p.an_sa * n2;
+  const float oy = p.an_sa * n1 + p.an_ca * n2;
+  const float inv = 1.0f / sqrtf(ox * ox + oy * oy + n3 * n3);
+  *x = ox * inv;
+  *y = oy * inv;
+  *z = n3 * inv;
+}
+
+// inverse-CDF quadratic solve within a located segment
+// (I3CLSimRandomValueInterpolatedDistribution.cxx:84-135)
+__device__ __forceinline__ float interp_solve(float u, float x0, float x1,
+                                              float b0, float b1, float acu0) {
+  const float slope = (b1 - b0) / (x1 - x0);
+  const float dy = u - acu0;
+  const bool s_zero = fabsf(slope) < 1e-20f;
+  const bool b_zero = fabsf(b0) < 1e-20f;
+  if (b_zero && s_zero) return x0;
+  if (b_zero) return x0 + sqrtf(fmaxf(2.0f * dy / slope, 0.0f));
+  if (s_zero) return x0 + dy / b0;
+  return x0 + (sqrtf(fmaxf(dy * 2.0f * slope / (b0 * b0) + 1.0f, 0.0f)) -
+               1.0f) * b0 / slope;
+}
+
+// Rayleigh scattering cosine by the closed cubic (ops/samplers.rayleigh_cos,
+// I3CLSimRandomValueRayleighScatteringCosAngle.cxx), b = 0.835
+__device__ __forceinline__ float rayleigh_cos(float u) {
+  const float p3 = (float)((1.0 / 0.835) * (1.0 / 0.835) * (1.0 / 0.835));
+  const float q = 3.835f * (u - 0.5f) / 0.835f;
+  const float d = q * q + p3;
+  const float u1 = -q + sqrtf(d);
+  const float v1 = -q - sqrtf(d);
+  const float c = copysignf(powf(fabsf(u1), 1.0f / 3.0f), u1) +
+                  copysignf(powf(fabsf(v1), 1.0f / 3.0f), v1);
+  return fminf(fmaxf(c, -1.0f), 1.0f);
+}
+
+// k = clip(#{acu <= u} - 1, 0, n - 2) of an ascending CDF table
+__device__ __forceinline__ int locate_cdf(const float* __restrict__ acu, int n,
+                                      float u) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (acu[mid] <= u) lo = mid + 1; else hi = mid;
+  }
+  return min(max(lo - 1, 0), n - 2);
+}
+
+// medium/tilt.tilt_z_shift
+__device__ __forceinline__ float tilt_shift(const Params& p,
+                                            const float* __restrict__ zc,
+                                            float x, float y, float z) {
+  const int nz = p.nz_tilt, nd = p.nd_tilt;
+  const float zr = (z - p.tilt_z0) / p.tilt_dz;
+  const float kzf = fminf(fmaxf(floorf(zr), 0.0f), (float)(nz - 2));
+  const int kz = (int)kzf;
+  const float fz_above = zr - kzf;
+  const float fz_below = 1.0f - fz_above;
+  const float nr = p.tilt_ca * x + p.tilt_sa * y;
+  int j = 1;
+  for (int jj = 1; jj < nd - 1; ++jj)
+    if (nr >= p.tilt_d[jj]) j = jj + 1;
+  const float d_lo = p.tilt_d[j - 1], d_hi = p.tilt_d[j];
+  const float q_ll = zc[(j - 1) * nz + kz], q_lh = zc[(j - 1) * nz + kz + 1];
+  const float q_hl = zc[j * nz + kz], q_hh = zc[j * nz + kz + 1];
+  const float frac_lo = (d_hi - nr) / (d_hi - d_lo);
+  const float frac_hi = 1.0f - frac_lo;
+  const float val_lo = q_lh * fz_above + q_ll * fz_below;
+  const float val_hi = q_hh * fz_above + q_hl * fz_below;
+  return val_hi * frac_hi + val_lo * frac_lo;
+}
+
+// Record state of a slot's photon (kernel.py REC_STATE_FIELDS), kept in
+// registers for the launch.
+struct RecRegs {
+  float wlen, abs0, nscat, dabs, sx, sy, sz, st, sdx, sdy, sdz, pend;
+};
+
+// Append the record of a dead photon (its x/y/z hold the record position,
+// t the record time) at the next free buffer slot; false when the buffer of
+// `cap` records is full (the counter still counts the attempt).
+__device__ __forceinline__ bool push_record(
+    float* __restrict__ buf, unsigned long long* __restrict__ cnt, int cap,
+    const RecRegs& r, float x, float y, float z, float t, float dx, float dy,
+    float dz, float ident, float inv_gv, float idx, float w, int slot) {
+  const unsigned long long at = atomicAdd(cnt, 1ull);
+  if (at >= (unsigned long long)cap) return false;
+  const float v[NRC] = {x, y, z, t, dx, dy, dz, r.wlen, ident, r.sx, r.sy,
+                        r.sz, r.st, r.sdx, r.sdy, r.sdz, inv_gv, r.nscat,
+                        r.dabs, idx, w, (float)slot};
+  float* __restrict__ d = buf + at * NRC;
+#pragma unroll
+  for (int k = 0; k < NRC; ++k) d[k] = v[k];
+  return true;
+}
+
+template <bool RECORDS, int DEP, bool THREEFRY, bool FIXED, int COLL, int MED>
+__global__ void __launch_bounds__(BLOCK)
+propagate_kernel(const Params p, float* __restrict__ state,
+                 const float* __restrict__ steps,
+                 const float* __restrict__ uni,
+                 const unsigned int* __restrict__ tf_keys,
+                 const float* __restrict__ layers,
+                 const float* __restrict__ spec_tab,
+                 const float* __restrict__ bias_y,
+                 const float* __restrict__ tilt_zc,
+                 const float4* __restrict__ cells, float* __restrict__ hist,
+                 unsigned long long* __restrict__ cnt_i,
+                 double* __restrict__ cnt_w,
+                 const float4* __restrict__ doms, float* __restrict__ rec_buf,
+                 unsigned long long* __restrict__ rec_cnt,
+                 const float4* __restrict__ rel,
+                 const float4* __restrict__ strings,
+                 const float* __restrict__ wtab,
+                 const float* __restrict__ scat) {
+  const int N = p.n_slots;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  long long n_gen = 0, n_hits = 0, n_work = 0, n_alive = 0;
+  // the work the bound counts beyond the main path's (kernel.py CNT_*): the
+  // global plans' candidates culled, cull passes, strings given the sphere
+  // test and DOM rows tested (COLL 1, 2); water's scatters and those that
+  // drew Rayleigh (MED 2)
+  long long n_cand = 0, n_cull = 0, n_tested = 0, n_rows = 0;
+  long long n_scat = 0, n_ray = 0;
+  double w_sum = 0.0;
+
+  if (slot < N) {
+    float left = state[F_LEFT * N + slot], inflight = state[F_INF * N + slot];
+    float x = state[F_X * N + slot], y = state[F_Y * N + slot];
+    float z = state[F_Z * N + slot], t = state[F_T * N + slot];
+    float dx = state[F_DX * N + slot], dy = state[F_DY * N + slot];
+    float dz = state[F_DZ * N + slot], w0 = state[F_W0 * N + slot];
+    float inv_gv = state[F_IGV * N + slot];
+    float abs_left = state[F_ABS * N + slot];
+    float gs = state[F_GS * N + slot], pa = state[F_PA * N + slot];
+    float qa = state[F_QA * N + slot], ra = state[F_RA * N + slot];
+
+    const float s_x = steps[S_X * N + slot], s_y = steps[S_Y * N + slot];
+    const float s_z = steps[S_Z * N + slot], s_t = steps[S_T * N + slot];
+    const float s_dx = steps[S_DX * N + slot], s_dy = steps[S_DY * N + slot];
+    const float s_dz = steps[S_DZ * N + slot];
+    const float s_len = steps[S_LEN * N + slot];
+    const float s_beta = steps[S_BETA * N + slot];
+    const float s_w = steps[S_W * N + slot];
+    const bool cherenkov = steps[S_SRC * N + slot] == 0.0f;
+
+    const int L = p.L;
+    const float* __restrict__ lay_b = layers;
+    const float* __restrict__ lay_a = layers + L;
+    const float* __restrict__ lay_t = layers + 2 * L;
+    const int ns = p.n_spec;
+    const float* __restrict__ sp_x = spec_tab;
+    const float* __restrict__ sp_acu = spec_tab + ns;
+    const float* __restrict__ sp_beta = spec_tab + 2 * ns;
+    const uint2 key = make_uint2(p.seed_lo, p.seed_hi);
+
+    // record state (RECORDS only; dead code otherwise)
+    RecRegs rr = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+    float* __restrict__ rs = state + (size_t)NSF * N + slot;
+    float ident = 0.0f;
+    int iters = p.iters;
+    if constexpr (RECORDS) {
+      rr = {rs[R_WLEN * N], rs[R_ABS0 * N], rs[R_NSCAT * N], rs[R_DABS * N],
+            rs[R_SX * N],   rs[R_SY * N],   rs[R_SZ * N],    rs[R_ST * N],
+            rs[R_SDX * N],  rs[R_SDY * N],  rs[R_SDZ * N],   rs[R_PEND * N]};
+      ident = steps[S_ID * N + slot];
+      if (rr.pend >= 0.0f) {  // the last launch's buffer was full: write first
+        if (push_record(rec_buf, rec_cnt, p.rec_cap, rr, x, y, z, t, dx, dy,
+                        dz, ident, inv_gv, rr.pend, p.rec_all ? 0.0f : w0,
+                        slot))
+          rr.pend = -1.0f;
+        else
+          iters = 0;  // still full: stay stalled
+      }
+    }
+
+    for (int it = 0; it < iters; ++it) {
+      const bool fresh = inflight < 0.5f && left > 0.5f;
+      if (!fresh && inflight < 0.5f) break;  // slot drained
+
+      float u[8];
+      if constexpr (THREEFRY) {
+        const unsigned int k0 = tf_keys[2 * it], k1 = tf_keys[2 * it + 1];
+        const unsigned int c = (unsigned int)slot, n = (unsigned int)N;
+        if (fresh) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+            u[r] = tf_u01(threefry_bits(k0, k1, (unsigned int)r * n + c));
+        }
+#pragma unroll
+        for (int r = 4; r < 8; ++r)
+          u[r] = tf_u01(threefry_bits(k0, k1, (unsigned int)r * n + c));
+      } else if (p.use_uniforms) {
+        const float* ui = uni + (size_t)it * 8 * N + slot;
+        if (fresh) {
+#pragma unroll
+          for (int r = 0; r < 4; ++r) u[r] = ui[(size_t)r * N];
+        }
+#pragma unroll
+        for (int r = 4; r < 8; ++r) u[r] = ui[(size_t)r * N];
+      } else {
+        const unsigned int ctr = p.it0 + (unsigned int)it;
+        if (fresh) {
+          const uint4 b0 = philox4x32_10(make_uint4(ctr, slot, 0u, 0u), key);
+          u[0] = u01(b0.x); u[1] = u01(b0.y); u[2] = u01(b0.z); u[3] = u01(b0.w);
+        }
+        const uint4 b1 = philox4x32_10(make_uint4(ctr, slot, 1u, 0u), key);
+        u[4] = u01(b1.x); u[5] = u01(b1.y); u[6] = u01(b1.z); u[7] = u01(b1.w);
+      }
+
+      // ---------- spawn (createPhotonFromTrack, kernel.cl:132-184) ----------
+      if (fresh) {
+        const float shift = s_len * u[0];
+        x = s_x + s_dx * shift;
+        y = s_y + s_dy * shift;
+        z = s_z + s_dz * shift;
+        t = s_t + shift / (C_LIGHT * s_beta);
+        // wavelength: k = clip(#{acu <= u} - 1, 0, n-2), then the solve
+        int lo = 0, hi = ns;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (sp_acu[mid] <= u[1]) lo = mid + 1; else hi = mid;
+        }
+        const int k = min(max(lo - 1, 0), ns - 2);
+        const float wl = interp_solve(u[1], sp_x[k], sp_x[k + 1], sp_beta[k],
+                                      sp_beta[k + 1], sp_acu[k]);
+        float n_phase, n_group;
+        if constexpr (MED == MED_CLOSED) {
+          const float wl_um = wl * 1e-3f;
+          n_phase = poly4(p.n, wl_um);
+          n_group = n_phase * poly4(p.g, wl_um);
+          gs = powf(wl / 400.0f, -p.alpha);
+          const float xkap = powf(wl, -p.kappa);
+          const float ebx = p.abs_a * expf(-p.abs_b / wl);
+          pa = p.abs_d * xkap;
+          qa = p.abs_e * xkap + ebx;
+          ra = 0.01f * ebx;
+        } else {
+          // tabulated medium: lerp the rows gs, pa, qa, ra (and n, g) on
+          // the uniform grid (MediumProperties._water_table)
+          const int nw = p.n_wtab;
+          const float wxi = (wl - p.wtab_x0) * p.wtab_inv_dx;
+          const float wk = fminf(fmaxf(floorf(wxi), 0.0f), (float)(nw - 2));
+          const float wfr = fminf(fmaxf(wxi - wk, 0.0f), 1.0f);
+          const float* __restrict__ w = wtab + (int)wk;
+          auto lerp = [&](int r) {
+            const float a = w[r * nw], b = w[r * nw + 1];
+            return a + wfr * (b - a);
+          };
+          gs = lerp(0);
+          pa = lerp(1);
+          qa = lerp(2);
+          ra = lerp(3);
+          if (p.ref_table) {
+            n_phase = lerp(4);
+            n_group = lerp(5);
+          } else {
+            const float wl_um = wl * 1e-3f;
+            n_phase = poly4(p.n, wl_um);
+            n_group = n_phase * poly4(p.g, wl_um);
+          }
+        }
+        if (cherenkov) {
+          const float cos_c = fminf(1.0f, 1.0f / (s_beta * n_phase));
+          const float sin_c = sqrtf(fmaxf(1.0f - cos_c * cos_c, 0.0f));
+          scatter_dir(cos_c, sin_c, s_dx, s_dy, s_dz, u[2], &dx, &dy, &dz);
+        } else {
+          dx = s_dx; dy = s_dy; dz = s_dz;
+        }
+        if constexpr (DEP == DEP_EXPECTED || FIXED)
+          abs_left = p.horizon;  // fixed absorption horizon
+        else
+          abs_left = -logf(1.0f - u[3]);
+        inv_gv = 1.0f / (C_LIGHT / n_group);
+        // bias: linear interpolation on the uniform grid, clamped
+        const float bxi = (wl - p.bias_x0) * p.bias_inv_dx;
+        const float bk = fminf(fmaxf(floorf(bxi), 0.0f), (float)(p.n_bias - 2));
+        const float bfrac = fminf(fmaxf(bxi - bk, 0.0f), 1.0f);
+        const float f0 = bias_y[(int)bk], f1 = bias_y[(int)bk + 1];
+        w0 = s_w / fmaxf(f0 + bfrac * (f1 - f0), 1e-20f);
+        inflight = 1.0f;
+        left -= 1.0f;
+        ++n_gen;
+        if constexpr (RECORDS) {  // spawn-time record state
+          rr.wlen = wl; rr.abs0 = abs_left; rr.nscat = 0.0f;
+          rr.sx = x; rr.sy = y; rr.sz = z; rr.st = t;
+          rr.sdx = dx; rr.sdy = dy; rr.sdz = dz;
+        }
+      }
+      ++n_work;
+
+      // ---------- budgets + anisotropy (kernel.cl:615-694) ----------
+      float abs_corr = 1.0f;
+      if (p.aniso) {
+        const float l1 = p.an_k1 * p.an_k1, l2 = p.an_k2 * p.an_k2;
+        const float l3 = p.an_kz * p.an_kz;
+        const float B2 = 1.0f / l1 + 1.0f / l2 + 1.0f / l3;
+        const float n1 = p.an_ca * dx + p.an_sa * dy;
+        const float n2 = -p.an_sa * dx + p.an_ca * dy;
+        const float s1 = n1 * n1, s2 = n2 * n2, s3 = dz * dz;
+        const float nB = s1 / l1 + s2 / l2 + s3 / l3;
+        const float An = s1 * l1 + s2 * l2 + s3 * l3;
+        abs_corr = 2.0f / ((B2 - nB) * An);
+      }
+      const float sca_budget = -logf(1.0f - u[4]);
+
+      // ---------- tilt + layer walk (kernel.cl:598-696) ----------
+      const float z_eff = p.nz_tilt ? z - tilt_shift(p, tilt_zc, x, y, z) : z;
+      const float j0f = fminf(fmaxf(floorf((z_eff - p.z_start) / p.layer_h),
+                                    0.0f), (float)(L - 1));
+      const int j0 = (int)j0f;
+      const bool up = dz >= 0.0f;
+      const int dirsign = up ? 1 : -1;
+      const float adz = fabsf(dz);
+      const bool vertical = adz < EPS;
+      const float bz = p.z_start + j0f * p.layer_h + (up ? p.layer_h : 0.0f);
+      float tb = vertical ? BIG : (bz - z_eff) / dz;
+      if (tb < 0.0f) tb = BIG;
+      const float tstep = vertical ? BIG : p.layer_h / fmaxf(adz, 1e-20f);
+      float t_done = 0.0f, tau_s = sca_budget, tau_a = abs_left * abs_corr;
+      float d_scat, d_abs, inv_a_fin;
+      for (int k = 0;; ++k) {
+        const int j = min(max(j0 + k * dirsign, 0), L - 1);
+        const float inv_s = gs * lay_b[j];
+        const float inv_a = pa * lay_a[j] + qa + ra * lay_t[j];
+        const float d_s = t_done + tau_s / inv_s;
+        const float d_a = t_done + tau_a / inv_a;
+        const bool at_edge = up ? (j >= L - 1) : (j <= 0);
+        if (at_edge || tb >= fminf(d_s, d_a) || tb >= p.max_seg || k >= p.K) {
+          d_scat = d_s;
+          d_abs = d_a;
+          inv_a_fin = inv_a;
+          break;
+        }
+        const float dt = tb - t_done;
+        tau_s -= dt * inv_s;
+        tau_a -= dt * inv_a;
+        t_done = tb;
+        tb += tstep;
+      }
+      bool absorbed = d_abs < d_scat;
+      float d_prop = fminf(fminf(d_scat, d_abs), p.max_seg);
+      const bool capped = (!absorbed && d_scat > p.max_seg) ||
+                          (absorbed && d_abs > p.max_seg);
+      absorbed = absorbed && !capped;
+      bool scattered = !absorbed && !capped;
+      float abs_left_corr =
+          absorbed ? 0.0f : fmaxf(tau_a - (d_prop - t_done) * inv_a_fin, 0.0f);
+
+      // ---------- SubPlan collision (sparse_collision_kernel.cl) ----------
+      float best = d_prop;
+      int best_dom = 0;
+      const float dxy2 = dx * dx + dy * dy;
+      if constexpr (COLL != COLL_SUBPLANS) {
+        // ---------- global cell plan (kernel.py:947-1003, :1270-1456) ----
+        if (dxy2 > 0.0f) {
+          const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
+          const float cxi = fminf(fmaxf(floorf((x - p.g_x0) * p.g_inv_cell),
+                                        0.0f), (float)(p.g_nx - 1));
+          const float cyi = fminf(fmaxf(floorf((y - p.g_y0) * p.g_inv_cell),
+                                        0.0f), (float)(p.g_ny - 1));
+          // [cell][candidate][3] float4: (sx, sy, maxr^2, dom offset),
+          // (minz, maxz, z0, dz), (n doms, string index, 0, 0)
+          const float4* __restrict__ cand =
+              cells + ((int)cxi * p.g_ny + (int)cyi) * p.g_k_cand * 3;
+          // the cull ranks by the static segment cap; keep the n_rounds
+          // closest culled strings sorted (ties keep the earlier candidate)
+          float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
+          int rci[MAX_ROUNDS];
+#pragma unroll
+          for (int r = 0; r < MAX_ROUNDS; ++r) {
+            rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; rci[r] = 0;
+          }
+          for (int c = 0; c < p.g_k_cand; ++c) {
+            const float4 e = cand[3 * c];
+            // the cell's list ends at its padding (maxr^2 = -1, which no
+            // string passes)
+            if (e.z < 0.0f) break;
+            ++n_cand;
+            const float rx = e.x - x, ry = e.y - y;
+            const float bd2 = rx * dx + ry * dy;
+            const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
+            const float cx = rx - dx * t2d, cy = ry - dy * t2d;
+            float d2 = cx * cx + cy * cy;
+            if (!(d2 <= e.z)) continue;
+            ++n_cull;
+            const float4 ez = cand[3 * c + 1];  // the candidate's z extent
+            if ((dz > 0.0f && z > ez.y + p.r) || (dz < 0.0f && z < ez.x - p.r))
+              continue;
+            float a2 = rx * rx + ry * ry, bd = bd2;
+            int ci = c;
+#pragma unroll
+            for (int r = 0; r < MAX_ROUNDS; ++r) {
+              if (d2 < rd2[r]) {
+                const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
+                const int t3 = rci[r];
+                rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; rci[r] = ci;
+                d2 = t0; a2 = t1; bd = t2; ci = t3;
+              }
+            }
+          }
+          const float margin = p.r + 1.0f;
+#pragma unroll
+          for (int r = 0; r < MAX_ROUNDS; ++r) {
+            if (r >= p.n_rounds || !(rd2[r] < BIG)) break;
+            ++n_tested;
+            const float4 e0 = cand[3 * rci[r]];
+            const int off = (int)e0.w;
+            if constexpr (COLL == COLL_AFFINE) {
+              // the n_dom_cand ladder DOMs of the z-window from the ceil
+              // anchor, each string's (z0, dz, n) from its own entry
+              const float4 e1 = cand[3 * rci[r] + 1];
+              const float nd = cand[3 * rci[r] + 2].x;
+              const float z0 = e1.z, dzf = e1.w, inv_dzf = 1.0f / dzf;
+              const float m1 = (z - z0) * inv_dzf;
+              const float m2 = m1 + dz * d_prop * inv_dzf;
+              const float mlo = ceilf(fminf(m1, m2) - margin * fabsf(inv_dzf));
+              n_rows += p.n_dom_cand;
+              for (int c = 0; c < p.n_dom_cand; ++c) {
+                const float m = fminf(fmaxf(mlo + (float)c, 0.0f), nd - 1.0f);
+                const float oz = z0 + dzf * m - z;
+                const float urdot = rBd[r] + oz * dz;
+                const float dr2 = rA2[r] + oz * oz;
+                const float discr = urdot * urdot - dr2 + p.r2;
+                if (discr >= 0.0f) {
+                  const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
+                  if (smin1 >= 0.0f && smin1 < best) {
+                    best = smin1;
+                    best_dom = off + (int)m;
+                  }
+                }
+              }
+            } else {
+              // every DOM row of the string: its fitted ladder plus the
+              // residuals of the surveyed positions (its nd valid rows come
+              // first, geometry.build_geometry)
+              const float4 e2 = cand[3 * rci[r] + 2];  // nd, string index
+              const int sidx = (int)e2.y;
+              n_rows += (long long)e2.x;
+              const float4 sf = strings[sidx];  // x, y, z0, dz
+              const float4* __restrict__ rows = rel + (size_t)sidx * p.m_rel;
+              for (int m = 0; m < p.m_rel; ++m) {
+                const float4 q = rows[m];  // dx, dy, dz, valid
+                if (!(q.w > 0.5f)) continue;
+                const float ox = sf.x + q.x - x;
+                const float oy = sf.y + q.y - y;
+                const float oz = sf.z + sf.w * (float)m + q.z - z;
+                const float dr2 = ox * ox + oy * oy + oz * oz;
+                const float urdot = ox * dx + oy * dy + oz * dz;
+                const float discr = urdot * urdot - dr2 + p.r2;
+                if (discr >= 0.0f) {
+                  const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
+                  if (smin1 >= 0.0f && smin1 < best) {
+                    best = smin1;
+                    best_dom = off + m;
+                  }
+                }
+              }
+            }
+          }
+        }
+      } else if (dxy2 > 0.0f) {  // exactly vertical photons are invisible
+        const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
+        const float margin = p.r + 1.0f;
+        for (int pi = 0; pi < p.n_plans; ++pi) {
+          const PlanParams& pp = p.plans[pi];
+          if ((dz > 0.0f && z > pp.maxz + p.r) ||
+              (dz < 0.0f && z < pp.minz - p.r))
+            continue;
+          const float cxi = fminf(fmaxf(floorf((x - pp.x0) * pp.inv_cell),
+                                        0.0f), (float)(pp.nx - 1));
+          const float cyi = fminf(fmaxf(floorf((y - pp.y0) * pp.inv_cell),
+                                        0.0f), (float)(pp.ny - 1));
+          const float4* __restrict__ cand =
+              cells + pp.cell_off + ((int)cxi * pp.ny + (int)cyi) * pp.k_cand;
+          // keep the `rounds` closest culled strings, sorted by 2-D distance
+          // (ties keep the earlier candidate)
+          float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
+          int roff[MAX_ROUNDS];
+#pragma unroll
+          for (int r = 0; r < MAX_ROUNDS; ++r) {
+            rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; roff[r] = 0;
+          }
+          for (int c = 0; c < pp.k_cand; ++c) {
+            const float4 e = cand[c];  // sx, sy, maxr^2, dom offset
+            const float rx = e.x - x, ry = e.y - y;
+            const float bd2 = rx * dx + ry * dy;
+            const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
+            const float cx = rx - dx * t2d, cy = ry - dy * t2d;
+            float d2 = cx * cx + cy * cy;
+            if (!(d2 <= e.z)) continue;
+            float a2 = rx * rx + ry * ry, bd = bd2;
+            int off = (int)e.w;
+#pragma unroll
+            for (int r = 0; r < MAX_ROUNDS; ++r) {
+              if (d2 < rd2[r]) {
+                const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
+                const int t3 = roff[r];
+                rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; roff[r] = off;
+                d2 = t0; a2 = t1; bd = t2; off = t3;
+              }
+            }
+          }
+          // ray-sphere test against the z-window DOMs of each picked string
+          const float m1 = (z - pp.uz_z0) * pp.inv_dz;
+          const float m2 = m1 + dz * (d_prop * pp.inv_dz);
+          const float mlo = ceilf(fminf(m1, m2) - margin * fabsf(pp.inv_dz));
+#pragma unroll
+          for (int r = 0; r < MAX_ROUNDS; ++r) {
+            if (r >= pp.rounds || !(rd2[r] < BIG)) break;
+            for (int c = 0; c < pp.n_dom_cand; ++c) {
+              const float m = fminf(fmaxf(mlo + (float)c, 0.0f), pp.uz_nd - 1.0f);
+              const float oz = pp.uz_z0 + pp.uz_dz * m - z;
+              const float urdot = rBd[r] + oz * dz;
+              const float dr2 = rA2[r] + oz * oz;
+              const float discr = urdot * urdot - dr2 + p.r2;
+              if (discr >= 0.0f) {
+                const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
+                if (smin1 >= 0.0f && smin1 < best) {
+                  best = smin1;
+                  best_dom = roff[r] + (int)m;
+                }
+              }
+            }
+          }
+        }
+      }
+      const bool hit = best < d_prop;
+
+      if constexpr (DEP == DEP_STOP) {
+        // ---------- hit: deposit and stop (kernel.cl:307-404) ----------
+        if (hit) {
+          d_prop = best;
+          absorbed = false;
+          scattered = false;
+          abs_left_corr = 0.0f;
+          const float t_hit = t + inv_gv * best;
+          const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
+                                        0.0f), (float)(p.nbins - 1));
+          atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
+          ++n_hits;
+          w_sum += (double)w0;
+        }
+      } else if constexpr (DEP == DEP_PASS) {
+        // ---------- non-stopping detect: deposit, keep flying ----------
+        if (hit) {
+          const float t_hit = t + inv_gv * best;
+          const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
+                                        0.0f), (float)(p.nbins - 1));
+          atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
+          ++n_hits;
+          w_sum += (double)w0;
+        }
+      } else {
+        // ---------- expected: survival weight at the DOM entry, the
+        // photon passes through (engine.py expected block) ----------
+        if (hit) {
+          const float tau_start = p.horizon - abs_left;
+          const float tau_seg = abs_left - abs_left_corr / abs_corr;
+          const float frac = d_prop > 0.0f ? best / d_prop : 0.0f;
+          float w = w0 * expf(-(tau_start + frac * tau_seg));
+          if (p.n_ang > 0) {
+            const float ce = fminf(fmaxf(-(dx * p.pmt_ax + dy * p.pmt_ay +
+                                           dz * p.pmt_az), -1.0f), 1.0f);
+            float ang = 0.0f;
+            for (int k = p.n_ang - 1; k >= 0; --k) ang = ang * ce + p.ang[k];
+            w *= fmaxf(ang, 0.0f);
+          }
+          const float t_hit = t + inv_gv * best;
+          const float tbf = (t_hit - p.hist_t0) / p.hist_dt;
+          float* __restrict__ h = hist + (size_t)best_dom * p.nbins;
+          if (p.soft) {
+            const float fl = floorf(tbf);
+            const float fr_hi = fminf(fmaxf(tbf - fl, 0.0f), 1.0f);
+            const float lo = fminf(fmaxf(fl, 0.0f), (float)(p.nbins - 1));
+            const float hi = fminf(lo + 1.0f, (float)(p.nbins - 1));
+            atomicAdd(h + (int)lo, w * (1.0f - fr_hi));
+            atomicAdd(h + (int)hi, w * fr_hi);
+          } else {
+            atomicAdd(h + (int)fminf(fmaxf(tbf, 0.0f), (float)(p.nbins - 1)),
+                      w);
+          }
+          ++n_hits;
+          w_sum += (double)w;
+        }
+      }
+
+      // ---------- record: at the hit, or (rec_all) at the absorption
+      // point, prescaled on u7, dom 0 (engine._record_values) ----------
+      bool rec_now = false;
+      float rec_idx = 0.0f, rec_x = 0.0f, rec_y = 0.0f, rec_z = 0.0f;
+      if constexpr (RECORDS) {
+        int rdom = best_dom;
+        if (p.rec_all) {
+          rec_now = absorbed &&
+                    (p.rec_prescale >= 1.0f || u[7] < p.rec_prescale);
+          rdom = 0;
+        } else {
+          rec_now = hit;
+        }
+        if (rec_now) {
+          // the time bin of t + inv_gv * d_prop (d_prop is the hit
+          // distance for a hit)
+          const float tb = fminf(
+              fmaxf((t + inv_gv * d_prop - p.hist_t0) / p.hist_dt, 0.0f),
+              (float)(p.nbins - 1));
+          rec_idx = (float)(rdom * p.nbins + (int)tb);
+          // position relative to the DOM centre moved toward the
+          // closest-approach plane (the pancake un-correction)
+          const float4 c = doms[rdom];
+          const float pxr = x - c.x, pyr = y - c.y, pzr = z - c.z;
+          const float par = pxr * dx + pyr * dy + pzr * dz;
+          rec_x = x + d_prop * dx - (c.x + p.rec_fpk * (pxr - par * dx));
+          rec_y = y + d_prop * dy - (c.y + p.rec_fpk * (pyr - par * dy));
+          rec_z = z + d_prop * dz - (c.z + p.rec_fpk * (pzr - par * dz));
+          rr.dabs = rr.abs0 - abs_left;
+        }
+      }
+
+      // ---------- advance ----------
+      x += dx * d_prop;
+      y += dy * d_prop;
+      z += dz * d_prop;
+      t += inv_gv * d_prop;
+      abs_left = abs_left_corr / abs_corr;
+
+      // ---------- scatter survivors (HG / simplified-Liu mixture) ----------
+      if (scattered) {
+        float pdx = dx, pdy = dy, pdz = dz;
+        if (p.aniso) aniso_transform(p, p.an_k1, p.an_k2, p.an_kz, &pdx, &pdy, &pdz);
+        const float g = p.mean_cos;
+        float cos_s;
+        if constexpr (MED == MED_WATER) {
+          // Rayleigh mixed with the tabulated (Petzold) scattering angle,
+          // u5 the branch, u6 the sample (kernel.py:1606-1629)
+          ++n_scat;
+          if (u[5] < p.liu_frac) {
+            ++n_ray;
+            cos_s = rayleigh_cos(u[6]);
+          } else {
+            const int ns2 = p.n_scat;
+            const float* __restrict__ sx_ = scat;
+            const float* __restrict__ sacu = scat + ns2;
+            const float* __restrict__ sbeta = scat + 2 * ns2;
+            const int k = locate_cdf(sacu, ns2, u[6]);
+            cos_s = cosf(interp_solve(u[6], sx_[k], sx_[k + 1], sbeta[k],
+                                      sbeta[k + 1], sacu[k]));
+          }
+        } else if (u[5] < p.liu_frac) {
+          const float beta_liu = (1.0f - g) / (1.0f + g);
+          cos_s = fminf(fmaxf(2.0f * powf(u[6], beta_liu) - 1.0f, -1.0f), 1.0f);
+        } else {
+          const float svar = 2.0f * u[6] - 1.0f;
+          if (fabsf(g) < 1e-6f) {
+            cos_s = svar;
+          } else {
+            const float frac2 = (1.0f - g * g) / (1.0f + g * svar);
+            cos_s = fminf(fmaxf((1.0f + g * g - frac2 * frac2) / (2.0f * g),
+                                -1.0f), 1.0f);
+          }
+        }
+        const float sin_s = sqrtf(fmaxf(1.0f - cos_s * cos_s, 0.0f));
+        scatter_dir(cos_s, sin_s, pdx, pdy, pdz, u[7], &dx, &dy, &dz);
+        if (p.aniso)
+          aniso_transform(p, 1.0f / p.an_k1, 1.0f / p.an_k2, 1.0f / p.an_kz,
+                          &dx, &dy, &dz);
+        if constexpr (RECORDS) rr.nscat += 1.0f;
+      }
+
+      // ---------- retire ----------
+      if (absorbed || abs_left < EPS || (DEP == DEP_STOP && hit))
+        inflight = 0.0f;
+
+      // ---------- append the record (the photon is dead: x/y/z keep the
+      // record position, t the record time; a full buffer stalls) ----------
+      if constexpr (RECORDS) {
+        if (rec_now) {
+          x = rec_x; y = rec_y; z = rec_z;
+          if (!push_record(rec_buf, rec_cnt, p.rec_cap, rr, x, y, z, t, dx,
+                           dy, dz, ident, inv_gv, rec_idx,
+                           p.rec_all ? 0.0f : w0, slot)) {
+            rr.pend = rec_idx;
+            break;
+          }
+        }
+      }
+    }
+
+    state[F_LEFT * N + slot] = left;
+    state[F_INF * N + slot] = inflight;
+    state[F_X * N + slot] = x;
+    state[F_Y * N + slot] = y;
+    state[F_Z * N + slot] = z;
+    state[F_T * N + slot] = t;
+    state[F_DX * N + slot] = dx;
+    state[F_DY * N + slot] = dy;
+    state[F_DZ * N + slot] = dz;
+    state[F_W0 * N + slot] = w0;
+    state[F_IGV * N + slot] = inv_gv;
+    state[F_ABS * N + slot] = abs_left;
+    state[F_GS * N + slot] = gs;
+    state[F_PA * N + slot] = pa;
+    state[F_QA * N + slot] = qa;
+    state[F_RA * N + slot] = ra;
+    n_alive = (inflight > 0.5f || left > 0.5f) ? 1 : 0;
+    if constexpr (RECORDS) {
+      rs[R_WLEN * N] = rr.wlen; rs[R_ABS0 * N] = rr.abs0;
+      rs[R_NSCAT * N] = rr.nscat; rs[R_DABS * N] = rr.dabs;
+      rs[R_SX * N] = rr.sx; rs[R_SY * N] = rr.sy; rs[R_SZ * N] = rr.sz;
+      rs[R_ST * N] = rr.st; rs[R_SDX * N] = rr.sdx; rs[R_SDY * N] = rr.sdy;
+      rs[R_SDZ * N] = rr.sdz; rs[R_PEND * N] = rr.pend;
+      if (rr.pend >= 0.0f) n_alive = 1;
+    }
+  }
+
+  // ---------- counters: warp, then block, then one atomic per block -------
+  // (the global plans and the tabulated media add six: the bound's work)
+  constexpr int NC = COLL == COLL_SUBPLANS && MED == MED_CLOSED ? 4 : 10;
+  __shared__ long long s_cnt[NC][BLOCK / 32];
+  __shared__ double s_w[BLOCK / 32];
+  long long v[NC];
+  v[0] = n_gen; v[1] = n_hits; v[2] = n_alive; v[3] = n_work;
+  if constexpr (NC == 10) {
+    v[4] = n_tested; v[5] = n_cand; v[6] = n_cull; v[7] = n_rows;
+    v[8] = n_scat; v[9] = n_ray;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int q = 0; q < NC; ++q) v[q] += __shfl_down_sync(0xffffffffu, v[q], off);
+    w_sum += __shfl_down_sync(0xffffffffu, w_sum, off);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < NC; ++q) s_cnt[q][warp] = v[q];
+    s_w[warp] = w_sum;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    long long tot[NC] = {};
+    double wt = 0.0;
+    for (int wi = 0; wi < BLOCK / 32; ++wi) {
+#pragma unroll
+      for (int q = 0; q < NC; ++q) tot[q] += s_cnt[q][wi];
+      wt += s_w[wi];
+    }
+#pragma unroll
+    for (int q = 0; q < NC; ++q)
+      if (tot[q]) atomicAdd(cnt_i + q, (unsigned long long)tot[q]);
+    if (wt != 0.0) atomicAdd(cnt_w, wt);
+  }
+}
+
+// Every pointer of a launch (device pointers allocated by the caller; the
+// ones a mode does not read may be null).
+struct LaunchArgs {
+  const Params* params;
+  float* state;
+  const float* steps;
+  const float* uniforms;
+  const unsigned int* tf_keys;
+  const float* layers;
+  const float* spec_tab;
+  const float* bias_y;
+  const float* tilt_zc;
+  const float* cells;
+  float* hist;
+  long long* cnt_i;
+  double* cnt_w;
+  const float* doms;
+  float* rec_buf;
+  long long* rec_cnt;
+  const float* rel;
+  const float* strings;
+  const float* wtab;
+  const float* scat;
+  void* stream;
+};
+
+template <bool RECORDS, int DEP, bool THREEFRY, bool FIXED, int COLL, int MED>
+static int launch(const LaunchArgs& a) {
+  const int n = a.params->n_slots;
+  const int grid = (n + BLOCK - 1) / BLOCK;
+  propagate_kernel<RECORDS, DEP, THREEFRY, FIXED, COLL, MED>
+      <<<grid, BLOCK, 0, (cudaStream_t)a.stream>>>(
+          *a.params, a.state, a.steps, a.uniforms, a.tf_keys, a.layers,
+          a.spec_tab, a.bias_y, a.tilt_zc,
+          reinterpret_cast<const float4*>(a.cells), a.hist,
+          reinterpret_cast<unsigned long long*>(a.cnt_i), a.cnt_w,
+          reinterpret_cast<const float4*>(a.doms), a.rec_buf,
+          reinterpret_cast<unsigned long long*>(a.rec_cnt),
+          reinterpret_cast<const float4*>(a.rel),
+          reinterpret_cast<const float4*>(a.strings), a.wtab, a.scat);
+  return (int)cudaGetLastError();
+}
+
+// The stopping-detect instantiations of one (COLL, MED) pair, with and
+// without records, by mode (kernel.py kernel_mode); -1 for another mode.
+template <int COLL, int MED>
+static int launch_stop(int mode, const LaunchArgs& a) {
+  const int base = COLL << COLL_SHIFT | MED << MED_SHIFT;
+  if (mode == base) return launch<false, DEP_STOP, false, false, COLL, MED>(a);
+  if (mode == (base | MODE_RECORDS))
+    return launch<true, DEP_STOP, false, false, COLL, MED>(a);
+  return -1;
+}
+
+// One dispatcher per translation unit; each returns -1 for a mode it does
+// not build.
+int dispatch_main(int mode, const LaunchArgs& a);     // propagate.cu
+int dispatch_b3(int mode, const LaunchArgs& a);       // propagate_b3.cu
+int dispatch_b7(int mode, const LaunchArgs& a);       // propagate_b7.cu
+int dispatch_b3b7_affine(int mode, const LaunchArgs& a);
+int dispatch_b3b7_general(int mode, const LaunchArgs& a);

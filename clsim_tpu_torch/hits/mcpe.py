@@ -45,7 +45,10 @@ class MCPEBatch(NamedTuple):
 def hit_probability(weight, wavelength, cos_impact,
                     wlen_acceptance: TableParams, angular_coeffs,
                     efficiency=1.0):
-    """The product formula of I3PhotonToMCPEConverter.cxx:466-475."""
+    """The product formula of I3PhotonToMCPEConverter.cxx:466-475.
+    `angular_coeffs` is a polynomial coefficient array (IceCube hole ice)
+    or an acceptance.AngularSensitivity with its cutoff (Antares,
+    GetAntaresOMAngularSensitivity.py)."""
     p = weight * eval_table(wlen_acceptance, wavelength)
     p = p * angular_factor(angular_coeffs, cos_impact)
     return p * efficiency

@@ -1,4 +1,4 @@
-"""Wavelength-dependent optical property functions (IceCube deep ice).
+"""Wavelength-dependent optical property functions (deep ice and sea water).
 
 PyTorch counterparts of clsim_tpu.medium.functions, which re-implement the
 reference's dual C++/OpenCL ``I3CLSimFunction`` objects
@@ -15,9 +15,9 @@ Formulas (as in the JAX package):
       1 / ( b400 * (x/400)^-alpha )   (I3CLSimFunctionScatLenIceCube.cxx:53-57)
   * refractive index (phase/group): quartic polynomials in x = lambda[um]
       (I3CLSimFunctionRefIndexIceCube.cxx:84-102)
-
-The sea-water models (Quan-Fry, Kopelevich) wait for the media item of
-ROADMAP.md queue A.
+  * sea water: the Quan & Fry phase index and its group index
+      (I3CLSimFunctionRefIndexQuanFry.cxx) and the Kopelevich particulate
+      scattering (I3CLSimFunctionScatLenPartic.cxx)
 """
 
 from __future__ import annotations
@@ -26,6 +26,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+
+def _over(c, x):
+    """c / x with x a tensor, as a true division (torch computes a Python
+    scalar over a tensor as c * (1 / x), which rounds differently)."""
+    return torch.full_like(x, c) / x
 
 
 def _t(x, like=None):
@@ -134,6 +140,66 @@ def phase_ref_index(p: RefIndexParams, wlen_nm):
 def group_ref_index(p: RefIndexParams, wlen_nm):
     x = _t(wlen_nm) * 1e-3
     return _poly4(p.n, x) * _poly4(p.g, x)
+
+
+# ---------------------------------------------------------------------------
+# Sea water (Antares / KM3NeT) -- Quan & Fry refractive index
+# ---------------------------------------------------------------------------
+
+class QuanFryParams(NamedTuple):
+    salinity: torch.Tensor      # [psu], e.g. 38.44
+    temperature: torch.Tensor   # [deg C], e.g. 13.1
+    pressure: torch.Tensor      # [atm], e.g. 240.0
+
+
+def phase_ref_index_quan_fry(p: QuanFryParams, wlen_nm):
+    """Quan & Fry (1995) empirical sea-water phase refractive index with the
+    pressure extension used by Antares (I3CLSimFunctionRefIndexQuanFry.cxx)."""
+    S, T, P = p.salinity, p.temperature, p.pressure
+    x = _t(wlen_nm)
+    n0, n1, n2, n3, n4 = 1.31405, 1.45e-5, 1.779e-4, -1.05e-6, 1.6e-8
+    n5, n6, n7, n8 = -2.02e-6, 15.868, 0.01155, -0.00423
+    n9, n10 = -4382.0, 1.1455e6
+    a01 = (n0 + (n2 + n3 * T + n4 * T * T) * S + n5 * T * T
+           + n1 * (P - 1.0) * 1.01325)
+    a2 = n6 + n7 * S + n8 * T
+    return a01 + _over(a2, x) + _over(n9, x * x) + _over(n10, x * x * x)
+
+
+def group_ref_index_quan_fry(p: QuanFryParams, wlen_nm):
+    """Group index from the phase index and its analytic derivative:
+    n_g = n_p / (1 + (lambda/n_p) dn_p/dlambda)."""
+    x = _t(wlen_nm)
+    S, T = p.salinity, p.temperature
+    n6, n7, n8 = 15.868, 0.01155, -0.00423
+    n9, n10 = -4382.0, 1.1455e6
+    np_ = phase_ref_index_quan_fry(p, x)
+    a2 = n6 + n7 * S + n8 * T
+    # integer powers as the JAX package's integer_pow multiplies them
+    x2 = x * x
+    dnp = (_over(-a2, x2) - _over(2.0 * n9, x2 * x)
+           - _over(3.0 * n10, x2 * x2))
+    return np_ / (1.0 + (x / np_) * dnp)
+
+
+# ---------------------------------------------------------------------------
+# Antares particulate scattering (Kopelevich model)
+# ---------------------------------------------------------------------------
+
+class ScatLenParticParams(NamedTuple):
+    vol_conc_small: torch.Tensor  # [ppm], e.g. 0.0075
+    vol_conc_large: torch.Tensor  # [ppm], e.g. 0.0075
+
+
+def scattering_inv_length_partic(p: ScatLenParticParams, wlen_nm):
+    """Inverse particulate+water scattering length [1/m] in sea water
+    (I3CLSimFunctionScatLenPartic.cxx, the Kopelevich small/large particle
+    volume-concentration model)."""
+    x550 = _over(550.0, _t(wlen_nm))
+    b_water = 0.0017 * x550 ** 4.3
+    b_small = 1.34 * p.vol_conc_small * x550 ** 1.7
+    b_large = 0.312 * p.vol_conc_large * x550 ** 0.3
+    return b_water + b_small + b_large
 
 
 # ---------------------------------------------------------------------------

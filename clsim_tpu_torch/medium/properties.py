@@ -1,22 +1,30 @@
-"""The medium-property container: layered ice with per-layer parameters.
+"""The medium-property container: layered ice (or single-layer water) with
+per-layer parameters.
 
 PyTorch counterpart of clsim_tpu.medium.properties (the reference's
 I3CLSimMediumProperties, public/clsim/I3CLSimMediumProperties.h:51-135): a
-NamedTuple of tensors; the propagation code evaluates the closed-form
-property functions directly.
+NamedTuple of tensors; the propagation code evaluates the property
+functions directly.
 
 Layer convention (identical to the reference): uniform-height layers in
 ascending z, layer index = floor((z_eff - layers_z_start)/layer_height)
 clamped to [0, n_layers-1] (propagation_kernel.c.cl:73-76).
 
-Only the "icecube" medium kind with the Liu/Henyey-Greenstein scattering
-model is ported; water and photonics-table media raise NotImplementedError
-(ROADMAP.md queue A, the media item).
+Medium kinds, all through the same separable interface
+1/l_sca = gs(lambda) b400[layer], 1/l_abs = pa a_dust400 + qa + ra delta_tau:
+  * "icecube": closed-form gs/pa/qa/ra (the IceCube ice model);
+  * "water" (medium/antares.py): tabulated scattering and absorption on a
+    uniform wavelength grid, unit per-layer coefficients;
+  * "separable_table" (medium/photonics.py): tabulated gs/pa/qa/ra factors
+    of a photonics ice table's rank decomposition, optionally tabulated
+    phase and group indices.
+A tabulated factor is an indexed lerp on the uniform grid (clamp the index,
+take the fraction, gather, lerp).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,18 +33,22 @@ from . import functions as F
 from .anisotropy import AnisotropyParams
 from .tilt import TiltParams, disabled_tilt
 
-MEDIA_ITEM = ("only the 'icecube' medium kind is ported; water and "
-              "photonics-table media are queued (ROADMAP.md queue A, Media)")
-
 
 class ScatteringAngleDist(NamedTuple):
     """Mixed simplified-Liu / Henyey-Greenstein scattering angle model
-    (python/MakeIceCubeMediumProperties.py:183):
+    (IceCube), or a tabulated phase function mixed with Rayleigh (water).
+
+    For the IceCube model (python/MakeIceCubeMediumProperties.py:183):
       cos(theta) ~ liu_fraction * SimplifiedLiu(g) + (1-liu_fraction) * HG(g)
+    For water, liu_fraction is the Rayleigh fraction and `table_*` hold the
+    tabulated scattering-angle distribution (sampled by inverse CDF, cos
+    applied to the sampled angle).
     """
     mean_cos: torch.Tensor      # <cos theta>, shared by Liu and HG parts
-    liu_fraction: torch.Tensor  # fraction of the Liu part
-    kind: str = "icecube"       # the tabulated "water" kind is not ported
+    liu_fraction: torch.Tensor  # fraction of the first (Liu / Rayleigh) part
+    kind: str = "icecube"       # "icecube" | "water"
+    table_cos: Optional[torch.Tensor] = None   # (n,) angle support [rad]
+    table_cdf: Optional[torch.Tensor] = None   # (2, n): CDF and density
 
 
 class MediumProperties(NamedTuple):
@@ -70,7 +82,24 @@ class MediumProperties(NamedTuple):
     efficiency: torch.Tensor        # ice-model efficiency correction
     min_wlen: float = 265.0         # [nm]
     max_wlen: float = 675.0         # [nm]
-    medium_kind: str = "icecube"
+    medium_kind: str = "icecube"    # "icecube" | "water" | "separable_table"
+
+    # the uniform wavelength grid of the tabulated kinds
+    water_wlen_first: float = 290.0  # [nm]
+    water_wlen_step: float = 10.0    # [nm]
+    # "water": scattering and absorption tables (nw,) [1/m]; the per-layer
+    # coefficients are b400 = a_dust400 = 1, delta_tau = 0
+    water_scat_inv: Optional[torch.Tensor] = None
+    water_abs_inv: Optional[torch.Tensor] = None
+    # "separable_table": the factors gs/pa/qa/ra as (nw,) tables; the
+    # per-layer arrays hold the layer modes of the rank decomposition
+    fac_gs: Optional[torch.Tensor] = None
+    fac_pa: Optional[torch.Tensor] = None
+    fac_qa: Optional[torch.Tensor] = None
+    fac_ra: Optional[torch.Tensor] = None
+    # optional tabulated phase / group index on the same grid
+    ref_n_table: Optional[torch.Tensor] = None
+    ref_g_table: Optional[torch.Tensor] = None
 
     @property
     def device(self):
@@ -79,9 +108,16 @@ class MediumProperties(NamedTuple):
     # ------------------------------------------------------------------
     # property evaluation
     # ------------------------------------------------------------------
-    def _check_kind(self):
-        if self.medium_kind != "icecube":
-            raise NotImplementedError(MEDIA_ITEM)
+    def _water_table(self, table, wlen_nm):
+        """Uniform-grid table lerp: clamp the index, take the fraction,
+        gather, lerp (values outside the grid extrapolate flat)."""
+        x = F._t(wlen_nm)
+        nw = table.shape[0]
+        xi = (x - self.water_wlen_first) / self.water_wlen_step
+        i0 = torch.clamp(torch.floor(xi).to(torch.int64), 0, nw - 2)
+        frac = torch.clamp(xi - i0.to(xi.dtype), 0.0, 1.0)
+        v0, v1 = table[i0], table[i0 + 1]
+        return v0 + frac * (v1 - v0)
 
     def layer_for_z(self, z_eff):
         idx = torch.floor((z_eff - self.layers_z_start) / self.layer_height)
@@ -92,14 +128,27 @@ class MediumProperties(NamedTuple):
 
     def abs_coeffs(self, wlen_nm):
         """Separable wavelength factors (pa, qa, ra) of the inverse absorption
-        length: 1/l_abs[layer] = pa*a_dust400[layer] + qa + ra*delta_tau[layer]."""
-        self._check_kind()
+        length: 1/l_abs[layer] = pa*a_dust400[layer] + qa + ra*delta_tau[layer].
+        Water: (0, table(lambda), 0); separable tables: the tabulated rank
+        factors."""
+        if self.medium_kind == "water":
+            qa = self._water_table(self.water_abs_inv, wlen_nm)
+            zero = torch.zeros_like(qa)
+            return zero, qa, zero
+        if self.medium_kind == "separable_table":
+            return (self._water_table(self.fac_pa, wlen_nm),
+                    self._water_table(self.fac_qa, wlen_nm),
+                    self._water_table(self.fac_ra, wlen_nm))
         return F.abs_separable_coeffs(self.kappa, self.abs_A, self.abs_B,
                                       self.abs_D, self.abs_E, wlen_nm)
 
     def scat_coeff(self, wlen_nm):
-        """Wavelength factor gs of 1/l_sca[layer] = gs*b400[layer]."""
-        self._check_kind()
+        """Wavelength factor gs of 1/l_sca[layer] = gs*b400[layer]
+        (water: the particulate + water table, b400 == 1)."""
+        if self.medium_kind == "water":
+            return self._water_table(self.water_scat_inv, wlen_nm)
+        if self.medium_kind == "separable_table":
+            return self._water_table(self.fac_gs, wlen_nm)
         return F.scat_separable_coeff(self.alpha, wlen_nm)
 
     def inv_scattering_length(self, layer, wlen_nm):
@@ -110,10 +159,32 @@ class MediumProperties(NamedTuple):
         return pa * self.a_dust400[layer] + qa + ra * self.delta_tau[layer]
 
     def phase_ref_index(self, wlen_nm):
+        if self.ref_n_table is not None:
+            return self._water_table(self.ref_n_table, wlen_nm)
         return F.phase_ref_index(self.ref_index, wlen_nm)
 
     def group_ref_index(self, wlen_nm):
+        if self.ref_g_table is not None:
+            return self._water_table(self.ref_g_table, wlen_nm)
         return F.group_ref_index(self.ref_index, wlen_nm)
+
+    def missing_tables(self) -> Optional[str]:
+        """Why a tabulated medium cannot be propagated (its tables are
+        missing), else None (the JAX package's fused_supported checks,
+        clsim_tpu/propagate/kernel.py:1816-1824)."""
+        if self.medium_kind not in ("icecube", "water", "separable_table"):
+            return f"unknown medium kind {self.medium_kind!r}"
+        if self.medium_kind == "water" and (self.water_abs_inv is None
+                                            or self.water_scat_inv is None):
+            return "water medium without wavelength tables"
+        if self.medium_kind == "separable_table" and self.fac_qa is None:
+            return "separable-table medium without factor tables"
+        if self.scattering.kind not in ("icecube", "water"):
+            return f"unknown scattering kind {self.scattering.kind!r}"
+        if (self.scattering.kind != "icecube"
+                and self.scattering.table_cos is None):
+            return "tabulated scattering distribution without tables"
+        return None
 
     def group_velocity(self, wlen_nm):
         return C_LIGHT / self.group_ref_index(wlen_nm)

@@ -41,6 +41,21 @@ def mixed_cos(g, liu_fraction, u_select, u_sample):
     return torch.where(u_select < liu_fraction, liu, hg)
 
 
+def rayleigh_cos(u):
+    """Rayleigh scattering angle by the closed cubic solve used for water
+    phase functions (I3CLSimRandomValueRayleighScatteringCosAngle.cxx):
+    cos = cbrt(-q + sqrt(d)) + cbrt(-q - sqrt(d)), d = q^2 + p^3."""
+    b = 0.835
+    p = 1.0 / 0.835
+    q = (b + 3.0) * (u - 0.5) / b
+    d = q * q + p * p * p
+    u1 = -q + torch.sqrt(d)
+    u1 = torch.sign(u1) * torch.abs(u1) ** (1.0 / 3.0)
+    v1 = -q - torch.sqrt(d)
+    v1 = torch.sign(v1) * torch.abs(v1) ** (1.0 / 3.0)
+    return torch.clamp(u1 + v1, -1.0, 1.0)
+
+
 # ---------------------------------------------------------------------------
 # Tabulated pdf -> linear-interpolated inverse CDF
 # (equivalent of I3CLSimRandomValueInterpolatedDistribution)
@@ -94,3 +109,10 @@ def sample_interpolated_dist(tables, u):
     x, acu, beta = tables
     k = locate_segment(acu, u)
     return interp_solve(u, x[k], x[k + 1], beta[k], beta[k + 1], acu[k])
+
+
+def sample_interpolated_fast(x, acu, beta, u):
+    """The JAX package's gather-free form of sample_interpolated_dist (the
+    sampler inside its TPU propagation loop); on a GPU a located gather is
+    native, so this is the same function."""
+    return sample_interpolated_dist((x, acu, beta), u)

@@ -69,12 +69,13 @@ from ..constants import C_LIGHT
 from ..geometry import DetectorGeometry
 from ..medium.anisotropy import (abs_len_scaling, post_scatter_transform,
                                  pre_scatter_transform)
-from ..medium.properties import MEDIA_ITEM, MediumProperties
+from ..medium.properties import MediumProperties
 from ..medium.tilt import tilt_z_shift
 from ..ops import rng
 from ..ops.rotations import (cart_to_sph, safe_sqrt,
                              scatter_direction_by_angle)
-from ..ops.samplers import mixed_cos
+from ..ops.samplers import (mixed_cos, rayleigh_cos,
+                            sample_interpolated_fast)
 from ..ops.spectrum import (SpectrumTable, sample_wavelength_dispatch,
                             wavelength_bias)
 from ..types import PropagationConfig, StepBatch
@@ -209,9 +210,11 @@ def uses_score(cfg: PropagationConfig) -> bool:
 
 
 def check_supported(cfg: PropagationConfig, medium: MediumProperties):
-    """Raise NotImplementedError for configurations the port lacks."""
-    if medium.medium_kind != "icecube" or medium.scattering.kind != "icecube":
-        raise NotImplementedError(MEDIA_ITEM)
+    """Raise NotImplementedError for configurations the port lacks, and
+    ValueError for a tabulated medium without its tables."""
+    reason = medium.missing_tables()
+    if reason:
+        raise ValueError(reason)
     if cfg.estimator not in ("detect", "expected"):
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.photon_history_entries > 0:
@@ -608,6 +611,20 @@ def _score_of_scatter(medium: MediumProperties, cos_s, u_branch):
                        torch.log(1.0 - fcl) + log_hg)
 
 
+def _scatter_cos(medium: MediumProperties, u):
+    """cos of the scattering angle from u5 (branch) and u6 (sample): the
+    Liu / HG mixture, or for water the Rayleigh cubic mixed with the
+    tabulated (Petzold) angle, cos applied to the sampled angle
+    (clsim_tpu/propagate/engine.py:711-724)."""
+    sc = medium.scattering
+    if sc.kind == "icecube":
+        return mixed_cos(sc.mean_cos, sc.liu_fraction, u[5], u[6])
+    angle = sample_interpolated_fast(sc.table_cos, sc.table_cdf[0],
+                                     sc.table_cdf[1], u[6])
+    return torch.where(u[5] < sc.liu_fraction, rayleigh_cos(u[6]),
+                       torch.cos(angle))
+
+
 def _deposit(hist, cfg: PropagationConfig, hit, hit_dom, t_hit, w_hit):
     """Add the iteration's deposits to the flat histogram (functional
     index_add: the histogram may carry gradients).  Misses add weight 0 to
@@ -639,7 +656,8 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
                generator: Optional[torch.Generator] = None, uniforms=None,
                collide=None, rstate: Optional[RecState] = None,
                dom_xyz=None, emit=None, enabled=None,
-               score: Optional[ScoreState] = None):
+               score: Optional[ScoreState] = None,
+               tally: Optional[dict] = None):
     """One iteration over all slots.  `uniforms`: a (T, 8, N) tensor
     (iteration i reads row i) or a callable i -> (8, N) block (the threefry
     modes); otherwise an (8, N) block is drawn from `generator`.  `collide`
@@ -652,6 +670,8 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
     `acc`, or, when `emit` is given, to emit(rec_mask, raw) (see
     _record_values).  `enabled` ((N,) bool) leaves the other lanes
     untouched this iteration.  `score` is required when uses_score(cfg).
+    `tally` (a dict) gains the scatters ("scat") and those below the u5
+    branch threshold ("rayleigh"), the CUDA kernel's counts in sea water.
     Returns (state, acc, rstate, score)."""
     n = state.x.shape[0]
     if callable(uniforms):
@@ -794,18 +814,24 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
 
     # --- scatter survivors ---
     do_scatter = scattered & active
+    if tally is not None:
+        rayleigh = do_scatter & (u[5] < medium.scattering.liu_fraction)
+        tally["scat"] = tally.get("scat", 0) + do_scatter.sum()
+        tally["rayleigh"] = tally.get("rayleigh", 0) + rayleigh.sum()
     pdx, pdy, pdz = pre_scatter_transform(medium.anisotropy,
                                           state.dx, state.dy, state.dz)
-    cos_s = mixed_cos(medium.scattering.mean_cos,
-                      medium.scattering.liu_fraction, u[5], u[6])
+    cos_s = _scatter_cos(medium, u)
     if use_score:
         # this segment's sampled-event log-likelihood: the survival over
         # the traveled distance, and for scattered lanes the distance
         # density's log b_eff and the angle density at the detached cosine
-        d_l = -tau_seg_s + torch.where(
-            scattered, torch.log(torch.clamp(inv_s_fin, min=1e-30))
-            + _score_of_scatter(medium, cos_s, u[5]),
-            torch.zeros_like(tau_seg_s))
+        # (a tabulated water phase function carries no parametric angle
+        # score, clsim_tpu/propagate/engine.py:752)
+        log_s = torch.log(torch.clamp(inv_s_fin, min=1e-30))
+        if medium.scattering.kind == "icecube":
+            log_s = log_s + _score_of_scatter(medium, cos_s, u[5])
+        d_l = -tau_seg_s + torch.where(scattered, log_s,
+                                       torch.zeros_like(tau_seg_s))
         score = ScoreState(log_lik=torch.where(
             active, score.log_lik + d_l, score.log_lik))
     sin_s = safe_sqrt(1.0 - cos_s * cos_s)

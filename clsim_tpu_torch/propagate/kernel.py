@@ -22,7 +22,9 @@ This module holds
     SubPlans and cell tables),
   * build_tables: flat float32 tables for the kernel (per-layer arrays,
     spectrum CDF, bias grid, tilt grid, per-SubPlan cell->candidate table
-    [sx, sy, maxr^2, dom_offset]),
+    [sx, sy, maxr^2, dom_offset] or the global one of 12 floats per
+    candidate, the DOM residual and per-string tables, the wavelength
+    tables of a tabulated medium and the scattering-angle CDF),
   * run_fused_iterations: the wrapper.  On CUDA tensors it launches the
     kernel (or raises); on CPU tensors it runs run_fused_iterations_plain,
     the same function in plain PyTorch built on engine._iteration,
@@ -39,11 +41,23 @@ and draws bit-exactly the stream of rng.uniforms, so the engine run with
 the same key (the fit's backward, propagate/diff.py) consumes the same
 numbers without a materialized (T, 8, N) stream.
 
-The kernel serves the icecube medium and scattering, one spectrum, a
-uniform bias grid and non-empty SubPlans; tilt and anisotropy may be on or
-off, and photon records (with SAVE_ALL and its prescale) may be on with
-stopping detect.  spec_unsupported() names the ROADMAP.md queue B item for
-any other configuration, and the wrapper raises rather than fall back.
+Collision (B3) and media (B7) are the kernel's COLL and MED template
+arguments (kernel_coll / kernel_med): COLL 0 the per-subdetector SubPlans,
+1 the global cell plan with the analytic candidate-DOM test (affine
+geometries that SubPlans refuse, such as IceCube with DeepCore at the
+default 90 m segment cap), 2 the global cell plan with the dense test over
+every DOM of a string (surveyed geometries, off the z0 + m*dz ladder); MED
+0 the closed-form icecube medium, 1 tabulated wavelength factors (water or
+photonics-table ice) with the Liu/HG scattering mixture, 2 tabulated
+factors with the tabulated (Petzold) angle mixed with Rayleigh (sea
+water).  COLL and MED other than 0 are built with stopping detect, with or
+without records.
+
+The kernel serves one spectrum and a uniform bias grid; tilt and
+anisotropy may be on or off, and photon records (with SAVE_ALL and its
+prescale) may be on with stopping detect.  spec_unsupported() names the
+ROADMAP.md queue B item for any other configuration, and the wrapper
+raises rather than fall back.
 """
 
 from __future__ import annotations
@@ -88,10 +102,19 @@ NRC = len(REC_COLUMNS)
 # counter vector layout, as in the JAX package (CNT_DROPPED stays 0: hits
 # go straight into the histogram; CNT_QUEUED counts deposited hits, or in
 # record mode the records written), plus CNT_STALLED: launches whose
-# record buffer filled (their stalled records went to the next launch)
+# record buffer filled (their stalled records went to the next launch), and
+# the data-dependent work of the B3 and B7 paths that their bound counts
+# (0 elsewhere): of the global plans, CNT_TESTED strings given the
+# ray-sphere test, CNT_CAND candidates of the cells' lists culled, CNT_CULL
+# those that passed the 2-D cull (and got the z pass), CNT_ROWS DOMs given
+# the sphere test; of sea water, CNT_SCAT scatters and CNT_RAYLEIGH those
+# that drew the Rayleigh branch
 (CNT_GEN, CNT_HITS, CNT_WSUM, CNT_DROPPED, CNT_ALIVE, CNT_QUEUED,
- CNT_WORK, CNT_STALLED) = range(8)
-N_CNT = 8
+ CNT_WORK, CNT_STALLED, CNT_TESTED, CNT_CAND, CNT_CULL, CNT_ROWS, CNT_SCAT,
+ CNT_RAYLEIGH) = range(14)
+N_CNT = 14
+# the tallies of the plain version, in counter order from CNT_TESTED on
+TALLIES = ("tested", "cand", "cull", "rows", "scat", "rayleigh")
 
 # static limits of csrc/propagate.cu (array sizes in its parameter block)
 MAX_PLANS = 4
@@ -100,14 +123,16 @@ MAX_TILT_D = 16
 MAX_DOM_CAND = 16
 MAX_ANG = 8        # angular-polynomial coefficients in the parameter block
 
-# launches of the CUDA kernel, one count per instantiation (the wrapper adds
-# one per launch): the main path's (stopping detect with Philox or an
-# external stream), the record mode's, and MODE_LAUNCHES[kernel_mode(spec)]
-# for each of the others (the B6 deposit modes, the fit's expected +
-# threefry).
-LAUNCHES = 0
-RECORD_LAUNCHES = 0
+# launches of the CUDA kernel, MODE_LAUNCHES[kernel_mode(spec)] per
+# instantiation (the wrapper adds one per launch): mode 0 is the main path
+# (stopping detect with Philox or an external stream), MODE_RECORDS its
+# record mode, and every other mode one of the B6 deposit modes, the fit's
+# expected + threefry, or a COLL x MED instantiation with or without records
 MODE_LAUNCHES = collections.Counter()
+
+# geometries that SubPlans refuse (each plan_collision that falls back to the
+# global plan adds one; `reason` is the last refusal), as in the JAX package
+SUBPLAN_FALLBACKS = {"count": 0, "reason": None}
 
 
 # ---------------------------------------------------------------------------
@@ -148,8 +173,9 @@ def fused_supported(medium: MediumProperties, spectra: SpectrumTable,
     """None if the fused driver handles this configuration, else the reason
     (the configuration checks of the JAX package; the CUDA kernel's own,
     narrower gate is spec_unsupported)."""
-    if medium.medium_kind != "icecube":
-        return f"medium kind {medium.medium_kind!r} (not ported)"
+    reason = medium.missing_tables()
+    if reason:
+        return reason
     if cfg.estimator == "detect":
         if cfg.soft_binning:
             return "soft binning is fused only with estimator='expected'"
@@ -254,17 +280,25 @@ def _max_simultaneous(sx, sy, maxr, seg) -> int:
 
 def plan_collision(geo: DetectorGeometry, cfg: PropagationConfig):
     """Unified host-side collision planning: per-subdetector SubPlans when
-    the geometry allows, else the legacy single global cell plan.  Returns
-    (cell_tab_np, plan_dict); the CUDA kernel serves only SubPlans (the
-    global plan is ROADMAP.md B3, and spec_unsupported says so)."""
-    sub, reason = _subdet_plans(geo, cfg)
+    the geometry allows, else the single global cell plan.  Returns
+    (cell_tab_np, plan_dict).
+
+    Every fallback is counted in SUBPLAN_FALLBACKS.  It is warned about only
+    where a split was possible and was refused: an affine geometry of at
+    least 20 strings that a budget refused.  The JAX package warns for every
+    geometry without SubPlans (clsim_tpu/propagate/kernel.py:1956), tiny
+    test geometries and surveyed ones included, where the global plan is no
+    loss."""
+    sub, reason, by_budget = _subdet_plans(geo, cfg)
     if sub is not None:
         cell_tab, plans = sub
         return cell_tab, dict(sub_plans=plans)
-    if reason is not None:
+    SUBPLAN_FALLBACKS["count"] += 1
+    SUBPLAN_FALLBACKS["reason"] = reason
+    if by_budget and int(geo.n_strings) >= 20:
         import warnings
         warnings.warn(
-            "per-subdetector collision split unavailable for this geometry "
+            "per-subdetector collision split refused for this geometry "
             f"({reason}); using the single global collision plan "
             "(reference handles <=9 subdetectors, "
             "sparse_collision_kernel.c.cl DO_CHECK)",
@@ -275,12 +309,14 @@ def plan_collision(geo: DetectorGeometry, cfg: PropagationConfig):
 def _subdet_plans(geo: DetectorGeometry, cfg: PropagationConfig):
     """Build per-subdetector SubPlans when the geometry allows: affine
     DOM placement and few (z0, dz, nd) groups, each uniform within itself.
-    Returns ((cell_tab, plans), None) or (None, reason) -- the caller
-    falls back to the legacy single global plan and surfaces the reason."""
+    Returns ((cell_tab, plans), None, False) or (None, reason, by_budget)
+    -- the caller falls back to the legacy single global plan and surfaces
+    the reason; by_budget says that the group budget or the parity budget
+    refused a split the geometry allowed."""
     affine_ok, _ = _affine_collision_plan(geo, cfg)
     if not affine_ok:
         return None, ("non-affine DOM placement (DOMs off the z0+m*dz "
-                      "ladder or z-candidate window > 16)")
+                      "ladder or z-candidate window > 16)"), False
     feats = to_numpy(geo.string_features, np.float64)   # (S, 8)
     keys = [tuple(np.round(feats[s, [4, 5, 7]], 6)) for s in
             range(feats.shape[0])]
@@ -289,7 +325,7 @@ def _subdet_plans(geo: DetectorGeometry, cfg: PropagationConfig):
         groups.setdefault(k, []).append(s)
     if len(groups) > 4:
         return None, (f"{len(groups)} (z0, dz, nd) string groups exceed "
-                      "the 4-SubPlan budget")
+                      "the 4-SubPlan budget"), True
     sxa = to_numpy(geo.string_x, np.float64)
     sya = to_numpy(geo.string_y, np.float64)
     smaxr = to_numpy(geo.string_max_r, np.float64)
@@ -308,7 +344,7 @@ def _subdet_plans(geo: DetectorGeometry, cfg: PropagationConfig):
         if n_cand > 16:
             return None, (f"group dz={dz_abs:.1f} m needs {n_cand} "
                           "z-candidates (> 16) at max_segment_m="
-                          f"{seg:.0f}")
+                          f"{seg:.0f}"), False
         rounds = min(cfg.strings_per_photon,
                      _max_simultaneous(sxa[idx], sya[idx], smaxr[idx], seg))
         reach = seg + smaxr[idx] + 1.0
@@ -344,7 +380,7 @@ def _subdet_plans(geo: DetectorGeometry, cfg: PropagationConfig):
         return None, ("per-group round sum "
                       f"{sum(p.rounds for p in plans)} exceeds the "
                       f"engine's strings_per_photon="
-                      f"{cfg.strings_per_photon} parity budget")
+                      f"{cfg.strings_per_photon} parity budget"), True
     cell_tab = np.zeros((row_off, width), np.float32)
     r = 0
     for tab in blocks:
@@ -353,7 +389,7 @@ def _subdet_plans(geo: DetectorGeometry, cfg: PropagationConfig):
         cell_tab[r + (tab.shape[0] // 4) * 2:
                  r + (tab.shape[0] // 4) * 3, tab.shape[1]:] = -1.0
         r += tab.shape[0]
-    return (cell_tab, tuple(plans)), None
+    return (cell_tab, tuple(plans)), None, False
 
 
 def _cell_plan(geo: DetectorGeometry, cfg: PropagationConfig):
@@ -433,8 +469,24 @@ class FusedSpec(NamedTuple):
     pmt_axis: tuple
     horizon: float        # fixed absorption horizon [absorption lengths]
     threefry: bool        # in-kernel threefry draws from a key table
-    medium_tables: bool
-    scat_table: bool
+    medium_tables: bool   # gs/pa/qa/ra from uniform-grid wavelength tables
+    scat_table: bool      # tabulated scattering angle mixed with Rayleigh
+    # the global plan (B3; read when sub_plans is empty), as the JAX
+    # package's FusedSpec holds it
+    affine_doms: bool     # DOMs exactly on z0 + m*dz: analytic DOM window
+    n_dom_cand: int       # z-window DOM candidates of the affine test
+    n_string_rounds: int  # closest culled strings tested (strings_per_photon)
+    K_cand: int           # padded candidate strings per cell
+    n_cull_cells: int     # padded nx*ny cell count
+    cell_x0: float
+    cell_y0: float
+    inv_cell: float
+    cell_nx: int
+    cell_ny: int
+    # tabulated media (B7)
+    n_wtab: int           # wavelength-grid points of the medium tables
+    ref_table: bool       # phase/group index tabulated too
+    n_scat: int           # points of the scattering-angle CDF
     cfg: PropagationConfig
 
 
@@ -447,6 +499,10 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
     cell_tab, plan = plan_collision(geo, cfg)
     bx = to_numpy(spectra.bias_x, np.float64)
     tilt = medium.tilt
+    affine_ok, n_cand = _affine_collision_plan(geo, cfg)
+    tabulated = medium.medium_kind != "icecube"
+    wtab = (medium.water_abs_inv if medium.medium_kind == "water"
+            else medium.fac_qa)
     return FusedSpec(
         n_slots=int(n_slots),
         iters_per_call=int(iters_per_call),
@@ -475,8 +531,22 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
         horizon=(float(cfg.fixed_abs_lens) if cfg.fixed_abs_lens > 0
                  else 46.0),
         threefry=bool(threefry),
-        medium_tables=medium.medium_kind != "icecube",
+        medium_tables=tabulated,
         scat_table=medium.scattering.kind != "icecube",
+        affine_doms=bool(affine_ok),
+        n_dom_cand=int(n_cand),
+        n_string_rounds=int(cfg.strings_per_photon),
+        K_cand=int(plan.get("K_cand", 8)),
+        n_cull_cells=int(plan.get("n_cull_cells", 8)),
+        cell_x0=float(plan.get("cell_x0", 0.0)),
+        cell_y0=float(plan.get("cell_y0", 0.0)),
+        inv_cell=float(plan.get("inv_cell", 1.0)),
+        cell_nx=int(plan.get("cell_nx", 1)),
+        cell_ny=int(plan.get("cell_ny", 1)),
+        n_wtab=int(wtab.shape[0]) if tabulated else 0,
+        ref_table=medium.ref_n_table is not None,
+        n_scat=(int(medium.scattering.table_cos.shape[0])
+                if medium.scattering.kind != "icecube" else 0),
         cfg=cfg), cell_tab
 
 
@@ -499,24 +569,52 @@ def spec_unsupported(spec: FusedSpec) -> Optional[str]:
     if spec.threefry and 8 * spec.n_slots >= 2 ** 32:
         return ("threefry draws need 8 * n_slots < 2**32 (one 32-bit "
                 "counter per element of an iteration's (8, N) block)")
-    if spec.medium_tables or spec.scat_table:
-        return ("water / photonics media and tabulated scattering are not "
-                "in the CUDA kernel yet (ROADMAP.md B7)")
+    if spec.scat_table and not spec.medium_tables:
+        return ("tabulated scattering is built with a tabulated medium "
+                "(water) only, not with the closed-form icecube medium "
+                "(ROADMAP.md B7)")
+    if ((kernel_coll(spec) or kernel_med(spec))
+            and (spec.expected or not spec.stopping or spec.fixed_abs
+                 or spec.threefry)):
+        return ("the global collision plans (B3) and tabulated media (B7) "
+                "are built with stopping detect, with or without records; "
+                "the B6 deposit modes and threefry draws with them are not "
+                "in the CUDA kernel yet (ROADMAP.md B3/B7 × B6/B8b)")
     if spec.n_tables > 1 or not spec.bias_uniform or spec.n_bias < 2:
         return ("flasher spectra and non-uniform (or single-point) bias "
                 "grids are not in the CUDA kernel yet (ROADMAP.md B4)")
-    if not spec.sub_plans:
-        return ("the global affine and general collision paths are not in "
-                "the CUDA kernel yet (ROADMAP.md B3): this geometry has no "
-                "per-subdetector SubPlans")
     if (len(spec.sub_plans) > MAX_PLANS
             or any(p.rounds > MAX_ROUNDS or p.n_dom_cand > MAX_DOM_CAND
                    for p in spec.sub_plans)
+            or (not spec.sub_plans
+                and (spec.n_string_rounds > MAX_ROUNDS
+                     or spec.n_dom_cand > MAX_DOM_CAND))
             or spec.nd_tilt > MAX_TILT_D):
         return (f"spec exceeds the kernel's static limits (<= {MAX_PLANS} "
                 f"SubPlans, <= {MAX_ROUNDS} rounds, <= {MAX_DOM_CAND} DOM "
                 f"candidates, <= {MAX_TILT_D} tilt distances)")
     return None
+
+
+# collision (COLL) and medium (MED) instantiations of csrc/propagate.cu
+COLL_SUBPLANS, COLL_AFFINE, COLL_GENERAL = 0, 1, 2
+MED_CLOSED, MED_TABLES, MED_WATER = 0, 1, 2
+
+
+def kernel_coll(spec: FusedSpec) -> int:
+    """COLL of the instantiation: SubPlans, the global affine plan, or the
+    global plan with the dense DOM test."""
+    if spec.sub_plans:
+        return COLL_SUBPLANS
+    return COLL_AFFINE if spec.affine_doms else COLL_GENERAL
+
+
+def kernel_med(spec: FusedSpec) -> int:
+    """MED of the instantiation: closed form, wavelength tables, or
+    wavelength tables with the tabulated scattering angle."""
+    if not spec.medium_tables:
+        return MED_CLOSED
+    return MED_WATER if spec.scat_table else MED_TABLES
 
 
 # ---------------------------------------------------------------------------
@@ -531,11 +629,49 @@ class FusedTables(NamedTuple):
     spec_tab: torch.Tensor        # (3, n_spec): x, acu, beta
     bias_y: torch.Tensor          # (n_bias,) on the uniform bias grid
     tilt_zc: torch.Tensor         # (nd, nz) tilt z-corrections (or (1,))
-    cells: torch.Tensor           # flat (sum n_cells*K_cand, 4) candidates
+    cells: torch.Tensor           # flat candidates: (sum n_cells*K_cand,
+                                  # 4) per SubPlan, or the global plan's
+                                  # (n_cells*K_cand*3, 4)
     plan_cells: tuple             # per SubPlan: (n_cells, K_cand, 4) view
     plan_offsets: tuple           # per SubPlan: first candidate row
     doms: torch.Tensor            # (n_doms, 4) DOM centres x, y, z, 0
     scalars: dict                 # float scalars of the parameter block
+    global_cells: Optional[torch.Tensor]  # (n_cells, K_cand, 3, 4) view of
+                                  # `cells` for the global plan, else None
+    rel: torch.Tensor             # (S, M, 4) DOM residuals dx, dy, dz, valid
+                                  # (general path; else (1, 1, 4) zeros)
+    strings: torch.Tensor         # (S, 4) string x, y, z0, dz of the fitted
+                                  # DOM ladder (general path; else (1, 4))
+    wtab: torch.Tensor            # (rows, n_wtab) gs, pa, qa, ra [, n, g]
+                                  # on the medium's wavelength grid (or (1,))
+    scat: torch.Tensor            # (3, n_scat) angle, CDF, density (or (1,))
+
+
+def global_cell_table(spec: FusedSpec, cell_tab: np.ndarray) -> np.ndarray:
+    """The global plan's cell table re-laid out from the JAX package's
+    feature-major (10 * K_cand, n_cells) block to [cell][candidate][12]:
+    (sx, sy, maxr2, off), (minz, maxz, z0, dzf), (nd, sidx, 0, 0), three
+    16-byte loads per candidate."""
+    K, nc = spec.K_cand, spec.n_cull_cells
+    blk = cell_tab[:10 * K, :nc].reshape(10, K, nc).transpose(2, 1, 0)
+    out = np.zeros((nc, K, 12), np.float32)
+    out[..., :10] = blk
+    return out
+
+
+def medium_tables(medium: MediumProperties) -> np.ndarray:
+    """(rows, n_wtab) wavelength tables of a tabulated medium: the factors
+    gs, pa, qa, ra (water: scattering, 0, absorption, 0), then the phase
+    and group index when tabulated (the JAX package's wtab rows,
+    clsim_tpu/propagate/kernel.py:2252-2269, without the (k, k+1) pairs)."""
+    if medium.medium_kind == "water":
+        zero = torch.zeros_like(medium.water_abs_inv)
+        facs = [medium.water_scat_inv, zero, medium.water_abs_inv, zero]
+    else:
+        facs = [medium.fac_gs, medium.fac_pa, medium.fac_qa, medium.fac_ra]
+    if medium.ref_n_table is not None:
+        facs += [medium.ref_n_table, medium.ref_g_table]
+    return np.stack([to_numpy(f, np.float32) for f in facs])
 
 
 def build_tables(spec: FusedSpec, medium: MediumProperties,
@@ -544,7 +680,11 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
     """Flat float32 tables on the medium's device.  The cell table is
     re-laid out from the JAX package's feature-major block per SubPlan
     ([sx|sy|maxr2|off] rows x cells) to [cell][candidate][4], so a thread
-    reads its cell's candidates as consecutive 16-byte entries."""
+    reads its cell's candidates as consecutive 16-byte entries; the global
+    plan's to [cell][candidate][12] (global_cell_table).  The general path
+    reads the DOM residuals as (S, M) float4 rows beside a float4 per
+    string (clsim_tpu/propagate/kernel.py:2294-2306 builds the same from
+    string_dom_rel and string_features)."""
     dev = medium.b400.device
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
                                     device=dev).contiguous()
@@ -555,11 +695,27 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         blocks.append(blk.reshape(-1, 4))
         offsets.append(off)
         off += p.n_cells * p.K_cand
-    cells = f32(np.concatenate(blocks) if blocks
-                else np.zeros((1, 4), np.float32))
+    global_cells = None
+    if spec.sub_plans:
+        cells = f32(np.concatenate(blocks))
+    else:
+        g = f32(global_cell_table(spec, cell_tab))
+        global_cells = g.view(spec.n_cull_cells, spec.K_cand, 3, 4)
+        cells = g.view(-1, 4)
     for p, o in zip(spec.sub_plans, offsets):
         views.append(cells[o:o + p.n_cells * p.K_cand].view(
             p.n_cells, p.K_cand, 4))
+    general = kernel_coll(spec) == COLL_GENERAL
+    rel = (f32(to_numpy(geo.string_dom_rel)) if general
+           else torch.zeros((1, 1, 4), device=dev))
+    strings = (f32(to_numpy(geo.string_features)[:, [0, 1, 4, 5]])
+               if general else torch.zeros((1, 4), device=dev))
+    wtab = (f32(medium_tables(medium)) if spec.medium_tables
+            else torch.zeros(1, device=dev))
+    sc_ = medium.scattering
+    scat = (f32(torch.stack([sc_.table_cos.reshape(-1),
+                             sc_.table_cdf[0], sc_.table_cdf[1]]).cpu())
+            if spec.scat_table else torch.zeros(1, device=dev))
 
     cfg = spec.cfg
     an, tl = medium.anisotropy, medium.tilt
@@ -579,6 +735,8 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         hist_t0=float(cfg.hist_t_min), hist_dt=float(cfg.hist_dt),
         bias_x0=float(bx[0]),
         bias_inv_dx=1.0 / float(bx[1] - bx[0]) if bx.shape[0] > 1 else 1.0,
+        wtab_x0=float(medium.water_wlen_first),
+        wtab_inv_dx=1.0 / float(medium.water_wlen_step),
         n=[host(v) for v in medium.ref_index.n],
         g=[host(v) for v in medium.ref_index.g])
     if an.enabled:
@@ -603,7 +761,8 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
         doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
             dev).contiguous(),
-        scalars=sc)
+        scalars=sc, global_cells=global_cells, rel=rel, strings=strings,
+        wtab=wtab, scat=scat)
 
 
 def pack_steps(steps: StepBatch) -> torch.Tensor:
@@ -709,6 +868,104 @@ def _check_collisions_subplan(state: E.SlotState, tables: FusedTables,
     return hit, torch.where(hit, best_all, d_prop), dom_all
 
 
+def _tally(tally: Optional[dict], key: str, n):
+    if tally is not None:
+        tally[key] = tally.get(key, 0) + n
+
+
+def _check_collisions_global(state: E.SlotState, tables: FusedTables,
+                             spec: FusedSpec, d_prop, active, tally=None):
+    """The kernel's global-plan collision test in plain PyTorch: the slot's
+    cell selects <= K_cand candidate strings, the 2-D cull ranks them by
+    the static segment cap with the z pass of each candidate's extent
+    (clsim_tpu/propagate/kernel.py:947-1003), and the n_string_rounds
+    closest get the ray-sphere test: against the n_dom_cand DOMs of the
+    z-window from the ceil anchor on an affine geometry (:1270-1381), or
+    against every DOM of the string from its residual rows otherwise
+    (:1382-1456).  The minimum entry distance over the rounds wins.  The
+    kernel's counts of this work (candidates, cull passes, strings and DOMs
+    tested: TALLIES) are added to the dict `tally` when given."""
+    sc = tables.scalars
+    x, y, z = state.x, state.y, state.z
+    dx, dy, dz = state.dx, state.dy, state.dz
+    R, R2, max_seg = sc["r"], sc["r2"], sc["max_seg"]
+    dir_xy2 = dx * dx + dy * dy
+    live = active & (dir_xy2 > 0.0)
+    inv_dir_xy2 = 1.0 / torch.clamp(dir_xy2, min=1e-20)
+    cxi = torch.clamp(torch.floor((x - spec.cell_x0) * spec.inv_cell), 0,
+                      spec.cell_nx - 1)
+    cyi = torch.clamp(torch.floor((y - spec.cell_y0) * spec.inv_cell), 0,
+                      spec.cell_ny - 1)
+    cand = tables.global_cells[(cxi * spec.cell_ny + cyi).to(torch.int64)]
+    f = lambda q, c: cand[..., q, c]                     # (N, K_cand)
+    rx = f(0, 0) - x[:, None]
+    ry = f(0, 1) - y[:, None]
+    bd2 = rx * dx[:, None] + ry * dy[:, None]
+    A2 = rx * rx + ry * ry
+    pass_z = ~((dz[:, None] > 0) & (z[:, None] > f(1, 1) + R)) \
+        & ~((dz[:, None] < 0) & (z[:, None] < f(1, 0) - R))
+    t2d = torch.clamp(bd2 * inv_dir_xy2[:, None], 0.0, max_seg)
+    cx = rx - dx[:, None] * t2d
+    cy = ry - dy[:, None] * t2d
+    d2 = cx * cx + cy * cy
+    culled = (d2 <= f(0, 2)) & live[:, None]
+    # the cell's list: its padding (maxr2 = -1) fails every cull
+    _tally(tally, "cand", ((f(0, 2) >= 0.0) & live[:, None]).sum())
+    _tally(tally, "cull", culled.sum())
+    ranked = torch.where(culled & pass_z, d2, torch.full_like(d2, E.BIG))
+    best_all = d_prop
+    dom_all = torch.zeros_like(x, dtype=torch.int64)
+    big = lambda a: torch.full_like(a, E.BIG)
+    for _r in range(spec.n_string_rounds):
+        mi, k = torch.min(ranked, dim=1)
+        ranked = ranked.scatter(1, k[:, None], E.BIG)
+        ok = (mi < E.BIG)[:, None]
+        _tally(tally, "tested", ok.sum())
+        pick = lambda a: a.gather(1, k[:, None])[:, 0]
+        off = pick(f(0, 3)).to(torch.int64)
+        if spec.affine_doms:
+            z0, dzf, nd = pick(f(1, 2)), pick(f(1, 3)), pick(f(2, 0))
+            inv_dzf = 1.0 / dzf
+            m1 = (z - z0) * inv_dzf
+            m2 = m1 + dz * d_prop * inv_dzf
+            mlo = torch.ceil(torch.minimum(m1, m2)
+                             - (R + 1.0) * torch.abs(inv_dzf))
+            m = torch.minimum(torch.clamp(
+                mlo[:, None] + torch.arange(spec.n_dom_cand, device=x.device,
+                                            dtype=x.dtype), min=0.0),
+                (nd - 1.0)[:, None])                      # (N, n_dom_cand)
+            oz = z0[:, None] + dzf[:, None] * m - z[:, None]
+            urdot = pick(bd2)[:, None] + oz * dz[:, None]
+            dr2 = pick(A2)[:, None] + oz * oz
+            valid = ok
+        else:
+            s = torch.clamp(pick(f(2, 1)), min=0.0).to(torch.int64)
+            rel = tables.rel[s]                           # (N, M, 4)
+            st = tables.strings[s]                        # (N, 4)
+            m = torch.arange(rel.shape[1], device=x.device,
+                             dtype=x.dtype)[None, :].expand(x.shape[0], -1)
+            ox = st[:, 0:1] + rel[..., 0] - x[:, None]
+            oy = st[:, 1:2] + rel[..., 1] - y[:, None]
+            oz = st[:, 2:3] + st[:, 3:4] * m + rel[..., 2] - z[:, None]
+            dr2 = ox * ox + oy * oy + oz * oz
+            urdot = ox * dx[:, None] + oy * dy[:, None] + oz * dz[:, None]
+            valid = ok & (rel[..., 3] > 0.5)
+        _tally(tally, "rows", valid.sum() * (spec.n_dom_cand
+                                             if spec.affine_doms else 1))
+        discr = urdot * urdot - dr2 + R2
+        smin1 = urdot - torch.sqrt(torch.clamp(discr, min=0.0)) \
+            * sc["inv_pancake"]
+        good = valid & (discr >= 0.0) & (smin1 >= 0.0) \
+            & (smin1 < best_all[:, None])
+        best, jm = torch.min(torch.where(good, smin1, big(smin1)), dim=1)
+        better = best < best_all
+        dom = off + m.gather(1, jm[:, None])[:, 0].to(torch.int64)
+        best_all = torch.where(better, best, best_all)
+        dom_all = torch.where(better, dom, dom_all)
+    hit = best_all < d_prop
+    return hit, torch.where(hit, best_all, d_prop), dom_all
+
+
 def _seed64(seed: int, call_no: int) -> int:
     return int(np.random.SeedSequence([int(seed) & (2 ** 63 - 1),
                                        int(call_no)]).generate_state(
@@ -774,9 +1031,11 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
                                rec_capacity=None):
     """The kernel's computation in plain PyTorch: up to iters_per_call
     iterations of engine._iteration on the kernel's state layout, with the
-    kernel's SubPlan collision test.  Updates `state` in place and returns
+    kernel's collision test.  Updates `state` in place and returns
     the histogram with this launch's deposits added to `hist` (allocated
-    when None).  Its random numbers come from a torch.Generator unless
+    when None).  The collision test is the kernel's: SubPlans, or the
+    global plan (affine or general) when the spec has none; tabulated media
+    need nothing more (engine._iteration reads tables.medium).  Its random numbers come from a torch.Generator unless
     `uniforms` (T, 8, N) is given, or, with spec.threefry, from `keys`, the
     (2T,) table of per-iteration threefry keys (iteration i draws
     rng.uniforms(keys[2i:2i+2], (N,), 8), as the kernel does).
@@ -803,7 +1062,13 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
     elif uniforms is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(_seed64(seed, call_no))
-    collide = lambda s, d, a: _check_collisions_subplan(s, tables, spec, d, a)
+    tally = {}
+    if spec.sub_plans:
+        collide = lambda s, d, a: _check_collisions_subplan(s, tables, spec,
+                                                            d, a)
+    else:
+        collide = lambda s, d, a: _check_collisions_global(s, tables, spec,
+                                                           d, a, tally)
     rs = emit = enabled = None
     if spec.records:
         rows = state[NSF:].unbind(0)
@@ -831,7 +1096,7 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
             i, st, acc, sb, tables.medium, None, tables.spectra, cfg,
             generator=generator, uniforms=uniforms, collide=collide,
             rstate=rs, dom_xyz=tables.doms[:, :3], emit=emit,
-            enabled=enabled)
+            enabled=enabled, tally=tally if spec.scat_table else None)
         if spec.records:
             # the photon is dead: its x/y/z keep the record position
             mask, raw = recorded.pop()
@@ -853,7 +1118,9 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
     stalled = f64(float(spec.records and buf.stalled > 0))
     counters = torch.stack([acc.n_generated, acc.n_hits, acc.weight_hits,
                             zero, alive.sum().to(torch.float64), queued,
-                            acc.n_work, stalled]).to(torch.float64)
+                            acc.n_work, stalled]
+                           + [f64(tally.get(k, 0)) for k in TALLIES]).to(
+                                torch.float64)
     if spec.records:
         return state, acc.hist, counters, buf.result(dev)
     return state, acc.hist, counters
@@ -892,7 +1159,12 @@ class _Params(ctypes.Structure):
                                          "horizon")]
         + [(n, ctypes.c_int) for n in ("soft", "n_ang")]
         + [("ang", ctypes.c_float * MAX_ANG)]
-        + [(n, ctypes.c_float) for n in ("pmt_ax", "pmt_ay", "pmt_az")])
+        + [(n, ctypes.c_float) for n in ("pmt_ax", "pmt_ay", "pmt_az")]
+        + [(n, ctypes.c_float) for n in ("g_x0", "g_y0", "g_inv_cell")]
+        + [(n, ctypes.c_int) for n in ("g_nx", "g_ny", "g_k_cand",
+                                       "n_dom_cand", "n_rounds", "m_rel")]
+        + [(n, ctypes.c_float) for n in ("wtab_x0", "wtab_inv_dx")]
+        + [(n, ctypes.c_int) for n in ("n_wtab", "ref_table", "n_scat")])
 
 
 def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
@@ -931,22 +1203,35 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     for j, c in enumerate(spec.ang_poly):
         p.ang[j] = c
     p.pmt_ax, p.pmt_ay, p.pmt_az = spec.pmt_axis
+    p.g_x0, p.g_y0, p.g_inv_cell = spec.cell_x0, spec.cell_y0, spec.inv_cell
+    p.g_nx, p.g_ny, p.g_k_cand = spec.cell_nx, spec.cell_ny, spec.K_cand
+    p.n_dom_cand, p.n_rounds = spec.n_dom_cand, spec.n_string_rounds
+    p.m_rel = tables.rel.shape[1]
+    p.n_wtab, p.ref_table, p.n_scat = (spec.n_wtab, int(spec.ref_table),
+                                       spec.n_scat)
     return p
 
 
-# kernel modes of csrc/propagate.cu (clsim_propagate's `mode` argument):
-# the deposit mode, plus flags for threefry draws and the fixed horizon
+# kernel modes of csrc/propagate.cu (the `mode` argument of its entry
+# points): the deposit mode, flags for threefry draws, the fixed horizon and
+# records, and COLL and MED in two bits each
 DEP_STOP, DEP_PASS, DEP_EXPECTED = 0, 1, 2
-MODE_THREEFRY, MODE_FIXED = 4, 8
+MODE_THREEFRY, MODE_FIXED, MODE_RECORDS = 4, 8, 16
+COLL_SHIFT, MED_SHIFT = 5, 7
 
 
 def kernel_mode(spec: FusedSpec) -> int:
-    """The instantiation of the CUDA kernel that serves `spec` (records
-    aside): deposit mode | MODE_THREEFRY | MODE_FIXED."""
+    """The instantiation of the CUDA kernel that serves `spec`: deposit
+    mode | MODE_THREEFRY | MODE_FIXED | MODE_RECORDS | COLL << COLL_SHIFT |
+    MED << MED_SHIFT.  The main path is mode 0, its record mode (SubPlans,
+    closed-form medium) MODE_RECORDS; each launch counts in
+    MODE_LAUNCHES[mode]."""
     dep = (DEP_EXPECTED if spec.expected
            else DEP_STOP if spec.stopping else DEP_PASS)
     return (dep | (MODE_THREEFRY if spec.threefry else 0)
-            | (MODE_FIXED if spec.fixed_abs else 0))
+            | (MODE_FIXED if spec.fixed_abs else 0)
+            | (MODE_RECORDS if spec.records else 0)
+            | kernel_coll(spec) << COLL_SHIFT | kernel_med(spec) << MED_SHIFT)
 
 
 def _check_tensor(name, t, shape, dtype, device):
@@ -965,7 +1250,6 @@ def _check_tensor(name, t, shape, dtype, device):
 
 def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
             seed, call_no, hist, rec_capacity=None, keys=None):
-    global LAUNCHES, RECORD_LAUNCHES
     reason = spec_unsupported(spec)
     if reason:
         raise NotImplementedError(reason)
@@ -975,7 +1259,8 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     rows = NSF + (NRSF if spec.records else 0)
     _check_tensor("state", state, (rows, N), f32, dev)
     _check_tensor("steps", steps, (NST, N), f32, dev)
-    for name in ("layers", "spec_tab", "bias_y", "tilt_zc", "cells", "doms"):
+    for name in ("layers", "spec_tab", "bias_y", "tilt_zc", "cells", "doms",
+                 "rel", "strings", "wtab", "scat"):
         _check_tensor(name, getattr(tables, name), None, f32, dev)
     if tables.doms.shape != (spec.n_doms, 4):
         raise ValueError("DOM table does not match the spec")
@@ -1001,7 +1286,9 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     if hist is None:
         hist = torch.zeros(n_hist, dtype=f32, device=dev)
     _check_tensor("hist", hist, (n_hist,), f32, dev)
-    cnt_i = torch.zeros(4, dtype=torch.int64, device=dev)
+    # generated, hits, alive, work, then the TALLIES (COLL or MED other
+    # than 0; zero elsewhere)
+    cnt_i = torch.zeros(4 + len(TALLIES), dtype=torch.int64, device=dev)
     cnt_w = torch.zeros(1, dtype=torch.float64, device=dev)
     cap = 0
     if spec.records:
@@ -1016,36 +1303,34 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     from .._build import load
     lib = load()
     ptr = lambda t: None if t is None else t.data_ptr()
-    args = [ctypes.addressof(params), ptr(state), ptr(steps), ptr(uniforms),
-            ptr(tables.layers), ptr(tables.spec_tab), ptr(tables.bias_y),
-            ptr(tables.tilt_zc), ptr(tables.cells), ptr(hist), ptr(cnt_i),
-            ptr(cnt_w)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
     mode = kernel_mode(spec)
+    args = [mode, ctypes.addressof(params), ptr(state), ptr(steps),
+            ptr(uniforms), ptr(tables.layers), ptr(tables.spec_tab),
+            ptr(tables.bias_y), ptr(tables.tilt_zc), ptr(tables.cells),
+            ptr(hist), ptr(cnt_i), ptr(cnt_w), ptr(tables.rel),
+            ptr(tables.strings), ptr(tables.wtab), ptr(tables.scat)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
     if spec.records:
         rc = lib.clsim_propagate_records(
             *args, ptr(tables.doms), ptr(rec_buf), ptr(rec_cnt), stream)
     else:
-        rc = lib.clsim_propagate(mode, *args, ptr(keys32), stream)
+        rc = lib.clsim_propagate(*args, ptr(keys32), stream)
     if rc != 0:
         raise RuntimeError("propagation kernel launch failed: "
                            + lib.clsim_error_string(rc).decode())
+    MODE_LAUNCHES[mode] += 1
     c = cnt_i.to(torch.float64)
     zero = torch.zeros((), dtype=torch.float64, device=dev)
     if not spec.records:
-        if mode == DEP_STOP:
-            LAUNCHES += 1
-        else:
-            MODE_LAUNCHES[mode] += 1
-        counters = torch.stack([c[0], c[1], cnt_w[0], zero, c[2], c[1], c[3],
-                                zero])
+        counters = torch.cat([torch.stack([c[0], c[1], cnt_w[0], zero, c[2],
+                                           c[1], c[3], zero]), c[4:]])
         return state, hist, counters
-    RECORD_LAUNCHES += 1
     n_rec = int(rec_cnt)          # appends tried; those past cap stalled
     n_written = min(n_rec, cap)
     f64 = lambda v: torch.tensor(float(v), dtype=torch.float64, device=dev)
-    counters = torch.stack([c[0], c[1], cnt_w[0], zero, c[2], f64(n_written),
-                            c[3], f64(n_rec > cap)])
+    counters = torch.cat([torch.stack([c[0], c[1], cnt_w[0], zero, c[2],
+                                       f64(n_written), c[3],
+                                       f64(n_rec > cap)]), c[4:]])
     return state, hist, counters, rec_buf[:n_written].clone()
 
 

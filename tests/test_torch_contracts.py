@@ -64,7 +64,9 @@ def test_import_leaves_jax_out():
             "clsim_tpu_torch.convert, clsim_tpu_torch._build, "
             "clsim_tpu_torch.propagate.dispatch, "
             "clsim_tpu_torch.propagate.diff, clsim_tpu_torch.parallel.mesh, "
-            "clsim_tpu_torch.ops.rng, clsim_tpu_torch.hits.mcpe; "
+            "clsim_tpu_torch.ops.rng, clsim_tpu_torch.hits.mcpe, "
+            "clsim_tpu_torch.hits.multi_pmt, clsim_tpu_torch.medium.antares, "
+            "clsim_tpu_torch.medium.photonics; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'clsim_tpu' "
             "or m.startswith('clsim_tpu.')]; "
@@ -115,9 +117,11 @@ def test_convert_round_trip():
 
 
 def test_non_icecube_medium_raises():
+    """Every medium kind is carried across (tests/test_torch_media.py); a
+    water-kind medium without its wavelength tables is refused."""
     m = C.numpy_tree(ice_j())
     m["medium_kind"] = "water"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="without wavelength tables"):
         C.medium_from_numpy(m, device="cpu")
 
 

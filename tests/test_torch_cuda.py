@@ -23,13 +23,13 @@ def test_cuda_kernel_matches_plain_version(aniso, tilt):
     spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, n, T)
     tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
     steps_p = K.pack_steps(steps)
-    launches = K.LAUNCHES
+    launches = K.MODE_LAUNCHES[0]
     _, h_k, c_k = K.run_fused_iterations(K.init_state(steps), steps_p,
                                          tables, spec, uniforms=u)
     _, h_p, c_p = K.run_fused_iterations_plain(K.init_state(steps), steps_p,
                                                tables, spec, uniforms=u)
     torch.cuda.synchronize()
-    assert K.LAUNCHES == launches + 1
+    assert K.MODE_LAUNCHES[0] == launches + 1
     # tests/test_kernel.py::_compare tolerances
     chip_smoke.compare("cuda test", c_k, h_k, c_p, h_p)
 
@@ -53,13 +53,13 @@ def test_cuda_records_match_plain_version():
     spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, n, T)
     tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
     steps_p, state0 = K.pack_steps(steps), K.init_state(steps, True)
-    launches = K.RECORD_LAUNCHES
+    launches = K.MODE_LAUNCHES[K.MODE_RECORDS]
     _, h_k, c_k, r_k = K.run_fused_iterations(state0.clone(), steps_p,
                                               tables, spec, uniforms=u)
     _, h_p, c_p, r_p = K.run_fused_iterations_plain(state0.clone(), steps_p,
                                                     tables, spec, uniforms=u)
     torch.cuda.synchronize()
-    assert K.RECORD_LAUNCHES == launches + 1
+    assert K.MODE_LAUNCHES[K.MODE_RECORDS] == launches + 1
     chip_smoke.compare("cuda records test", c_k, h_k, c_p, h_p)
     for c, r in ((c_k, r_k), (c_p, r_p)):
         assert r.shape[0] == float(c[K.CNT_HITS]) == float(c[K.CNT_QUEUED])
@@ -138,3 +138,35 @@ def test_cuda_threefry_matches_stream_and_diff_runs():
                                 key, cfg, n_iterations=T)
     g = torch.autograd.grad(h.sum(), b)[0]
     assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", [
+    "propagate[global]", "propagate[general]", "propagate[water]",
+    "propagate[photonics]", "propagate[records,global]",
+    "propagate[records,general]", "propagate[records,water]"])
+def test_cuda_b3_b7_instantiations_match_plain_version(entry, monkeypatch):
+    """Each instantiation of the global collision plans (B3) and the
+    tabulated media (B7) against its plain version on a shared stream
+    (chip_smoke phase 7a's workloads at 8,192 slots): phase 2's
+    tolerances, records matched on (slot, dom), the bound's counts
+    (candidates, cull passes, strings and DOMs tested, water's scatters)
+    equal within max(2, 1%), one launch of its own instantiation per
+    run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    monkeypatch.setattr(chip_smoke, "N_SLOTS", 8192)
+    dev = torch.device("cuda", 0)
+    records = entry.startswith("propagate[records")
+    base = "propagate[" + entry[len("propagate[records,"):] if records \
+        else entry
+    name, inputs = {e: (n, i) for e, n, i in
+                    chip_smoke.phase7_cases(dev)}[base]
+    before = sum(K.MODE_LAUNCHES.values())
+    out = chip_smoke.check_b3b7(name, inputs, records)
+    torch.cuda.synchronize()
+    # warm-up and five timed runs, all of this instantiation
+    assert K.MODE_LAUNCHES[out["mode"]] >= 6
+    assert sum(K.MODE_LAUNCHES.values()) - before == 6

@@ -77,13 +77,17 @@ def test_engine_drains_and_conserves():
                                          soft_binning=True,
                                          photon_history_entries=3)])
 def test_unported_engine_options_raise(change):
-    """Media other than icecube and the scatter-history rings still raise
-    (the expected estimator and soft binning are ported:
-    tests/test_torch_expected.py)."""
+    """The scatter-history rings still raise NotImplementedError (the
+    expected estimator and soft binning are ported:
+    tests/test_torch_expected.py); the tabulated media are ported
+    (tests/test_torch_water.py), and a water-kind medium without its
+    wavelength tables is refused with ValueError."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
     med = {k: v for k, v in change.items() if k in medium._fields}
     cfg = dataclasses.replace(cfg, **{k: v for k, v in change.items()
                                       if k not in med})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    exc, match = ((ValueError, "without wavelength tables") if med
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(exc, match=match):
         ET.propagate(steps, medium._replace(**med), geo, spectra, 0, cfg,
                      uniforms=u)

@@ -106,13 +106,15 @@ def test_abandoned_photons_are_reported():
 @pytest.mark.parametrize("change,item", [
     (dict(records=True, fixed_abs=True), "B6"),
     (dict(records=True, expected=True), "B6"),
-    (dict(medium_tables=True, scat_table=True), "B7"),
+    (dict(medium_tables=True, scat_table=True, expected=True), "B7"),
     (dict(n_tables=2), "B4"),
-    (dict(sub_plans=()), "B3"),
+    (dict(sub_plans=(), stopping=False), "B3"),
 ])
 def test_cuda_wrapper_spec_gate_raises(change, item):
     """The CUDA wrapper checks the spec before anything else and never falls
-    back to the plain version."""
+    back to the plain version.  The tabulated media (B7) and the global
+    plans (B3) are served with stopping detect; the B6 deposit modes with
+    them are refused (ROADMAP.md B3/B7 × B6/B8b)."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
     spec, cell_tab = KT.fused_spec(medium, geo, spectra, cfg, TK.N, TK.T)
     tables = KT.build_tables(spec, medium, geo, spectra, cell_tab)
