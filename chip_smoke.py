@@ -94,11 +94,37 @@ Phases (any failure raises and exits non-zero):
         multi-PMT hit count;
      e. Simulation.simulate of the cascade on hex61 in the photonics-table
         ice: the photonics instantiation launched, generated = the steps'
-        photons, nothing dropped or abandoned.
+        photons, nothing dropped or abandoned;
+  8. LED flashers (K1·B4) and the deposit modes on the global plans and
+     media (K1·B3/B7 x B6/B8b), on ic86 unless named:
+     a. against the plain version on a shared (32, 8, N) stream at 262,144
+        slots, phase 2's tolerances and the bound's counts within max(2,
+        1%): half the slots on a narrow 405 nm LED table (hex61, aniso +
+        tilt), six stacked spectra (source types 0-5), a 23-point
+        geomspace bias grid (hex61, L1 <= 4e-3), the first two with
+        records, and the expected estimator (global affine, general, water
+        on jittered ic86, photonics on hex61), non-stopping and fixed-
+        horizon detect;
+     b./c. Simulation.simulate of a standard-DOM flash (DOM (0, 30), six
+        405 nm LEDs, ~1.0e8 photons) and a color-DOM flash (DOM (14, 8),
+        12 LEDs at 340-505 nm, ~2.0e8 photons): generated = the steps'
+        photons, nothing dropped or abandoned, histogram sum = hit weight;
+     d. simulate_hits of the standard-DOM flash (records = hits, MCPEs
+        against the sum of hit probabilities);
+     e. EventPipeline.process of a cascade, the flash, an empty event and a
+        Standard Candle 1 pulse (submission order, per-event counts,
+        RunStatistics), and tests/golden/config3_flasher.npz through the
+        kernel (exact n_generated, hits and histogram within 5 sigma);
+     f. the flasher ice fit: one flash as 131,072 one-photon steps, the
+        fit's forward (expected + threefry, global affine) against its
+        plain version, then 6c's three gates and the peak memory;
+     g. each new deposit mode through Simulation.simulate of the
+        standard-DOM flash (launched, generated = the steps' photons).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
 
+import collections
 import dataclasses
 import json
 import math
@@ -264,7 +290,7 @@ def bench_workload(n, photons_per_slot, device):
     return medium, geo, spectra, cfg, steps
 
 
-def compare(name, c_k, h_k, c_p, h_p, gen_rtol=0.0):
+def compare(name, c_k, h_k, c_p, h_p, gen_rtol=0.0, l1_tol=L1_TOL):
     from clsim_tpu_torch.propagate import kernel as K
     gen_k, gen_p = float(c_k[K.CNT_GEN]), float(c_p[K.CNT_GEN])
     nh_k, nh_p = float(c_k[K.CNT_HITS]), float(c_p[K.CNT_HITS])
@@ -281,8 +307,8 @@ def compare(name, c_k, h_k, c_p, h_p, gen_rtol=0.0):
         raise AssertionError(f"{name}: too few hits to compare")
     if abs(nh_k - nh_p) > max(2.0, 0.01 * nh_p):
         raise AssertionError(f"{name}: hit counts differ")
-    if l1 > L1_TOL * tot + 1e-6:
-        raise AssertionError(f"{name}: histogram L1 {l1} > {L1_TOL} x {tot}")
+    if l1 > l1_tol * tot + 1e-6:
+        raise AssertionError(f"{name}: histogram L1 {l1} > {l1_tol} x {tot}")
     return err
 
 
@@ -367,10 +393,11 @@ def phase2(device):
         (_, h_k, c_k), ms_k = cuda_ms(run_k)
         (_, h_p, c_p), ms_p = cuda_ms(run_p, reps=1)
         max_err = max(max_err, compare(name, c_k, h_k, c_p, h_p, gen_rtol))
+        bound = kernel_bound(spec, tables, c_k, "stream")
         log(f"  {name}: kernel {ms_k:.3f} ms (median of 5), plain "
-            f"{ms_p:.3f} ms ({N_SLOTS} slots x {PHASE2_T} iterations)")
-        timings[name] = dict(ms=ms_k, plain_ms=ms_p,
-                             bound=kernel_bound(spec, tables, c_k, "stream"))
+            f"{ms_p:.3f} ms ({N_SLOTS} slots x {PHASE2_T} iterations); "
+            f"bound {bound[0]:.4f} ms by {bound[1]}")
+        timings[name] = dict(ms=ms_k, plain_ms=ms_p, bound=bound)
     return dict(timings[cases[-1][0]], err=max_err)
 
 
@@ -808,6 +835,14 @@ OPS_INDEX_POLY, OPS_INDEX_TABLE = 18, 6
 # bisection step, 3 the clamp), solved as the wavelength is (22) and its
 # cosine taken (with the test, 27 besides the bisection).
 OPS_HG_LIU, OPS_RAYLEIGH, OPS_PETZOLD, OPS_BISECT = 17, 19, 27, 4
+# Flasher spectra (K1·B4): with stacked spectra a spawn offsets the spectrum
+# table by its step's source_type (OPS_TABLE: the conversion to int and the
+# multiply-add).  OPS_SPAWN holds the uniform bias grid's index math
+# (OPS_BIAS_UNIFORM: offset, scale, floor, two clamps, the fraction); a
+# non-uniform grid replaces it by the wavelength's clamp to the grid, a
+# bisection over its n_bias points (OPS_BISECT a step) and the fraction's
+# division and clamps (OPS_BIAS_SEARCH).
+OPS_TABLE, OPS_BIAS_UNIFORM, OPS_BIAS_SEARCH = 3, 6, 6
 FP32_PEAK = 67e12              # H100 SXM dense float32 peak
 HBM_BYTES_S = 3.35e12
 
@@ -837,6 +872,11 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
         per_spawn += (OPS_FACTORS_TABLE - OPS_FACTORS_CLOSED
                       + (OPS_INDEX_TABLE - OPS_INDEX_POLY
                          if spec.ref_table else 0))
+    if spec.n_tables > 1:
+        per_spawn += OPS_TABLE
+    if not spec.bias_uniform:
+        per_spawn += (OPS_BIAS_SEARCH - OPS_BIAS_UNIFORM + OPS_BISECT
+                      * math.ceil(math.log2(spec.n_bias + 1)))
     round_ops, sphere_ops = {
         K.COLL_SUBPLANS: (0, 0),
         K.COLL_AFFINE: (OPS_ROUND_AFFINE, OPS_SPHERE_AFFINE),
@@ -850,7 +890,7 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
     rows = K.NSF + (K.NRSF if spec.records else 0)
     nbytes = 4 * (2 * rows * N + K.NST * N + spec.n_doms * spec.hist_n_bins
                   + sum(t.numel() for t in (
-                      tables.layers, tables.spec_tab, tables.bias_y,
+                      tables.layers, tables.spec_tab, tables.bias_tab,
                       tables.tilt_zc, tables.cells, tables.rel,
                       tables.strings, tables.wtab, tables.scat))
                   + {"stream": 4 * (work + gen),
@@ -1000,17 +1040,20 @@ def phase6b(device):
     return dict(timing, err=max_err[True])
 
 
-def phase6c(device):
-    """The fit itself at full width: IceFit(forward='fused') on the fit
-    workload, kernel forward and engine-autograd backward."""
+def fit_gates(device, workload, grad_layers):
+    """The fit's three gates on a workload, IceFit(forward='fused'): the
+    loss at truth on the common stream <= 1e-6 of the loss at a +-20%
+    lognormal perturbation of the band's a_dust400; the autograd gradient
+    (kernel forward, engine backward) of grad_layers' log scale against
+    central differences of the kernel forward (rel GRAD_RTOL); ten Adam
+    steps lower the loss.  Launch counts are zeroed before the Adam steps.
+    Returns what phase 6c reads further."""
     import functools
     import torch
     from clsim_tpu_torch.ops import rng
     from clsim_tpu_torch.parallel.mesh import IceFit
-    from clsim_tpu_torch.propagate import engine as E
     from clsim_tpu_torch.propagate import kernel as K
-    from clsim_tpu_torch.propagate.diff import propagate_expected_diff
-    medium, geo, spectra, cfg, steps = fit_workload(device)
+    medium, geo, spectra, cfg, steps = workload
     key = rng.as_key(FIT_KEY)
     L = medium.n_layers
     centres = float(medium.layers_z_start) + (np.arange(L) + 0.5) * \
@@ -1055,7 +1098,7 @@ def phase6c(device):
                                         target), x)[0]
     h = 0.02
     worst = 0.0
-    for j in GRAD_LAYERS:
+    for j in grad_layers:
         e = torch.zeros_like(pert)
         e[j] = h
         with torch.no_grad():
@@ -1081,6 +1124,31 @@ def phase6c(device):
         losses.append(float(l_k))
     torch.cuda.synchronize()
     t_steps = time.perf_counter() - t0
+    with torch.no_grad():
+        l_end = loss(p["log_s"])
+    log(f"  Adam (lr 0.05) 10 steps in {t_steps:.3f} s: loss "
+        + " ".join(f"{v:.5g}" for v in losses) + f" -> {l_end:.5g}; "
+        f"|log scale - truth| {float(pert.norm()):.4f} -> "
+        f"{float(p['log_s'].norm()):.4f}")
+    if not l_end < losses[0]:
+        raise AssertionError("the fit did not lower the loss")
+    return dict(key=key, pert=pert, target=target, tf_a=tf_a, tf_b=tf_b,
+                b_true=b_true, adam=adam, p=p, loss=loss)
+
+
+def phase6c(device):
+    """The fit itself at full width: IceFit(forward='fused') on the fit
+    workload, kernel forward and engine-autograd backward."""
+    import torch
+    from clsim_tpu_torch.parallel.mesh import IceFit
+    from clsim_tpu_torch.propagate import engine as E
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.propagate.diff import propagate_expected_diff
+    medium, geo, spectra, cfg, steps = fit_workload(device)
+    f = fit_gates(device, (medium, geo, spectra, cfg, steps), GRAD_LAYERS)
+    key, pert, target, adam, p = (f["key"], f["pert"], f["target"],
+                                  f["adam"], f["p"])
+    tf_a, tf_b, b_true = f["tf_a"], f["tf_b"], f["b_true"]
     # the gradient at the end point through both variants of
     # propagate_expected_diff: in-kernel threefry (IceFit's) and the
     # stream-fed kernel reading rng.make_uniform_stream of the same key.
@@ -1100,20 +1168,11 @@ def phase6c(device):
     launches_t = K.MODE_LAUNCHES[K.DEP_EXPECTED | K.MODE_THREEFRY]
     g_rel = float((grads[False] - grads[True]).norm() / grads[True].norm())
     log(f"  gradient at the end point, stream-fed against threefry forward:"
-        f" rel {g_rel:.3g} (norm {float(grads[True].norm()):.6g})")
+        f" rel {g_rel:.3g} (norm {float(grads[True].norm()):.6g}); kernel "
+        f"launches (ten steps, the end loss and the two gradients) expected "
+        f"+ stream {launches_e}, expected + threefry {launches_t}")
     if not g_rel <= 1e-3:
         raise AssertionError("stream-fed and threefry gradients differ")
-    with torch.no_grad():
-        l_end = loss(p["log_s"])
-    dist0 = float(pert.norm())
-    dist1 = float(p["log_s"].norm())
-    log(f"  Adam (lr 0.05) 10 steps in {t_steps:.3f} s: loss "
-        + " ".join(f"{v:.5g}" for v in losses) + f" -> {l_end:.5g}; "
-        f"|log scale - truth| {dist0:.4f} -> {dist1:.4f}; kernel launches "
-        f"(ten steps and the two gradients) expected + stream {launches_e}, "
-        f"expected + threefry {launches_t}")
-    if not l_end < losses[0]:
-        raise AssertionError("the fit did not lower the loss")
     if device.type == "cuda" and (launches_e <= 0 or launches_t <= 0):
         raise AssertionError("the fit's forward did not launch the kernel")
     # one score-function step on b400
@@ -1270,19 +1329,25 @@ def torch_f32(a):
     return torch.as_tensor(np.asarray(a, np.float32))
 
 
-def medium_spectra(medium, geo, device):
+def biased_cherenkov(medium, geo):
     """The Cherenkov spectrum of the medium's own refractive index biased
     by the (oversized) DOM acceptance, as Simulation builds it."""
     from clsim_tpu_torch.hits.acceptance import icecube_dom_acceptance
-    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
-                                              stack_spectra)
+    from clsim_tpu_torch.ops.spectrum import make_cherenkov_spectrum
     acc = icecube_dom_acceptance(dom_radius=geo.om_radius * geo.oversize,
                                  device="cpu")
     bias_x = float(acc.first_x) + float(acc.dx) * np.arange(
         acc.values.shape[0])
-    return stack_spectra([make_cherenkov_spectrum(
+    return make_cherenkov_spectrum(
         medium.ref_index, medium.min_wlen, medium.max_wlen,
-        bias_wlen_nm=bias_x, bias_values=acc.values.numpy())], device=device)
+        bias_wlen_nm=bias_x, bias_values=acc.values.numpy())
+
+
+def medium_spectra(medium, geo, device, flashers=()):
+    """biased_cherenkov stacked with the given flasher spectra."""
+    from clsim_tpu_torch.ops.spectrum import stack_spectra
+    return stack_spectra([biased_cherenkov(medium, geo), *flashers],
+                         device=device)
 
 
 def quiet(fn, *a, **kw):
@@ -1323,17 +1388,23 @@ def phase7_cases(device):
 def phase7a(device):
     """Each new instantiation against its plain version on one shared
     stream (phase 2's tolerances), the record mode on the first three."""
+    from clsim_tpu_torch.propagate import kernel as K
     cases = phase7_cases(device)
-    return {entry: check_b3b7(name, inputs, entry.startswith(
+    out = {entry: check_instantiation(name, inputs, entry.startswith(
         "propagate[records")) for entry, name, inputs in cases + [
             ("propagate[records," + e[10:], n + " + records", i)
             for e, n, i in cases[:3]]}
+    for entry, r in out.items():
+        if r["mode"] in (0, K.MODE_RECORDS):
+            raise AssertionError(f"{entry}: not a B3/B7 instantiation")
+    return out
 
 
-def check_b3b7(name, inputs, records):
-    """One B3/B7 instantiation (with or without records) against its plain
-    version on the inputs' shared stream: phase 2's checks, and with
-    records 5a's; returns its times, error, bound and mode."""
+def check_instantiation(name, inputs, records, l1_tol=L1_TOL):
+    """One instantiation (with or without records) against its plain
+    version on the inputs' shared stream: phase 2's checks (histogram L1
+    within l1_tol), with records 5a's, and the bound's counts (TALLIES)
+    within max(2, 1%); returns its times, error, bound and mode."""
     from clsim_tpu_torch.propagate import kernel as K
     medium, geo, spectra, cfg, steps, uni = inputs
     N = int(steps.x.shape[0])
@@ -1350,7 +1421,7 @@ def check_b3b7(name, inputs, records):
     run_k()
     (_, h_k, c_k, *r_k), ms_k = cuda_ms(run_k)
     (_, h_p, c_p, *r_p), ms_p = cuda_ms(run_p, reps=1)
-    err = compare(name, c_k, h_k, c_p, h_p, 1e-5)
+    err = compare(name, c_k, h_k, c_p, h_p, 1e-5, l1_tol)
     n_rec = 0
     if records:
         r_k, r_p = r_k[0], r_p[0]
@@ -1378,8 +1449,6 @@ def check_b3b7(name, inputs, records):
         + f"; kernel {ms_k:.3f} ms (median of 5), plain {ms_p:.3f} ms ({N} "
         f"slots x {PHASE2_T} iterations); bound {bound[0]:.4f} ms by "
         f"{bound[1]}")
-    if K.kernel_mode(spec) in (0, K.MODE_RECORDS):
-        raise AssertionError(f"{name}: not a B3/B7 instantiation")
     for t, (a, b) in tallies.items():
         if abs(a - b) > max(2.0, 0.01 * b):
             raise AssertionError(f"{name}: kernel and plain {t} counts "
@@ -1593,6 +1662,438 @@ def phase7e(device, modes):
     return n
 
 
+# ---------------------------------------------------------------------------
+# phase 8: LED flasher runs (K1·B4) and the deposit modes on the global plans
+# and tabulated media (K1·B3/B7 × B6/B8b)
+# ---------------------------------------------------------------------------
+
+# the LED spectra stacked after the Cherenkov spectrum (index 0): the
+# standard DOMs' 405 nm LEDs and the color DOMs' four (flasher_extras
+# CDOM_LED_WLEN), with flasher_info_to_pulses' spectrum_index_by_wlen
+LED_WLENS = (405, 340, 370, 450, 505)
+LED_INDEX = {w: i + 1 for i, w in enumerate(LED_WLENS)}
+# photons per LED at brightness and width 127: the real 1.17e10 per LED cut
+# 1/688 for the run's time (1.7e7 an LED)
+FLASH_PHOTONS_AT_MAX = 1.7e7
+STD_DOM, COLOR_DOM = (0, 30), (14, 8)
+SC_PHOTONS = 5e7            # Standard Candle 1: the real 2.5e13, cut for time
+BIAS_L1_TOL = 4e-3          # tests/test_kernel.py:554-575
+GOLDEN_SEED = 20260818      # clsim_tpu/util/golden.py
+FIT8_LAYERS = (28, 35, 42)  # 8f gradient check: band layers near the flash
+
+
+def led_spectra(wlens=LED_WLENS):
+    from clsim_tpu_torch.sources.flasher import led_spectrum
+    return [led_spectrum(w) for w in wlens]
+
+
+def narrow_led_table():
+    """tests/test_kernel.py::test_kernel_flasher_spectrum_dispatch's narrow
+    405 nm LED: a Gaussian of 10 nm on 11 points."""
+    from clsim_tpu_torch.ops.spectrum import make_tabulated_spectrum
+    wl = np.linspace(380.0, 430.0, 11)
+    return make_tabulated_spectrum(wl, np.exp(-0.5 * ((wl - 405) / 10) ** 2))
+
+
+def with_source_types(steps, types):
+    import torch
+    return steps._replace(source_type=torch.as_tensor(
+        np.asarray(types, np.int32), device=steps.x.device))
+
+
+def phase8_cases(device):
+    """8a's workloads at N_SLOTS on one shared (PHASE2_T, 8, N) stream:
+    [(entry, name, inputs, records, l1_tol)]."""
+    import torch
+    from clsim_tpu_torch.medium.antares import make_antares_water
+    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    from clsim_tpu_torch.types import PropagationConfig
+    T, N = PHASE2_T, N_SLOTS
+    uni = torch.rand((T, 8, N), generator=torch.Generator(
+        device=device).manual_seed(8), device=device)
+    cher = make_cherenkov_spectrum(DEFAULT_ICE_REF_INDEX, 265.0, 675.0)
+    h61 = hex61(device)
+    # (i) test_kernel's flasher-dispatch workload (aniso + tilt, half the
+    # slots source_type 1 with its 405 nm LED table), at N slots on hex61
+    m, _, _, c, st, _ = small_workload(N, 1, True, True, device)
+    flasher = (m, h61,
+               stack_spectra([cher, narrow_led_table()], device=device),
+               c, with_source_types(st, np.arange(N) >= N // 2), uni)
+    # (ii) the six-table mix on ic86: bench_workload's steps cycling
+    # through source types 0-5
+    ice, _ = seeded_ice(171, -855.0, 10.0, device)
+    _, _, _, _, cloud = bench_workload(N, 200, device)
+    g86, gj = ic86(device), ic86(device, JITTER_M)
+    cfg = PropagationConfig(n_slots=N, pancake_factor=5.0)
+    six = (ice, g86, medium_spectra(ice, g86, device, led_spectra()), cfg,
+           with_source_types(cloud, np.arange(N) % 6), uni)
+    # (iii) test_kernel's geomspace bias of 23 points, on hex61
+    m0, _, _, c0, st0, _ = small_workload(N, 1, False, False, device)
+    bx = np.geomspace(265.0, 675.0, 23)
+    by = 0.2 + 0.15 * np.sin(np.linspace(0, 5, 23)) ** 2
+    bias = (m0, h61, stack_spectra([make_cherenkov_spectrum(
+        DEFAULT_ICE_REF_INDEX, 265.0, 675.0, bias_wlen_nm=bx,
+        bias_values=by)], device=device), c0, st0, uni)
+    # (v) the B6 deposit modes with the global plans and the media
+    expected = dict(estimator="expected", soft_binning=True,
+                    expected_angular_poly=ANG_POLY)
+    water, phot = make_antares_water(device=device), photonics_ice(device)
+    mode = lambda med, g, **kw: (med, g, medium_spectra(med, g, device),
+                                 dataclasses.replace(cfg, **kw), cloud, uni)
+    return [
+        ("propagate[flasher]", "(i) flasher dispatch, test_kernel workload "
+         "aniso+tilt on hex61, half source_type 1", flasher, False, L1_TOL),
+        ("propagate[flasher,global]", "(ii) six stacked spectra on ic86",
+         six, False, L1_TOL),
+        ("propagate[bias]", "(iii) geomspace bias of 23 points on hex61",
+         bias, False, BIAS_L1_TOL),
+        ("propagate[flasher,records]", "(iv) = (i) + records", flasher, True,
+         L1_TOL),
+        ("propagate[flasher,records,global]", "(ii) + records", six, True,
+         L1_TOL),
+        ("propagate[expected,global]", "(v) expected + soft + ang_poly, "
+         "ic86 (global affine)", mode(ice, g86, **expected), False, L1_TOL),
+        ("propagate[expected,general]", "(v) expected + soft + ang_poly, "
+         "jittered ic86 (general)", mode(ice, gj, **expected), False, L1_TOL),
+        ("propagate[expected,water]", "(v) expected + soft + ang_poly, "
+         "Antares water on jittered ic86", mode(water, gj, **expected), False,
+         L1_TOL),
+        ("propagate[pass,global]", "(v) non-stopping detect, ic86",
+         mode(ice, g86, stop_on_detection=False), False, L1_TOL),
+        ("propagate[fixed,global]", "(v) fixed_abs detect, ic86",
+         mode(ice, g86, fixed_abs_lens=8.0), False, L1_TOL),
+        ("propagate[expected,photonics]", "(v) expected, photonics ice on "
+         "hex61", mode(phot, h61, estimator="expected"), False, L1_TOL)]
+
+
+def phase8a(device):
+    """Each case against its plain version on the shared stream: phase 2's
+    tolerances (L1 <= 4e-3 on the non-uniform bias), records matched on
+    (slot, dom) as in 5a, the bound's counts within max(2, 1%)."""
+    return {entry: check_instantiation(name, inputs, records, l1_tol)
+            for entry, name, inputs, records, l1_tol in phase8_cases(device)}
+
+
+def flasher_sim(device, medium=None, geo=None, **cfg_kw):
+    """A Simulation on ic86 (default: the seeded ice) at N_SLOTS with the
+    five LED spectra stacked after the Cherenkov one."""
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.types import PropagationConfig
+    if medium is None:
+        medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    return quiet(Simulation, medium=medium,
+                 geometry=ic86(device) if geo is None else geo,
+                 config=PropagationConfig(n_slots=N_SLOTS, **cfg_kw),
+                 flasher_spectra=led_spectra())
+
+
+def flash(geo, dom, mask=None, photons_at_max=FLASH_PHOTONS_AT_MAX):
+    """The pulses of one flasher-board flash of the DOM `dom` of `geo`
+    (fake_flasher_info: brightness and width 127; by default the six LEDs
+    of its default mask, LEDs 7-12)."""
+    from clsim_tpu_torch.sources.flasher_extras import (
+        fake_flasher_info, flasher_info_to_pulses)
+    info = fake_flasher_info(*dom) if mask is None else \
+        fake_flasher_info(*dom, mask=mask)
+    return flasher_info_to_pulses(info, geo, LED_INDEX,
+                                  photons_at_max_brightness=photons_at_max)
+
+
+def sources_photons(sim, sources, seed):
+    """The photons of the steps Simulation.simulate(sources, seed)
+    propagates."""
+    return float(sum(int(b.num_photons.sum()) for b in
+                     sim.steps_from_particles(sources,
+                                              np.random.default_rng(seed))))
+
+
+def phase8_flash(device, name, sim, pulses, mode, seed=21):
+    """Simulation.simulate of one flash: generated = the steps' photons,
+    dropped = abandoned = 0, histogram sum = hit weight, the
+    instantiation launched; wall, propagation time and photons/s."""
+    photons = sources_photons(sim, pulses, seed)
+    reset_counts()
+    res, wall = timed(lambda: quiet(sim.simulate, pulses, seed=seed))
+    n = launched([mode])
+    check_run(name, res, photons)
+    hsum = float(res.hist.double().sum())
+    if abs(hsum / float(res.weight_hits) - 1.0) > 1e-4:
+        raise AssertionError(f"{name}: histogram sum differs from the hit "
+                             "weight")
+    batches = sim.steps_from_particles(pulses, np.random.default_rng(seed))
+    _, t_prop = timed(lambda: quiet(sim.run_steps, batches, seed))
+    log(f"  {name}: {len(pulses)} LEDs, spectra "
+        f"{sorted(set(p.spectrum_index for p in pulses))}, launches {n}, "
+        f"other kernels {K_other()}; hist sum {hsum:.6g}; simulate "
+        f"{wall:.3f} s = {photons / wall:.6g} photons/s end to end; "
+        f"propagation {t_prop:.3f} s = {photons / t_prop:.6g} photons/s")
+    if min(n.values()) <= 0:
+        raise AssertionError(f"{name}: instantiation {mode} not launched")
+    return n
+
+
+def phase8d(device, mode):
+    """simulate_hits of the standard-DOM flash with save_photons (the record
+    mode of the global affine plan): records = hits, MCPEs against the sum
+    of hit probabilities."""
+    sim = flasher_sim(device, save_photons=True)
+    pulses = flash(sim.geometry, STD_DOM)
+    photons = sources_photons(sim, pulses, 21)
+    reset_counts()
+    res, t1 = timed(lambda: quiet(sim.simulate, pulses, seed=21))
+    hits, t2 = timed(lambda: quiet(sim.simulate_hits, pulses, seed=21))
+    n = launched([mode])
+    log(f"  launches {n}, other kernels {K_other()}; simulate with records "
+        f"{t1:.3f} s, simulate_hits {t2:.3f} s")
+    check_run("standard-DOM flash + records", res, photons)
+    check_records("standard-DOM flash", res, sim.config)
+    mcpe_check("standard-DOM flash", sim, res, len(hits[0]),
+               sim.wlen_acceptance, sim.angular_coeffs)
+    if min(n.values()) <= 0:
+        raise AssertionError("simulate_hits did not launch the record mode "
+                             "of the global plan")
+    return n
+
+
+def phase8e_pipeline(device, sim, mode):
+    """EventPipeline.process of four events (a cascade, the standard-DOM
+    flash, an empty event, a Standard Candle 1 pulse) with max_in_flight 2."""
+    from clsim_tpu_torch.parallel.pipeline import EventPipeline
+    from clsim_tpu_torch.sources.flasher_extras import standard_candle_pulses
+    _, cascade = main_path_sim(device)
+    events = [[cascade], flash(sim.geometry, STD_DOM), [],
+              standard_candle_pulses(1, photons_per_pulse=SC_PHOTONS,
+                                     spectrum_index=LED_INDEX[405])]
+    pipe = EventPipeline(sim, max_in_flight=2)
+    reset_counts()
+    results, wall = timed(lambda: quiet(pipe.process, events, seed=13))
+    n = launched([mode])
+    d = pipe.stats.as_dict()
+    log(f"  {len(events)} events in {wall:.3f} s; launches {n}, other "
+        f"kernels {K_other()}; per event (generated, hits): "
+        + ", ".join(f"{r.event_id}: ({r.n_generated:.0f}, {r.n_hits:.0f})"
+                    for r in results))
+    log("  RunStatistics: " + ", ".join(f"{k} {v:.6g}" for k, v in d.items()))
+    log(f"  DeviceUtilization {d['DeviceUtilization']:.6g} (CUDA-event span "
+        "of each batch's propagate_auto over its submission-to-harvest time)")
+    if [r.event_id for r in results] != list(range(len(events))):
+        raise AssertionError("pipeline results not in submission order")
+    for r in results:
+        if sum(r.per_particle.values()) != r.n_generated:
+            raise AssertionError(f"event {r.event_id}: generated "
+                                 f"{r.n_generated} != its steps' photons "
+                                 f"{sum(r.per_particle.values())}")
+        if not np.isfinite(r.hist).all():
+            raise AssertionError(f"event {r.event_id}: non-finite histogram")
+    if results[2].n_generated != 0 or min(
+            r.n_generated for i, r in enumerate(results) if i != 2) <= 0:
+        raise AssertionError("pipeline: wrong events empty")
+    if (d["NumKernelCalls"] < 3 or d["TotalNumPhotonsGenerated"]
+            != sum(r.n_generated for r in results)
+            or d["TotalNumHitsDropped"] != 0
+            or d["TotalNumPhotonsAbandoned"] != 0
+            or not d["TotalDeviceTime"] > 0):
+        raise AssertionError("RunStatistics not filled as expected")
+    if min(n.values()) <= 0:
+        raise AssertionError("the pipeline did not launch the kernel")
+    return n
+
+
+def statistical_compare(name, hits, weight, hist, g_hits, g_weight, g_hist):
+    """tests/test_oracle.py::_statistical_compare's rule (hits within 5
+    sigma; the ten coarse time groups and the ten hottest DOMs within 5
+    sigma of the weighted counts), without its unit-weight check: these
+    photons carry the acceptance bias's weights."""
+    sigma = math.sqrt(hits + g_hits)
+    z = [(hits - g_hits) / sigma]
+    coarse = lambda h: h.sum(axis=0).reshape(10, -1).sum(axis=1)
+    wbar = weight / max(hits, 1.0)
+    te, to = coarse(hist), coarse(g_hist)
+    for k in range(10):
+        if te[k] + to[k] >= 25 * wbar:
+            z.append((te[k] - to[k]) / (wbar * math.sqrt((te[k] + to[k])
+                                                         / wbar)))
+    occ_e, occ_o = hist.sum(axis=1), g_hist.sum(axis=1)
+    for d in np.argsort(occ_e + occ_o)[-10:]:
+        z.append((occ_e[d] - occ_o[d]) / (wbar * math.sqrt(
+            (occ_e[d] + occ_o[d]) / wbar)))
+    log(f"  {name}: hits {hits:.0f} / {g_hits:.0f} (run / golden), weight "
+        f"{weight:.6g} / {g_weight:.6g}; largest |z| of the hit count, the "
+        f"coarse time groups and the hottest DOMs {max(map(abs, z)):.3f}")
+    if max(map(abs, z)) >= 5.0:
+        raise AssertionError(f"{name}: outside 5 sigma of the golden")
+
+
+def phase8e_golden(device):
+    """tests/golden/config3_flasher.npz (clsim_tpu/util/golden.py
+    _sim_flasher's configuration, built here on the port) through the
+    kernel: exact n_generated (the steps come from the same numpy stream),
+    hits and histogram within 5 sigma (Philox is not the golden's
+    threefry).  Returns the launches of the main path's instantiation."""
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.geometry import single_string_geometry
+    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
+    from clsim_tpu_torch.sources.particles import FlasherPulse
+    from clsim_tpu_torch.types import PropagationConfig
+    sim = Simulation(
+        medium=make_homogeneous_ice(b400=0.04, a_dust400=0.006,
+                                    device=device),
+        geometry=single_string_geometry(n_doms=24, spacing=17.0, x=40.0,
+                                        z_top=200.0, oversize=5.0,
+                                        device=device),
+        config=PropagationConfig(n_slots=4096, hist_t_min=0.0,
+                                 hist_t_max=3200.0, hist_n_bins=400),
+        flasher_spectra=led_spectra((405,)))
+    pulse = FlasherPulse(x=0.0, y=0.0, z=-30.0, time=0.0, dir_x=1.0,
+                         dir_y=0.0, dir_z=0.0, num_photons_no_bias=5e5,
+                         angular_smear_polar=0.2,
+                         angular_smear_azimuthal=0.3, pulse_width=5.0,
+                         spectrum_index=1)
+    reset_counts()
+    res, wall = timed(lambda: sim.simulate([pulse], seed=GOLDEN_SEED))
+    n = launched([0])
+    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "golden", "config3_flasher.npz"))
+    gen, g_gen = float(res.n_generated), float(golden["n_generated"])
+    log(f"  config3_flasher: {wall:.3f} s, launches {n}; generated "
+        f"{gen:.0f} / {g_gen:.0f} (run / golden)")
+    if gen != g_gen:
+        raise AssertionError("config3_flasher: n_generated differs from the "
+                             "golden's")
+    statistical_compare("config3_flasher", float(res.n_hits),
+                        float(res.weight_hits),
+                        res.hist.double().cpu().numpy(),
+                        float(golden["n_hits"]), float(golden["weight_hits"]),
+                        golden["hist"])
+    if min(n.values()) <= 0:
+        raise AssertionError("the golden did not launch the kernel")
+    return n
+
+
+def fit8_workload(device, n=FIT_SLOTS):
+    """The flasher fit's inputs on ic86: phase 6's ice (seeded 171 layers,
+    aniso + tilt) and estimator settings at the default segment cap, and
+    one flash of DOM (0, 30)'s six LEDs as n one-photon steps (the first n
+    of FlasherStepGenerator(photons_per_step=1)'s, empty slots where the
+    Poisson draws fall short), with the Cherenkov and 405 nm spectra.
+    Returns the workload and the number of steps the flash made."""
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.sources.flasher import FlasherStepGenerator
+    from clsim_tpu_torch.sources.flasher_extras import flasher_num_photons
+    from clsim_tpu_torch.types import PropagationConfig, StepBatch
+    medium, r = seeded_ice(171, -855.0, 10.0, device)
+    medium = aniso_tilt(medium, r, True, True, device)
+    geo = ic86(device)
+    cher = biased_cherenkov(medium, geo)
+    spectra = medium_spectra(medium, geo, device, led_spectra((405,)))
+    cfg = PropagationConfig(n_slots=n, estimator="expected",
+                            soft_binning=True, fixed_abs_lens=8.0,
+                            pancake_factor=5.0, hist_t_min=0.0,
+                            hist_t_max=3000.0, hist_n_bins=128)
+    # photons_at_max_brightness such that the six LEDs carry ~n photons
+    per_led = n / 6 / flasher_num_photons(127, 127, 1.0)
+    gen = FlasherStepGenerator(cher, photons_per_step=1)
+    rng = np.random.default_rng(2025)
+    batch = StepBatch.concatenate(
+        [b for p in flash(geo, STD_DOM, photons_at_max=per_led)
+         for b in gen.convert(p, 0, rng)])
+    made = batch.n_steps
+    batch = (StepBatch(*[np.asarray(f)[:n] for f in batch]) if made >= n
+             else batch.pad_to(n))
+    return (medium, geo, spectra, cfg,
+            steps_from_numpy(batch._asdict(), device)), made
+
+
+def phase8f(device):
+    """The flasher ice fit on ic86: the fit's forward instantiation
+    (expected + threefry on the global affine plan) against its plain
+    version, then fit_gates on one flash, with the peak memory."""
+    import torch
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    workload, made = fit8_workload(device)
+    medium, geo, spectra, cfg, steps = workload
+    key = rng.as_key(FIT_KEY)
+    run_k, spec, tables = quiet(kernel_run, *workload, FIT_T, key=key)
+    run_p, _, _ = quiet(kernel_run, *workload, FIT_T, key=key, plain=True)
+    run_k()
+    (_, h_k, c_k), ms_k = cuda_ms(run_k)
+    (_, h_p, c_p), ms_p = cuda_ms(run_p, reps=1)
+    mode = K.kernel_mode(spec)
+    log(f"  one flash of DOM {STD_DOM}: {made} one-photon steps made, "
+        f"{FIT_SLOTS} slots ({int((steps.num_photons > 0).sum())} "
+        f"filled), {spec.n_tables} spectra; fit forward mode {mode} (COLL "
+        f"{K.kernel_coll(spec)}, MED {K.kernel_med(spec)}, threefry "
+        f"{spec.threefry})")
+    err = compare("fit forward (expected + threefry, ic86), kernel / plain",
+                  c_k, h_k, c_p, h_p, 1e-5)
+    bound = kernel_bound(spec, tables, c_k, "threefry")
+    log(f"  fit forward: kernel {ms_k:.3f} ms (median of 5), plain "
+        f"{ms_p:.3f} ms ({FIT_SLOTS} slots x {FIT_T} iterations); bound "
+        f"{bound[0]:.4f} ms by {bound[1]}")
+    if mode != (K.DEP_EXPECTED | K.MODE_THREEFRY
+                | K.COLL_AFFINE << K.COLL_SHIFT):
+        raise AssertionError("the flasher fit's forward is not the global "
+                             "affine plan's expected + threefry mode")
+    quiet(fit_gates, device, workload, FIT8_LAYERS)
+    n = launched([mode])
+    log(f"  launches (ten Adam steps and the end loss) {n}, other kernels "
+        f"{K_other()}; max memory allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+    if min(n.values()) <= 0:
+        raise AssertionError("the flasher fit did not launch the kernel")
+    return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound, mode=mode), n
+
+
+def phase8g(device, modes):
+    """The deposit modes on the global plans and the media through
+    Simulation.simulate of the standard-DOM flash: generated = the steps'
+    photons, nothing dropped or abandoned, each instantiation launched."""
+    from clsim_tpu_torch.medium.antares import make_antares_water
+    ice, _ = seeded_ice(171, -855.0, 10.0, device)
+    g86, gj, h61 = ic86(device), ic86(device, JITTER_M), hex61(device)
+    water, phot = make_antares_water(device=device), photonics_ice(device)
+    expected = dict(estimator="expected", soft_binning=True,
+                    expected_angular_poly=ANG_POLY, fixed_abs_lens=8.0)
+    out = {}
+    # hex61 numbers its strings and DOMs from 1: its DOM (1, 30) is the
+    # centre string's mid-depth DOM, ic86's (0, 30)
+    for entry, medium, geo, kw in (
+            ("propagate[expected,global]", ice, g86, expected),
+            ("propagate[expected,general]", ice, gj, expected),
+            ("propagate[expected,water]", water, gj, expected),
+            ("propagate[pass,global]", ice, g86,
+             dict(stop_on_detection=False)),
+            ("propagate[fixed,global]", ice, g86, dict(fixed_abs_lens=8.0)),
+            ("propagate[expected,photonics]", phot, h61,
+             dict(estimator="expected", fixed_abs_lens=8.0))):
+        sim = flasher_sim(device, medium=medium, geo=geo, **kw)
+        pulses = flash(geo, (1, 30) if geo is h61 else STD_DOM)
+        photons = sources_photons(sim, pulses, 21)
+        reset_counts()
+        res, wall = timed(lambda: quiet(sim.simulate, pulses, seed=21))
+        n = launched([modes[entry]])
+        log(f"  {entry}: simulate {wall:.3f} s = {photons / wall:.6g} "
+            f"photons/s, launches {n}, other kernels {K_other()}")
+        check_run(entry, res, photons)
+        if min(n.values()) <= 0:
+            raise AssertionError(f"{entry}: instantiation not launched")
+        out.update(n)
+    return out
+
+
+# the phase 8 entries of the kernels line: the instantiations that 8b-8g's
+# paths launch (8a's non-uniform bias and flasher record mode on hex61 run
+# the main path's instantiations and no path of phase 8)
+PATH8 = ("propagate[flasher]", "propagate[flasher,global]",
+         "propagate[flasher,records,global]", "propagate[expected,global]",
+         "propagate[expected,general]", "propagate[expected,water]",
+         "propagate[pass,global]", "propagate[fixed,global]",
+         "propagate[expected,photonics]", "propagate[threefry,global]")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1658,6 +2159,49 @@ def main():
     log("phase 7e: a photonics-table ice (hex61)")
     launches7.update(phase7e(device, modes))
 
+    t8 = time.perf_counter()
+
+    def lap(name):
+        log(f"  phase {name} done at {time.perf_counter() - t8:.1f} s into "
+            "phase 8")
+
+    log("phase 8a: flasher spectra (K1·B4) and the deposit modes on the "
+        "global plans and media (K1·B3/B7 × B6/B8b) against their plain "
+        "version")
+    res["8a"] = phase8a(device)
+    lap("8a")
+    modes8 = {k: v["mode"] for k, v in res["8a"].items()}
+    launches8 = collections.Counter()
+    sim = flasher_sim(device)
+    flash_mode = modes8["propagate[flasher,global]"]
+    log("phase 8b: a standard-DOM flash on ic86 (Simulation.simulate)")
+    launches8.update(phase8_flash(device, f"standard-DOM flash {STD_DOM}",
+                                  sim, flash(sim.geometry, STD_DOM),
+                                  flash_mode))
+    lap("8b")
+    log("phase 8c: a color-DOM flash on ic86, all 12 LEDs")
+    launches8.update(phase8_flash(device, f"color-DOM flash {COLOR_DOM}",
+                                  sim, flash(sim.geometry, COLOR_DOM,
+                                             mask=0xFFF), flash_mode))
+    lap("8c")
+    log("phase 8d: simulate_hits of the standard-DOM flash")
+    launches8.update(phase8d(device,
+                             modes8["propagate[flasher,records,global]"]))
+    lap("8d")
+    log("phase 8e: EventPipeline (cascade, flash, empty event, Standard "
+        "Candle 1) and the flasher golden")
+    launches8.update(phase8e_pipeline(device, sim, flash_mode))
+    launches8.update(phase8e_golden(device))
+    lap("8e")
+    log("phase 8f: the flasher ice fit on ic86 (IceFit, forward='fused')")
+    res["8f"], n = phase8f(device)
+    launches8.update(n)
+    lap("8f")
+    log("phase 8g: the deposit modes on the global plans and media through "
+        "Simulation.simulate of the standard-DOM flash")
+    launches8.update(phase8g(device, modes8))
+    lap("8g")
+
     at = "clsim_tpu/propagate/kernel.py:2427"
 
     def entry(name, launches, err, ms, plain_ms, bound):
@@ -1682,7 +2226,12 @@ def main():
               t6["plain_ms"], t6["bound"])]
         + [entry(name, launches7[r["mode"]], r["err"], r["ms"],
                  r["plain_ms"], r["bound"])
-           for name, r in res["7a"].items() if r["mode"] in launches7]}))
+           for name, r in res["7a"].items() if r["mode"] in launches7]
+        + [entry(name, launches8[r["mode"]], r["err"], r["ms"],
+                 r["plain_ms"], r["bound"])
+           for name, r in list(res["8a"].items())
+           + [("propagate[threefry,global]", res["8f"])]
+           if name in PATH8]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

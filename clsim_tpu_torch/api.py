@@ -37,7 +37,8 @@ from .hits.photons import (compact_records, load_photons_npz,
                            photon_batch_dom_index, records_to_photon_batch,
                            save_photons_npz)
 from .medium.properties import MediumProperties
-from .ops.spectrum import (WavelengthSpectrum, make_cherenkov_spectrum,
+from .ops.spectrum import (WavelengthSpectrum, check_source_types,
+                           make_cherenkov_spectrum, source_type_range,
                            stack_spectra)
 from .propagate.dispatch import check_diagnostics, propagate_auto
 from .propagate.engine import PropagationResult
@@ -157,6 +158,9 @@ class Simulation:
         for i, batch in enumerate(slot_batches):
             bseed = int(np.random.SeedSequence([int(seed), i]).generate_state(
                 1, np.uint64)[0] & np.uint64(2 ** 63 - 1))
+            # a source_type without a stacked spectrum, on the host steps
+            check_source_types(*source_type_range(batch.source_type),
+                               int(self.spectra.x.shape[0]))
             steps = steps_from_numpy(batch._asdict(), self.device)
             res = propagate_auto(steps, self.medium, self.geometry,
                                  self.spectra, bseed, self.config,

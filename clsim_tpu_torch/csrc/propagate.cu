@@ -1,36 +1,22 @@
 // Photon propagation kernel for NVIDIA Hopper (sm_90a): the C entry points
 // and the instantiations of the main path's family (SubPlans, closed-form
 // medium: every deposit mode, threefry, records).  The kernel itself and
-// its design notes are in propagate.cuh; propagate_b3.cu, propagate_b7.cu
-// and propagate_b3b7_*.cu instantiate the global collision plans and the
-// tabulated media.
+// its design notes are in propagate.cuh; propagate_{affine,general,tables,
+// water,affine_tables,affine_water,general_tables,general_water}.cu build
+// the same seven modes for every other (COLL, MED) pair, one translation
+// unit each, so that nvcc compiles them in parallel.
 
 #include "propagate.cuh"
 
 int dispatch_main(int mode, const LaunchArgs& a) {
-#define CLSIM_MODE(DEP, TF, FIX)                                             \
-  case DEP | (TF ? MODE_THREEFRY : 0) | (FIX ? MODE_FIXED : 0):             \
-    return launch<false, DEP, TF, FIX, COLL_SUBPLANS, MED_CLOSED>(a);
-  switch (mode) {
-    CLSIM_MODE(DEP_STOP, false, false)
-    CLSIM_MODE(DEP_STOP, false, true)
-    CLSIM_MODE(DEP_PASS, false, false)
-    CLSIM_MODE(DEP_PASS, false, true)
-    CLSIM_MODE(DEP_EXPECTED, false, false)
-    CLSIM_MODE(DEP_EXPECTED, true, false)
-    case MODE_RECORDS:
-      return launch<true, DEP_STOP, false, false, COLL_SUBPLANS, MED_CLOSED>(
-          a);
-    default:
-      return -1;
-  }
-#undef CLSIM_MODE
+  return launch_family<COLL_SUBPLANS, MED_CLOSED>(mode, a);
 }
 
 typedef int (*Dispatch)(int, const LaunchArgs&);
-static const Dispatch kDispatch[] = {dispatch_main, dispatch_b3, dispatch_b7,
-                                     dispatch_b3b7_affine,
-                                     dispatch_b3b7_general};
+static const Dispatch kDispatch[] = {
+    dispatch_main,          dispatch_affine,        dispatch_general,
+    dispatch_tables,        dispatch_water,         dispatch_affine_tables,
+    dispatch_affine_water,  dispatch_general_tables, dispatch_general_water};
 
 static int dispatch(int mode, const LaunchArgs& a) {
   for (const Dispatch fn : kDispatch) {
@@ -46,9 +32,10 @@ extern "C" {
 // MODE_FIXED | COLL << COLL_SHIFT | MED << MED_SHIFT, without MODE_RECORDS);
 // returns cudaGetLastError() (0 on success), or cudaErrorInvalidValue for a
 // mode without an instantiation (threefry is built with DEP_EXPECTED alone,
-// MODE_FIXED only in detect modes, COLL and MED other than 0 with
-// DEP_STOP).  All buffers are device pointers allocated by the caller;
-// `uniforms` may be null when params->use_uniforms is 0, `tf_keys`
+// MODE_FIXED only in detect modes; every (COLL, MED) pair has the seven
+// modes of launch_family).  All buffers are device pointers allocated by
+// the caller; `uniforms` may be null when params->use_uniforms is 0,
+// `tf_keys`
 // ((2 * params->iters,) uint32) when the mode has no threefry, and `rel`,
 // `strings`, `wtab`, `scat` when the mode does not read them.  `cnt_i`
 // holds 10 int64, zeroed: generated, hits, alive, work, and (COLL or MED
@@ -58,14 +45,14 @@ extern "C" {
 int clsim_propagate(int mode, const Params* params, float* state,
                     const float* steps, const float* uniforms,
                     const float* layers, const float* spec_tab,
-                    const float* bias_y, const float* tilt_zc,
+                    const float* bias_tab, const float* tilt_zc,
                     const float* cells, float* hist, long long* cnt_i,
                     double* cnt_w, const float* rel, const float* strings,
                     const float* wtab, const float* scat,
                     const unsigned int* tf_keys, void* stream) {
   if (mode & MODE_RECORDS) return (int)cudaErrorInvalidValue;
   const LaunchArgs a = {params, state, steps, uniforms, tf_keys, layers,
-                        spec_tab, bias_y, tilt_zc, cells, hist, cnt_i,
+                        spec_tab, bias_tab, tilt_zc, cells, hist, cnt_i,
                         cnt_w, nullptr, nullptr, nullptr, rel, strings, wtab,
                         scat, stream};
   return dispatch(mode, a);
@@ -79,7 +66,7 @@ int clsim_propagate(int mode, const Params* params, float* state,
 int clsim_propagate_records(int mode, const Params* params, float* state,
                             const float* steps, const float* uniforms,
                             const float* layers, const float* spec_tab,
-                            const float* bias_y, const float* tilt_zc,
+                            const float* bias_tab, const float* tilt_zc,
                             const float* cells, float* hist, long long* cnt_i,
                             double* cnt_w, const float* rel,
                             const float* strings, const float* wtab,
@@ -88,7 +75,7 @@ int clsim_propagate_records(int mode, const Params* params, float* state,
                             void* stream) {
   if (!(mode & MODE_RECORDS)) return (int)cudaErrorInvalidValue;
   const LaunchArgs a = {params, state, steps, uniforms, nullptr, layers,
-                        spec_tab, bias_y, tilt_zc, cells, hist, cnt_i,
+                        spec_tab, bias_tab, tilt_zc, cells, hist, cnt_i,
                         cnt_w, doms, rec_buf, rec_cnt, rel, strings, wtab,
                         scat, stream};
   return dispatch(mode, a);

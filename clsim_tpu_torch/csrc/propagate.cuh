@@ -6,14 +6,15 @@
 // Replaces the Pallas TPU kernel clsim_tpu/propagate/kernel.py::_make_kernel
 // (pl.pallas_call at clsim_tpu/propagate/kernel.py:2427) in these
 // configurations: IceCube layered ice with optional tilt and anisotropy, or
-// a tabulated medium (sea water, photonics-table ice); one Cherenkov
-// spectrum with a uniform bias grid; per-subdetector SubPlan collision or
-// the global cell plan (affine or general); the detect estimator with or
-// without stop-on-detection and with a sampled or fixed absorption budget,
-// or the expected estimator (survival-weight deposits, soft binning, angular
-// polynomial); Philox, an external stream or in-kernel threefry for the
-// random numbers.  Its plain PyTorch version is
-// clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
+// a tabulated medium (sea water, photonics-table ice); the Cherenkov
+// spectrum and any stacked flasher spectra, with a uniform or non-uniform
+// bias grid; per-subdetector SubPlan collision or the global cell plan
+// (affine or general); the detect estimator with or without
+// stop-on-detection and with a sampled or fixed absorption budget, or the
+// expected estimator (survival-weight deposits, soft binning, angular
+// polynomial), with every collision plan and medium; Philox, an external
+// stream or in-kernel threefry for the random numbers.  Its plain PyTorch
+// version is clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
 //
 // Design.  One thread per photon slot.  Each launch runs up to `iters`
 // iterations; in each, a slot without a live photon spawns one from its step
@@ -102,6 +103,20 @@
 // by binary search and solved as the wavelength is.  The main path is
 // COLL 0, MED 0: none of this is compiled there.
 //
+// Flasher spectra and the bias grid (the TPU kernel's `sample_wavelength`
+// row mask and `wavelength_bias`, kernel.py:533-580).  The spectrum table
+// holds every stacked spectrum, (n_tables, 3, n_spec); a spawn offsets it
+// by the step's source_type and runs the one-table binary search and solve
+// there, so one table is the main path's code and a flasher step samples
+// its own LED spectrum (the engine's sample_wavelength_dispatch).  The host
+// refuses a source_type without a table (check_source_types), so the
+// offset never leaves the table.  A non-Cherenkov step keeps its direction.
+// The bias is read from a (2, n_bias) table of grid points and values: by
+// index on a uniform grid, by binary search over the points otherwise,
+// with the wavelength clamped to the grid (the engine's interp).  Both are
+// runtime parameters of the spawn, not template arguments, so every
+// instantiation serves flasher steps.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC per translation unit, then one -shared link (no
 //        fast-math: parity depends on logf/expf/powf).
@@ -129,7 +144,7 @@ struct PlanParams {
 
 struct Params {
   int n_slots, iters, K, L, n_spec, n_bias, nz_tilt, nd_tilt, aniso, nbins,
-      n_plans, use_uniforms;
+      n_plans, use_uniforms, n_tables, bias_uniform;
   unsigned int it0, seed_lo, seed_hi;
   float z_start, layer_h, alpha, kappa, abs_a, abs_b, abs_d, abs_e;
   float an_ca, an_sa, an_k1, an_k2, an_kz, mean_cos, liu_frac, r, r2;
@@ -361,7 +376,7 @@ propagate_kernel(const Params p, float* __restrict__ state,
                  const unsigned int* __restrict__ tf_keys,
                  const float* __restrict__ layers,
                  const float* __restrict__ spec_tab,
-                 const float* __restrict__ bias_y,
+                 const float* __restrict__ bias_tab,
                  const float* __restrict__ tilt_zc,
                  const float4* __restrict__ cells, float* __restrict__ hist,
                  unsigned long long* __restrict__ cnt_i,
@@ -401,16 +416,14 @@ propagate_kernel(const Params p, float* __restrict__ state,
     const float s_len = steps[S_LEN * N + slot];
     const float s_beta = steps[S_BETA * N + slot];
     const float s_w = steps[S_W * N + slot];
-    const bool cherenkov = steps[S_SRC * N + slot] == 0.0f;
+    // the step's spectrum table (0: Cherenkov, flasher LEDs from 1)
+    const int src = (int)steps[S_SRC * N + slot];
 
     const int L = p.L;
     const float* __restrict__ lay_b = layers;
     const float* __restrict__ lay_a = layers + L;
     const float* __restrict__ lay_t = layers + 2 * L;
     const int ns = p.n_spec;
-    const float* __restrict__ sp_x = spec_tab;
-    const float* __restrict__ sp_acu = spec_tab + ns;
-    const float* __restrict__ sp_beta = spec_tab + 2 * ns;
     const uint2 key = make_uint2(p.seed_lo, p.seed_hi);
 
     // record state (RECORDS only; dead code otherwise)
@@ -474,7 +487,11 @@ propagate_kernel(const Params p, float* __restrict__ state,
         y = s_y + s_dy * shift;
         z = s_z + s_dz * shift;
         t = s_t + shift / (C_LIGHT * s_beta);
-        // wavelength: k = clip(#{acu <= u} - 1, 0, n-2), then the solve
+        // wavelength from the step's own table: k = clip(#{acu <= u} - 1,
+        // 0, n-2), then the solve
+        const float* __restrict__ sp_x = spec_tab + (size_t)src * 3 * ns;
+        const float* __restrict__ sp_acu = sp_x + ns;
+        const float* __restrict__ sp_beta = sp_x + 2 * ns;
         int lo = 0, hi = ns;
         while (lo < hi) {
           const int mid = (lo + hi) >> 1;
@@ -519,7 +536,7 @@ propagate_kernel(const Params p, float* __restrict__ state,
             n_group = n_phase * poly4(p.g, wl_um);
           }
         }
-        if (cherenkov) {
+        if (src == 0) {  // the Cherenkov cone (a flasher keeps its direction)
           const float cos_c = fminf(1.0f, 1.0f / (s_beta * n_phase));
           const float sin_c = sqrtf(fmaxf(1.0f - cos_c * cos_c, 0.0f));
           scatter_dir(cos_c, sin_c, s_dx, s_dy, s_dz, u[2], &dx, &dy, &dz);
@@ -531,11 +548,25 @@ propagate_kernel(const Params p, float* __restrict__ state,
         else
           abs_left = -logf(1.0f - u[3]);
         inv_gv = 1.0f / (C_LIGHT / n_group);
-        // bias: linear interpolation on the uniform grid, clamped
-        const float bxi = (wl - p.bias_x0) * p.bias_inv_dx;
-        const float bk = fminf(fmaxf(floorf(bxi), 0.0f), (float)(p.n_bias - 2));
-        const float bfrac = fminf(fmaxf(bxi - bk, 0.0f), 1.0f);
-        const float f0 = bias_y[(int)bk], f1 = bias_y[(int)bk + 1];
+        // bias: linear interpolation, clamped at the grid's ends; the
+        // (2, n_bias) table holds the grid points, then the values
+        const int nb = p.n_bias;
+        const float* __restrict__ bias_y = bias_tab + nb;
+        int bk;
+        float bfrac;
+        if (p.bias_uniform) {  // index math on a uniform grid
+          const float bxi = (wl - p.bias_x0) * p.bias_inv_dx;
+          const float bkf = fminf(fmaxf(floorf(bxi), 0.0f), (float)(nb - 2));
+          bk = (int)bkf;
+          bfrac = fminf(fmaxf(bxi - bkf, 0.0f), 1.0f);
+        } else {  // binary search over the grid points
+          const float wlc = fminf(fmaxf(wl, bias_tab[0]), bias_tab[nb - 1]);
+          bk = locate_cdf(bias_tab, nb, wlc);
+          const float x0 = bias_tab[bk], x1 = bias_tab[bk + 1];
+          bfrac = fminf(fmaxf((wlc - x0) / fmaxf(x1 - x0, 1e-30f), 0.0f),
+                        1.0f);
+        }
+        const float f0 = bias_y[bk], f1 = bias_y[bk + 1];
         w0 = s_w / fmaxf(f0 + bfrac * (f1 - f0), 1e-20f);
         inflight = 1.0f;
         left -= 1.0f;
@@ -1021,7 +1052,7 @@ struct LaunchArgs {
   const unsigned int* tf_keys;
   const float* layers;
   const float* spec_tab;
-  const float* bias_y;
+  const float* bias_tab;
   const float* tilt_zc;
   const float* cells;
   float* hist;
@@ -1044,7 +1075,7 @@ static int launch(const LaunchArgs& a) {
   propagate_kernel<RECORDS, DEP, THREEFRY, FIXED, COLL, MED>
       <<<grid, BLOCK, 0, (cudaStream_t)a.stream>>>(
           *a.params, a.state, a.steps, a.uniforms, a.tf_keys, a.layers,
-          a.spec_tab, a.bias_y, a.tilt_zc,
+          a.spec_tab, a.bias_tab, a.tilt_zc,
           reinterpret_cast<const float4*>(a.cells), a.hist,
           reinterpret_cast<unsigned long long*>(a.cnt_i), a.cnt_w,
           reinterpret_cast<const float4*>(a.doms), a.rec_buf,
@@ -1054,21 +1085,43 @@ static int launch(const LaunchArgs& a) {
   return (int)cudaGetLastError();
 }
 
-// The stopping-detect instantiations of one (COLL, MED) pair, with and
-// without records, by mode (kernel.py kernel_mode); -1 for another mode.
+// The seven instantiations of one (COLL, MED) pair, by mode (kernel.py
+// kernel_mode): stopping detect with and without records, stopping and
+// non-stopping detect with and without the fixed horizon, the expected
+// estimator, and the expected estimator with in-kernel threefry (the fit's
+// forward).  -1 for a mode of another pair, or one that is not built
+// (threefry with a detect mode, records with another deposit mode).
 template <int COLL, int MED>
-static int launch_stop(int mode, const LaunchArgs& a) {
-  const int base = COLL << COLL_SHIFT | MED << MED_SHIFT;
-  if (mode == base) return launch<false, DEP_STOP, false, false, COLL, MED>(a);
-  if (mode == (base | MODE_RECORDS))
-    return launch<true, DEP_STOP, false, false, COLL, MED>(a);
-  return -1;
+static int launch_family(int mode, const LaunchArgs& a) {
+  constexpr int base = COLL << COLL_SHIFT | MED << MED_SHIFT;
+  switch (mode) {
+    case base:
+      return launch<false, DEP_STOP, false, false, COLL, MED>(a);
+    case base | MODE_RECORDS:
+      return launch<true, DEP_STOP, false, false, COLL, MED>(a);
+    case base | MODE_FIXED:
+      return launch<false, DEP_STOP, false, true, COLL, MED>(a);
+    case base | DEP_PASS:
+      return launch<false, DEP_PASS, false, false, COLL, MED>(a);
+    case base | DEP_PASS | MODE_FIXED:
+      return launch<false, DEP_PASS, false, true, COLL, MED>(a);
+    case base | DEP_EXPECTED:
+      return launch<false, DEP_EXPECTED, false, false, COLL, MED>(a);
+    case base | DEP_EXPECTED | MODE_THREEFRY:
+      return launch<false, DEP_EXPECTED, true, false, COLL, MED>(a);
+    default:
+      return -1;
+  }
 }
 
-// One dispatcher per translation unit; each returns -1 for a mode it does
-// not build.
+// One dispatcher per translation unit, each the family of one (COLL, MED)
+// pair; each returns -1 for a mode it does not build.
 int dispatch_main(int mode, const LaunchArgs& a);     // propagate.cu
-int dispatch_b3(int mode, const LaunchArgs& a);       // propagate_b3.cu
-int dispatch_b7(int mode, const LaunchArgs& a);       // propagate_b7.cu
-int dispatch_b3b7_affine(int mode, const LaunchArgs& a);
-int dispatch_b3b7_general(int mode, const LaunchArgs& a);
+int dispatch_affine(int mode, const LaunchArgs& a);   // propagate_affine.cu
+int dispatch_general(int mode, const LaunchArgs& a);  // propagate_general.cu
+int dispatch_tables(int mode, const LaunchArgs& a);   // propagate_tables.cu
+int dispatch_water(int mode, const LaunchArgs& a);    // propagate_water.cu
+int dispatch_affine_tables(int mode, const LaunchArgs& a);
+int dispatch_affine_water(int mode, const LaunchArgs& a);
+int dispatch_general_tables(int mode, const LaunchArgs& a);
+int dispatch_general_water(int mode, const LaunchArgs& a);

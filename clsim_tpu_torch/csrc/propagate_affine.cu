@@ -1,0 +1,9 @@
+// The seven instantiations of the global affine plan (K1·B3) in the
+// closed-form medium: COLL_AFFINE with MED_CLOSED, every deposit mode
+// (launch_family in propagate.cuh; the entry points are in propagate.cu).
+
+#include "propagate.cuh"
+
+int dispatch_affine(int mode, const LaunchArgs& a) {
+  return launch_family<COLL_AFFINE, MED_CLOSED>(mode, a);
+}

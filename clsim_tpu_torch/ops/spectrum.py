@@ -162,6 +162,38 @@ def stack_spectra(spectra, device="cuda") -> SpectrumTable:
         bias_x=t(spectra[0].bias_x), bias_y=t(spectra[0].bias_y))
 
 
+def source_type_range(source_type):
+    """(smallest, largest) source_type of a step batch's column (numpy or a
+    tensor; a tensor on the card syncs), (0, 0) when it is empty."""
+    if isinstance(source_type, torch.Tensor):
+        if source_type.numel() == 0:
+            return 0, 0
+        lo, hi = torch.stack([source_type.min(), source_type.max()]).tolist()
+        return int(lo), int(hi)
+    a = np.asarray(source_type)
+    return (int(a.min()), int(a.max())) if a.size else (0, 0)
+
+
+def check_source_types(lo: int, hi: int, n_tables: int):
+    """Raise ValueError when a step's source_type has no stacked spectrum.
+
+    The JAX package samples such a photon from the Cherenkov spectrum when
+    one spectrum is stacked (sample_wavelength_dispatch ignores source_type
+    there) and returns NaN wavelengths when several are; the CUDA kernel
+    would read past its spectrum table.  A FlasherPulse (default
+    spectrum_index=1) given to a Simulation built without flasher_spectra
+    is the usual cause."""
+    bad = hi if hi >= n_tables else lo if lo < 0 else None
+    if bad is not None:
+        raise ValueError(
+            f"a step has source_type {bad}, but only {n_tables} spectra are "
+            f"stacked (index 0 Cherenkov, flasher LEDs from 1): stack the "
+            "LED spectrum on the Simulation (flasher_spectra=[led_spectrum("
+            "405), ...]) and set the pulse's spectrum_index to its position "
+            "(FlasherPulse(spectrum_index=...), or flasher_info_to_pulses("
+            "spectrum_index_by_wlen=...))")
+
+
 def wavelength_bias(spectra, wlen_nm):
     """getWavelengthBias(lambda): linear interp of the bias table; the saved
     photon weight is step.weight / bias (propagation_kernel.c.cl:370)."""

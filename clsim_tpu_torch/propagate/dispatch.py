@@ -2,12 +2,17 @@
 engine for CPU tensors (PyTorch counterpart of clsim_tpu.propagate.dispatch).
 
 On a CUDA device, "auto" takes the kernel when the configuration is
-supported (photon records included: the kernel's record mode; the expected
-estimator, non-stopping detect and the fixed absorption horizon: its B6
-deposit modes) and otherwise raises with the reason (scatter-history rings,
-for one): a GPU run never quietly drops to the engine.  backend="engine" asks for the engine explicitly;
-backend="fused" runs the fused call loop on any device (on CPU tensors the
-wrapper runs the kernel's plain version).
+supported and otherwise raises with the reason: a GPU run never quietly
+drops to the engine.  The kernel serves every collision plan and medium
+with every deposit mode (stopping and non-stopping detect, the fixed
+absorption horizon, the expected estimator), photon records with stopping
+detect, and flasher steps over stacked spectra with a uniform or
+non-uniform bias grid.  What it refuses (backend_reason): scatter-history
+rings, records with another deposit mode, a one-point bias grid, threefry
+draws with a detect mode and the kernel's static limits.
+backend="engine" asks for the engine explicitly; backend="fused" runs the
+fused call loop on any device (on CPU tensors the wrapper runs the
+kernel's plain version).
 """
 
 from __future__ import annotations
@@ -26,7 +31,9 @@ from .kernel import (fused_spec, fused_supported, propagate_fused,
 def backend_reason(medium: MediumProperties, spectra: SpectrumTable,
                    cfg: PropagationConfig, geo: DetectorGeometry,
                    n_slots: int) -> Optional[str]:
-    """None if the CUDA kernel will serve this request, else why not."""
+    """None if the CUDA kernel will serve this request, else why not: the
+    configuration checks of fused_supported, then the kernel's own gate
+    (spec_unsupported) on the plan and tables this request builds."""
     reason = fused_supported(medium, spectra, cfg)
     if reason:
         return reason

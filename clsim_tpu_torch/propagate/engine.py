@@ -76,7 +76,8 @@ from ..ops.rotations import (cart_to_sph, safe_sqrt,
                              scatter_direction_by_angle)
 from ..ops.samplers import (mixed_cos, rayleigh_cos,
                             sample_interpolated_fast)
-from ..ops.spectrum import (SpectrumTable, sample_wavelength_dispatch,
+from ..ops.spectrum import (SpectrumTable, check_source_types,
+                            sample_wavelength_dispatch, source_type_range,
                             wavelength_bias)
 from ..types import PropagationConfig, StepBatch
 
@@ -932,6 +933,8 @@ def propagate(steps: StepBatch, medium: MediumProperties,
     (photon_capacity_per_slot per slot).  Differentiable with respect to
     the medium tensors (see the module docstring)."""
     check_supported(cfg, medium)
+    check_source_types(*source_type_range(steps.source_type),
+                       int(spectra.x.shape[0]))
     if uniforms is not None and key is not None:
         raise ValueError("uniforms and key are exclusive")
     device = steps.x.device

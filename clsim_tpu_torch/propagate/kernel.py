@@ -50,14 +50,22 @@ every DOM of a string (surveyed geometries, off the z0 + m*dz ladder); MED
 0 the closed-form icecube medium, 1 tabulated wavelength factors (water or
 photonics-table ice) with the Liu/HG scattering mixture, 2 tabulated
 factors with the tabulated (Petzold) angle mixed with Rayleigh (sea
-water).  COLL and MED other than 0 are built with stopping detect, with or
-without records.
+water).  Every (COLL, MED) pair is built with every deposit mode: stopping
+detect with or without records, non-stopping detect, the fixed horizon,
+the expected estimator and its threefry variant.
 
-The kernel serves one spectrum and a uniform bias grid; tilt and
-anisotropy may be on or off, and photon records (with SAVE_ALL and its
-prescale) may be on with stopping detect.  spec_unsupported() names the
-ROADMAP.md queue B item for any other configuration, and the wrapper
-raises rather than fall back.
+Stacked spectra (flashers, B4) are read per slot: the kernel offsets its
+(n_tables, 3, n_spec) spectrum table by the step's source_type and
+locates the wavelength in that table alone, as the engine's
+sample_wavelength_dispatch does; a non-uniform bias grid is located by
+binary search over its (2, n_bias) table.  A source_type without a
+stacked spectrum is refused on the host (check_source_types), so the
+kernel never reads past its table.  Tilt and anisotropy may be on or off,
+and photon records (with SAVE_ALL and its prescale) may be on with
+stopping detect.  spec_unsupported() names why any other configuration is
+refused (records with the B6 modes, a one-point bias grid, threefry with
+a detect mode, the static limits), and the wrapper raises rather than
+fall back.
 """
 
 from __future__ import annotations
@@ -74,7 +82,7 @@ from ..geometry import DetectorGeometry, to_numpy
 from ..medium.properties import MediumProperties
 from ..ops import rng
 from ..ops.rotations import cart_to_sph
-from ..ops.spectrum import SpectrumTable
+from ..ops.spectrum import SpectrumTable, check_source_types
 from ..types import PropagationConfig, StepBatch
 from . import engine as E
 
@@ -551,21 +559,25 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
 
 
 def spec_unsupported(spec: FusedSpec) -> Optional[str]:
-    """None if the CUDA kernel serves this spec, else why not (naming the
-    ROADMAP.md queue B item that adds it)."""
+    """None if the CUDA kernel serves this spec, else why not."""
     if spec.records and (spec.expected or not spec.stopping
                          or spec.fixed_abs or spec.threefry):
         return ("photon records are fused only with stopping detect, as in "
                 "the JAX package (clsim_tpu/propagate/kernel.py:1830-1834): "
                 "records with the B6 deposit modes, a fixed horizon or "
                 "threefry draws are not in the CUDA kernel")
+    if spec.n_bias < 2:
+        return (f"the bias grid has {spec.n_bias} point(s); the kernel "
+                "interpolates between two at least, as the JAX kernel "
+                "does (clsim_tpu/propagate/kernel.py:2327 reads bias_x[1])")
     if len(spec.ang_poly) > MAX_ANG:
         return (f"the angular polynomial has {len(spec.ang_poly)} "
                 f"coefficients, the kernel takes <= {MAX_ANG} (ROADMAP.md B6)")
     if spec.threefry and not spec.expected:
         return ("in-kernel threefry is built with the expected estimator "
                 "only (the fit's forward, propagate/diff.py); detect modes "
-                "draw Philox or an external stream")
+                "draw Philox or an external stream (ROADMAP.md B8b, "
+                "threefry with a detect mode)")
     if spec.threefry and 8 * spec.n_slots >= 2 ** 32:
         return ("threefry draws need 8 * n_slots < 2**32 (one 32-bit "
                 "counter per element of an iteration's (8, N) block)")
@@ -573,16 +585,6 @@ def spec_unsupported(spec: FusedSpec) -> Optional[str]:
         return ("tabulated scattering is built with a tabulated medium "
                 "(water) only, not with the closed-form icecube medium "
                 "(ROADMAP.md B7)")
-    if ((kernel_coll(spec) or kernel_med(spec))
-            and (spec.expected or not spec.stopping or spec.fixed_abs
-                 or spec.threefry)):
-        return ("the global collision plans (B3) and tabulated media (B7) "
-                "are built with stopping detect, with or without records; "
-                "the B6 deposit modes and threefry draws with them are not "
-                "in the CUDA kernel yet (ROADMAP.md B3/B7 × B6/B8b)")
-    if spec.n_tables > 1 or not spec.bias_uniform or spec.n_bias < 2:
-        return ("flasher spectra and non-uniform (or single-point) bias "
-                "grids are not in the CUDA kernel yet (ROADMAP.md B4)")
     if (len(spec.sub_plans) > MAX_PLANS
             or any(p.rounds > MAX_ROUNDS or p.n_dom_cand > MAX_DOM_CAND
                    for p in spec.sub_plans)
@@ -626,8 +628,9 @@ class FusedTables(NamedTuple):
     medium: MediumProperties      # the plain version reads these two
     spectra: SpectrumTable
     layers: torch.Tensor          # (3, L): b400, a_dust400, delta_tau
-    spec_tab: torch.Tensor        # (3, n_spec): x, acu, beta
-    bias_y: torch.Tensor          # (n_bias,) on the uniform bias grid
+    spec_tab: torch.Tensor        # (n_tables, 3, n_spec): x, acu, beta of
+                                  # every stacked spectrum
+    bias_tab: torch.Tensor        # (2, n_bias): the bias grid x and values y
     tilt_zc: torch.Tensor         # (nd, nz) tilt z-corrections (or (1,))
     cells: torch.Tensor           # flat candidates: (sum n_cells*K_cand,
                                   # 4) per SubPlan, or the global plan's
@@ -753,9 +756,10 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         medium=medium, spectra=spectra,
         layers=torch.stack([medium.b400, medium.a_dust400,
                             medium.delta_tau]).to(torch.float32).contiguous(),
-        spec_tab=torch.stack([spectra.x[0], spectra.acu[0],
-                              spectra.beta[0]]).to(torch.float32).contiguous(),
-        bias_y=spectra.bias_y.to(torch.float32).contiguous(),
+        spec_tab=torch.stack([spectra.x, spectra.acu, spectra.beta],
+                             1).to(torch.float32).contiguous(),
+        bias_tab=torch.stack([spectra.bias_x, spectra.bias_y]).to(
+            torch.float32).contiguous(),
         tilt_zc=(tl.z_corrections.to(torch.float32).contiguous()
                  if tl.enabled else torch.zeros(1, device=dev)),
         cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
@@ -1131,7 +1135,7 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
 # ---------------------------------------------------------------------------
 
 class _Plan(ctypes.Structure):
-    """struct PlanParams of csrc/propagate.cu (all fields 4 bytes)."""
+    """struct PlanParams of csrc/propagate.cuh (all fields 4 bytes)."""
     _fields_ = ([(n, ctypes.c_float) for n in (
         "x0", "y0", "inv_cell", "uz_z0", "uz_dz", "inv_dz", "uz_nd", "minz",
         "maxz")]
@@ -1140,10 +1144,11 @@ class _Plan(ctypes.Structure):
 
 
 class _Params(ctypes.Structure):
-    """struct Params of csrc/propagate.cu (all fields 4 bytes)."""
+    """struct Params of csrc/propagate.cuh (all fields 4 bytes)."""
     _fields_ = ([(n, ctypes.c_int) for n in (
         "n_slots", "iters", "K", "L", "n_spec", "n_bias", "nz_tilt",
-        "nd_tilt", "aniso", "nbins", "n_plans", "use_uniforms")]
+        "nd_tilt", "aniso", "nbins", "n_plans", "use_uniforms", "n_tables",
+        "bias_uniform")]
         + [(n, ctypes.c_uint) for n in ("it0", "seed_lo", "seed_hi")]
         + [(n, ctypes.c_float) for n in (
             "z_start", "layer_h", "alpha", "kappa", "abs_a", "abs_b",
@@ -1177,6 +1182,7 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.nz_tilt, p.nd_tilt = spec.nz_tilt, spec.nd_tilt
     p.aniso, p.nbins = int(spec.aniso), spec.hist_n_bins
     p.n_plans, p.use_uniforms = len(spec.sub_plans), int(use_uniforms)
+    p.n_tables, p.bias_uniform = spec.n_tables, int(spec.bias_uniform)
     p.it0 = (call_no * spec.iters_per_call) & 0xFFFFFFFF
     s = int(seed) & (2 ** 64 - 1)
     p.seed_lo, p.seed_hi = s & 0xFFFFFFFF, s >> 32
@@ -1259,13 +1265,14 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     rows = NSF + (NRSF if spec.records else 0)
     _check_tensor("state", state, (rows, N), f32, dev)
     _check_tensor("steps", steps, (NST, N), f32, dev)
-    for name in ("layers", "spec_tab", "bias_y", "tilt_zc", "cells", "doms",
+    for name in ("layers", "spec_tab", "bias_tab", "tilt_zc", "cells", "doms",
                  "rel", "strings", "wtab", "scat"):
         _check_tensor(name, getattr(tables, name), None, f32, dev)
     if tables.doms.shape != (spec.n_doms, 4):
         raise ValueError("DOM table does not match the spec")
     if tables.layers.shape != (3, spec.L) or \
-            tables.spec_tab.shape != (3, spec.n_spec):
+            tables.spec_tab.shape != (spec.n_tables, 3, spec.n_spec) or \
+            tables.bias_tab.shape != (2, spec.n_bias):
         raise ValueError("tables do not match the spec")
     if uniforms is not None:
         _check_tensor("uniforms", uniforms, None, f32, dev)
@@ -1306,7 +1313,7 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     mode = kernel_mode(spec)
     args = [mode, ctypes.addressof(params), ptr(state), ptr(steps),
             ptr(uniforms), ptr(tables.layers), ptr(tables.spec_tab),
-            ptr(tables.bias_y), ptr(tables.tilt_zc), ptr(tables.cells),
+            ptr(tables.bias_tab), ptr(tables.tilt_zc), ptr(tables.cells),
             ptr(hist), ptr(cnt_i), ptr(cnt_w), ptr(tables.rel),
             ptr(tables.strings), ptr(tables.wtab), ptr(tables.scat)]
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1441,9 +1448,14 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
             raise ValueError("threefry_key requires max_calls=1 (the key "
                              "table covers one call's iterations)")
     n = int(steps.x.shape[0])
-    if int(steps.num_photons.max()) >= 2 ** 24:
+    # one sync: the largest per-slot photon count and the source_type range
+    top, lo, hi = torch.stack([a.to(torch.int64) for a in (
+        steps.num_photons.max(), steps.source_type.min(),
+        steps.source_type.max())]).tolist()
+    if top >= 2 ** 24:
         raise ValueError("per-slot photon counts must stay below 2^24 "
                          "(float32 slot state); use more slots")
+    check_source_types(lo, hi, int(spectra.x.shape[0]))
     spec, cell_tab = fused_spec(medium, geo, spectra, cfg, n, iters_per_call,
                                 threefry=threefry_key is not None)
     reason = spec_unsupported(spec)

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..geometry import to_numpy
 from .particles import FlasherPulse
 
 DEG = np.pi / 180.0
@@ -199,19 +200,19 @@ def flasher_info_to_pulses(
 
     `spectrum_index_by_wlen` maps the LED nominal wavelength (405/340/370/
     450/505 nm) to the stacked-spectrum index configured on the Simulation;
-    default {405: 1}."""
+    default {405: 1}.  The geometry's tensors may lie on any device."""
     if spectrum_index_by_wlen is None:
         spectrum_index_by_wlen = {405: 1}
-    sid = np.asarray(geometry.dom_string_id)
-    oid = np.asarray(geometry.dom_om_id)
+    sid = to_numpy(geometry.dom_string_id)
+    oid = to_numpy(geometry.dom_om_id)
     sel = np.nonzero((sid == info.string_id) & (oid == info.om_id))[0]
     if sel.size != 1:
         raise ValueError(f"flashing DOM ({info.string_id},{info.om_id}) "
                          "not found in geometry")
     d = int(sel[0])
-    dom_x = float(np.asarray(geometry.dom_x)[d])
-    dom_y = float(np.asarray(geometry.dom_y)[d])
-    dom_z = float(np.asarray(geometry.dom_z)[d])
+    dom_x = float(to_numpy(geometry.dom_x)[d])
+    dom_y = float(to_numpy(geometry.dom_y)[d])
+    dom_z = float(to_numpy(geometry.dom_z)[d])
 
     is_cdom = (info.string_id, info.om_id) in COLOR_DOMS
     n_photons = flasher_num_photons(info.led_brightness, info.width,

@@ -222,12 +222,16 @@ def test_plain_records_on_surveyed_geometry_match_jax():
                                    rtol=1e-3, err_msg=key)
 
 
-@pytest.mark.parametrize("change", [
-    dict(estimator="expected"), dict(stop_on_detection=False),
-    dict(fixed_abs_lens=8.0)])
-def test_spec_gate_refuses_deposit_modes_on_global_plans(change):
-    """The global plans serve stopping detect with and without records; the
-    B6 deposit modes with them are refused, naming the ROADMAP row."""
+@pytest.mark.parametrize("change,dep", [
+    (dict(estimator="expected"), KT.DEP_EXPECTED),
+    (dict(stop_on_detection=False), KT.DEP_PASS),
+    (dict(fixed_abs_lens=8.0), KT.DEP_STOP | KT.MODE_FIXED)])
+def test_spec_gate_refuses_deposit_modes_on_global_plans(change, dep):
+    """The global plans serve every deposit mode (K1·B3/B7 × B6/B8b), each
+    in its own instantiation of the general plan; what the gate refuses
+    there is what it refuses everywhere: records with a B6 deposit mode
+    (as the JAX package does, clsim_tpu/propagate/kernel.py:1830-1834)
+    and threefry draws with a detect mode."""
     inputs = workload("jittered")
     spec, tables, (steps, u) = port_spec(inputs)
     assert KT.spec_unsupported(spec) is None
@@ -236,15 +240,18 @@ def test_spec_gate_refuses_deposit_modes_on_global_plans(change):
     assert KT.kernel_mode(rec) == (KT.MODE_RECORDS
                                    | KT.COLL_GENERAL << KT.COLL_SHIFT)
     medium, geo, spectra, cfg, _, _ = inputs
-    bad, _, _ = port_spec((medium, geo, spectra,
-                        dataclasses.replace(cfg, **change), inputs[4], u))
-    row = "B3/B7 × B6/B8b"
-    assert row in KT.spec_unsupported(bad)
-    assert row in KT.spec_unsupported(spec._replace(threefry=True,
-                                                    expected=True))
-    with pytest.raises(NotImplementedError, match=row):
-        KT._launch(KT.init_state(steps), KT.pack_steps(steps), tables, bad,
-                   u, 0, 0, None)
+    mode_spec, _, _ = port_spec((medium, geo, spectra,
+                                 dataclasses.replace(cfg, **change),
+                                 inputs[4], u))
+    assert KT.spec_unsupported(mode_spec) is None
+    assert KT.kernel_mode(mode_spec) == dep | KT.COLL_GENERAL << KT.COLL_SHIFT
+    bad = mode_spec._replace(records=True)
+    assert "records" in KT.spec_unsupported(bad)
+    assert KT.spec_unsupported(mode_spec._replace(
+        threefry=True, expected=False)) is not None
+    with pytest.raises(NotImplementedError, match="records"):
+        KT._launch(KT.init_state(steps, True), KT.pack_steps(steps), tables,
+                   bad, u, 0, 0, None)
 
 
 def test_subplan_fallback_counts_and_warns_only_for_refused_splits():

@@ -165,8 +165,40 @@ def test_cuda_b3_b7_instantiations_match_plain_version(entry, monkeypatch):
     name, inputs = {e: (n, i) for e, n, i in
                     chip_smoke.phase7_cases(dev)}[base]
     before = sum(K.MODE_LAUNCHES.values())
-    out = chip_smoke.check_b3b7(name, inputs, records)
+    out = chip_smoke.check_instantiation(name, inputs, records)
     torch.cuda.synchronize()
     # warm-up and five timed runs, all of this instantiation
+    assert K.MODE_LAUNCHES[out["mode"]] >= 6
+    assert sum(K.MODE_LAUNCHES.values()) - before == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", [
+    "propagate[flasher]", "propagate[flasher,global]", "propagate[bias]",
+    "propagate[flasher,records]", "propagate[flasher,records,global]",
+    "propagate[expected,global]", "propagate[expected,general]",
+    "propagate[expected,water]", "propagate[pass,global]",
+    "propagate[fixed,global]", "propagate[expected,photonics]"])
+def test_cuda_flasher_and_global_modes_match_plain_version(entry,
+                                                            monkeypatch):
+    """Stacked flasher spectra and the non-uniform bias grid (K1·B4), and
+    the deposit modes on the global plans and the media (K1·B3/B7 ×
+    B6/B8b), against their plain version on a shared stream (chip_smoke
+    phase 8a's workloads at 8,192 slots): phase 2's tolerances (L1 <= 4e-3
+    on the non-uniform bias), records matched on (slot, dom), the bound's
+    counts within max(2, 1%), one launch of its own instantiation per
+    run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    monkeypatch.setattr(chip_smoke, "N_SLOTS", 8192)
+    dev = torch.device("cuda", 0)
+    name, inputs, records, l1_tol = {
+        e: (n, i, r, t)
+        for e, n, i, r, t in chip_smoke.phase8_cases(dev)}[entry]
+    before = sum(K.MODE_LAUNCHES.values())
+    out = chip_smoke.check_instantiation(name, inputs, records, l1_tol)
+    torch.cuda.synchronize()
     assert K.MODE_LAUNCHES[out["mode"]] >= 6
     assert sum(K.MODE_LAUNCHES.values()) - before == 6

@@ -137,14 +137,25 @@ def test_rejects_detect_estimator(setup):
 def beam():
     """tests/test_diff.py's pencil beam at a DOM 40 m out, the DOM on a
     five-DOM string (15 m spacing): a single DOM has no per-subdetector
-    collision plan, which the kernel and its plain version need."""
+    collision plan, which the kernel and its plain version need.
+
+    The beam's photons are flasher-type (source_type 1: no cone) with one
+    stacked spectrum, for which the JAX package samples the Cherenkov
+    spectrum (clsim_tpu/ops/spectrum.py:172-174).  The port refuses a
+    source_type without a stacked spectrum (ROADMAP.md C), so its inputs
+    stack the same Cherenkov spectrum again as table 1: the same
+    wavelengths from the same numbers."""
     from clsim_tpu.geometry import build_geometry
+    from clsim_tpu.medium.functions import DEFAULT_ICE_REF_INDEX
+    from clsim_tpu.ops.spectrum import make_cherenkov_spectrum, stack_spectra
     medium, _, spectra, cfg, steps = TD._beam_workload(n=1024)
     geo = build_geometry(np.ones(5, np.int32), np.arange(1, 6),
                          np.full(5, 40.0), np.zeros(5),
                          30.0 - 15.0 * np.arange(5), oversize=8.0)
     jax_inputs = (medium, geo, spectra, cfg, steps)
-    return jax_inputs, port(*jax_inputs)
+    twice = stack_spectra([make_cherenkov_spectrum(
+        DEFAULT_ICE_REF_INDEX, 265.0, 675.0)] * 2)
+    return jax_inputs, port(medium, geo, twice, cfg, steps)
 
 
 def test_score_function_gradient_matches_jax(beam):

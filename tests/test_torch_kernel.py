@@ -106,15 +106,17 @@ def test_abandoned_photons_are_reported():
 @pytest.mark.parametrize("change,item", [
     (dict(records=True, fixed_abs=True), "B6"),
     (dict(records=True, expected=True), "B6"),
-    (dict(medium_tables=True, scat_table=True, expected=True), "B7"),
-    (dict(n_tables=2), "B4"),
-    (dict(sub_plans=(), stopping=False), "B3"),
+    (dict(n_bias=1), "bias grid"),
+    (dict(ang_poly=(0.1,) * (KT.MAX_ANG + 1)), "angular polynomial"),
+    (dict(threefry=True), "threefry with a detect mode"),
 ])
 def test_cuda_wrapper_spec_gate_raises(change, item):
     """The CUDA wrapper checks the spec before anything else and never falls
-    back to the plain version.  The tabulated media (B7) and the global
-    plans (B3) are served with stopping detect; the B6 deposit modes with
-    them are refused (ROADMAP.md B3/B7 × B6/B8b)."""
+    back to the plain version.  What it still refuses: records with the B6
+    deposit modes (as the JAX package does), a one-point bias grid (the JAX
+    kernel cannot serve one either), an angular polynomial past the
+    parameter block's static limit, and threefry draws with a detect
+    mode."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
     spec, cell_tab = KT.fused_spec(medium, geo, spectra, cfg, TK.N, TK.T)
     tables = KT.build_tables(spec, medium, geo, spectra, cell_tab)
@@ -124,6 +126,20 @@ def test_cuda_wrapper_spec_gate_raises(change, item):
     with pytest.raises(NotImplementedError, match=item):
         KT._launch(KT.init_state(steps), KT.pack_steps(steps), tables, bad,
                    u, 0, 0, None)
+
+
+@pytest.mark.parametrize("change", [
+    dict(medium_tables=True, scat_table=True, expected=True),
+    dict(n_tables=2, bias_uniform=False),
+    dict(sub_plans=(), stopping=False),
+])
+def test_cuda_wrapper_spec_gate_serves_flashers_and_deposit_modes(change):
+    """Served since the flasher slice: the expected estimator in a tabulated
+    medium, stacked flasher spectra with a non-uniform bias grid (K1·B4),
+    and non-stopping detect on the global plan (K1·B3/B7 × B6/B8b)."""
+    steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
+    spec, _ = KT.fused_spec(medium, geo, spectra, cfg, TK.N, TK.T)
+    assert KT.spec_unsupported(spec._replace(**change)) is None
 
 
 @pytest.mark.parametrize("change", [dict(save_photons=True,
