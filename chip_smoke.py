@@ -106,8 +106,9 @@ Phases (any failure raises and exits non-zero):
         on jittered ic86, photonics on hex61), non-stopping and fixed-
         horizon detect;
      b./c. Simulation.simulate of a standard-DOM flash (DOM (0, 30), six
-        405 nm LEDs, ~1.0e8 photons) and a color-DOM flash (DOM (14, 8),
-        12 LEDs at 340-505 nm, ~2.0e8 photons): generated = the steps'
+        405 nm LEDs, ~1.3e8 photons after the LED's correction factor) and a
+        color-DOM flash (DOM (14, 8), 12 LEDs at 340-505 nm, ~1.9e8
+        photons): generated = the steps'
         photons, nothing dropped or abandoned, histogram sum = hit weight;
      d. simulate_hits of the standard-DOM flash (records = hits, MCPEs
         against the sum of hit probabilities);
@@ -119,7 +120,16 @@ Phases (any failure raises and exits non-zero):
         fit's forward (expected + threefry, global affine) against its
         plain version, then 6c's three gates and the peak memory;
      g. each new deposit mode through Simulation.simulate of the
-        standard-DOM flash (launched, generated = the steps' photons).
+        standard-DOM flash (launched, generated = the steps' photons);
+  9. the probe kernels (csrc/probes.cu: the Pallas probes P1-P15 as four
+     Hopper kernels, H1 table reads, H2 state, H3 op costs and Philox, H4
+     atomics, appends, scans) at 262,144 lanes through
+     clsim_tpu_torch.probes.run_probes, each variant against its plain
+     version (bit for bit where the kernel rounds every product and sum as
+     the plain version does, the Philox bits always; the stated tolerances
+     for FMA chains, intrinsics, atomic sums and scans); ptxas's registers
+     and spills of the state probes; and the main-path kernel's phase 2
+     time set against the sum of its work at the probes' rates.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -397,7 +407,10 @@ def phase2(device):
         log(f"  {name}: kernel {ms_k:.3f} ms (median of 5), plain "
             f"{ms_p:.3f} ms ({N_SLOTS} slots x {PHASE2_T} iterations); "
             f"bound {bound[0]:.4f} ms by {bound[1]}")
-        timings[name] = dict(ms=ms_k, plain_ms=ms_p, bound=bound)
+        timings[name] = dict(ms=ms_k, plain_ms=ms_p, bound=bound, spec=spec,
+                             work=float(c_k[K.CNT_WORK]),
+                             gen=float(c_k[K.CNT_GEN]),
+                             hits=float(c_k[K.CNT_HITS]))
     return dict(timings[cases[-1][0]], err=max_err)
 
 
@@ -1454,7 +1467,7 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL):
             raise AssertionError(f"{name}: kernel and plain {t} counts "
                                  "differ")
     return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound,
-                mode=K.kernel_mode(spec))
+                mode=K.kernel_mode(spec), hits=float(c_k[K.CNT_HITS]))
 
 
 def steps_photons(sim, cascade, seed):
@@ -1672,11 +1685,15 @@ def phase7e(device, modes):
 # CDOM_LED_WLEN), with flasher_info_to_pulses' spectrum_index_by_wlen
 LED_WLENS = (405, 340, 370, 450, 505)
 LED_INDEX = {w: i + 1 for i, w in enumerate(LED_WLENS)}
-# photons per LED at brightness and width 127: the real 1.17e10 per LED cut
-# 1/688 for the run's time (1.7e7 an LED)
-FLASH_PHOTONS_AT_MAX = 1.7e7
+# photons per LED at brightness and width 127, the real 1.17e10 per LED: the
+# weighted Simulation scales a pulse by its LED's correction factor (1.85e-3
+# at 405 nm on ic86: ~2.2e7 photons an LED)
+FLASH_PHOTONS_AT_MAX = 1.17e10
 STD_DOM, COLOR_DOM = (0, 30), (14, 8)
-SC_PHOTONS = 5e7            # Standard Candle 1: the real 2.5e13, cut for time
+# Standard Candle 1: the real 2.5e13 would make 4.6e10 photons after the
+# 405 nm factor, ~1.2e8 host steps, more than the run's time allows; cut
+# 1/926 to 2.7e10, ~5.0e7 photons
+SC_PHOTONS = 2.7e10
 BIAS_L1_TOL = 4e-3          # tests/test_kernel.py:554-575
 GOLDEN_SEED = 20260818      # clsim_tpu/util/golden.py
 FIT8_LAYERS = (28, 35, 42)  # 8f gradient check: band layers near the flash
@@ -1935,6 +1952,7 @@ def phase8e_golden(device):
     from clsim_tpu_torch.api import Simulation
     from clsim_tpu_torch.geometry import single_string_geometry
     from clsim_tpu_torch.medium.properties import make_homogeneous_ice
+    from clsim_tpu_torch.ops.spectrum import stack_spectra
     from clsim_tpu_torch.sources.particles import FlasherPulse
     from clsim_tpu_torch.types import PropagationConfig
     sim = Simulation(
@@ -1946,6 +1964,12 @@ def phase8e_golden(device):
         config=PropagationConfig(n_slots=4096, hist_t_min=0.0,
                                  hist_t_max=3200.0, hist_n_bins=400),
         flasher_spectra=led_spectra((405,)))
+    # the golden was made by the JAX package's construction, which the port
+    # repaired (ROADMAP C1): the LED spectrum stacked unbiased and a
+    # correction factor of 1, set on the Simulation on purpose
+    sim.spectra = stack_spectra([sim.cherenkov, *led_spectra((405,))],
+                                device=device)
+    sim.flasher_generator.correction_factors = {}
     pulse = FlasherPulse(x=0.0, y=0.0, z=-30.0, time=0.0, dir_x=1.0,
                          dir_y=0.0, dir_z=0.0, num_photons_no_bias=5e5,
                          angular_smear_polar=0.2,
@@ -2084,6 +2108,127 @@ def phase8g(device, modes):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the probe kernels (the Pallas probes P1-P15 as H1-H4) and the
+# main path's kernel accounted for by their numbers
+# ---------------------------------------------------------------------------
+
+# Work of one live slot-iteration and of one spawn of the main path's
+# instantiation (csrc/propagate.cuh, COLL 0, MED 0, DEP_STOP), counted from
+# its source beside kernel_bound's ALU operations: dependent table-read
+# levels (an iteration: the cell's candidate list and the layer entries of
+# each walk step; a spawn: the step's rows, the bias entry and the
+# spectrum's binary search), IEEE divisions and square roots (an
+# iteration: the walk's set-up and two a walk step, 1 / |d_xy|^2, the
+# scattering angle, the rotation, the absorption carry; a spawn: the
+# wavelength solve, the medium factors, the Cherenkov cone and rotation,
+# the bias), and library transcendentals (an iteration: logf, powf, sinf,
+# cosf; a spawn: two powf, expf, logf, sinf, cosf).  The kernel does not
+# count its walk steps: K1_WALK_STEPS is an estimate.
+K1_WALK_STEPS = 3
+K1_READS = (1 + K1_WALK_STEPS, 2)
+K1_DIVS = (8 + 2 * K1_WALK_STEPS + 3, 12 + 4)
+K1_TRANSC = (4, 6)
+
+
+def probe_account(p2, rows, occ):
+    """The main-path kernel's measured time (phase 2's main-path case)
+    against the sum the probes predict for its work: each class of work
+    (phase 2's counters times the counts above) over the rate its probe
+    measured at the card's most resident blocks, then (c) what running at
+    the kernel's own `occ` blocks a SM adds (the same work at the probes'
+    rates at occ blocks), (b) the ALU work times P12's divergence ratio
+    (divergent over coherent trip counts) less the ALU work, (e) the hits
+    at the histogram probe's deposit rate.  A warp runs the spawn path when
+    any of its 32 lanes spawns.  Returns the terms (ms)."""
+    row = lambda p, v: next(r for r in rows if r["p"] == p
+                            and r["variant"] == v)
+    rate = lambda p, v: row(p, v)["g_steps"] * 1e9
+    spec = p2["spec"]
+    W, G, H = p2["work"], p2["gen"], p2["hits"]
+    spawn_lanes = W * (1.0 - (1.0 - min(G / W, 1.0)) ** 32)
+    ops_iter = (OPS_ITER + sum(OPS_PER_PLAN + OPS_PER_CAND * pl.K_cand
+                               for pl in spec.sub_plans))
+    levels_spawn = K1_READS[1] + math.ceil(math.log2(spec.n_spec))
+    per = lambda it, sp: W * it + spawn_lanes * sp
+    at = f", {occ} blocks/SM"
+    work = [  # (term, lane-ops, (probe, variant), ops a probe step)
+        ("(a) dependent table reads", per(K1_READS[0], levels_spawn),
+         ("P9", "chain (32, 176) f32 global"), 1),
+        ("(d) ALU operations", per(ops_iter, OPS_SPAWN), ("P15", "fma n=40"),
+         1),
+        ("(d) IEEE divisions and square roots", per(*K1_DIVS),
+         ("P15", "div n=10, b=0 (no subnormals)"), 1),
+        ("(d) library transcendentals", per(*K1_TRANSC),
+         ("P7", "transc k13"), 6)]
+    at_occ = {"P9": "chain (32, 176) global" + at, "P15": None,
+              "P7": "transc k13" + at}
+    terms, slow = {}, 0.0
+    for name, n, (p, v), k in work:
+        t_full = n / (k * rate(p, v))
+        v_occ = (("fma n=40" if v.startswith("fma") else "div n=10, b=0")
+                 + at if p == "P15" else at_occ[p])
+        slow += n / (k * rate(p, v_occ)) - t_full
+        terms[name] = t_full * 1e3
+    div_ratio = (row("P12", "candidates divergent 1-10")["ms"]
+                 / row("P12", "candidates coherent (sorted) 1-10")["ms"])
+    alu = sum(v for k, v in terms.items() if k.startswith("(d)"))
+    terms[f"(c) {occ} blocks a SM against the most"] = slow * 1e3
+    terms["(b) divergence"] = alu * (div_ratio - 1.0)
+    hist = next(r for r in rows if r["p"] == "H4"
+                and r["variant"].startswith("hist_atomic detect"))
+    terms["(e) histogram atomics"] = H / hist["rate"] * 1e3
+    total = sum(terms.values())
+    log(f"  account of the main-path kernel (phase 2: {W:.0f} live "
+        f"slot-iterations, {G:.0f} spawns, {spawn_lanes:.0f} lane-iterations "
+        f"on the spawn path, {H:.0f} hits; {occ} blocks of 256 a SM; ALU "
+        f"{ops_iter} a slot-iteration, {OPS_SPAWN} a spawn; divergence ratio "
+        f"{div_ratio:.3f}):")
+    for k, v in terms.items():
+        log(f"    {k}: {v:.4f} ms ({v / p2['ms']:.1%} of the kernel's "
+            f"{p2['ms']:.3f} ms)")
+    log(f"    sum {total:.4f} ms against {p2['ms']:.3f} ms measured "
+        f"(bound {p2['bound'][0]:.4f} ms); unexplained "
+        f"{p2['ms'] - total:.4f} ms; largest term: "
+        f"{max(terms, key=terms.get)}")
+    return dict(terms, total=total)
+
+
+def phase9(device, p2, expected_hits):
+    """Every probe variant against its plain version at 262,144 lanes
+    (clsim_tpu_torch.probes.run_probes: exact where the kernel rounds as the
+    plain version does, the stated tolerances elsewhere), the launches of
+    each probe kernel on this path, and the main-path kernel's account."""
+    from clsim_tpu_torch import _build
+    from clsim_tpu_torch import probes as PR
+    info = PR.ptxas_info(_build.BUILD_INFO["log"])
+    for name, v in info.items():
+        if name.startswith("_Z11probe_state") or "ILb0ELi0ELb0ELb0ELi0ELi0E" \
+                in name:
+            log(f"  ptxas {name[:60]}: {v}")
+    for k in PR.LAUNCHES:
+        PR.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    # histogram deposits a slot makes in one launch: the main path's hits;
+    # two a DOM entry in the expected mode with soft binning (8a, ic86)
+    rows = PR.run_probes(device, hit_rate=p2["hits"] / N_SLOTS,
+                         expected_rate=2.0 * expected_hits / N_SLOTS,
+                         log=log)
+    launches = dict(PR.LAUNCHES)
+    log(f"  {len(rows)} probe variants in {time.perf_counter() - t0:.1f} s; "
+        f"launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError("a probe kernel was not launched")
+    occ = PR._lib().clsim_main_occupancy()
+    probe_account(p2, rows, occ)
+    out = {}
+    for k in PR.LAUNCHES:
+        r = PR.representative(rows, k)
+        out[k] = dict(r, launches=launches[k],
+                      err=max(x["err"] for x in rows if x["kernel"] == k))
+    return out
+
+
 # the phase 8 entries of the kernels line: the instantiations that 8b-8g's
 # paths launch (8a's non-uniform bias and flasher record mode on hex61 run
 # the main path's instantiations and no path of phase 8)
@@ -2202,6 +2347,13 @@ def main():
     launches8.update(phase8g(device, modes8))
     lap("8g")
 
+    t9 = time.perf_counter()
+    log("phase 9: the probe kernels (P1-P15 as H1-H4) against their plain "
+        "versions, and the main-path kernel's account")
+    res["9"] = phase9(device, res["2"],
+                      res["8a"]["propagate[expected,global]"]["hits"])
+    log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
     at = "clsim_tpu/propagate/kernel.py:2427"
 
     def entry(name, launches, err, ms, plain_ms, bound):
@@ -2212,6 +2364,7 @@ def main():
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": None}
 
+    from clsim_tpu_torch.probes import REPLACES
     p2, p5, e6, t6 = res["2"], res["5a"], res["6b"], res["6a"]
     launches_e, launches_t = res["6c"]
     log(f"kernel times on {card}")
@@ -2231,7 +2384,14 @@ def main():
                  r["plain_ms"], r["bound"])
            for name, r in list(res["8a"].items())
            + [("propagate[threefry,global]", res["8f"])]
-           if name in PATH8]}))
+           if name in PATH8]
+        + [{"name": f"probe[{k}]", "route": "cuda",
+            "source": "clsim_tpu_torch/csrc/probes.cu",
+            "replaces": REPLACES[k], "launches": r["launches"],
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+           for k, r in res["9"].items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -44,7 +44,7 @@ from .propagate.dispatch import check_diagnostics, propagate_auto
 from .propagate.engine import PropagationResult
 from .sources.convert import (MuonSlicerPropagator, SourceConverter,
                               default_parameterizations)
-from .sources.flasher import FlasherStepGenerator
+from .sources.flasher import FlasherStepGenerator, bias_flasher_spectrum
 from .sources.particles import Particle
 from .sources.ppc import PPCStepGenerator, assign_steps_to_slots
 from .types import PropagationConfig, StepBatch
@@ -109,13 +109,22 @@ class Simulation:
         cherenkov = make_cherenkov_spectrum(
             medium.ref_index, medium.min_wlen, medium.max_wlen,
             bias_wlen_nm=bias_x, bias_values=bias_y)
-        self.spectra = stack_spectra([cherenkov, *flasher_spectra],
+        self.cherenkov = cherenkov
+        # every hit weight is divided by the bias, so the LED spectra are
+        # sampled with it too and a pulse's photon count is scaled by its
+        # spectrum's correction factor (stacked index i + 1); unweighted,
+        # the spectra stay as given and every factor is 1
+        biased = [bias_flasher_spectrum(s, bias_x, bias_y)
+                  for s in flasher_spectra]
+        self.spectra = stack_spectra([cherenkov, *(s for s, _ in biased)],
                                      device=self.device)
 
         self.step_generator = PPCStepGenerator(
             medium, cherenkov, photons_per_step=photons_per_step,
             use_cascade_extension=use_cascade_extension)
-        self.flasher_generator = FlasherStepGenerator(cherenkov)
+        self.flasher_generator = FlasherStepGenerator(
+            cherenkov, correction_factors={i + 1: f for i, (_, f)
+                                           in enumerate(biased)})
         if propagators is None:
             propagators = [MuonSlicerPropagator()]
         self.source_converter = SourceConverter(

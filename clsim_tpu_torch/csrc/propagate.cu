@@ -90,4 +90,15 @@ const char* clsim_error_string(int code) {
 
 int clsim_params_size(void) { return (int)sizeof(Params); }
 
+// Resident blocks of BLOCK threads per SM of the main path's instantiation
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), -1 on an error.
+int clsim_main_occupancy(void) {
+  int n = 0;
+  const cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, propagate_kernel<false, DEP_STOP, false, false, COLL_SUBPLANS,
+                           MED_CLOSED>,
+      BLOCK, 0);
+  return rc == cudaSuccess ? n : -1;
+}
+
 }  // extern "C"

@@ -126,6 +126,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 #define BIG 1e30f
 #define EPS 1e-5f
 #define C_LIGHT 0.299792458f
@@ -191,20 +193,6 @@ enum { R_WLEN, R_ABS0, R_NSCAT, R_DABS, R_SX, R_SY, R_SZ, R_ST, R_SDX, R_SDY,
 enum { C_PX, C_PY, C_PZ, C_T, C_DX, C_DY, C_DZ, C_WLEN, C_ID, C_SX, C_SY,
        C_SZ, C_ST, C_SDX, C_SDY, C_SDZ, C_IGV, C_NSCAT, C_DABS, C_IDX, C_W,
        C_SLOT, NRC };
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    const unsigned int lo0 = 0xD2511F53u * c.x;
-    const unsigned int hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned int lo1 = 0xCD9E8D57u * c.z;
-    const unsigned int hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
 
 // threefry2x32 (20 rounds) of counter (0, c1) under key (k0, k1), the two
 // output words XORed: jax.random's 32 random bits of element c1

@@ -94,6 +94,25 @@ def bias_correction_factor(spectrum_wlen, spectrum_density,
     return float(num / den)
 
 
+def bias_flasher_spectrum(spectrum: WavelengthSpectrum, bias_wlen_nm,
+                          bias_values):
+    """(the LED spectrum sampled with the generation bias, its photon-number
+    correction factor): the emission density is the spectrum's sampling
+    density with any bias it already carries divided out, re-weighted by
+    `bias_values`; the factor is integral(bias * density) /
+    integral(density) (I3CLSimLightSourceToStepConverterFlasher.cxx:232-253).
+    Without a bias the spectrum is returned as it is, with factor 1."""
+    if bias_values is None:
+        return spectrum, 1.0
+    density = np.asarray(spectrum.beta, np.float64) / np.interp(
+        spectrum.x, spectrum.bias_x, spectrum.bias_y)
+    return (make_tabulated_spectrum(spectrum.x, density,
+                                    bias_wlen_nm=bias_wlen_nm,
+                                    bias_values=bias_values),
+            bias_correction_factor(spectrum.x, density, bias_wlen_nm,
+                                   bias_values))
+
+
 class FlasherStepGenerator:
     """FlasherPulse -> StepBatch converter."""
 

@@ -202,3 +202,68 @@ def test_cuda_flasher_and_global_modes_match_plain_version(entry,
     torch.cuda.synchronize()
     assert K.MODE_LAUNCHES[out["mode"]] >= 6
     assert sum(K.MODE_LAUNCHES.values()) - before == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fetch", "state", "ops", "deposit"])
+def test_cuda_probe_kernel_matches_plain_version(kernel):
+    """Each probe kernel (csrc/probes.cu) against its plain version at 8,192
+    lanes: bit for bit where the kernel rounds as the plain version does,
+    the scan within 2^-20 of its segment's sum; each wrapper counts its
+    launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from clsim_tpu_torch import probes as P
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(6)
+    L = 8192
+    x = torch.rand(L, generator=g, device=dev)
+    before = P.LAUNCHES[kernel]
+    if kernel == "fetch":
+        tab = torch.rand((32, 176), generator=g, device=dev)
+        ref = P.probe_fetch_plain("chain", a=x, tab=tab, T=16)
+        for mem in ("global", "shared", "const"):
+            assert torch.equal(P.probe_fetch("chain", a=x, tab=tab, T=16,
+                                             mem=mem), ref)
+        n = 3
+    elif kernel == "state":
+        st = torch.rand((18, L), generator=g, device=dev)
+        ref = P.probe_state_plain(st, T=32)
+        for space in ("reg", "shared", "local"):
+            assert torch.equal(P.probe_state(st, T=32, space=space), ref)
+        n = 3
+    elif kernel == "ops":
+        kw = dict(a=x, T=8, n=25, m=1.0000001, c0=1e-9, wrap=True)
+        assert torch.equal(P.probe_ops("muladd", **kw),
+                           P.probe_ops_plain("muladd", **kw))
+        kw = dict(a=x, b=torch.zeros_like(x), T=8, n=10)
+        assert torch.equal(P.probe_ops("div", **kw),
+                           P.probe_ops_plain("div", **kw))
+        n = 2
+    else:
+        out = P.probe_deposit("scan", a=x, seg=4096)
+        ref = P.probe_deposit_plain("scan", a=x, seg=4096)
+        assert float((out - ref).abs().max()) <= 2.0 ** -20 * 4096
+        xt = torch.rand((24, L), generator=g, device=dev)
+        assert torch.equal(P.probe_deposit("transpose", a=xt),
+                           xt.t().contiguous())
+        n = 2
+    torch.cuda.synchronize()
+    assert P.LAUNCHES[kernel] == before + n
+
+
+@pytest.mark.cuda
+def test_cuda_probe_philox_bits():
+    """The propagation kernel's Philox4x32-10 (csrc/philox.cuh) in the probe
+    kernel against the plain version bit for bit; lane 0's first draw
+    (counter 0, key 0) is Random123's known answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from clsim_tpu_torch import probes as P
+    z = torch.zeros(4096, dtype=torch.float32, device="cuda")
+    out, bits = P.probe_ops("philox", a=z, T=10, key=(0, 0))
+    ref_out, ref_bits = P.probe_ops_plain("philox", a=z, T=10, key=(0, 0))
+    assert torch.equal(bits, ref_bits)
+    assert float((out - ref_out).abs().max()) <= 1e-5
+    assert [int(w) for w in bits[:, 0]] == [0x6627e8d5, 0xe169c58d,
+                                            0xbc57ac4c, 0x9b00dbd8]

@@ -316,6 +316,12 @@ def test_config3_flasher_golden_through_port_engine():
         config=PropagationConfig(n_slots=4096, hist_t_min=0.0,
                                  hist_t_max=3200.0, hist_n_bins=400),
         flasher_spectra=[FT.led_spectrum(405)])
+    # the golden was made by the JAX package's construction, which the port
+    # repaired (ROADMAP C1): the LED spectrum stacked unbiased and a
+    # correction factor of 1, set here on the Simulation on purpose
+    sim.spectra = ST.stack_spectra([sim.cherenkov, FT.led_spectrum(405)],
+                                   device="cpu")
+    sim.flasher_generator.correction_factors = {}
     pulse = PT.FlasherPulse(**vars(p))
     batches = sim.steps_from_particles([pulse],
                                        np.random.default_rng(GOLDEN_SEED))
@@ -335,3 +341,98 @@ def test_config3_flasher_golden_through_port_engine():
     compare_to_golden(dict(hist=hist, n_generated=np.asarray(gen),
                            n_hits=np.asarray(hits),
                            weight_hits=np.asarray(weight)), golden)
+
+
+# ---------------------------------------------------------------------------
+# the flasher bias correction (ROADMAP C1, repaired in the port)
+# ---------------------------------------------------------------------------
+
+def _c1_pulse(photons):
+    """A 405 nm LED 3 m from a DOM of the string, pointed at it."""
+    return PT.FlasherPulse(x=0.0, y=0.0, z=-4.0, time=0.0, dir_x=1.0,
+                           dir_y=0.0, dir_z=0.0, num_photons_no_bias=photons,
+                           angular_smear_polar=0.1,
+                           angular_smear_azimuthal=0.1, pulse_width=5.0,
+                           spectrum_index=1)
+
+
+def _c1_sim(package, unweighted):
+    """The golden's string 3 m from the flasher: the 405 nm LED stacked
+    after the Cherenkov spectrum, weighted or unweighted."""
+    if package == "jax":
+        from clsim_tpu.api import Simulation as SimJ
+        from clsim_tpu.geometry import single_string_geometry as string_j
+        from clsim_tpu.medium.properties import make_homogeneous_ice as ice_j
+        return SimJ(medium=ice_j(b400=0.04, a_dust400=0.006),
+                    geometry=string_j(n_doms=24, spacing=17.0, x=3.0,
+                                      z_top=200.0, oversize=5.0),
+                    config=CfgJ(n_slots=4096),
+                    flasher_spectra=[FJ.led_spectrum(405)],
+                    unweighted_photons=unweighted)
+    return Simulation(
+        medium=make_homogeneous_ice(b400=0.04, a_dust400=0.006, device="cpu"),
+        geometry=single_string_geometry(n_doms=24, spacing=17.0, x=3.0,
+                                        z_top=200.0, oversize=5.0,
+                                        device="cpu"),
+        config=PropagationConfig(n_slots=4096),
+        flasher_spectra=[FT.led_spectrum(405)],
+        unweighted_photons=unweighted)
+
+
+def test_weighted_flash_weight_equals_unweighted():
+    """A weighted Simulation samples the LED spectrum with the acceptance
+    bias and scales the pulse's photons by the correction factor
+    integral(bias * spectrum) / integral(spectrum), so its hit weight (each
+    hit 1 / bias) estimates the unweighted hit count: the two agree within
+    5 sigma (the weighted sum's sigma from its ~100 hits, each of about the
+    mean weight).  Unweighted, the spectrum and the factor stay as given."""
+    pulse = _c1_pulse(6e4)
+    res_w = _c1_sim("torch", False).simulate([pulse], seed=3)
+    res_u = _c1_sim("torch", True).simulate([pulse], seed=3)
+    w, hits_w = float(res_w.weight_hits), float(res_w.n_hits)
+    u = float(res_u.weight_hits)
+    assert float(res_u.n_hits) == u > 1e4      # unit weights
+    assert hits_w >= 50
+    sigma = np.sqrt(hits_w * (w / hits_w) ** 2 + u)
+    assert abs(w - u) < 5 * sigma, (w, u, sigma)
+
+
+def test_weighted_flash_photons_scaled_by_correction_factor():
+    """The weighted n_generated is within 5 sigma (Poisson) of
+    num_photons_no_bias x the factor of the 405 nm spectrum, whose value
+    (~1.85e-3, the acceptance near 405 nm) the sources' own
+    bias_correction_factor gives on the LED's emission table; the
+    unweighted Simulation keeps the factor 1 and an unbiased spectrum."""
+    sim = _c1_sim("torch", False)
+    f = sim.flasher_generator.correction_factors[1]
+    led = FT.led_spectrum(405)
+    assert f == pytest.approx(FT.bias_correction_factor(
+        led.x, led.beta, sim._bias_x, sim._bias_y), rel=1e-6)
+    assert 1e-3 < f < 3e-3
+    n = 2e6
+    res = sim.simulate([_c1_pulse(n)], seed=5)
+    mean = n * f
+    assert abs(float(res.n_generated) - mean) < 5 * np.sqrt(mean)
+    sim_u = _c1_sim("torch", True)
+    assert sim_u.flasher_generator.correction_for(_c1_pulse(n)) == 1.0
+    np.testing.assert_array_equal(sim_u.spectra.beta[1].numpy(), led.beta)
+
+
+def test_jax_package_flash_weights_differ_by_inverse_bias():
+    """Documents the fault the port repaired (ROADMAP C1): the JAX
+    package's weighted Simulation stacks the LED spectrum unbiased and
+    builds its FlasherStepGenerator without correction factors, so the
+    weighted and unweighted runs propagate the same photons and the weighted
+    hit weight is the unweighted one times the mean 1 / bias over the hits,
+    ~541 at 405 nm (E_405nm[1 / bias] of the LED's emission spectrum)."""
+    pulse = PJ.FlasherPulse(**vars(_c1_pulse(2e4)))
+    res_w = _c1_sim("jax", False).simulate([pulse], seed=3)
+    res_u = _c1_sim("jax", True).simulate([pulse], seed=3)
+    assert float(res_w.n_generated) == float(res_u.n_generated)
+    assert float(res_w.n_hits) == float(res_u.n_hits) > 1e3
+    ratio = float(res_w.weight_hits) / float(res_u.weight_hits)
+    sim = _c1_sim("torch", False)
+    led = FT.led_spectrum(405)
+    inv_bias = np.sum(led.beta / np.interp(led.x, sim._bias_x, sim._bias_y)
+                      ) / np.sum(led.beta)
+    assert 500 < ratio < 590 and ratio == pytest.approx(inv_bias, rel=0.1)

@@ -4,6 +4,8 @@ that mix particles and flasher pulses, each event equal to the port's
 engine over that event's slot batches with the batch seeds the pipeline
 used, and the dispatch through the Simulation's backend."""
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -39,9 +41,19 @@ def cascade(energy, z):
                             np.pi / 2, np.pi)
 
 
+@functools.lru_cache(maxsize=None)
+def led_factor():
+    """The 405 nm LED's photon-number correction factor in make_sim's
+    weighted Simulation (~1.85e-3, the acceptance bias near 405 nm)."""
+    return make_sim(n_slots=64).flasher_generator.correction_factors[1]
+
+
 def pulse(photons, z=0.0, spectrum_index=1):
+    """A 405 nm flash that makes about `photons` photons: its
+    num_photons_no_bias is scaled by 1 / led_factor(), since the weighted
+    Simulation multiplies it by the factor."""
     return FlasherPulse(x=0.0, y=0.0, z=z, time=0.0, dir_x=1.0, dir_y=0.0,
-                        dir_z=0.0, num_photons_no_bias=photons,
+                        dir_z=0.0, num_photons_no_bias=photons / led_factor(),
                         angular_smear_polar=0.1, angular_smear_azimuthal=0.1,
                         pulse_width=5.0, spectrum_index=spectrum_index)
 
