@@ -3,6 +3,10 @@
 
     python3 chip_smoke.py            # build, check and drive the main path
     python3 chip_smoke.py --sweep    # also time iters_per_call choices
+    python3 chip_smoke.py --turns LABEL:ROOT ...
+        # the kernel bodies of several checkouts in turns, one process a
+        # turn (ROOT: a checkout, e.g. a parent commit unpacked under build/
+        # by git archive)
 
 Phases (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -11,8 +15,11 @@ Phases (any failure raises and exits non-zero):
   2. the propagation kernel against its plain PyTorch version on the same
      tensors and the same (T, 8, N) uniform stream, at the main path's
      262,144 slots: equal generated counts (within 1e-5 on the main-path
-     configuration), hits within max(2, 1%), histogram L1 <= 2e-3 of the
-     total;
+     configuration), hits and layer-walk steps within max(2, 1%),
+     histogram L1 <= 2e-3 of the total; the two instantiations the
+     program's paths run (mode 0 on the main-path configuration, mode 32 on
+     ic86 at the default configuration) also timed in the Philox mode,
+     with their walk steps, SIMT efficiency and spawn-path lanes;
   3. the main path: Simulation.simulate of a 100 TeV EMinus cascade at the
      centre of hex61 (61 strings, 3,660 DOMs) in a seeded 171-layer ice,
      262,144 slots; the kernel must have been launched, the photon yield
@@ -360,38 +367,93 @@ def match_records(name, rows_k, rows_p, n_bins):
 PHASE2_T = 32
 
 
+def main_path_inputs(device):
+    """Phase 2's main-path configuration: hex61, the seeded 171-layer ice,
+    the defaults (90 m segments over 10 m layers, 16 walk steps), the bench
+    workload's steps and one (PHASE2_T, 8, N) stream."""
+    import torch
+    from clsim_tpu_torch.types import PropagationConfig
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    _, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
+    cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0)
+    uni = torch.rand((PHASE2_T, 8, N_SLOTS), generator=torch.Generator(
+        device=device).manual_seed(5), device=device)
+    return medium, geo, spectra, cfg, steps, uni
+
+
+def on_ic86(inputs, device):
+    """The same inputs on ic86 at the default configuration: the global
+    affine plan, mode 32 (every flash and 7b run it)."""
+    medium, _, _, cfg, steps, uni = inputs
+    g86 = ic86(device)
+    return medium, g86, medium_spectra(medium, g86, device), cfg, steps, uni
+
+
+# the two instantiations the program's paths run (ROADMAP's main path and
+# ic86 / the flashes): phase 2 times them in the stream and the Philox mode
+MAIN_NAME = "main-path config (hex61, 171 layers, 90 m segments)"
+GLOBAL_NAME = "ic86, default config (global affine)"
+PHILOX_SEED = 99
+
+
 def phase2_cases(device):
     """Phase 2's workloads at N_SLOTS with a (PHASE2_T, 8, N) stream:
     [(name, (medium, geo, spectra, cfg, steps, uniforms), gen_rtol)]."""
-    import torch
-    from clsim_tpu_torch.types import PropagationConfig
     T = PHASE2_T
     cases = []
     for aniso, tilt in ((False, False), (True, True)):
         cases.append((f"test_kernel workload aniso={aniso} tilt={tilt}",
                       small_workload(N_SLOTS, T, aniso, tilt, device), 0.0))
-    # the main path's configuration: hex61, seeded 171-layer ice, defaults
-    medium, _ = seeded_ice(171, -855.0, 10.0, device)
-    _, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
-    cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0)
-    uni = torch.rand((T, 8, N_SLOTS), generator=torch.Generator(
-        device=device).manual_seed(5), device=device)
     # generated counts within 1e-5: the kernel contracts a*b+c into FMAs
-    # where torch rounds op by op, and over 32 iterations of 10 m layers a
-    # few of ~2e6 photons end a step earlier or later in one than the other
-    cases.append(("main-path config (hex61, 171 layers, 90 m segments)",
-                  (medium, geo, spectra, cfg, steps, uni), 1e-5))
+    # and tests the walk's exit by products where torch rounds op by op
+    # and divides, and over 32 iterations of 10 m layers a few of ~2e6
+    # photons end a step earlier or later in one than the other
+    cases.append((MAIN_NAME, main_path_inputs(device), 1e-5))
     return cases
 
 
+def k1_stats(c):
+    """Walk steps a live slot-iteration, SIMT efficiency (live lanes over
+    32 x warp-iterations with a live lane) and spawn-path lanes a spawn
+    (32 x warp-iterations that ran the spawn path over spawns) from a
+    kernel's counters."""
+    from clsim_tpu_torch.propagate import kernel as K
+    v = lambda k: float(c[k])
+    work = max(v(K.CNT_WORK), 1.0)
+    return dict(walk=v(K.CNT_WALK) / work,
+                simt=v(K.CNT_WORK) / max(32.0 * v(K.CNT_WARPS), 1.0),
+                spawn_lanes=32.0 * v(K.CNT_SPAWN_WARPS) / max(v(K.CNT_GEN),
+                                                              1.0),
+                warps=v(K.CNT_WARPS), spawn_warps=v(K.CNT_SPAWN_WARPS))
+
+
+def fmt_stats(st):
+    return (f"walk steps {st['walk']:.4f} a slot-iteration, warp-iterations "
+            f"{st['warps']:.0f} (spawn path {st['spawn_warps']:.0f}), SIMT "
+            f"efficiency {st['simt']:.4f}, spawn-path lanes {st['spawn_lanes']:.3f}"
+            " a spawn")
+
+
+def check_walk(name, c_k, c_p):
+    """The layer-walk steps, kernel against plain, within max(2, 1%)."""
+    from clsim_tpu_torch.propagate import kernel as K
+    a, b = float(c_k[K.CNT_WALK]), float(c_p[K.CNT_WALK])
+    log(f"  {name}: walk steps {a:.0f} / {b:.0f} (kernel / plain)")
+    if abs(a - b) > max(2.0, 0.01 * b):
+        raise AssertionError(f"{name}: kernel and plain walk steps differ")
+
+
 def phase2(device):
-    """Kernel against plain version, same tensors and uniform stream."""
+    """Kernel against plain version, same tensors and uniform stream; the
+    two main-path instantiations (mode 0, and mode 32 on ic86) also in the
+    Philox mode, with their walk, warp and spawn counts."""
     from clsim_tpu_torch.propagate import kernel as K
     max_err, timings = 0.0, {}
     cases = phase2_cases(device)
+    cases.append((GLOBAL_NAME, on_ic86(cases[-1][1], device), 1e-5))
     for name, (medium, geo, spectra, cfg, steps, uni), gen_rtol in cases:
-        spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, N_SLOTS,
-                                      PHASE2_T)
+        spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg,
+                               N_SLOTS, PHASE2_T)
         tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
         state0, steps_p = K.init_state(steps), K.pack_steps(steps)
         run_k = lambda: K.run_fused_iterations(state0.clone(), steps_p,
@@ -403,15 +465,29 @@ def phase2(device):
         (_, h_k, c_k), ms_k = cuda_ms(run_k)
         (_, h_p, c_p), ms_p = cuda_ms(run_p, reps=1)
         max_err = max(max_err, compare(name, c_k, h_k, c_p, h_p, gen_rtol))
+        check_walk(name, c_k, c_p)
         bound = kernel_bound(spec, tables, c_k, "stream")
-        log(f"  {name}: kernel {ms_k:.3f} ms (median of 5), plain "
-            f"{ms_p:.3f} ms ({N_SLOTS} slots x {PHASE2_T} iterations); "
-            f"bound {bound[0]:.4f} ms by {bound[1]}")
+        st = k1_stats(c_k)
+        log(f"  {name}: mode {K.kernel_mode(spec)}, kernel {ms_k:.3f} ms "
+            f"(median of 5), plain {ms_p:.3f} ms ({N_SLOTS} slots x "
+            f"{PHASE2_T} iterations); bound {bound[0]:.4f} ms by {bound[1]}; "
+            + fmt_stats(st))
         timings[name] = dict(ms=ms_k, plain_ms=ms_p, bound=bound, spec=spec,
                              work=float(c_k[K.CNT_WORK]),
                              gen=float(c_k[K.CNT_GEN]),
-                             hits=float(c_k[K.CNT_HITS]))
-    return dict(timings[cases[-1][0]], err=max_err)
+                             hits=float(c_k[K.CNT_HITS]), stats=st)
+        if name in (MAIN_NAME, GLOBAL_NAME):
+            run_x = lambda: K.run_fused_iterations(
+                state0.clone(), steps_p, tables, spec, seed=PHILOX_SEED)
+            run_x()
+            (_, _, c_x), ms_x = cuda_ms(run_x)
+            bound_x = kernel_bound(spec, tables, c_x, "philox")
+            log(f"  {name}: Philox mode {ms_x:.3f} ms (median of 5); bound "
+                f"{bound_x[0]:.4f} ms by {bound_x[1]}; generated "
+                f"{float(c_x[K.CNT_GEN]):.0f}, hits {float(c_x[K.CNT_HITS]):.0f}"
+                "; " + fmt_stats(k1_stats(c_x)))
+            timings[name].update(ms_philox=ms_x, bound_philox=bound_x)
+    return dict(timings[MAIN_NAME], err=max_err, glob=timings[GLOBAL_NAME])
 
 
 def phase3(device):
@@ -436,7 +512,8 @@ def phase3(device):
         f"{expected:.0f}), hits {float(res.n_hits):.0f}, weight "
         f"{float(res.weight_hits):.6g}, hist sum {hsum:.6g}, dropped "
         f"{diag['dropped']:.0f}, abandoned {diag['abandoned']:.0f}, "
-        f"iterations {res.n_iterations}")
+        f"iterations {res.n_iterations}; live slot-iterations "
+        f"{diag['work']:.0f}, " + fmt_stats(k1_stats(res.diag_totals)))
     if launches <= 0:
         raise AssertionError("the main path did not launch the kernel")
     if abs(n_gen / expected - 1.0) > 0.1:
@@ -856,6 +933,11 @@ OPS_HG_LIU, OPS_RAYLEIGH, OPS_PETZOLD, OPS_BISECT = 17, 19, 27, 4
 # bisection over its n_bias points (OPS_BISECT a step) and the fraction's
 # division and clamps (OPS_BIAS_SEARCH).
 OPS_TABLE, OPS_BIAS_UNIFORM, OPS_BIAS_SEARCH = 3, 6, 6
+# OPS_ITER holds one layer-walk step; every further step (CNT_WALK beyond
+# one a live slot-iteration) costs the loop index and its clamp (4), the
+# two rates (5), the exit tests (6) and the two budgets and the next
+# boundary (5)
+OPS_WALK_STEP = 20
 FP32_PEAK = 67e12              # H100 SXM dense float32 peak
 HBM_BYTES_S = 3.35e12
 
@@ -866,8 +948,9 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
     and written, steps and tables read once, histogram and records written
     once, and of an external stream the rows the run reads: rows 4-7 in
     every live slot-iteration, rows 0-3 at every spawn, 16 bytes each)
-    over the HBM rate.  The global plans' collision work and sea water's
-    scatters count from the run's counters (CNT_CAND ... CNT_RAYLEIGH)."""
+    over the HBM rate.  The global plans' collision work, sea water's
+    scatters and the layer-walk steps count from the run's counters
+    (CNT_CAND ... CNT_WALK)."""
     from clsim_tpu_torch.propagate import kernel as K
     N, T = spec.n_slots, spec.iters_per_call
     cnt = lambda k: float(counters[k])
@@ -896,6 +979,7 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
         K.COLL_GENERAL: (OPS_ROUND_GENERAL, OPS_SPHERE_GENERAL)}[coll]
     petzold = OPS_PETZOLD + OPS_BISECT * math.ceil(math.log2(spec.n_scat + 1))
     ops = (work * per_iter + gen * per_spawn
+           + max(cnt(K.CNT_WALK) - work, 0.0) * OPS_WALK_STEP
            + cnt(K.CNT_CAND) * OPS_PER_CAND + cnt(K.CNT_CULL) * OPS_ZPASS
            + cnt(K.CNT_TESTED) * round_ops + cnt(K.CNT_ROWS) * sphere_ops
            + cnt(K.CNT_RAYLEIGH) * OPS_RAYLEIGH
@@ -1461,7 +1545,7 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL):
         + ", ".join(f"{t} {a:.0f} / {b:.0f}" for t, (a, b) in tallies.items())
         + f"; kernel {ms_k:.3f} ms (median of 5), plain {ms_p:.3f} ms ({N} "
         f"slots x {PHASE2_T} iterations); bound {bound[0]:.4f} ms by "
-        f"{bound[1]}")
+        f"{bound[1]}; " + fmt_stats(k1_stats(c_k)))
     for t, (a, b) in tallies.items():
         if abs(a - b) > max(2.0, 0.01 * b):
             raise AssertionError(f"{name}: kernel and plain {t} counts "
@@ -1481,7 +1565,9 @@ def check_run(name, res, photons):
     diag = res.diagnostics
     log(f"  {name}: generated {diag['generated']:.0f} (steps' photons "
         f"{photons:.0f}), hits {diag['hits']:.0f}, dropped "
-        f"{diag['dropped']:.0f}, abandoned {diag['abandoned']:.0f}")
+        f"{diag['dropped']:.0f}, abandoned {diag['abandoned']:.0f}; live "
+        f"slot-iterations {diag['work']:.0f}, "
+        + fmt_stats(k1_stats(res.diag_totals)))
     if diag["generated"] != photons:
         raise AssertionError(f"{name}: generated != the steps' photons")
     if diag["dropped"] != 0 or diag["abandoned"] != 0:
@@ -2113,53 +2199,57 @@ def phase8g(device, modes):
 # main path's kernel accounted for by their numbers
 # ---------------------------------------------------------------------------
 
-# Work of one live slot-iteration and of one spawn of the main path's
-# instantiation (csrc/propagate.cuh, COLL 0, MED 0, DEP_STOP), counted from
-# its source beside kernel_bound's ALU operations: dependent table-read
-# levels (an iteration: the cell's candidate list and the layer entries of
-# each walk step; a spawn: the step's rows, the bias entry and the
-# spectrum's binary search), IEEE divisions and square roots (an
-# iteration: the walk's set-up and two a walk step, 1 / |d_xy|^2, the
-# scattering angle, the rotation, the absorption carry; a spawn: the
-# wavelength solve, the medium factors, the Cherenkov cone and rotation,
-# the bias), and library transcendentals (an iteration: logf, powf, sinf,
-# cosf; a spawn: two powf, expf, logf, sinf, cosf).  The kernel does not
-# count its walk steps: K1_WALK_STEPS is an estimate.
-K1_WALK_STEPS = 3
-K1_READS = (1 + K1_WALK_STEPS, 2)
-K1_DIVS = (8 + 2 * K1_WALK_STEPS + 3, 12 + 4)
-K1_TRANSC = (4, 6)
+# Work of one live slot-iteration, of one layer-walk step beyond the first
+# and of one spawn of the main path's instantiation (csrc/propagate.cuh,
+# COLL 0, MED 0, DEP_STOP), counted from its source beside kernel_bound's
+# ALU operations: dependent table-read levels (an iteration: the cell's
+# candidate list and the layer entries of its first walk step, one more a
+# further step; a spawn: the step row, the bias entry and the spectrum's
+# binary search), IEEE divisions and square roots (an iteration: 1 / dz at
+# the walk's set-up, the two distances at its end, 1 / |d_xy|^2, the
+# absorption carry, HG's two quotients and the scattering sine; a walk step
+# none, its exit is tested by products; a spawn: the emission time, the
+# wavelength solve, the medium factors, the Cherenkov cone, the group
+# velocity and the bias; the rotations take rsqrtf), and library
+# transcendentals (an iteration: logf, powf, sincosf; a spawn: two powf,
+# expf, logf, sincosf).  The walk steps a slot-iteration and the lanes
+# that run the spawn path are measured (CNT_WALK, CNT_SPAWN_WARPS).
+K1_READS = (1, 1, 2)
+K1_DIVS = (8, 0, 12)
+K1_TRANSC = (3, 0, 5)
 
 
 def probe_account(p2, rows, occ):
     """The main-path kernel's measured time (phase 2's main-path case)
     against the sum the probes predict for its work: each class of work
-    (phase 2's counters times the counts above) over the rate its probe
-    measured at the card's most resident blocks, then (c) what running at
-    the kernel's own `occ` blocks a SM adds (the same work at the probes'
-    rates at occ blocks), (b) the ALU work times P12's divergence ratio
-    (divergent over coherent trip counts) less the ALU work, (e) the hits
-    at the histogram probe's deposit rate.  A warp runs the spawn path when
-    any of its 32 lanes spawns.  Returns the terms (ms)."""
+    (phase 2's counters times the counts above, at the measured walk steps
+    and spawn-path lanes) over the rate its probe measured at the card's
+    most resident blocks, then (c) what running at the kernel's own `occ`
+    blocks a SM adds (the same work at the probes' rates at occ blocks),
+    (b) the ALU work times P12's divergence ratio (divergent over coherent
+    trip counts) less the ALU work, (e) the hits at the histogram probe's
+    deposit rate.  Returns the terms (ms)."""
     row = lambda p, v: next(r for r in rows if r["p"] == p
                             and r["variant"] == v)
     rate = lambda p, v: row(p, v)["g_steps"] * 1e9
-    spec = p2["spec"]
+    spec, st = p2["spec"], p2["stats"]
     W, G, H = p2["work"], p2["gen"], p2["hits"]
-    spawn_lanes = W * (1.0 - (1.0 - min(G / W, 1.0)) ** 32)
-    ops_iter = (OPS_ITER + sum(OPS_PER_PLAN + OPS_PER_CAND * pl.K_cand
-                               for pl in spec.sub_plans))
-    levels_spawn = K1_READS[1] + math.ceil(math.log2(spec.n_spec))
-    per = lambda it, sp: W * it + spawn_lanes * sp
+    walk = st["walk"]
+    spawn_lanes = 32.0 * st["spawn_warps"]
+    ops_iter = (OPS_ITER + (walk - 1.0) * OPS_WALK_STEP
+                + sum(OPS_PER_PLAN + OPS_PER_CAND * pl.K_cand
+                      for pl in spec.sub_plans))
+    levels_spawn = K1_READS[2] + math.ceil(math.log2(spec.n_spec))
+    per = lambda c, sp: W * (c[0] + walk * c[1]) + spawn_lanes * sp
     at = f", {occ} blocks/SM"
     work = [  # (term, lane-ops, (probe, variant), ops a probe step)
-        ("(a) dependent table reads", per(K1_READS[0], levels_spawn),
+        ("(a) dependent table reads", per(K1_READS, levels_spawn),
          ("P9", "chain (32, 176) f32 global"), 1),
-        ("(d) ALU operations", per(ops_iter, OPS_SPAWN), ("P15", "fma n=40"),
-         1),
-        ("(d) IEEE divisions and square roots", per(*K1_DIVS),
+        ("(d) ALU operations", W * ops_iter + spawn_lanes * OPS_SPAWN,
+         ("P15", "fma n=40"), 1),
+        ("(d) IEEE divisions and square roots", per(K1_DIVS, K1_DIVS[2]),
          ("P15", "div n=10, b=0 (no subnormals)"), 1),
-        ("(d) library transcendentals", per(*K1_TRANSC),
+        ("(d) library transcendentals", per(K1_TRANSC, K1_TRANSC[2]),
          ("P7", "transc k13"), 6)]
     at_occ = {"P9": "chain (32, 176) global" + at, "P15": None,
               "P7": "transc k13" + at}
@@ -2180,10 +2270,11 @@ def probe_account(p2, rows, occ):
     terms["(e) histogram atomics"] = H / hist["rate"] * 1e3
     total = sum(terms.values())
     log(f"  account of the main-path kernel (phase 2: {W:.0f} live "
-        f"slot-iterations, {G:.0f} spawns, {spawn_lanes:.0f} lane-iterations "
-        f"on the spawn path, {H:.0f} hits; {occ} blocks of 256 a SM; ALU "
-        f"{ops_iter} a slot-iteration, {OPS_SPAWN} a spawn; divergence ratio "
-        f"{div_ratio:.3f}):")
+        f"slot-iterations, {walk:.4f} walk steps each, {G:.0f} spawns, "
+        f"{spawn_lanes:.0f} lane-iterations on the spawn path "
+        f"({spawn_lanes / max(G, 1.0):.3f} a spawn), {H:.0f} hits; {occ} "
+        f"blocks of 256 a SM; ALU {ops_iter:.1f} a slot-iteration, "
+        f"{OPS_SPAWN} a spawn; divergence ratio {div_ratio:.3f}):")
     for k, v in terms.items():
         log(f"    {k}: {v:.4f} ms ({v / p2['ms']:.1%} of the kernel's "
             f"{p2['ms']:.3f} ms)")
@@ -2239,11 +2330,182 @@ PATH8 = ("propagate[flasher]", "propagate[flasher,global]",
          "propagate[expected,photonics]", "propagate[threefry,global]")
 
 
+# ---------------------------------------------------------------------------
+# kernel bodies on one card, in turns (--turns): each turn is a process of
+# its own that imports the package from its root (a parent commit unpacked
+# under build/ with git archive, or this checkout) and times, at phase 2's
+# shape, the two main-path instantiations in the stream and the Philox mode
+# and the record, general, water, expected and threefry instantiations in
+# the stream mode; builds at a root are cached, so only a body's first turn
+# compiles it
+# ---------------------------------------------------------------------------
+
+# the mangled template arguments <RECORDS, DEP, THREEFRY, FIXED, COLL, MED>
+# of the timed instantiations in ptxas's log
+K1_MANGLED = {"propagate": "ILb0ELi0ELb0ELb0ELi0ELi0E",
+              "propagate[global]": "ILb0ELi0ELb0ELb0ELi1ELi0E",
+              "propagate[records]": "ILb1ELi0ELb0ELb0ELi0ELi0E",
+              "propagate[records,global]": "ILb1ELi0ELb0ELb0ELi1ELi0E",
+              "propagate[general]": "ILb0ELi0ELb0ELb0ELi2ELi0E",
+              "propagate[records,general]": "ILb1ELi0ELb0ELb0ELi2ELi0E",
+              "propagate[water]": "ILb0ELi0ELb0ELb0ELi2ELi2E",
+              "propagate[records,water]": "ILb1ELi0ELb0ELb0ELi2ELi2E",
+              "propagate[expected,general]": "ILb0ELi2ELb0ELb0ELi2ELi0E",
+              "propagate[expected,water]": "ILb0ELi2ELb0ELb0ELi2ELi2E",
+              "propagate[threefry]": "ILb0ELi2ELb1ELb0ELi0ELi0E"}
+
+
+def k1_ptxas(log_text):
+    """{entry: dict(registers, spill_stores, spill_loads, smem, blocks)} of
+    the timed instantiations from nvcc -Xptxas -v output ({} when cached);
+    blocks: resident blocks of 256 threads a SM by registers (8 a thread
+    per allocation unit) and static shared memory (228 KB a SM, 1 KB a
+    block reserved), at most 8 (64 warps)."""
+    import re
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?(\w+)'?", line)
+        if m:
+            cur = next((e for e, k in K1_MANGLED.items()
+                        if "propagate_kernel" + k in m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        d = out.setdefault(cur, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            d.update(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            smem = int(sm.group(1)) if sm else 0
+            by_regs = 65536 // (256 * (-(-regs // 8) * 8))
+            by_smem = 233472 // (smem + 1024)
+            d.update(registers=regs, smem=smem,
+                     blocks=min(8, by_regs, by_smem))
+    return out
+
+
+def k1_turn_cases(device):
+    """[(entry, inputs, records, key, T, philox?)] of a turn: phase 2's
+    main-path inputs on hex61 and on ic86 (both random modes), the record
+    mode on both, 7a's jittered ic86 in ice and in water (with and without
+    records, and in the expected mode), and the fit's forward in threefry."""
+    from clsim_tpu_torch.ops import rng
+    main = main_path_inputs(device)
+    glob = on_ic86(main, device)
+    cases7 = {e: i for e, _, i in phase7_cases(device)}
+    gen, wat = cases7["propagate[general]"], cases7["propagate[water]"]
+    exp = lambda i: i[:3] + (dataclasses.replace(
+        i[3], estimator="expected", soft_binning=True,
+        expected_angular_poly=ANG_POLY),) + i[4:]
+    return [("propagate", main, False, None, PHASE2_T, True),
+            ("propagate[global]", glob, False, None, PHASE2_T, True),
+            ("propagate[records]", main, True, None, PHASE2_T, False),
+            ("propagate[records,global]", glob, True, None, PHASE2_T, False),
+            ("propagate[general]", gen, False, None, PHASE2_T, False),
+            ("propagate[records,general]", gen, True, None, PHASE2_T, False),
+            ("propagate[water]", wat, False, None, PHASE2_T, False),
+            ("propagate[records,water]", wat, True, None, PHASE2_T, False),
+            ("propagate[expected,general]", exp(gen), False, None, PHASE2_T,
+             False),
+            ("propagate[expected,water]", exp(wat), False, None, PHASE2_T,
+             False),
+            ("propagate[threefry]", fit_workload(device) + (None,), False,
+             rng.as_key(FIT_KEY), FIT_T, False)]
+
+
+def k1_turn_worker(root):
+    """One turn: import the package at `root`, time every case of
+    k1_turn_cases, print one line 'K1 {json}'."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from clsim_tpu_torch import _build
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    out = dict(root=root, build_s=build_s,
+               ptxas=k1_ptxas(_build.BUILD_INFO["log"]), entries={})
+    for entry, inp, records, key, T, philox in k1_turn_cases(device):
+        medium, geo, spectra, cfg, steps, uni = inp
+        cfg = dataclasses.replace(cfg, save_photons=records)
+        N = int(steps.x.shape[0])
+        spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg, N, T,
+                               threefry=key is not None)
+        tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+        state0 = K.init_state(steps, records)
+        steps_p = K.pack_steps(steps)
+        keys = None if key is None else rng.key_table(key, T).to(device)
+        run = lambda **kw: (lambda: K.run_fused_iterations(
+            state0.clone(), steps_p, tables, spec, **kw))
+        runs = {"stream": run(uniforms=uni, keys=keys)}
+        if philox:
+            runs["philox"] = run(seed=PHILOX_SEED)
+        res = {}
+        for rng_mode, fn in runs.items():
+            for _ in range(20):   # the card's clocks up before the timing
+                fn()
+            (_, _, c, *_), ms = cuda_ms(fn, reps=11)
+            res[rng_mode] = dict(ms=ms, counters=[float(x) for x in c],
+                                 mode=K.kernel_mode(spec))
+        out["entries"][entry] = res
+    print("K1 " + json.dumps(out), flush=True)
+
+
+def k1_turns(turns):
+    """Run the turns 'label:root' in the order given, each in a process of
+    its own, and print every turn's times and the ptxas figures of each
+    body.  Returns the parsed turns."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    log(card)
+    here = os.path.dirname(os.path.abspath(__file__))
+    results = []
+    for turn in turns:
+        label, root = turn.split(":")
+        proc = subprocess.run(
+            [sys.executable, os.path.join(here, "chip_smoke.py"),
+             "--k1-worker", root], cwd=here,
+            capture_output=True, text=True, timeout=900)
+        line = next((x for x in proc.stdout.splitlines()
+                     if x.startswith("K1 ")), None)
+        if proc.returncode != 0 or line is None:
+            raise RuntimeError(f"turn {turn} failed:\n{proc.stdout[-3000:]}"
+                               f"\n{proc.stderr[-3000:]}")
+        r = json.loads(line[3:])
+        r["label"] = label
+        results.append(r)
+        log(f"turn {label} ({root}), build {r['build_s']:.1f} s: "
+            + "; ".join(f"{e} " + ", ".join(f"{m} {v[m]['ms']:.4f} ms"
+                                            for m in v)
+                        for e, v in r["entries"].items()))
+    ptx = {}
+    for r in results:
+        for e, d in r["ptxas"].items():
+            ptx.setdefault(r["label"], {})[e] = d
+    for label, d in ptx.items():
+        log(f"ptxas {label}: " + json.dumps(d))
+    return results
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device (torch.cuda.is_available() is "
                  "false); this script runs only on a GPU")
+    argv = sys.argv[1:]
+    if argv[:1] == ["--k1-worker"]:
+        return k1_turn_worker(argv[1])
+    if argv[:1] == ["--turns"]:
+        k1_turns(argv[1:])
+        return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
@@ -2271,7 +2533,7 @@ def main():
     log("phase 3: main path (Simulation.simulate, hex61, 100 TeV cascade)")
     res["3"] = phase3(device)
     log("phase 4: bench workload")
-    phase4(device, sweep="--sweep" in sys.argv[1:])
+    phase4(device, sweep="--sweep" in argv)
     log("phase 5a: record mode against plain version")
     res["5a"] = phase5a(device)
     log("phase 5b: SAVE_ALL with a record buffer that fills")

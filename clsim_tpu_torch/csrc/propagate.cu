@@ -38,10 +38,11 @@ extern "C" {
 // `tf_keys`
 // ((2 * params->iters,) uint32) when the mode has no threefry, and `rel`,
 // `strings`, `wtab`, `scat` when the mode does not read them.  `cnt_i`
-// holds 10 int64, zeroed: generated, hits, alive, work, and (COLL or MED
-// other than 0) strings tested, candidates culled, cull passes, DOM rows
-// tested, scatters and Rayleigh scatters (water).  Mode 0 is the main
-// path's instantiation.
+// holds 13 int64, zeroed: generated, hits, alive, work; (COLL or MED other
+// than 0) strings tested, candidates culled, cull passes, DOM rows tested,
+// scatters and Rayleigh scatters (water); layer-walk steps, warp-iterations
+// with a live lane and warp-iterations that ran the spawn stage.  Mode 0 is
+// the main path's instantiation.
 int clsim_propagate(int mode, const Params* params, float* state,
                     const float* steps, const float* uniforms,
                     const float* layers, const float* spec_tab,

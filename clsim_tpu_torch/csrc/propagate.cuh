@@ -16,25 +16,59 @@
 // stream or in-kernel threefry for the random numbers.  Its plain PyTorch
 // version is clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
 //
-// Design.  One thread per photon slot.  Each launch runs up to `iters`
-// iterations; in each, a slot without a live photon spawns one from its step
-// (respawn in place), the photon walks the layered ice until its scattering
-// or absorption budget or the segment cap is used up, the segment is tested
-// against the DOMs of the strings its cell may reach, a hit is deposited into
-// the (dom, time-bin) histogram with a float atomicAdd and kills the photon,
-// and a survivor scatters.  A thread whose slot has drained leaves its loop.
+// Design.  One thread owns one photon slot and keeps its photon's state in
+// registers for the launch.  Each launch runs up to `iters` iterations, in
+// step across the block of 256 threads.  An iteration has two stages:
+//  * the spawn stage: the owners of slots that need a photon (`fresh`) are
+//    listed in shared memory (a ballot and popc per warp, a prefix over the
+//    block's warps); the block's first n_spawn threads each make the photon
+//    of one listed slot (make_photon: the step row, the spectrum's binary
+//    search and solve, the medium's factors, the Cherenkov cone and its
+//    rotation, the bias) and write it to a shared slab; after a barrier
+//    each owner loads its photon.  The step rows are staged in shared
+//    memory at launch start.  The random numbers of a spawn stay keyed to
+//    the slot whose photon is made (rows 0-3 of the stream at [it, r,
+//    slot], Philox counter (it0 + it, slot, 0), threefry element r * N +
+//    slot), never to the thread that computes it, so every random mode
+//    draws what the slot-per-thread loop drew;
+//  * the propagate stage, on each owner's registers: the photon walks the
+//    layered ice until its scattering or absorption budget or the segment
+//    cap is used up, the segment is tested against the DOMs of the strings
+//    its cell may reach, a hit is deposited into the (dom, time-bin)
+//    histogram with a float atomicAdd and kills the photon, and a survivor
+//    scatters.
+// A thread whose slot has drained (or whose record finds the buffer full)
+// stays in the loop, inactive, so that every thread reaches the block's
+// barriers; the block leaves when no slot of it is live (__syncthreads_or).
+// The walk tests its exit by products, (tb - t_done) * rate >= budget (both
+// rates are positive), and divides the two distances once, at its last
+// step; divisions by per-launch constants are products by reciprocals the
+// host computed (Params), and the rotation uses sincosf and rsqrtf.
+// The kernel counts its walk steps (CNT_WALK), its warp-iterations with a
+// live lane and those that ran the spawn stage (SIMT efficiency and spawn
+// lanes a spawn, chip_smoke phase 2).
 //
-// What bounds it on this card: latency, not bandwidth or arithmetic.  Every
-// thread runs data-dependent loops (layer walk, candidate strings, z-window
-// DOMs) with early exits, so warps diverge, and it reads the layer and cell
-// tables at random.  The design keeps all photon state in registers for the
-// whole launch (state is read and written once per launch), keeps the tables
-// small and read-only (`const __restrict__`, served from L1/L2), lays one
-// cell's candidate strings out as consecutive 16-byte entries, keeps only
-// the `rounds` closest candidates in registers (no per-thread arrays in
-// local memory), and reduces the counters per warp and block so that one
-// atomic per block reaches global memory.  Shared memory, TMA and warp
-// specialisation are later work.
+// What bounds it on this card: latency, not bandwidth or arithmetic
+// (PERF.md section 5 has the measured account; NVIDIA H100 80GB HBM3,
+// 700.00 W: on the main path 2.25 walk steps a slot-iteration, every warp
+// full while no slot drains, and 1.20 lanes on the spawn path a spawn
+// where the slot-per-thread loop had 4.30).  Every thread runs
+// data-dependent loops (layer walk, candidate strings, z-window DOMs) with
+// early exits, so warps diverge, and it reads the layer and cell tables at
+// random.  The design keeps all photon state in registers for the whole
+// launch (read and written once), keeps the tables small and read-only
+// (`const __restrict__`, served from L1/L2), lays one cell's candidate
+// strings out as consecutive 16-byte entries, keeps only the `rounds`
+// closest candidates in registers, compacts the spawn so that a spawn
+// costs about one lane-iteration instead of a warp's, and reduces the
+// counters per warp and block so that one atomic per block reaches global
+// memory.  The barrier makes each iteration wait for the block's slowest
+// warp, and the spawn stage runs on few warps while the others wait: as the
+// kernel is latency-bound, a third resident block a SM (80 registers)
+// hides more of both than the registers it spills cost.  Where photons
+// rarely spawn and the propagate stage varies most between warps (the
+// expected modes on the general plan and in water), the wait costs more
+// than the compaction saves: ~20% over the slot-per-thread loop (PERF.md).
 //
 // Random numbers: Philox4x32-10 keyed by the wrapper's 64-bit seed, counter
 // (it0 + iteration, slot, block); or, in parity mode, an external (T, 8, N)
@@ -74,8 +108,8 @@
 // appended to a device buffer at a slot taken by an atomicAdd on one
 // counter.  The host call loop sets the capacity: a thread whose append
 // finds it full keeps the record pending (the photon is dead, so its x/y/z
-// and t already hold the record; `pend` keeps the flat index) and leaves its
-// loop; the next launch writes the pending record first.  No record is lost
+// and t already hold the record; `pend` keeps the flat index) and sits out
+// the rest of the launch; the next launch writes the pending record first.  No record is lost
 // and the buffer stays bounded.  What bounds the mode beyond the main path:
 // one atomic per record on a single counter and 88 scattered bytes per
 // record, both small beside the photon's walk.  The main path's
@@ -86,7 +120,7 @@
 // :1606-1629).  COLL 0 is the SubPlan test above.  COLL 1 and 2 use one
 // global 2-D cell grid: a cell lists <= k_cand candidate strings as three
 // float4 each (position, cull radius, DOM offset; z extent and DOM ladder;
-// DOM count and string index), and its list ends at the first padding entry
+// DOM count, string index and 1 / DOM spacing), and its list ends at the first padding entry
 // (cull radius -1); the cull ranks by the static segment cap,
 // as the TPU kernel does, and the n_rounds closest culled strings stay in
 // sorted registers.  COLL 1 (affine: every DOM on its string's z0 + m*dz
@@ -169,6 +203,16 @@ struct Params {
   // whether the phase/group index is tabulated, points of the angle CDF
   float wtab_x0, wtab_inv_dx;
   int n_wtab, ref_table, n_scat;
+  // per-launch constants the kernel multiplies by instead of dividing:
+  // 1 / layer height, 1 / tilt z-spacing; the anisotropy's 1 / k_i^2, their
+  // sum (B2) and 1 / k_i; the Liu exponent (1 - g) / (1 + g).  Two
+  // divisions stay: the histogram's time bin (a hit's bin must be the one
+  // its record's time gives, hits/photons; once a hit, not an iteration)
+  // and HG's / (2 g), whose product moved a hit away from the plain
+  // version (PERF.md, the kernel's redesign).
+  float inv_layer_h, inv_tilt_dz;
+  float an_il1, an_il2, an_il3, an_b2, an_ik1, an_ik2, an_ikz;
+  float liu_beta;
 };
 
 // collision (template COLL) and medium (template MED) instantiations
@@ -231,24 +275,29 @@ __device__ __forceinline__ float poly4(const float* c, float x) {
   return c[0] + x * (c[1] + x * (c[2] + x * (c[3] + x * c[4])));
 }
 
-// ops/rotations.scatter_direction_by_angle, including its vertical branch
+// ops/rotations.scatter_direction_by_angle, including its vertical branch:
+// the azimuth's sine and cosine in one call (of the same rounded angle as
+// the plain version's), 1 / sin(theta) and the final normalisation by
+// rsqrtf (no IEEE division)
 __device__ __forceinline__ void scatter_dir(float cosa, float sina, float dx,
                                             float dy, float dz, float u_az,
                                             float* ox, float* oy, float* oz) {
-  const float b = 2.0f * 3.14159265358979323846f * u_az;
-  const float cosb = cosf(b), sinb = sinf(b);
-  const float sinth = sqrtf(fmaxf(1.0f - dz * dz, 0.0f));
+  float sinb, cosb;
+  sincosf(2.0f * 3.14159265358979323846f * u_az, &sinb, &cosb);
+  const float q = fmaxf(1.0f - dz * dz, 0.0f);
   float nx, ny, nz;
-  if (sinth > 0.0f) {
-    nx = dx * cosa - (dy * cosb + dz * dx * sinb) * sina / sinth;
-    ny = dy * cosa + (dx * cosb - dz * dy * sinb) * sina / sinth;
-    nz = dz * cosa + sina * sinb * sinth;
+  if (q > 0.0f) {
+    const float r = rsqrtf(q);
+    const float f = sina * r;
+    nx = dx * cosa - (dy * cosb + dz * dx * sinb) * f;
+    ny = dy * cosa + (dx * cosb - dz * dy * sinb) * f;
+    nz = dz * cosa + sina * sinb * (q * r);
   } else {
     nx = sina * cosb;
     ny = sina * sinb;
     nz = cosa * (dz > 0.0f ? 1.0f : (dz < 0.0f ? -1.0f : 0.0f));
   }
-  const float inv = 1.0f / sqrtf(nx * nx + ny * ny + nz * nz);
+  const float inv = rsqrtf(nx * nx + ny * ny + nz * nz);
   *ox = nx * inv;
   *oy = ny * inv;
   *oz = nz * inv;
@@ -263,7 +312,7 @@ __device__ __forceinline__ void aniso_transform(const Params& p, float d1,
   const float n3 = *z * d3;
   const float ox = p.an_ca * n1 - p.an_sa * n2;
   const float oy = p.an_sa * n1 + p.an_ca * n2;
-  const float inv = 1.0f / sqrtf(ox * ox + oy * oy + n3 * n3);
+  const float inv = rsqrtf(ox * ox + oy * oy + n3 * n3);
   *x = ox * inv;
   *y = oy * inv;
   *z = n3 * inv;
@@ -313,7 +362,7 @@ __device__ __forceinline__ float tilt_shift(const Params& p,
                                             const float* __restrict__ zc,
                                             float x, float y, float z) {
   const int nz = p.nz_tilt, nd = p.nd_tilt;
-  const float zr = (z - p.tilt_z0) / p.tilt_dz;
+  const float zr = (z - p.tilt_z0) * p.inv_tilt_dz;
   const float kzf = fminf(fmaxf(floorf(zr), 0.0f), (float)(nz - 2));
   const int kz = (int)kzf;
   const float fz_above = zr - kzf;
@@ -356,8 +405,152 @@ __device__ __forceinline__ bool push_record(
   return true;
 }
 
+// ---------------------------------------------------------------------------
+// the spawn stage: the block's threads share one spawn list and one slab
+// ---------------------------------------------------------------------------
+
+// rows of the slab through which a spawner hands a new photon to its slot's
+// thread (the spawned part of the state, then the wavelength for records)
+enum { P_X, P_Y, P_Z, P_T, P_DX, P_DY, P_DZ, P_W0, P_IGV, P_ABS, P_GS, P_PA,
+       P_QA, P_RA, P_WL, NPR };
+// step rows a spawner reads (S_X .. S_SRC; S_ID stays with the slot)
+constexpr int NSTEP = S_SRC + 1;
+
+// Rows 0-3 of the random numbers of slot `s` in iteration `it`, the draws of
+// its spawn, whichever thread computes them: the external stream's
+// [it, r, s], threefry's element r * N + s under the iteration's key, or
+// Philox block 0 of counter (it0 + it, s).
+template <bool THREEFRY>
+__device__ __forceinline__ void spawn_draws(
+    const Params& p, const float* __restrict__ uni,
+    const unsigned int* __restrict__ tf_keys, int it, int s, float* u) {
+  const int N = p.n_slots;
+  if constexpr (THREEFRY) {
+    const unsigned int k0 = tf_keys[2 * it], k1 = tf_keys[2 * it + 1];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      u[r] = tf_u01(threefry_bits(
+          k0, k1, (unsigned int)r * (unsigned int)N + (unsigned int)s));
+  } else if (p.use_uniforms) {
+    const float* ui = uni + (size_t)it * 8 * N + s;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) u[r] = ui[(size_t)r * N];
+  } else {
+    const uint4 b = philox4x32_10(
+        make_uint4(p.it0 + (unsigned int)it, (unsigned int)s, 0u, 0u),
+        make_uint2(p.seed_lo, p.seed_hi));
+    u[0] = u01(b.x); u[1] = u01(b.y); u[2] = u01(b.z); u[3] = u01(b.w);
+  }
+}
+
+// The new photon of a step (createPhotonFromTrack, kernel.cl:132-184) from
+// the step row `st` and the spawn draws u0-u3, written to column `col` of
+// the slab: emission point and time, the wavelength from the step's own
+// spectrum table (binary search and solve), the medium's factors, the
+// Cherenkov cone (a flasher keeps its direction), the absorption budget,
+// the group velocity and the bias.
+template <bool RECORDS, int DEP, bool FIXED, int MED>
+__device__ __forceinline__ void make_photon(
+    const Params& p, const float* st, const float* u,
+    const float* __restrict__ spec_tab, const float* __restrict__ bias_tab,
+    const float* __restrict__ wtab, float (*slab)[BLOCK], int col) {
+  const float s_dx = st[S_DX], s_dy = st[S_DY], s_dz = st[S_DZ];
+  const float s_beta = st[S_BETA];
+  const int src = (int)st[S_SRC];
+  const float shift = st[S_LEN] * u[0];
+  slab[P_X][col] = st[S_X] + s_dx * shift;
+  slab[P_Y][col] = st[S_Y] + s_dy * shift;
+  slab[P_Z][col] = st[S_Z] + s_dz * shift;
+  slab[P_T][col] = st[S_T] + shift / (C_LIGHT * s_beta);
+  // wavelength: k = clip(#{acu <= u} - 1, 0, n-2), then the solve
+  const int ns = p.n_spec;
+  const float* __restrict__ sp_x = spec_tab + (size_t)src * 3 * ns;
+  const float* __restrict__ sp_acu = sp_x + ns;
+  const float* __restrict__ sp_beta = sp_x + 2 * ns;
+  const int k = locate_cdf(sp_acu, ns, u[1]);
+  const float wl = interp_solve(u[1], sp_x[k], sp_x[k + 1], sp_beta[k],
+                                sp_beta[k + 1], sp_acu[k]);
+  float n_phase, n_group, gs, pa, qa, ra;
+  if constexpr (MED == MED_CLOSED) {
+    const float wl_um = wl * 1e-3f;
+    n_phase = poly4(p.n, wl_um);
+    n_group = n_phase * poly4(p.g, wl_um);
+    gs = powf(wl / 400.0f, -p.alpha);
+    const float xkap = powf(wl, -p.kappa);
+    const float ebx = p.abs_a * expf(-p.abs_b / wl);
+    pa = p.abs_d * xkap;
+    qa = p.abs_e * xkap + ebx;
+    ra = 0.01f * ebx;
+  } else {
+    // tabulated medium: lerp the rows gs, pa, qa, ra (and n, g) on the
+    // uniform grid (MediumProperties._water_table)
+    const int nw = p.n_wtab;
+    const float wxi = (wl - p.wtab_x0) * p.wtab_inv_dx;
+    const float wk = fminf(fmaxf(floorf(wxi), 0.0f), (float)(nw - 2));
+    const float wfr = fminf(fmaxf(wxi - wk, 0.0f), 1.0f);
+    const float* __restrict__ w = wtab + (int)wk;
+    auto lerp = [&](int r) {
+      const float a = w[r * nw], b = w[r * nw + 1];
+      return a + wfr * (b - a);
+    };
+    gs = lerp(0);
+    pa = lerp(1);
+    qa = lerp(2);
+    ra = lerp(3);
+    if (p.ref_table) {
+      n_phase = lerp(4);
+      n_group = lerp(5);
+    } else {
+      const float wl_um = wl * 1e-3f;
+      n_phase = poly4(p.n, wl_um);
+      n_group = n_phase * poly4(p.g, wl_um);
+    }
+  }
+  float dx = s_dx, dy = s_dy, dz = s_dz;
+  if (src == 0) {  // the Cherenkov cone (a flasher keeps its direction)
+    const float cos_c = fminf(1.0f, 1.0f / (s_beta * n_phase));
+    const float sin_c = sqrtf(fmaxf(1.0f - cos_c * cos_c, 0.0f));
+    scatter_dir(cos_c, sin_c, s_dx, s_dy, s_dz, u[2], &dx, &dy, &dz);
+  }
+  slab[P_DX][col] = dx;
+  slab[P_DY][col] = dy;
+  slab[P_DZ][col] = dz;
+  if constexpr (DEP == DEP_EXPECTED || FIXED)
+    slab[P_ABS][col] = p.horizon;  // fixed absorption horizon
+  else
+    slab[P_ABS][col] = -logf(1.0f - u[3]);
+  slab[P_IGV][col] = 1.0f / (C_LIGHT / n_group);
+  // bias: linear interpolation, clamped at the grid's ends; the (2, n_bias)
+  // table holds the grid points, then the values
+  const int nb = p.n_bias;
+  const float* __restrict__ bias_y = bias_tab + nb;
+  int bk;
+  float bfrac;
+  if (p.bias_uniform) {  // index math on a uniform grid
+    const float bxi = (wl - p.bias_x0) * p.bias_inv_dx;
+    const float bkf = fminf(fmaxf(floorf(bxi), 0.0f), (float)(nb - 2));
+    bk = (int)bkf;
+    bfrac = fminf(fmaxf(bxi - bkf, 0.0f), 1.0f);
+  } else {  // binary search over the grid points
+    const float wlc = fminf(fmaxf(wl, bias_tab[0]), bias_tab[nb - 1]);
+    bk = locate_cdf(bias_tab, nb, wlc);
+    const float x0 = bias_tab[bk], x1 = bias_tab[bk + 1];
+    bfrac = fminf(fmaxf((wlc - x0) / fmaxf(x1 - x0, 1e-30f), 0.0f), 1.0f);
+  }
+  const float f0 = bias_y[bk], f1 = bias_y[bk + 1];
+  slab[P_W0][col] = st[S_W] / fmaxf(f0 + bfrac * (f1 - f0), 1e-20f);
+  slab[P_GS][col] = gs;
+  slab[P_PA][col] = pa;
+  slab[P_QA][col] = qa;
+  slab[P_RA][col] = ra;
+  if constexpr (RECORDS) slab[P_WL][col] = wl;
+}
+
+// Three resident blocks a SM, so at most 80 registers a thread.  Every
+// instantiation timed at 3 and at 1 (124 registers, 2 blocks) in turns ran
+// faster at 3, the record modes too, which spill 44-120 bytes (PERF.md).
 template <bool RECORDS, int DEP, bool THREEFRY, bool FIXED, int COLL, int MED>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(BLOCK, 3)
 propagate_kernel(const Params p, float* __restrict__ state,
                  const float* __restrict__ steps,
                  const float* __restrict__ uni,
@@ -375,51 +568,65 @@ propagate_kernel(const Params p, float* __restrict__ state,
                  const float4* __restrict__ strings,
                  const float* __restrict__ wtab,
                  const float* __restrict__ scat) {
+  __shared__ float s_slab[RECORDS ? NPR : P_WL][BLOCK];
+  __shared__ float s_step[NSTEP][BLOCK];
+  __shared__ unsigned short s_list[BLOCK];
+  __shared__ int s_wcnt[2][BLOCK / 32];
+
   const int N = p.n_slots;
-  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
-  long long n_gen = 0, n_hits = 0, n_work = 0, n_alive = 0;
+  const int tid = threadIdx.x;
+  const int slot = blockIdx.x * BLOCK + tid;
+  const bool valid = slot < N;
+  const int lane = tid & 31, warp = tid >> 5;
+  // a thread's counts (32 bits: one launch's fit; the block sums in 64)
+  unsigned int n_gen = 0, n_hits = 0, n_work = 0, n_alive = 0;
   // the work the bound counts beyond the main path's (kernel.py CNT_*): the
   // global plans' candidates culled, cull passes, strings given the sphere
   // test and DOM rows tested (COLL 1, 2); water's scatters and those that
-  // drew Rayleigh (MED 2)
-  long long n_cand = 0, n_cull = 0, n_tested = 0, n_rows = 0;
-  long long n_scat = 0, n_ray = 0;
+  // drew Rayleigh (MED 2); in every instantiation the layer-walk steps, and
+  // (lane 0 of each warp) warp-iterations with a live lane and those that
+  // ran the spawn stage
+  unsigned int n_cand = 0, n_cull = 0, n_tested = 0, n_rows = 0;
+  unsigned int n_scat = 0, n_ray = 0;
+  unsigned int n_walk = 0, n_warps = 0, n_swarps = 0;
   double w_sum = 0.0;
 
-  if (slot < N) {
-    float left = state[F_LEFT * N + slot], inflight = state[F_INF * N + slot];
-    float x = state[F_X * N + slot], y = state[F_Y * N + slot];
-    float z = state[F_Z * N + slot], t = state[F_T * N + slot];
-    float dx = state[F_DX * N + slot], dy = state[F_DY * N + slot];
-    float dz = state[F_DZ * N + slot], w0 = state[F_W0 * N + slot];
-    float inv_gv = state[F_IGV * N + slot];
-    float abs_left = state[F_ABS * N + slot];
-    float gs = state[F_GS * N + slot], pa = state[F_PA * N + slot];
-    float qa = state[F_QA * N + slot], ra = state[F_RA * N + slot];
+  // the slot's state (benign values past the last slot: such a thread only
+  // takes part in the block's barriers)
+  float left = 0.0f, inflight = 0.0f, x = 0.0f, y = 0.0f, z = 0.0f;
+  float t = 0.0f, dx = 0.0f, dy = 0.0f, dz = 1.0f, w0 = 0.0f;
+  float inv_gv = 5.0f, abs_left = 0.0f, gs = 1.0f, pa = 0.0f, qa = 1.0f;
+  float ra = 0.0f;
+  if (valid) {
+    left = state[F_LEFT * N + slot]; inflight = state[F_INF * N + slot];
+    x = state[F_X * N + slot]; y = state[F_Y * N + slot];
+    z = state[F_Z * N + slot]; t = state[F_T * N + slot];
+    dx = state[F_DX * N + slot]; dy = state[F_DY * N + slot];
+    dz = state[F_DZ * N + slot]; w0 = state[F_W0 * N + slot];
+    inv_gv = state[F_IGV * N + slot];
+    abs_left = state[F_ABS * N + slot];
+    gs = state[F_GS * N + slot]; pa = state[F_PA * N + slot];
+    qa = state[F_QA * N + slot]; ra = state[F_RA * N + slot];
+  }
+  // the block's step rows, for its spawners
+#pragma unroll
+  for (int f = 0; f < NSTEP; ++f)
+    s_step[f][tid] = valid ? steps[f * N + slot] : 0.0f;
 
-    const float s_x = steps[S_X * N + slot], s_y = steps[S_Y * N + slot];
-    const float s_z = steps[S_Z * N + slot], s_t = steps[S_T * N + slot];
-    const float s_dx = steps[S_DX * N + slot], s_dy = steps[S_DY * N + slot];
-    const float s_dz = steps[S_DZ * N + slot];
-    const float s_len = steps[S_LEN * N + slot];
-    const float s_beta = steps[S_BETA * N + slot];
-    const float s_w = steps[S_W * N + slot];
-    // the step's spectrum table (0: Cherenkov, flasher LEDs from 1)
-    const int src = (int)steps[S_SRC * N + slot];
+  const int L = p.L;
+  const float* __restrict__ lay_b = layers;
+  const float* __restrict__ lay_a = layers + L;
+  const float* __restrict__ lay_t = layers + 2 * L;
 
-    const int L = p.L;
-    const float* __restrict__ lay_b = layers;
-    const float* __restrict__ lay_a = layers + L;
-    const float* __restrict__ lay_t = layers + 2 * L;
-    const int ns = p.n_spec;
-    const uint2 key = make_uint2(p.seed_lo, p.seed_hi);
-
-    // record state (RECORDS only; dead code otherwise)
-    RecRegs rr = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
-    float* __restrict__ rs = state + (size_t)NSF * N + slot;
-    float ident = 0.0f;
-    int iters = p.iters;
-    if constexpr (RECORDS) {
+  // record state (RECORDS only; dead code otherwise).  A slot whose record
+  // finds the buffer full stalls: it stays in the loop, inactive, and the
+  // next launch writes its record first.
+  RecRegs rr = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1.f};
+  float* __restrict__ rs = state + (size_t)NSF * N + slot;
+  float ident = 0.0f;
+  bool stalled = false;
+  if constexpr (RECORDS) {
+    if (valid) {
       rr = {rs[R_WLEN * N], rs[R_ABS0 * N], rs[R_NSCAT * N], rs[R_DABS * N],
             rs[R_SX * N],   rs[R_SY * N],   rs[R_SZ * N],    rs[R_ST * N],
             rs[R_SDX * N],  rs[R_SDY * N],  rs[R_SDZ * N],   rs[R_PEND * N]};
@@ -430,365 +637,232 @@ propagate_kernel(const Params p, float* __restrict__ state,
                         slot))
           rr.pend = -1.0f;
         else
-          iters = 0;  // still full: stay stalled
+          stalled = true;
       }
     }
+  }
 
-    for (int it = 0; it < iters; ++it) {
-      const bool fresh = inflight < 0.5f && left > 0.5f;
-      if (!fresh && inflight < 0.5f) break;  // slot drained
+  for (int it = 0; it < p.iters; ++it) {
+    const bool live = valid && !stalled && (inflight > 0.5f || left > 0.5f);
+    const bool fresh = live && inflight < 0.5f;
+    const unsigned int fb = __ballot_sync(0xffffffffu, fresh);
+    const unsigned int lb = __ballot_sync(0xffffffffu, live);
+    if (lane == 0) s_wcnt[it & 1][warp] = __popc(fb);
+    // every thread stays in the loop until no slot of its block is live
+    if (!__syncthreads_or(live)) break;
 
-      float u[8];
-      if constexpr (THREEFRY) {
-        const unsigned int k0 = tf_keys[2 * it], k1 = tf_keys[2 * it + 1];
-        const unsigned int c = (unsigned int)slot, n = (unsigned int)N;
-        if (fresh) {
+    // ---------- spawn stage: the block's fresh slots, compacted ----------
+    int base = 0, n_spawn = 0;
 #pragma unroll
-          for (int r = 0; r < 4; ++r)
-            u[r] = tf_u01(threefry_bits(k0, k1, (unsigned int)r * n + c));
-        }
+    for (int w = 0; w < BLOCK / 32; ++w) {
+      const int c = s_wcnt[it & 1][w];
+      base += w < warp ? c : 0;
+      n_spawn += c;
+    }
+    if (lane == 0) {
+      n_warps += lb != 0u;
+      n_swarps += warp * 32 < n_spawn;
+    }
+    if (n_spawn > 0) {
+      if (fresh)
+        s_list[base + __popc(fb & ((1u << lane) - 1u))] = (unsigned short)tid;
+      __syncthreads();
+      // the first n_spawn threads of the block each make the photon of one
+      // listed slot, with that slot's random numbers and step row
+      if (tid < n_spawn) {
+        const int j = s_list[tid];
+        const int s = blockIdx.x * BLOCK + j;
+        float u[4], st[NSTEP];
+        spawn_draws<THREEFRY>(p, uni, tf_keys, it, s, u);
 #pragma unroll
-        for (int r = 4; r < 8; ++r)
-          u[r] = tf_u01(threefry_bits(k0, k1, (unsigned int)r * n + c));
-      } else if (p.use_uniforms) {
-        const float* ui = uni + (size_t)it * 8 * N + slot;
-        if (fresh) {
-#pragma unroll
-          for (int r = 0; r < 4; ++r) u[r] = ui[(size_t)r * N];
-        }
-#pragma unroll
-        for (int r = 4; r < 8; ++r) u[r] = ui[(size_t)r * N];
-      } else {
-        const unsigned int ctr = p.it0 + (unsigned int)it;
-        if (fresh) {
-          const uint4 b0 = philox4x32_10(make_uint4(ctr, slot, 0u, 0u), key);
-          u[0] = u01(b0.x); u[1] = u01(b0.y); u[2] = u01(b0.z); u[3] = u01(b0.w);
-        }
-        const uint4 b1 = philox4x32_10(make_uint4(ctr, slot, 1u, 0u), key);
-        u[4] = u01(b1.x); u[5] = u01(b1.y); u[6] = u01(b1.z); u[7] = u01(b1.w);
+        for (int f = 0; f < NSTEP; ++f) st[f] = s_step[f][j];
+        make_photon<RECORDS, DEP, FIXED, MED>(p, st, u, spec_tab, bias_tab,
+                                              wtab, s_slab, j);
       }
-
-      // ---------- spawn (createPhotonFromTrack, kernel.cl:132-184) ----------
+      __syncthreads();
       if (fresh) {
-        const float shift = s_len * u[0];
-        x = s_x + s_dx * shift;
-        y = s_y + s_dy * shift;
-        z = s_z + s_dz * shift;
-        t = s_t + shift / (C_LIGHT * s_beta);
-        // wavelength from the step's own table: k = clip(#{acu <= u} - 1,
-        // 0, n-2), then the solve
-        const float* __restrict__ sp_x = spec_tab + (size_t)src * 3 * ns;
-        const float* __restrict__ sp_acu = sp_x + ns;
-        const float* __restrict__ sp_beta = sp_x + 2 * ns;
-        int lo = 0, hi = ns;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (sp_acu[mid] <= u[1]) lo = mid + 1; else hi = mid;
-        }
-        const int k = min(max(lo - 1, 0), ns - 2);
-        const float wl = interp_solve(u[1], sp_x[k], sp_x[k + 1], sp_beta[k],
-                                      sp_beta[k + 1], sp_acu[k]);
-        float n_phase, n_group;
-        if constexpr (MED == MED_CLOSED) {
-          const float wl_um = wl * 1e-3f;
-          n_phase = poly4(p.n, wl_um);
-          n_group = n_phase * poly4(p.g, wl_um);
-          gs = powf(wl / 400.0f, -p.alpha);
-          const float xkap = powf(wl, -p.kappa);
-          const float ebx = p.abs_a * expf(-p.abs_b / wl);
-          pa = p.abs_d * xkap;
-          qa = p.abs_e * xkap + ebx;
-          ra = 0.01f * ebx;
-        } else {
-          // tabulated medium: lerp the rows gs, pa, qa, ra (and n, g) on
-          // the uniform grid (MediumProperties._water_table)
-          const int nw = p.n_wtab;
-          const float wxi = (wl - p.wtab_x0) * p.wtab_inv_dx;
-          const float wk = fminf(fmaxf(floorf(wxi), 0.0f), (float)(nw - 2));
-          const float wfr = fminf(fmaxf(wxi - wk, 0.0f), 1.0f);
-          const float* __restrict__ w = wtab + (int)wk;
-          auto lerp = [&](int r) {
-            const float a = w[r * nw], b = w[r * nw + 1];
-            return a + wfr * (b - a);
-          };
-          gs = lerp(0);
-          pa = lerp(1);
-          qa = lerp(2);
-          ra = lerp(3);
-          if (p.ref_table) {
-            n_phase = lerp(4);
-            n_group = lerp(5);
-          } else {
-            const float wl_um = wl * 1e-3f;
-            n_phase = poly4(p.n, wl_um);
-            n_group = n_phase * poly4(p.g, wl_um);
-          }
-        }
-        if (src == 0) {  // the Cherenkov cone (a flasher keeps its direction)
-          const float cos_c = fminf(1.0f, 1.0f / (s_beta * n_phase));
-          const float sin_c = sqrtf(fmaxf(1.0f - cos_c * cos_c, 0.0f));
-          scatter_dir(cos_c, sin_c, s_dx, s_dy, s_dz, u[2], &dx, &dy, &dz);
-        } else {
-          dx = s_dx; dy = s_dy; dz = s_dz;
-        }
-        if constexpr (DEP == DEP_EXPECTED || FIXED)
-          abs_left = p.horizon;  // fixed absorption horizon
-        else
-          abs_left = -logf(1.0f - u[3]);
-        inv_gv = 1.0f / (C_LIGHT / n_group);
-        // bias: linear interpolation, clamped at the grid's ends; the
-        // (2, n_bias) table holds the grid points, then the values
-        const int nb = p.n_bias;
-        const float* __restrict__ bias_y = bias_tab + nb;
-        int bk;
-        float bfrac;
-        if (p.bias_uniform) {  // index math on a uniform grid
-          const float bxi = (wl - p.bias_x0) * p.bias_inv_dx;
-          const float bkf = fminf(fmaxf(floorf(bxi), 0.0f), (float)(nb - 2));
-          bk = (int)bkf;
-          bfrac = fminf(fmaxf(bxi - bkf, 0.0f), 1.0f);
-        } else {  // binary search over the grid points
-          const float wlc = fminf(fmaxf(wl, bias_tab[0]), bias_tab[nb - 1]);
-          bk = locate_cdf(bias_tab, nb, wlc);
-          const float x0 = bias_tab[bk], x1 = bias_tab[bk + 1];
-          bfrac = fminf(fmaxf((wlc - x0) / fmaxf(x1 - x0, 1e-30f), 0.0f),
-                        1.0f);
-        }
-        const float f0 = bias_y[bk], f1 = bias_y[bk + 1];
-        w0 = s_w / fmaxf(f0 + bfrac * (f1 - f0), 1e-20f);
+        x = s_slab[P_X][tid]; y = s_slab[P_Y][tid]; z = s_slab[P_Z][tid];
+        t = s_slab[P_T][tid];
+        dx = s_slab[P_DX][tid]; dy = s_slab[P_DY][tid];
+        dz = s_slab[P_DZ][tid];
+        w0 = s_slab[P_W0][tid]; inv_gv = s_slab[P_IGV][tid];
+        abs_left = s_slab[P_ABS][tid];
+        gs = s_slab[P_GS][tid]; pa = s_slab[P_PA][tid];
+        qa = s_slab[P_QA][tid]; ra = s_slab[P_RA][tid];
         inflight = 1.0f;
         left -= 1.0f;
         ++n_gen;
         if constexpr (RECORDS) {  // spawn-time record state
-          rr.wlen = wl; rr.abs0 = abs_left; rr.nscat = 0.0f;
+          rr.wlen = s_slab[P_WL][tid]; rr.abs0 = abs_left; rr.nscat = 0.0f;
           rr.sx = x; rr.sy = y; rr.sz = z; rr.st = t;
           rr.sdx = dx; rr.sdy = dy; rr.sdz = dz;
         }
       }
-      ++n_work;
+    }
+    if (!live) continue;
 
-      // ---------- budgets + anisotropy (kernel.cl:615-694) ----------
-      float abs_corr = 1.0f;
-      if (p.aniso) {
-        const float l1 = p.an_k1 * p.an_k1, l2 = p.an_k2 * p.an_k2;
-        const float l3 = p.an_kz * p.an_kz;
-        const float B2 = 1.0f / l1 + 1.0f / l2 + 1.0f / l3;
-        const float n1 = p.an_ca * dx + p.an_sa * dy;
-        const float n2 = -p.an_sa * dx + p.an_ca * dy;
-        const float s1 = n1 * n1, s2 = n2 * n2, s3 = dz * dz;
-        const float nB = s1 / l1 + s2 / l2 + s3 / l3;
-        const float An = s1 * l1 + s2 * l2 + s3 * l3;
-        abs_corr = 2.0f / ((B2 - nB) * An);
-      }
-      const float sca_budget = -logf(1.0f - u[4]);
+    // ---------- propagate stage: the slot's own photon ----------
+    float u[8];  // rows 4-7: the segment's draws
+    if constexpr (THREEFRY) {
+      const unsigned int k0 = tf_keys[2 * it], k1 = tf_keys[2 * it + 1];
+#pragma unroll
+      for (int r = 4; r < 8; ++r)
+        u[r] = tf_u01(threefry_bits(
+            k0, k1, (unsigned int)r * (unsigned int)N + (unsigned int)slot));
+    } else if (p.use_uniforms) {
+      const float* ui = uni + (size_t)it * 8 * N + slot;
+#pragma unroll
+      for (int r = 4; r < 8; ++r) u[r] = ui[(size_t)r * N];
+    } else {
+      const uint4 b1 = philox4x32_10(
+          make_uint4(p.it0 + (unsigned int)it, (unsigned int)slot, 1u, 0u),
+          make_uint2(p.seed_lo, p.seed_hi));
+      u[4] = u01(b1.x); u[5] = u01(b1.y); u[6] = u01(b1.z); u[7] = u01(b1.w);
+    }
+    ++n_work;
 
-      // ---------- tilt + layer walk (kernel.cl:598-696) ----------
-      const float z_eff = p.nz_tilt ? z - tilt_shift(p, tilt_zc, x, y, z) : z;
-      const float j0f = fminf(fmaxf(floorf((z_eff - p.z_start) / p.layer_h),
-                                    0.0f), (float)(L - 1));
-      const int j0 = (int)j0f;
-      const bool up = dz >= 0.0f;
-      const int dirsign = up ? 1 : -1;
-      const float adz = fabsf(dz);
-      const bool vertical = adz < EPS;
-      const float bz = p.z_start + j0f * p.layer_h + (up ? p.layer_h : 0.0f);
-      float tb = vertical ? BIG : (bz - z_eff) / dz;
-      if (tb < 0.0f) tb = BIG;
-      const float tstep = vertical ? BIG : p.layer_h / fmaxf(adz, 1e-20f);
-      float t_done = 0.0f, tau_s = sca_budget, tau_a = abs_left * abs_corr;
-      float d_scat, d_abs, inv_a_fin;
-      for (int k = 0;; ++k) {
-        const int j = min(max(j0 + k * dirsign, 0), L - 1);
-        const float inv_s = gs * lay_b[j];
-        const float inv_a = pa * lay_a[j] + qa + ra * lay_t[j];
-        const float d_s = t_done + tau_s / inv_s;
-        const float d_a = t_done + tau_a / inv_a;
-        const bool at_edge = up ? (j >= L - 1) : (j <= 0);
-        if (at_edge || tb >= fminf(d_s, d_a) || tb >= p.max_seg || k >= p.K) {
-          d_scat = d_s;
-          d_abs = d_a;
-          inv_a_fin = inv_a;
-          break;
-        }
-        const float dt = tb - t_done;
-        tau_s -= dt * inv_s;
-        tau_a -= dt * inv_a;
-        t_done = tb;
-        tb += tstep;
-      }
-      bool absorbed = d_abs < d_scat;
-      float d_prop = fminf(fminf(d_scat, d_abs), p.max_seg);
-      const bool capped = (!absorbed && d_scat > p.max_seg) ||
-                          (absorbed && d_abs > p.max_seg);
-      absorbed = absorbed && !capped;
-      bool scattered = !absorbed && !capped;
-      float abs_left_corr =
-          absorbed ? 0.0f : fmaxf(tau_a - (d_prop - t_done) * inv_a_fin, 0.0f);
+    // ---------- budgets + anisotropy (kernel.cl:615-694) ----------
+    float abs_corr = 1.0f;
+    if (p.aniso) {
+      const float l1 = p.an_k1 * p.an_k1, l2 = p.an_k2 * p.an_k2;
+      const float l3 = p.an_kz * p.an_kz;
+      const float n1 = p.an_ca * dx + p.an_sa * dy;
+      const float n2 = -p.an_sa * dx + p.an_ca * dy;
+      const float s1 = n1 * n1, s2 = n2 * n2, s3 = dz * dz;
+      const float nB = s1 * p.an_il1 + s2 * p.an_il2 + s3 * p.an_il3;
+      const float An = s1 * l1 + s2 * l2 + s3 * l3;
+      abs_corr = 2.0f / ((p.an_b2 - nB) * An);
+    }
+    const float sca_budget = -logf(1.0f - u[4]);
 
-      // ---------- SubPlan collision (sparse_collision_kernel.cl) ----------
-      float best = d_prop;
-      int best_dom = 0;
-      const float dxy2 = dx * dx + dy * dy;
-      if constexpr (COLL != COLL_SUBPLANS) {
-        // ---------- global cell plan (kernel.py:947-1003, :1270-1456) ----
-        if (dxy2 > 0.0f) {
-          const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
-          const float cxi = fminf(fmaxf(floorf((x - p.g_x0) * p.g_inv_cell),
-                                        0.0f), (float)(p.g_nx - 1));
-          const float cyi = fminf(fmaxf(floorf((y - p.g_y0) * p.g_inv_cell),
-                                        0.0f), (float)(p.g_ny - 1));
-          // [cell][candidate][3] float4: (sx, sy, maxr^2, dom offset),
-          // (minz, maxz, z0, dz), (n doms, string index, 0, 0)
-          const float4* __restrict__ cand =
-              cells + ((int)cxi * p.g_ny + (int)cyi) * p.g_k_cand * 3;
-          // the cull ranks by the static segment cap; keep the n_rounds
-          // closest culled strings sorted (ties keep the earlier candidate)
-          float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
-          int rci[MAX_ROUNDS];
-#pragma unroll
-          for (int r = 0; r < MAX_ROUNDS; ++r) {
-            rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; rci[r] = 0;
-          }
-          for (int c = 0; c < p.g_k_cand; ++c) {
-            const float4 e = cand[3 * c];
-            // the cell's list ends at its padding (maxr^2 = -1, which no
-            // string passes)
-            if (e.z < 0.0f) break;
-            ++n_cand;
-            const float rx = e.x - x, ry = e.y - y;
-            const float bd2 = rx * dx + ry * dy;
-            const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
-            const float cx = rx - dx * t2d, cy = ry - dy * t2d;
-            float d2 = cx * cx + cy * cy;
-            if (!(d2 <= e.z)) continue;
-            ++n_cull;
-            const float4 ez = cand[3 * c + 1];  // the candidate's z extent
-            if ((dz > 0.0f && z > ez.y + p.r) || (dz < 0.0f && z < ez.x - p.r))
-              continue;
-            float a2 = rx * rx + ry * ry, bd = bd2;
-            int ci = c;
-#pragma unroll
-            for (int r = 0; r < MAX_ROUNDS; ++r) {
-              if (d2 < rd2[r]) {
-                const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
-                const int t3 = rci[r];
-                rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; rci[r] = ci;
-                d2 = t0; a2 = t1; bd = t2; ci = t3;
-              }
-            }
-          }
-          const float margin = p.r + 1.0f;
-#pragma unroll
-          for (int r = 0; r < MAX_ROUNDS; ++r) {
-            if (r >= p.n_rounds || !(rd2[r] < BIG)) break;
-            ++n_tested;
-            const float4 e0 = cand[3 * rci[r]];
-            const int off = (int)e0.w;
-            if constexpr (COLL == COLL_AFFINE) {
-              // the n_dom_cand ladder DOMs of the z-window from the ceil
-              // anchor, each string's (z0, dz, n) from its own entry
-              const float4 e1 = cand[3 * rci[r] + 1];
-              const float nd = cand[3 * rci[r] + 2].x;
-              const float z0 = e1.z, dzf = e1.w, inv_dzf = 1.0f / dzf;
-              const float m1 = (z - z0) * inv_dzf;
-              const float m2 = m1 + dz * d_prop * inv_dzf;
-              const float mlo = ceilf(fminf(m1, m2) - margin * fabsf(inv_dzf));
-              n_rows += p.n_dom_cand;
-              for (int c = 0; c < p.n_dom_cand; ++c) {
-                const float m = fminf(fmaxf(mlo + (float)c, 0.0f), nd - 1.0f);
-                const float oz = z0 + dzf * m - z;
-                const float urdot = rBd[r] + oz * dz;
-                const float dr2 = rA2[r] + oz * oz;
-                const float discr = urdot * urdot - dr2 + p.r2;
-                if (discr >= 0.0f) {
-                  const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
-                  if (smin1 >= 0.0f && smin1 < best) {
-                    best = smin1;
-                    best_dom = off + (int)m;
-                  }
-                }
-              }
-            } else {
-              // every DOM row of the string: its fitted ladder plus the
-              // residuals of the surveyed positions (its nd valid rows come
-              // first, geometry.build_geometry)
-              const float4 e2 = cand[3 * rci[r] + 2];  // nd, string index
-              const int sidx = (int)e2.y;
-              n_rows += (long long)e2.x;
-              const float4 sf = strings[sidx];  // x, y, z0, dz
-              const float4* __restrict__ rows = rel + (size_t)sidx * p.m_rel;
-              for (int m = 0; m < p.m_rel; ++m) {
-                const float4 q = rows[m];  // dx, dy, dz, valid
-                if (!(q.w > 0.5f)) continue;
-                const float ox = sf.x + q.x - x;
-                const float oy = sf.y + q.y - y;
-                const float oz = sf.z + sf.w * (float)m + q.z - z;
-                const float dr2 = ox * ox + oy * oy + oz * oz;
-                const float urdot = ox * dx + oy * dy + oz * dz;
-                const float discr = urdot * urdot - dr2 + p.r2;
-                if (discr >= 0.0f) {
-                  const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
-                  if (smin1 >= 0.0f && smin1 < best) {
-                    best = smin1;
-                    best_dom = off + m;
-                  }
-                }
-              }
-            }
-          }
-        }
-      } else if (dxy2 > 0.0f) {  // exactly vertical photons are invisible
+    // ---------- tilt + layer walk (kernel.cl:598-696) ----------
+    // The walk crosses layer boundaries until a budget runs out before the
+    // next one: (tb - t_done) * rate >= budget, both rates positive, tests
+    // the exit without a division; the distances are divided once, at the
+    // step that ends the walk.
+    const float z_eff = p.nz_tilt ? z - tilt_shift(p, tilt_zc, x, y, z) : z;
+    const float j0f = fminf(
+        fmaxf(floorf((z_eff - p.z_start) * p.inv_layer_h), 0.0f),
+        (float)(L - 1));
+    const int j0 = (int)j0f;
+    const bool up = dz >= 0.0f;
+    const int dirsign = up ? 1 : -1;
+    const bool vertical = fabsf(dz) < EPS;
+    const float bz = p.z_start + j0f * p.layer_h + (up ? p.layer_h : 0.0f);
+    float tb = BIG, tstep = BIG;
+    if (!vertical) {
+      const float rdz = 1.0f / dz;
+      tb = (bz - z_eff) * rdz;
+      tstep = p.layer_h * fabsf(rdz);
+    }
+    if (tb < 0.0f) tb = BIG;
+    float t_done = 0.0f, tau_s = sca_budget, tau_a = abs_left * abs_corr;
+    float inv_s, inv_a;
+    int k = 0, j = j0;
+    float cb = lay_b[j], ca = lay_a[j], ct = lay_t[j];
+    for (;; ++k) {
+      // the next layer's entries are read before this step's exit test,
+      // so that a crossing does not wait for them
+      const int jn = min(max(j + dirsign, 0), L - 1);
+      const float nb = lay_b[jn], na = lay_a[jn], nt = lay_t[jn];
+      inv_s = gs * cb;
+      inv_a = pa * ca + qa + ra * ct;
+      const float seg = tb - t_done;
+      const bool at_edge = up ? (j >= L - 1) : (j <= 0);
+      if (at_edge || seg * inv_s >= tau_s || seg * inv_a >= tau_a ||
+          tb >= p.max_seg || k >= p.K)
+        break;
+      tau_s -= seg * inv_s;
+      tau_a -= seg * inv_a;
+      t_done = tb;
+      tb += tstep;
+      j = jn; cb = nb; ca = na; ct = nt;
+    }
+    n_walk += k + 1;
+    const float d_scat = t_done + tau_s / inv_s;
+    const float d_abs = t_done + tau_a / inv_a;
+    bool absorbed = d_abs < d_scat;
+    float d_prop = fminf(fminf(d_scat, d_abs), p.max_seg);
+    const bool capped = (!absorbed && d_scat > p.max_seg) ||
+                        (absorbed && d_abs > p.max_seg);
+    absorbed = absorbed && !capped;
+    bool scattered = !absorbed && !capped;
+    float abs_left_corr =
+        absorbed ? 0.0f : fmaxf(tau_a - (d_prop - t_done) * inv_a, 0.0f);
+
+    // ---------- SubPlan collision (sparse_collision_kernel.cl) ----------
+    float best = d_prop;
+    int best_dom = 0;
+    const float dxy2 = dx * dx + dy * dy;
+    if constexpr (COLL != COLL_SUBPLANS) {
+      // ---------- global cell plan (kernel.py:947-1003, :1270-1456) ----
+      if (dxy2 > 0.0f) {
         const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
-        const float margin = p.r + 1.0f;
-        for (int pi = 0; pi < p.n_plans; ++pi) {
-          const PlanParams& pp = p.plans[pi];
-          if ((dz > 0.0f && z > pp.maxz + p.r) ||
-              (dz < 0.0f && z < pp.minz - p.r))
+        const float cxi = fminf(fmaxf(floorf((x - p.g_x0) * p.g_inv_cell),
+                                      0.0f), (float)(p.g_nx - 1));
+        const float cyi = fminf(fmaxf(floorf((y - p.g_y0) * p.g_inv_cell),
+                                      0.0f), (float)(p.g_ny - 1));
+        // [cell][candidate][3] float4: (sx, sy, maxr^2, dom offset),
+        // (minz, maxz, z0, dz), (n doms, string index, 1 / dz, 0)
+        const float4* __restrict__ cand =
+            cells + ((int)cxi * p.g_ny + (int)cyi) * p.g_k_cand * 3;
+        // the cull ranks by the static segment cap; keep the n_rounds
+        // closest culled strings sorted (ties keep the earlier candidate)
+        float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
+        int rci[MAX_ROUNDS];
+#pragma unroll
+        for (int r = 0; r < MAX_ROUNDS; ++r) {
+          rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; rci[r] = 0;
+        }
+        for (int c = 0; c < p.g_k_cand; ++c) {
+          const float4 e = cand[3 * c];
+          // the cell's list ends at its padding (maxr^2 = -1, which no
+          // string passes)
+          if (e.z < 0.0f) break;
+          ++n_cand;
+          const float rx = e.x - x, ry = e.y - y;
+          const float bd2 = rx * dx + ry * dy;
+          const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
+          const float cx = rx - dx * t2d, cy = ry - dy * t2d;
+          float d2 = cx * cx + cy * cy;
+          if (!(d2 <= e.z)) continue;
+          ++n_cull;
+          const float4 ez = cand[3 * c + 1];  // the candidate's z extent
+          if ((dz > 0.0f && z > ez.y + p.r) || (dz < 0.0f && z < ez.x - p.r))
             continue;
-          const float cxi = fminf(fmaxf(floorf((x - pp.x0) * pp.inv_cell),
-                                        0.0f), (float)(pp.nx - 1));
-          const float cyi = fminf(fmaxf(floorf((y - pp.y0) * pp.inv_cell),
-                                        0.0f), (float)(pp.ny - 1));
-          const float4* __restrict__ cand =
-              cells + pp.cell_off + ((int)cxi * pp.ny + (int)cyi) * pp.k_cand;
-          // keep the `rounds` closest culled strings, sorted by 2-D distance
-          // (ties keep the earlier candidate)
-          float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
-          int roff[MAX_ROUNDS];
+          float a2 = rx * rx + ry * ry, bd = bd2;
+          int ci = c;
 #pragma unroll
           for (int r = 0; r < MAX_ROUNDS; ++r) {
-            rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; roff[r] = 0;
-          }
-          for (int c = 0; c < pp.k_cand; ++c) {
-            const float4 e = cand[c];  // sx, sy, maxr^2, dom offset
-            const float rx = e.x - x, ry = e.y - y;
-            const float bd2 = rx * dx + ry * dy;
-            const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
-            const float cx = rx - dx * t2d, cy = ry - dy * t2d;
-            float d2 = cx * cx + cy * cy;
-            if (!(d2 <= e.z)) continue;
-            float a2 = rx * rx + ry * ry, bd = bd2;
-            int off = (int)e.w;
-#pragma unroll
-            for (int r = 0; r < MAX_ROUNDS; ++r) {
-              if (d2 < rd2[r]) {
-                const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
-                const int t3 = roff[r];
-                rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; roff[r] = off;
-                d2 = t0; a2 = t1; bd = t2; off = t3;
-              }
+            if (d2 < rd2[r]) {
+              const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
+              const int t3 = rci[r];
+              rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; rci[r] = ci;
+              d2 = t0; a2 = t1; bd = t2; ci = t3;
             }
           }
-          // ray-sphere test against the z-window DOMs of each picked string
-          const float m1 = (z - pp.uz_z0) * pp.inv_dz;
-          const float m2 = m1 + dz * (d_prop * pp.inv_dz);
-          const float mlo = ceilf(fminf(m1, m2) - margin * fabsf(pp.inv_dz));
+        }
+        const float margin = p.r + 1.0f;
 #pragma unroll
-          for (int r = 0; r < MAX_ROUNDS; ++r) {
-            if (r >= pp.rounds || !(rd2[r] < BIG)) break;
-            for (int c = 0; c < pp.n_dom_cand; ++c) {
-              const float m = fminf(fmaxf(mlo + (float)c, 0.0f), pp.uz_nd - 1.0f);
-              const float oz = pp.uz_z0 + pp.uz_dz * m - z;
+        for (int r = 0; r < MAX_ROUNDS; ++r) {
+          if (r >= p.n_rounds || !(rd2[r] < BIG)) break;
+          ++n_tested;
+          const float4 e0 = cand[3 * rci[r]];
+          const int off = (int)e0.w;
+          if constexpr (COLL == COLL_AFFINE) {
+            // the n_dom_cand ladder DOMs of the z-window from the ceil
+            // anchor, each string's (z0, dz, n, 1 / dz) from its own entry
+            const float4 e1 = cand[3 * rci[r] + 1];
+            const float4 e2 = cand[3 * rci[r] + 2];
+            const float nd = e2.x, inv_dzf = e2.z;
+            const float z0 = e1.z, dzf = e1.w;
+            const float m1 = (z - z0) * inv_dzf;
+            const float m2 = m1 + dz * d_prop * inv_dzf;
+            const float mlo = ceilf(fminf(m1, m2) - margin * fabsf(inv_dzf));
+            n_rows += p.n_dom_cand;
+            for (int c = 0; c < p.n_dom_cand; ++c) {
+              const float m = fminf(fmaxf(mlo + (float)c, 0.0f), nd - 1.0f);
+              const float oz = z0 + dzf * m - z;
               const float urdot = rBd[r] + oz * dz;
               const float dr2 = rA2[r] + oz * oz;
               const float discr = urdot * urdot - dr2 + p.r2;
@@ -796,174 +870,268 @@ propagate_kernel(const Params p, float* __restrict__ state,
                 const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
                 if (smin1 >= 0.0f && smin1 < best) {
                   best = smin1;
-                  best_dom = roff[r] + (int)m;
+                  best_dom = off + (int)m;
+                }
+              }
+            }
+          } else {
+            // every DOM row of the string: its fitted ladder plus the
+            // residuals of the surveyed positions (its nd valid rows come
+            // first, geometry.build_geometry)
+            const float4 e2 = cand[3 * rci[r] + 2];  // nd, string index
+            const int sidx = (int)e2.y;
+            n_rows += (unsigned int)e2.x;
+            const float4 sf = strings[sidx];  // x, y, z0, dz
+            const float4* __restrict__ rows = rel + (size_t)sidx * p.m_rel;
+            for (int m = 0; m < p.m_rel; ++m) {
+              const float4 q = rows[m];  // dx, dy, dz, valid
+              if (!(q.w > 0.5f)) continue;
+              const float ox = sf.x + q.x - x;
+              const float oy = sf.y + q.y - y;
+              const float oz = sf.z + sf.w * (float)m + q.z - z;
+              const float dr2 = ox * ox + oy * oy + oz * oz;
+              const float urdot = ox * dx + oy * dy + oz * dz;
+              const float discr = urdot * urdot - dr2 + p.r2;
+              if (discr >= 0.0f) {
+                const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
+                if (smin1 >= 0.0f && smin1 < best) {
+                  best = smin1;
+                  best_dom = off + m;
                 }
               }
             }
           }
         }
       }
-      const bool hit = best < d_prop;
-
-      if constexpr (DEP == DEP_STOP) {
-        // ---------- hit: deposit and stop (kernel.cl:307-404) ----------
-        if (hit) {
-          d_prop = best;
-          absorbed = false;
-          scattered = false;
-          abs_left_corr = 0.0f;
-          const float t_hit = t + inv_gv * best;
-          const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
-                                        0.0f), (float)(p.nbins - 1));
-          atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
-          ++n_hits;
-          w_sum += (double)w0;
+    } else if (dxy2 > 0.0f) {  // exactly vertical photons are invisible
+      const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
+      const float margin = p.r + 1.0f;
+      for (int pi = 0; pi < p.n_plans; ++pi) {
+        const PlanParams& pp = p.plans[pi];
+        if ((dz > 0.0f && z > pp.maxz + p.r) ||
+            (dz < 0.0f && z < pp.minz - p.r))
+          continue;
+        const float cxi = fminf(fmaxf(floorf((x - pp.x0) * pp.inv_cell),
+                                      0.0f), (float)(pp.nx - 1));
+        const float cyi = fminf(fmaxf(floorf((y - pp.y0) * pp.inv_cell),
+                                      0.0f), (float)(pp.ny - 1));
+        const float4* __restrict__ cand =
+            cells + pp.cell_off + ((int)cxi * pp.ny + (int)cyi) * pp.k_cand;
+        // keep the `rounds` closest culled strings, sorted by 2-D distance
+        // (ties keep the earlier candidate)
+        float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
+        int roff[MAX_ROUNDS];
+#pragma unroll
+        for (int r = 0; r < MAX_ROUNDS; ++r) {
+          rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; roff[r] = 0;
         }
-      } else if constexpr (DEP == DEP_PASS) {
-        // ---------- non-stopping detect: deposit, keep flying ----------
-        if (hit) {
-          const float t_hit = t + inv_gv * best;
-          const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
-                                        0.0f), (float)(p.nbins - 1));
-          atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
-          ++n_hits;
-          w_sum += (double)w0;
-        }
-      } else {
-        // ---------- expected: survival weight at the DOM entry, the
-        // photon passes through (engine.py expected block) ----------
-        if (hit) {
-          const float tau_start = p.horizon - abs_left;
-          const float tau_seg = abs_left - abs_left_corr / abs_corr;
-          const float frac = d_prop > 0.0f ? best / d_prop : 0.0f;
-          float w = w0 * expf(-(tau_start + frac * tau_seg));
-          if (p.n_ang > 0) {
-            const float ce = fminf(fmaxf(-(dx * p.pmt_ax + dy * p.pmt_ay +
-                                           dz * p.pmt_az), -1.0f), 1.0f);
-            float ang = 0.0f;
-            for (int k = p.n_ang - 1; k >= 0; --k) ang = ang * ce + p.ang[k];
-            w *= fmaxf(ang, 0.0f);
-          }
-          const float t_hit = t + inv_gv * best;
-          const float tbf = (t_hit - p.hist_t0) / p.hist_dt;
-          float* __restrict__ h = hist + (size_t)best_dom * p.nbins;
-          if (p.soft) {
-            const float fl = floorf(tbf);
-            const float fr_hi = fminf(fmaxf(tbf - fl, 0.0f), 1.0f);
-            const float lo = fminf(fmaxf(fl, 0.0f), (float)(p.nbins - 1));
-            const float hi = fminf(lo + 1.0f, (float)(p.nbins - 1));
-            atomicAdd(h + (int)lo, w * (1.0f - fr_hi));
-            atomicAdd(h + (int)hi, w * fr_hi);
-          } else {
-            atomicAdd(h + (int)fminf(fmaxf(tbf, 0.0f), (float)(p.nbins - 1)),
-                      w);
-          }
-          ++n_hits;
-          w_sum += (double)w;
-        }
-      }
-
-      // ---------- record: at the hit, or (rec_all) at the absorption
-      // point, prescaled on u7, dom 0 (engine._record_values) ----------
-      bool rec_now = false;
-      float rec_idx = 0.0f, rec_x = 0.0f, rec_y = 0.0f, rec_z = 0.0f;
-      if constexpr (RECORDS) {
-        int rdom = best_dom;
-        if (p.rec_all) {
-          rec_now = absorbed &&
-                    (p.rec_prescale >= 1.0f || u[7] < p.rec_prescale);
-          rdom = 0;
-        } else {
-          rec_now = hit;
-        }
-        if (rec_now) {
-          // the time bin of t + inv_gv * d_prop (d_prop is the hit
-          // distance for a hit)
-          const float tb = fminf(
-              fmaxf((t + inv_gv * d_prop - p.hist_t0) / p.hist_dt, 0.0f),
-              (float)(p.nbins - 1));
-          rec_idx = (float)(rdom * p.nbins + (int)tb);
-          // position relative to the DOM centre moved toward the
-          // closest-approach plane (the pancake un-correction)
-          const float4 c = doms[rdom];
-          const float pxr = x - c.x, pyr = y - c.y, pzr = z - c.z;
-          const float par = pxr * dx + pyr * dy + pzr * dz;
-          rec_x = x + d_prop * dx - (c.x + p.rec_fpk * (pxr - par * dx));
-          rec_y = y + d_prop * dy - (c.y + p.rec_fpk * (pyr - par * dy));
-          rec_z = z + d_prop * dz - (c.z + p.rec_fpk * (pzr - par * dz));
-          rr.dabs = rr.abs0 - abs_left;
-        }
-      }
-
-      // ---------- advance ----------
-      x += dx * d_prop;
-      y += dy * d_prop;
-      z += dz * d_prop;
-      t += inv_gv * d_prop;
-      abs_left = abs_left_corr / abs_corr;
-
-      // ---------- scatter survivors (HG / simplified-Liu mixture) ----------
-      if (scattered) {
-        float pdx = dx, pdy = dy, pdz = dz;
-        if (p.aniso) aniso_transform(p, p.an_k1, p.an_k2, p.an_kz, &pdx, &pdy, &pdz);
-        const float g = p.mean_cos;
-        float cos_s;
-        if constexpr (MED == MED_WATER) {
-          // Rayleigh mixed with the tabulated (Petzold) scattering angle,
-          // u5 the branch, u6 the sample (kernel.py:1606-1629)
-          ++n_scat;
-          if (u[5] < p.liu_frac) {
-            ++n_ray;
-            cos_s = rayleigh_cos(u[6]);
-          } else {
-            const int ns2 = p.n_scat;
-            const float* __restrict__ sx_ = scat;
-            const float* __restrict__ sacu = scat + ns2;
-            const float* __restrict__ sbeta = scat + 2 * ns2;
-            const int k = locate_cdf(sacu, ns2, u[6]);
-            cos_s = cosf(interp_solve(u[6], sx_[k], sx_[k + 1], sbeta[k],
-                                      sbeta[k + 1], sacu[k]));
-          }
-        } else if (u[5] < p.liu_frac) {
-          const float beta_liu = (1.0f - g) / (1.0f + g);
-          cos_s = fminf(fmaxf(2.0f * powf(u[6], beta_liu) - 1.0f, -1.0f), 1.0f);
-        } else {
-          const float svar = 2.0f * u[6] - 1.0f;
-          if (fabsf(g) < 1e-6f) {
-            cos_s = svar;
-          } else {
-            const float frac2 = (1.0f - g * g) / (1.0f + g * svar);
-            cos_s = fminf(fmaxf((1.0f + g * g - frac2 * frac2) / (2.0f * g),
-                                -1.0f), 1.0f);
+#pragma unroll 4
+        for (int c = 0; c < pp.k_cand; ++c) {
+          const float4 e = cand[c];  // sx, sy, maxr^2, dom offset
+          const float rx = e.x - x, ry = e.y - y;
+          const float bd2 = rx * dx + ry * dy;
+          const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
+          const float cx = rx - dx * t2d, cy = ry - dy * t2d;
+          float d2 = cx * cx + cy * cy;
+          if (!(d2 <= e.z)) continue;
+          float a2 = rx * rx + ry * ry, bd = bd2;
+          int off = (int)e.w;
+#pragma unroll
+          for (int r = 0; r < MAX_ROUNDS; ++r) {
+            if (d2 < rd2[r]) {
+              const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
+              const int t3 = roff[r];
+              rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; roff[r] = off;
+              d2 = t0; a2 = t1; bd = t2; off = t3;
+            }
           }
         }
-        const float sin_s = sqrtf(fmaxf(1.0f - cos_s * cos_s, 0.0f));
-        scatter_dir(cos_s, sin_s, pdx, pdy, pdz, u[7], &dx, &dy, &dz);
-        if (p.aniso)
-          aniso_transform(p, 1.0f / p.an_k1, 1.0f / p.an_k2, 1.0f / p.an_kz,
-                          &dx, &dy, &dz);
-        if constexpr (RECORDS) rr.nscat += 1.0f;
-      }
-
-      // ---------- retire ----------
-      if (absorbed || abs_left < EPS || (DEP == DEP_STOP && hit))
-        inflight = 0.0f;
-
-      // ---------- append the record (the photon is dead: x/y/z keep the
-      // record position, t the record time; a full buffer stalls) ----------
-      if constexpr (RECORDS) {
-        if (rec_now) {
-          x = rec_x; y = rec_y; z = rec_z;
-          if (!push_record(rec_buf, rec_cnt, p.rec_cap, rr, x, y, z, t, dx,
-                           dy, dz, ident, inv_gv, rec_idx,
-                           p.rec_all ? 0.0f : w0, slot)) {
-            rr.pend = rec_idx;
-            break;
+        // ray-sphere test against the z-window DOMs of each picked string
+        const float m1 = (z - pp.uz_z0) * pp.inv_dz;
+        const float m2 = m1 + dz * (d_prop * pp.inv_dz);
+        const float mlo = ceilf(fminf(m1, m2) - margin * fabsf(pp.inv_dz));
+#pragma unroll
+        for (int r = 0; r < MAX_ROUNDS; ++r) {
+          if (r >= pp.rounds || !(rd2[r] < BIG)) break;
+          for (int c = 0; c < pp.n_dom_cand; ++c) {
+            const float m = fminf(fmaxf(mlo + (float)c, 0.0f), pp.uz_nd - 1.0f);
+            const float oz = pp.uz_z0 + pp.uz_dz * m - z;
+            const float urdot = rBd[r] + oz * dz;
+            const float dr2 = rA2[r] + oz * oz;
+            const float discr = urdot * urdot - dr2 + p.r2;
+            if (discr >= 0.0f) {
+              const float smin1 = urdot - sqrtf(discr) * p.inv_pancake;
+              if (smin1 >= 0.0f && smin1 < best) {
+                best = smin1;
+                best_dom = roff[r] + (int)m;
+              }
+            }
           }
         }
       }
     }
+    const bool hit = best < d_prop;
 
+    if constexpr (DEP == DEP_STOP) {
+      // ---------- hit: deposit and stop (kernel.cl:307-404) ----------
+      if (hit) {
+        d_prop = best;
+        absorbed = false;
+        scattered = false;
+        abs_left_corr = 0.0f;
+        const float t_hit = t + inv_gv * best;
+        const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
+                                      0.0f), (float)(p.nbins - 1));
+        atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
+        ++n_hits;
+        w_sum += (double)w0;
+      }
+    } else if constexpr (DEP == DEP_PASS) {
+      // ---------- non-stopping detect: deposit, keep flying ----------
+      if (hit) {
+        const float t_hit = t + inv_gv * best;
+        const float tbf = fminf(fmaxf((t_hit - p.hist_t0) / p.hist_dt,
+                                      0.0f), (float)(p.nbins - 1));
+        atomicAdd(hist + (size_t)best_dom * p.nbins + (int)tbf, w0);
+        ++n_hits;
+        w_sum += (double)w0;
+      }
+    } else {
+      // ---------- expected: survival weight at the DOM entry, the photon
+      // passes through (engine.py expected block) ----------
+      if (hit) {
+        const float tau_start = p.horizon - abs_left;
+        const float tau_seg = abs_left - abs_left_corr / abs_corr;
+        const float frac = d_prop > 0.0f ? best / d_prop : 0.0f;
+        float w = w0 * expf(-(tau_start + frac * tau_seg));
+        if (p.n_ang > 0) {
+          const float ce = fminf(fmaxf(-(dx * p.pmt_ax + dy * p.pmt_ay +
+                                         dz * p.pmt_az), -1.0f), 1.0f);
+          float ang = 0.0f;
+          for (int q = p.n_ang - 1; q >= 0; --q) ang = ang * ce + p.ang[q];
+          w *= fmaxf(ang, 0.0f);
+        }
+        const float t_hit = t + inv_gv * best;
+        const float tbf = (t_hit - p.hist_t0) / p.hist_dt;
+        float* __restrict__ h = hist + (size_t)best_dom * p.nbins;
+        if (p.soft) {
+          const float fl = floorf(tbf);
+          const float fr_hi = fminf(fmaxf(tbf - fl, 0.0f), 1.0f);
+          const float lo = fminf(fmaxf(fl, 0.0f), (float)(p.nbins - 1));
+          const float hi = fminf(lo + 1.0f, (float)(p.nbins - 1));
+          atomicAdd(h + (int)lo, w * (1.0f - fr_hi));
+          atomicAdd(h + (int)hi, w * fr_hi);
+        } else {
+          atomicAdd(h + (int)fminf(fmaxf(tbf, 0.0f), (float)(p.nbins - 1)),
+                    w);
+        }
+        ++n_hits;
+        w_sum += (double)w;
+      }
+    }
+
+    // ---------- record: at the hit, or (rec_all) at the absorption point,
+    // prescaled on u7, dom 0 (engine._record_values) ----------
+    bool rec_now = false;
+    float rec_idx = 0.0f, rec_x = 0.0f, rec_y = 0.0f, rec_z = 0.0f;
+    if constexpr (RECORDS) {
+      int rdom = best_dom;
+      if (p.rec_all) {
+        rec_now = absorbed &&
+                  (p.rec_prescale >= 1.0f || u[7] < p.rec_prescale);
+        rdom = 0;
+      } else {
+        rec_now = hit;
+      }
+      if (rec_now) {
+        // the time bin of t + inv_gv * d_prop (d_prop is the hit distance
+        // for a hit)
+        const float tbr = fminf(
+            fmaxf((t + inv_gv * d_prop - p.hist_t0) / p.hist_dt, 0.0f),
+            (float)(p.nbins - 1));
+        rec_idx = (float)(rdom * p.nbins + (int)tbr);
+        // position relative to the DOM centre moved toward the
+        // closest-approach plane (the pancake un-correction)
+        const float4 c = doms[rdom];
+        const float pxr = x - c.x, pyr = y - c.y, pzr = z - c.z;
+        const float par = pxr * dx + pyr * dy + pzr * dz;
+        rec_x = x + d_prop * dx - (c.x + p.rec_fpk * (pxr - par * dx));
+        rec_y = y + d_prop * dy - (c.y + p.rec_fpk * (pyr - par * dy));
+        rec_z = z + d_prop * dz - (c.z + p.rec_fpk * (pzr - par * dz));
+        rr.dabs = rr.abs0 - abs_left;
+      }
+    }
+
+    // ---------- advance ----------
+    x += dx * d_prop;
+    y += dy * d_prop;
+    z += dz * d_prop;
+    t += inv_gv * d_prop;
+    abs_left = abs_left_corr / abs_corr;
+
+    // ---------- scatter survivors (HG / simplified-Liu mixture) ----------
+    if (scattered) {
+      float pdx = dx, pdy = dy, pdz = dz;
+      if (p.aniso)
+        aniso_transform(p, p.an_k1, p.an_k2, p.an_kz, &pdx, &pdy, &pdz);
+      const float g = p.mean_cos;
+      float cos_s;
+      if constexpr (MED == MED_WATER) {
+        // Rayleigh mixed with the tabulated (Petzold) scattering angle, u5
+        // the branch, u6 the sample (kernel.py:1606-1629)
+        ++n_scat;
+        if (u[5] < p.liu_frac) {
+          ++n_ray;
+          cos_s = rayleigh_cos(u[6]);
+        } else {
+          const int ns2 = p.n_scat;
+          const float* __restrict__ sx_ = scat;
+          const float* __restrict__ sacu = scat + ns2;
+          const float* __restrict__ sbeta = scat + 2 * ns2;
+          const int kc = locate_cdf(sacu, ns2, u[6]);
+          cos_s = cosf(interp_solve(u[6], sx_[kc], sx_[kc + 1], sbeta[kc],
+                                    sbeta[kc + 1], sacu[kc]));
+        }
+      } else if (u[5] < p.liu_frac) {
+        cos_s = fminf(fmaxf(2.0f * powf(u[6], p.liu_beta) - 1.0f, -1.0f),
+                      1.0f);
+      } else {
+        const float svar = 2.0f * u[6] - 1.0f;
+        if (fabsf(g) < 1e-6f) {
+          cos_s = svar;
+        } else {
+          const float frac2 = (1.0f - g * g) / (1.0f + g * svar);
+          cos_s = fminf(fmaxf((1.0f + g * g - frac2 * frac2) / (2.0f * g),
+                              -1.0f), 1.0f);
+        }
+      }
+      const float sin_s = sqrtf(fmaxf(1.0f - cos_s * cos_s, 0.0f));
+      scatter_dir(cos_s, sin_s, pdx, pdy, pdz, u[7], &dx, &dy, &dz);
+      if (p.aniso)
+        aniso_transform(p, p.an_ik1, p.an_ik2, p.an_ikz, &dx, &dy, &dz);
+      if constexpr (RECORDS) rr.nscat += 1.0f;
+    }
+
+    // ---------- retire ----------
+    if (absorbed || abs_left < EPS || (DEP == DEP_STOP && hit))
+      inflight = 0.0f;
+
+    // ---------- append the record (the photon is dead: x/y/z keep the
+    // record position, t the record time; a full buffer stalls) ----------
+    if constexpr (RECORDS) {
+      if (rec_now) {
+        x = rec_x; y = rec_y; z = rec_z;
+        if (!push_record(rec_buf, rec_cnt, p.rec_cap, rr, x, y, z, t, dx, dy,
+                         dz, ident, inv_gv, rec_idx, p.rec_all ? 0.0f : w0,
+                         slot)) {
+          rr.pend = rec_idx;
+          stalled = true;
+        }
+      }
+    }
+  }
+
+  if (valid) {
     state[F_LEFT * N + slot] = left;
     state[F_INF * N + slot] = inflight;
     state[F_X * N + slot] = x;
@@ -993,29 +1161,27 @@ propagate_kernel(const Params p, float* __restrict__ state,
 
   // ---------- counters: warp, then block, then one atomic per block -------
   // (the global plans and the tabulated media add six: the bound's work)
-  constexpr int NC = COLL == COLL_SUBPLANS && MED == MED_CLOSED ? 4 : 10;
+  constexpr bool WIDE = !(COLL == COLL_SUBPLANS && MED == MED_CLOSED);
+  constexpr int NC = 13;
   __shared__ long long s_cnt[NC][BLOCK / 32];
   __shared__ double s_w[BLOCK / 32];
-  long long v[NC];
-  v[0] = n_gen; v[1] = n_hits; v[2] = n_alive; v[3] = n_work;
-  if constexpr (NC == 10) {
-    v[4] = n_tested; v[5] = n_cand; v[6] = n_cull; v[7] = n_rows;
-    v[8] = n_scat; v[9] = n_ray;
-  }
+  long long v[NC] = {n_gen,  n_hits, n_alive, n_work, n_tested, n_cand, n_cull,
+                     n_rows, n_scat, n_ray,   n_walk, n_warps,  n_swarps};
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
-    for (int q = 0; q < NC; ++q) v[q] += __shfl_down_sync(0xffffffffu, v[q], off);
+    for (int q = 0; q < NC; ++q)
+      if (WIDE || q < 4 || q >= 10)
+        v[q] += __shfl_down_sync(0xffffffffu, v[q], off);
     w_sum += __shfl_down_sync(0xffffffffu, w_sum, off);
   }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
 #pragma unroll
     for (int q = 0; q < NC; ++q) s_cnt[q][warp] = v[q];
     s_w[warp] = w_sum;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
+  if (tid == 0) {
     long long tot[NC] = {};
     double wt = 0.0;
     for (int wi = 0; wi < BLOCK / 32; ++wi) {

@@ -964,7 +964,8 @@ def run_probes(device="cuda", L=LANES, hit_rate=29340 / LANES,
     chain("P9", "chain (176, 2) float2 global", pair, P9_T, width=2)
     chain("P9", "chain (176, 4) float4 global", quad, P9_T, width=4)
     chain("P9", "chain const index global", tab9, P9_T, idx_mode="const")
-    for blocks in (1, 2, 4):
+    # 1, 2, 4 blocks a SM and the main path's own (the account's (c))
+    for blocks in sorted({1, 2, 4, occ_k1}):
         chain("P9", f"chain (32, 176) global, {blocks} blocks/SM", tab9,
               P9_T, blocks=blocks)
     for n_doms, spaces in ((HEX61_DOMS, ("global", "shared", "const")),

@@ -368,7 +368,8 @@ def _ring_write(acc: Accumulators, rec_mask, raw, rstate: RecState, dist,
 
 def _segment_distances(state: SlotState, medium: MediumProperties,
                        cfg: PropagationConfig, sca_budget, abs_budget,
-                       with_score: bool = False):
+                       with_score: bool = False, tally: Optional[dict] = None,
+                       active=None):
     """Convert the scattering budget (in scattering lengths) and absorption
     budget (in absorption lengths, anisotropy-corrected) to meters through
     the layered medium, both capped at cfg.max_segment_m.
@@ -382,7 +383,11 @@ def _segment_distances(state: SlotState, medium: MediumProperties,
     depth of the completed layer crossings with the coefficients traced and
     the crossing lengths detached, the final layer's scattering
     coefficient, and the distance of the completed crossings
-    (clsim_tpu/propagate/engine.py:201-340)."""
+    (clsim_tpu/propagate/engine.py:201-340).
+
+    `tally` (a dict) gains "walk", the walk steps of the `active` lanes:
+    crossings + 1, at most max_layer_steps + 1 a lane, the CUDA kernel's
+    CNT_WALK.  It changes none of the outputs."""
     T = medium.layer_height
     L = medium.n_layers
 
@@ -423,6 +428,8 @@ def _segment_distances(state: SlotState, medium: MediumProperties,
     inv_a = torch.ones_like(dz)
     tau_s_traced, inv_s_fin = zeros, torch.ones_like(dz)
     for k in range(K + 1):
+        if tally is not None:
+            tally["walk"] = tally.get("walk", 0) + (~done & active).sum()
         inv_s_k, inv_a_k = layer_vals(k)
         d_s = t_done + tau_s / inv_s_k
         d_a = t_done + tau_a / inv_a_k
@@ -671,9 +678,11 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
     `acc`, or, when `emit` is given, to emit(rec_mask, raw) (see
     _record_values).  `enabled` ((N,) bool) leaves the other lanes
     untouched this iteration.  `score` is required when uses_score(cfg).
-    `tally` (a dict) gains the scatters ("scat") and those below the u5
-    branch threshold ("rayleigh"), the CUDA kernel's counts in sea water.
-    Returns (state, acc, rstate, score)."""
+    `tally` (a dict) gains the layer-walk steps ("walk",
+    _segment_distances) and, in sea water (a tabulated scattering angle),
+    the scatters ("scat") and those below the u5 branch threshold
+    ("rayleigh"): the CUDA kernel's counts.  Returns (state, acc, rstate,
+    score)."""
     n = state.x.shape[0]
     if callable(uniforms):
         u = uniforms(i)
@@ -716,7 +725,7 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
     if use_score:
         d_prop, absorbed, scattered, abs_left, (tau_acc, inv_s_fin, t_done) \
             = _segment_distances(state, medium, cfg, sca_budget, abs_budget,
-                                 with_score=True)
+                                 with_score=True, tally=tally, active=active)
         # this segment's scattering depth: traced coefficients times the
         # detached geometry
         tau_seg_s = tau_acc + torch.clamp(
@@ -724,7 +733,8 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
             min=0.0) * inv_s_fin
     else:
         d_prop, absorbed, scattered, abs_left = _segment_distances(
-            state, medium, cfg, sca_budget, abs_budget)
+            state, medium, cfg, sca_budget, abs_budget, tally=tally,
+            active=active)
     if detach:
         # detached sampling: the path geometry is a fixed sample; gradients
         # flow through the optical-depth weights, not chaotic positions
@@ -815,7 +825,7 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
 
     # --- scatter survivors ---
     do_scatter = scattered & active
-    if tally is not None:
+    if tally is not None and medium.scattering.kind != "icecube":
         rayleigh = do_scatter & (u[5] < medium.scattering.liu_fraction)
         tally["scat"] = tally.get("scat", 0) + do_scatter.sum()
         tally["rayleigh"] = tally.get("rayleigh", 0) + rayleigh.sum()

@@ -116,13 +116,17 @@ NRC = len(REC_COLUMNS)
 # ray-sphere test, CNT_CAND candidates of the cells' lists culled, CNT_CULL
 # those that passed the 2-D cull (and got the z pass), CNT_ROWS DOMs given
 # the sphere test; of sea water, CNT_SCAT scatters and CNT_RAYLEIGH those
-# that drew the Rayleigh branch
+# that drew the Rayleigh branch.  Every instantiation counts CNT_WALK, the
+# layer-walk steps of live slot-iterations (crossings + 1, at most
+# max_layer_steps + 1 each), and two diagnostics of its own that the plain
+# version leaves 0: CNT_WARPS, warp-iterations with a live lane, and
+# CNT_SPAWN_WARPS, warp-iterations that ran the spawn path.
 (CNT_GEN, CNT_HITS, CNT_WSUM, CNT_DROPPED, CNT_ALIVE, CNT_QUEUED,
  CNT_WORK, CNT_STALLED, CNT_TESTED, CNT_CAND, CNT_CULL, CNT_ROWS, CNT_SCAT,
- CNT_RAYLEIGH) = range(14)
-N_CNT = 14
+ CNT_RAYLEIGH, CNT_WALK, CNT_WARPS, CNT_SPAWN_WARPS) = range(17)
+N_CNT = 17
 # the tallies of the plain version, in counter order from CNT_TESTED on
-TALLIES = ("tested", "cand", "cull", "rows", "scat", "rayleigh")
+TALLIES = ("tested", "cand", "cull", "rows", "scat", "rayleigh", "walk")
 
 # static limits of csrc/propagate.cu (array sizes in its parameter block)
 MAX_PLANS = 4
@@ -653,12 +657,14 @@ class FusedTables(NamedTuple):
 def global_cell_table(spec: FusedSpec, cell_tab: np.ndarray) -> np.ndarray:
     """The global plan's cell table re-laid out from the JAX package's
     feature-major (10 * K_cand, n_cells) block to [cell][candidate][12]:
-    (sx, sy, maxr2, off), (minz, maxz, z0, dzf), (nd, sidx, 0, 0), three
-    16-byte loads per candidate."""
+    (sx, sy, maxr2, off), (minz, maxz, z0, dzf), (nd, sidx, 1 / dzf, 0),
+    three 16-byte loads per candidate; 1 / dzf is float32(1 / dzf), the
+    quotient torch's float32 division gives."""
     K, nc = spec.K_cand, spec.n_cull_cells
     blk = cell_tab[:10 * K, :nc].reshape(10, K, nc).transpose(2, 1, 0)
     out = np.zeros((nc, K, 12), np.float32)
     out[..., :10] = blk
+    out[..., 10] = 1.0 / blk[..., 7].astype(np.float64)
     return out
 
 
@@ -1100,7 +1106,7 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
             i, st, acc, sb, tables.medium, None, tables.spectra, cfg,
             generator=generator, uniforms=uniforms, collide=collide,
             rstate=rs, dom_xyz=tables.doms[:, :3], emit=emit,
-            enabled=enabled, tally=tally if spec.scat_table else None)
+            enabled=enabled, tally=tally)
         if spec.records:
             # the photon is dead: its x/y/z keep the record position
             mask, raw = recorded.pop()
@@ -1123,8 +1129,8 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
     counters = torch.stack([acc.n_generated, acc.n_hits, acc.weight_hits,
                             zero, alive.sum().to(torch.float64), queued,
                             acc.n_work, stalled]
-                           + [f64(tally.get(k, 0)) for k in TALLIES]).to(
-                                torch.float64)
+                           + [f64(tally.get(k, 0)) for k in TALLIES]
+                           + [zero, zero]).to(torch.float64)
     if spec.records:
         return state, acc.hist, counters, buf.result(dev)
     return state, acc.hist, counters
@@ -1169,7 +1175,34 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int) for n in ("g_nx", "g_ny", "g_k_cand",
                                        "n_dom_cand", "n_rounds", "m_rel")]
         + [(n, ctypes.c_float) for n in ("wtab_x0", "wtab_inv_dx")]
-        + [(n, ctypes.c_int) for n in ("n_wtab", "ref_table", "n_scat")])
+        + [(n, ctypes.c_int) for n in ("n_wtab", "ref_table", "n_scat")]
+        + [(n, ctypes.c_float) for n in (
+            "inv_layer_h", "inv_tilt_dz", "an_il1", "an_il2", "an_il3",
+            "an_b2", "an_ik1", "an_ik2", "an_ikz", "liu_beta")])
+
+
+def _recip(x) -> float:
+    """float32(1 / x) of a float32 value x (0 for x == 0, a field the kernel
+    does not read then); as the double is rounded once to float32, it equals
+    the card's IEEE 1.0f / x."""
+    x = float(np.float32(x))
+    return float(np.float32(1.0 / x)) if x != 0.0 else 0.0
+
+
+def _reciprocals(p) -> None:
+    """Fill the parameter block's fields that hold float32(1 / x) of another
+    field x (of x's float32 square for an_il*: the kernel multiplies where
+    it divided), B2 and the Liu exponent, in float32 as the kernel would
+    compute them."""
+    f = np.float32
+    p.inv_layer_h, p.inv_tilt_dz = _recip(p.layer_h), _recip(p.tilt_dz)
+    ks = (p.an_k1, p.an_k2, p.an_kz)
+    il = [_recip(f(k) * f(k)) for k in ks]
+    p.an_il1, p.an_il2, p.an_il3 = il
+    p.an_b2 = float(f(il[0]) + f(il[1]) + f(il[2]))
+    p.an_ik1, p.an_ik2, p.an_ikz = (_recip(k) for k in ks)
+    g = f(p.mean_cos)
+    p.liu_beta = float((f(1.0) - g) / (f(1.0) + g))
 
 
 def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
@@ -1215,6 +1248,7 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.m_rel = tables.rel.shape[1]
     p.n_wtab, p.ref_table, p.n_scat = (spec.n_wtab, int(spec.ref_table),
                                        spec.n_scat)
+    _reciprocals(p)
     return p
 
 
@@ -1293,9 +1327,10 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     if hist is None:
         hist = torch.zeros(n_hist, dtype=f32, device=dev)
     _check_tensor("hist", hist, (n_hist,), f32, dev)
-    # generated, hits, alive, work, then the TALLIES (COLL or MED other
-    # than 0; zero elsewhere)
-    cnt_i = torch.zeros(4 + len(TALLIES), dtype=torch.int64, device=dev)
+    # generated, hits, alive, work, then the TALLIES (those before "walk"
+    # zero where COLL and MED are 0), warp-iterations and spawn
+    # warp-iterations
+    cnt_i = torch.zeros(4 + len(TALLIES) + 2, dtype=torch.int64, device=dev)
     cnt_w = torch.zeros(1, dtype=torch.float64, device=dev)
     cap = 0
     if spec.records:

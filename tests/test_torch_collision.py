@@ -140,8 +140,9 @@ def test_plan_collision_ic86_matches_jax():
 
 def test_global_table_layouts():
     """[cell][candidate][12] rebuilt from the JAX package's feature-major
-    cell table, and the DOM residual and per-string tables equal to the rows
-    the JAX package's _build_tables builds (kernel.py:2294-2306)."""
+    cell table (and float32(1 / dzf), then 0, after its ten features), and
+    the DOM residual and per-string tables equal to the rows the JAX
+    package's _build_tables builds (kernel.py:2294-2306)."""
     medium, geo, spectra, cfg, steps, u = workload("jittered")
     spec, tables, _ = port_spec((medium, geo, spectra, cfg, steps, u))
     assert KT.kernel_coll(spec) == KT.COLL_GENERAL
@@ -154,7 +155,9 @@ def test_global_table_layouts():
             np.testing.assert_array_equal(
                 g[c, k].reshape(-1)[:10],
                 [cell_j[f * K + k, c] for f in range(10)])
-            assert (g[c, k].reshape(-1)[10:] == 0).all()
+            assert g[c, k].reshape(-1)[10] == np.float32(
+                1.0 / np.float64(cell_j[7 * K + k, c]))
+            assert g[c, k].reshape(-1)[11] == 0
     spec_j = quiet(KJ._build_spec, medium, geo, spectra, cfg, TK.N, TK.T, 1,
                    32, 1024, 2, True, True, plan=plan_j)
     rel_j = np.asarray(quiet(KJ._build_tables, spec_j, medium, geo, spectra,

@@ -267,3 +267,70 @@ def test_cuda_probe_philox_bits():
     assert float((out - ref_out).abs().max()) <= 1e-5
     assert [int(w) for w in bits[:, 0]] == [0x6627e8d5, 0xe169c58d,
                                             0xbc57ac4c, 0x9b00dbd8]
+
+
+@pytest.mark.cuda
+def test_cuda_walk_count_matches_plain_on_main_path(monkeypatch):
+    """The kernel's layer-walk steps (CNT_WALK) against its plain version's
+    on the main path's configuration (hex61, the seeded 171-layer ice, 90 m
+    segments) at 8,192 slots, within max(2, 1%); one warp-iteration a warp
+    an iteration while every slot is live, and fewer spawn-path lanes than
+    the 32 a spawning warp held before the spawn was compacted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    monkeypatch.setattr(chip_smoke, "N_SLOTS", 8192)
+    dev = torch.device("cuda", 0)
+    medium, geo, spectra, cfg, steps, u = chip_smoke.main_path_inputs(dev)
+    n, T = 8192, chip_smoke.PHASE2_T
+    spec, cell_tab = K.fused_spec(medium, geo, spectra, cfg, n, T)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    steps_p = K.pack_steps(steps)
+    _, h_k, c_k = K.run_fused_iterations(K.init_state(steps), steps_p,
+                                         tables, spec, uniforms=u)
+    _, h_p, c_p = K.run_fused_iterations_plain(K.init_state(steps), steps_p,
+                                               tables, spec, uniforms=u)
+    torch.cuda.synchronize()
+    chip_smoke.compare("cuda walk test", c_k, h_k, c_p, h_p, 1e-5)
+    chip_smoke.check_walk("cuda walk test", c_k, c_p)
+    assert float(c_k[K.CNT_WARPS]) == n // 32 * T
+    st = chip_smoke.k1_stats(c_k)
+    assert 1.0 <= st["spawn_lanes"] < 2.0
+
+
+@pytest.mark.cuda
+def test_cuda_record_stall_loses_no_record():
+    """A record buffer of 16 a launch under the block-synchronous loop:
+    launches stall, the stalled slots sit out their launch and write first
+    in the next, and every hit still has its record (the histogram rebuilt
+    from the records is the propagated one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    dev = torch.device("cuda", 0)
+    medium, geo, spectra, cfg, steps, _ = chip_smoke.small_workload(
+        8192, 16, True, True, dev)
+    cfg = dataclasses.replace(cfg, save_photons=True)
+    launches = K.MODE_LAUNCHES[K.MODE_RECORDS]
+    res, tot = K.propagate_fused(steps, medium, geo, spectra, 5, cfg,
+                                 iters_per_call=16, max_calls=256,
+                                 rec_capacity=16)
+    torch.cuda.synchronize()
+    assert K.MODE_LAUNCHES[K.MODE_RECORDS] > launches + 1
+    n = int(res.rec_count[0])
+    assert float(tot[K.CNT_GEN]) == float(steps.num_photons.sum())
+    assert float(tot[K.CNT_ALIVE]) == 0.0
+    assert float(tot[K.CNT_STALLED]) >= 5
+    assert n == float(tot[K.CNT_HITS]) == float(tot[K.CNT_QUEUED]) > 20
+    r = res.rec
+    nb = cfg.hist_n_bins
+    tb = torch.clamp((r["time"][0] - cfg.hist_t_min) / cfg.hist_dt, 0.0,
+                     nb - 1).to(torch.int64)
+    rebuilt = torch.zeros(geo.n_doms * nb, dtype=torch.float64,
+                          device=dev).index_add_(
+        0, r["dom"][0].to(torch.int64) * nb + tb, r["weight"][0].double())
+    torch.testing.assert_close(rebuilt, res.hist.reshape(-1).double(),
+                               rtol=1e-6, atol=1e-6)
