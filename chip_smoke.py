@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py            # build, check and drive the main path
     python3 chip_smoke.py --sweep    # also time iters_per_call choices
-    python3 chip_smoke.py --turns LABEL:ROOT ...
+    python3 chip_smoke.py --turns LABEL:ROOT ... [--json PATH]
         # the kernel bodies of several checkouts in turns, one process a
         # turn (ROOT: a checkout, e.g. a parent commit unpacked under build/
-        # by git archive)
+        # by git archive), each instantiation at phase 2's shape and the
+        # fixed-horizon ones also at the steady shape, with each body's
+        # account (k1_stats); PATH gets every turn's numbers as JSON
 
 Phases (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -19,7 +21,9 @@ Phases (any failure raises and exits non-zero):
      histogram L1 <= 2e-3 of the total; the two instantiations the
      program's paths run (mode 0 on the main-path configuration, mode 32 on
      ic86 at the default configuration) also timed in the Philox mode,
-     with their walk steps, SIMT efficiency and spawn-path lanes;
+     with their account (k1_stats: walk steps, SIMT efficiency,
+     spawn-path lanes, the barrier's share of each warp's cycles, cycles a
+     warp-iteration);
   3. the main path: Simulation.simulate of a 100 TeV EMinus cascade at the
      centre of hex61 (61 strings, 3,660 DOMs) in a seeded 171-layer ice,
      262,144 slots; the kernel must have been launched, the photon yield
@@ -111,7 +115,9 @@ Phases (any failure raises and exits non-zero):
         geomspace bias grid (hex61, L1 <= 4e-3), the first two with
         records, and the expected estimator (global affine, general, water
         on jittered ic86, photonics on hex61), non-stopping and fixed-
-        horizon detect;
+        horizon detect, these six also at the steady shape (the state
+        advanced STEADY_ADVANCE iterations first), each with its account
+        (the barrier's share, rows a tested string);
      b./c. Simulation.simulate of a standard-DOM flash (DOM (0, 30), six
         405 nm LEDs, ~1.3e8 photons after the LED's correction factor) and a
         color-DOM flash (DOM (14, 8), 12 LEDs at 340-505 nm, ~1.9e8
@@ -127,7 +133,8 @@ Phases (any failure raises and exits non-zero):
         fit's forward (expected + threefry, global affine) against its
         plain version, then 6c's three gates and the peak memory;
      g. each new deposit mode through Simulation.simulate of the
-        standard-DOM flash (launched, generated = the steps' photons);
+        standard-DOM flash (launched, generated = the steps' photons), its
+        wall time beside its launches' kernel time and its account;
   9. the probe kernels (csrc/probes.cu: the Pallas probes P1-P15 as four
      Hopper kernels, H1 table reads, H2 state, H3 op costs and Philox, H4
      atomics, appends, scans) at 262,144 lanes through
@@ -142,6 +149,7 @@ The line before the last is {"kernels": [...]}; the last line is
 """
 
 import collections
+import contextlib
 import dataclasses
 import json
 import math
@@ -412,26 +420,55 @@ def phase2_cases(device):
     return cases
 
 
-def k1_stats(c):
-    """Walk steps a live slot-iteration, SIMT efficiency (live lanes over
-    32 x warp-iterations with a live lane) and spawn-path lanes a spawn
-    (32 x warp-iterations that ran the spawn path over spawns) from a
-    kernel's counters."""
+def k1_stats(c, n=None, T=None):
+    """The kernel's account from its counters: walk steps, candidates and
+    cull passes, and hits a live slot-iteration; DOM rows a tested string;
+    SIMT efficiency (live lanes over 32 x warp-iterations with a live lane);
+    spawn-path lanes a spawn (32 x warp-iterations that ran the spawn path
+    over spawns); the share of each warp's clock cycles spent in the
+    block's barriers and the cycles a warp-iteration (CNT_WAIT, CNT_PROP,
+    CNT_SPAWN_CYC); with the launch's slots n and iterations T, spawns a
+    block-iteration; on the global plans the collision test's share of the
+    cycles and its cull's (CNT_COLL_CYC, CNT_CULL_CYC).  A count the body
+    lacks (an older checkout under --turns) reads as None."""
     from clsim_tpu_torch.propagate import kernel as K
-    v = lambda k: float(c[k])
-    work = max(v(K.CNT_WORK), 1.0)
-    return dict(walk=v(K.CNT_WALK) / work,
-                simt=v(K.CNT_WORK) / max(32.0 * v(K.CNT_WARPS), 1.0),
-                spawn_lanes=32.0 * v(K.CNT_SPAWN_WARPS) / max(v(K.CNT_GEN),
-                                                              1.0),
-                warps=v(K.CNT_WARPS), spawn_warps=v(K.CNT_SPAWN_WARPS))
+    c = [] if c is None else c    # a run with no kernel counters
+    v = lambda k: (float(c[getattr(K, k)]) if hasattr(K, k)
+                   and getattr(K, k) < len(c) else None)
+    ratio = lambda a, b: (a / b if a is not None and b else None)
+    work = v("CNT_WORK") or 1.0
+    cyc = [v(k) for k in ("CNT_WAIT", "CNT_PROP", "CNT_SPAWN_CYC")]
+    tot = sum(cyc) if None not in cyc else None
+    return dict(walk=ratio(v("CNT_WALK"), work),
+                coll_share=ratio(v("CNT_COLL_CYC"), tot),
+                cull_share=ratio(v("CNT_CULL_CYC"), tot),
+                cand=ratio(v("CNT_CAND"), work),
+                cull=ratio(v("CNT_CULL"), work),
+                hits=ratio(v("CNT_HITS"), work),
+                rows=ratio(v("CNT_ROWS"), v("CNT_TESTED")),
+                simt=ratio(v("CNT_WORK"), 32.0 * (v("CNT_WARPS") or 0.0)),
+                spawn_lanes=ratio(32.0 * (v("CNT_SPAWN_WARPS") or 0.0),
+                                  v("CNT_GEN")),
+                spawns_block=(ratio(v("CNT_GEN"), -(-n // 256) * T)
+                              if n else None),
+                wait_share=ratio(cyc[0], tot),
+                spawn_share=ratio(cyc[2], tot),
+                cyc_warp=ratio(tot, v("CNT_WARPS")),
+                warps=v("CNT_WARPS"), spawn_warps=v("CNT_SPAWN_WARPS"))
 
 
 def fmt_stats(st):
-    return (f"walk steps {st['walk']:.4f} a slot-iteration, warp-iterations "
-            f"{st['warps']:.0f} (spawn path {st['spawn_warps']:.0f}), SIMT "
-            f"efficiency {st['simt']:.4f}, spawn-path lanes {st['spawn_lanes']:.3f}"
-            " a spawn")
+    f = lambda k, d=4: "n/a" if st[k] is None else f"{st[k]:.{d}f}"
+    return (f"walk steps {f('walk')} a slot-iteration, warp-iterations "
+            f"{f('warps', 0)} (spawn path {f('spawn_warps', 0)}), SIMT "
+            f"efficiency {f('simt')}, spawn-path lanes {f('spawn_lanes', 3)}"
+            f" a spawn, spawns {f('spawns_block', 3)} a block-iteration; "
+            f"candidates {f('cand', 3)} and cull passes {f('cull', 3)} a "
+            f"slot-iteration, rows {f('rows', 3)} a tested string, hits "
+            f"{f('hits', 5)} a slot-iteration; barrier share "
+            f"{f('wait_share')}, spawn share {f('spawn_share')}, collision "
+            f"share {f('coll_share')} (cull {f('cull_share')}), "
+            f"{f('cyc_warp', 1)} cycles a warp-iteration")
 
 
 def check_walk(name, c_k, c_p):
@@ -467,7 +504,7 @@ def phase2(device):
         max_err = max(max_err, compare(name, c_k, h_k, c_p, h_p, gen_rtol))
         check_walk(name, c_k, c_p)
         bound = kernel_bound(spec, tables, c_k, "stream")
-        st = k1_stats(c_k)
+        st = k1_stats(c_k, N_SLOTS, PHASE2_T)
         log(f"  {name}: mode {K.kernel_mode(spec)}, kernel {ms_k:.3f} ms "
             f"(median of 5), plain {ms_p:.3f} ms ({N_SLOTS} slots x "
             f"{PHASE2_T} iterations); bound {bound[0]:.4f} ms by {bound[1]}; "
@@ -485,7 +522,7 @@ def phase2(device):
             log(f"  {name}: Philox mode {ms_x:.3f} ms (median of 5); bound "
                 f"{bound_x[0]:.4f} ms by {bound_x[1]}; generated "
                 f"{float(c_x[K.CNT_GEN]):.0f}, hits {float(c_x[K.CNT_HITS]):.0f}"
-                "; " + fmt_stats(k1_stats(c_x)))
+                "; " + fmt_stats(k1_stats(c_x, N_SLOTS, PHASE2_T)))
             timings[name].update(ms_philox=ms_x, bound_philox=bound_x)
     return dict(timings[MAIN_NAME], err=max_err, glob=timings[GLOBAL_NAME])
 
@@ -905,10 +942,13 @@ OPS_RNG = {"philox": 28, "stream": 0, "threefry": 81}
 # string tested (CNT_TESTED); and one sphere test for each DOM tested
 # (CNT_ROWS): n_dom_cand ladder DOMs a string on the affine path (window
 # index, clamp, oz, urdot, dr2, discriminant, entry distance, compare), the
-# string's valid rows on the general path (the DOM position from the
-# residual row, the 3-D dot products, the same discriminant and entry
-# distance).  The ranking of the passes into the rounds is not charged.
-OPS_ZPASS, OPS_ROUND_AFFINE, OPS_ROUND_GENERAL = 4, 12, 4
+# rows of the segment's z-window on the general path (the DOM position from
+# the residual row, the 3-D dot products, the same discriminant and entry
+# distance), whose round set-up computes the window (the string and the
+# ladder's rows of the segment's ends, their min and max, ceil and floor
+# of them -+ the half-width, the clamps to the string's rows, the row
+# count).  The ranking of the passes into the rounds is not charged.
+OPS_ZPASS, OPS_ROUND_AFFINE, OPS_ROUND_GENERAL = 4, 12, 16
 OPS_SPHERE_AFFINE, OPS_SPHERE_GENERAL = 16, 23
 # A tabulated medium's spawn lerps its factors where the closed form takes
 # pow/exp: OPS_SPAWN holds the closed form's gs, pa, qa, ra (13: two powf,
@@ -1497,11 +1537,12 @@ def phase7a(device):
     return out
 
 
-def check_instantiation(name, inputs, records, l1_tol=L1_TOL):
+def check_instantiation(name, inputs, records, l1_tol=L1_TOL, state0=None):
     """One instantiation (with or without records) against its plain
-    version on the inputs' shared stream: phase 2's checks (histogram L1
-    within l1_tol), with records 5a's, and the bound's counts (TALLIES)
-    within max(2, 1%); returns its times, error, bound and mode."""
+    version on the inputs' shared stream, from fresh state or from
+    `state0` (the steady shape): phase 2's checks (histogram L1 within
+    l1_tol), with records 5a's, and the bound's counts (TALLIES) within
+    max(2, 1%); returns its times, error, bound, mode and account."""
     from clsim_tpu_torch.propagate import kernel as K
     medium, geo, spectra, cfg, steps, uni = inputs
     N = int(steps.x.shape[0])
@@ -1509,7 +1550,9 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL):
     spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg, N,
                            PHASE2_T)
     tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
-    state0, steps_p = K.init_state(steps, records), K.pack_steps(steps)
+    if state0 is None:
+        state0 = K.init_state(steps, records)
+    steps_p = K.pack_steps(steps)
     run_k = lambda: K.run_fused_iterations(state0.clone(), steps_p,
                                            tables, spec, uniforms=uni)
     run_p = lambda: K.run_fused_iterations_plain(
@@ -1538,6 +1581,7 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL):
     tallies = {t: (float(c_k[K.CNT_TESTED + i]), float(c_p[K.CNT_TESTED + i]))
                for i, t in enumerate(K.TALLIES)}
     bound = kernel_bound(spec, tables, c_k, "stream", n_records=n_rec)
+    st = k1_stats(c_k, N, PHASE2_T)
     log(f"  {name}: mode {K.kernel_mode(spec)} (COLL "
         f"{K.kernel_coll(spec)}, MED {K.kernel_med(spec)}), K_cand "
         f"{spec.K_cand}, n_dom_cand {spec.n_dom_cand}; work "
@@ -1545,13 +1589,44 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL):
         + ", ".join(f"{t} {a:.0f} / {b:.0f}" for t, (a, b) in tallies.items())
         + f"; kernel {ms_k:.3f} ms (median of 5), plain {ms_p:.3f} ms ({N} "
         f"slots x {PHASE2_T} iterations); bound {bound[0]:.4f} ms by "
-        f"{bound[1]}; " + fmt_stats(k1_stats(c_k)))
+        f"{bound[1]}; " + fmt_stats(st))
     for t, (a, b) in tallies.items():
         if abs(a - b) > max(2.0, 0.01 * b):
             raise AssertionError(f"{name}: kernel and plain {t} counts "
                                  "differ")
     return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound,
-                mode=K.kernel_mode(spec), hits=float(c_k[K.CNT_HITS]))
+                mode=K.kernel_mode(spec), hits=float(c_k[K.CNT_HITS]),
+                stats=st)
+
+
+# The steady shape of the fixed-horizon instantiations: Simulation's calls
+# run 4,096 iterations, in which photons that live to the horizon drain and
+# respawn throughout; a launch from fresh state barely spawns after its
+# first iteration.  The steady shape advances the fresh state STEADY_ADVANCE
+# iterations first (the kernel, Philox PHILOX_SEED) and times PHASE2_T
+# iterations from there, on the same shared stream.
+STEADY_ADVANCE = 64
+# the fixed-horizon instantiations (photons pass through DOMs, or their
+# absorption budget is the horizon): 8a's entries given the steady shape
+FIXED_HORIZON = ("propagate[expected,global]", "propagate[expected,general]",
+                 "propagate[expected,water]", "propagate[pass,global]",
+                 "propagate[fixed,global]", "propagate[expected,photonics]")
+
+
+def steady_state(inputs, records=False):
+    """The inputs' fresh state advanced STEADY_ADVANCE iterations by one
+    launch in the Philox mode (the state the steady shape starts from)."""
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps, _ = inputs
+    n = int(steps.x.shape[0])
+    cfg = dataclasses.replace(cfg, save_photons=records)
+    spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg, n,
+                           STEADY_ADVANCE)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    state = K.init_state(steps, records)
+    K.run_fused_iterations(state, K.pack_steps(steps), tables, spec,
+                           seed=PHILOX_SEED)
+    return state
 
 
 def steps_photons(sim, cascade, seed):
@@ -1874,9 +1949,16 @@ def phase8_cases(device):
 def phase8a(device):
     """Each case against its plain version on the shared stream: phase 2's
     tolerances (L1 <= 4e-3 on the non-uniform bias), records matched on
-    (slot, dom) as in 5a, the bound's counts within max(2, 1%)."""
-    return {entry: check_instantiation(name, inputs, records, l1_tol)
-            for entry, name, inputs, records, l1_tol in phase8_cases(device)}
+    (slot, dom) as in 5a, the bound's counts within max(2, 1%); the
+    fixed-horizon cases also at the steady shape (entry + "/steady")."""
+    out = {}
+    for entry, name, inputs, records, l1_tol in phase8_cases(device):
+        out[entry] = check_instantiation(name, inputs, records, l1_tol)
+        if entry in FIXED_HORIZON:
+            out[entry + "/steady"] = check_instantiation(
+                name + ", steady shape", inputs, records, l1_tol,
+                state0=steady_state(inputs))
+    return out
 
 
 def flasher_sim(device, medium=None, geo=None, **cfg_kw):
@@ -2157,17 +2239,43 @@ def phase8f(device):
     return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound, mode=mode), n
 
 
-def phase8g(device, modes):
-    """The deposit modes on the global plans and the media through
-    Simulation.simulate of the standard-DOM flash: generated = the steps'
-    photons, nothing dropped or abandoned, each instantiation launched."""
+@contextlib.contextmanager
+def launch_times():
+    """Within the block, time every kernel launch (run_fused_iterations)
+    between CUDA events on its stream; yields a one-element list that holds
+    their summed seconds once the block has ended (one synchronize)."""
+    import torch
+    from clsim_tpu_torch.propagate import kernel as K
+    inner, events, out = K.run_fused_iterations, [], [0.0]
+
+    def timed_launch(*a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        r = inner(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return r
+
+    K.run_fused_iterations = timed_launch
+    try:
+        yield out
+    finally:
+        K.run_fused_iterations = inner
+    torch.cuda.synchronize()
+    out[0] = sum(a.elapsed_time(b) for a, b in events) * 1e-3
+
+
+def flash_mode_runs(device):
+    """Simulation.simulate of the standard-DOM flash in each deposit mode
+    on the global plans and the media, counts reset before each: yields
+    (entry, result, the steps' photons, wall s, the kernel launches' s)."""
     from clsim_tpu_torch.medium.antares import make_antares_water
     ice, _ = seeded_ice(171, -855.0, 10.0, device)
     g86, gj, h61 = ic86(device), ic86(device, JITTER_M), hex61(device)
     water, phot = make_antares_water(device=device), photonics_ice(device)
     expected = dict(estimator="expected", soft_binning=True,
                     expected_angular_poly=ANG_POLY, fixed_abs_lens=8.0)
-    out = {}
     # hex61 numbers its strings and DOMs from 1: its DOM (1, 30) is the
     # centre string's mid-depth DOM, ic86's (0, 30)
     for entry, medium, geo, kw in (
@@ -2183,10 +2291,23 @@ def phase8g(device, modes):
         pulses = flash(geo, (1, 30) if geo is h61 else STD_DOM)
         photons = sources_photons(sim, pulses, 21)
         reset_counts()
-        res, wall = timed(lambda: quiet(sim.simulate, pulses, seed=21))
+        with launch_times() as kernel_s:
+            res, wall = timed(lambda: quiet(sim.simulate, pulses, seed=21))
+        yield entry, res, photons, wall, kernel_s[0]
+
+
+def phase8g(device, modes):
+    """The deposit modes on the global plans and the media through
+    Simulation.simulate of the standard-DOM flash: generated = the steps'
+    photons, nothing dropped or abandoned, each instantiation launched;
+    the wall time beside the kernel's, and the account."""
+    out = {}
+    for entry, res, photons, wall, kernel_s in flash_mode_runs(device):
         n = launched([modes[entry]])
         log(f"  {entry}: simulate {wall:.3f} s = {photons / wall:.6g} "
-            f"photons/s, launches {n}, other kernels {K_other()}")
+            f"photons/s, the kernel's launches {kernel_s:.4f} s, "
+            f"launches {n}, other kernels {K_other()}; "
+            + fmt_stats(k1_stats(res.diag_totals)))
         check_run(entry, res, photons)
         if min(n.values()) <= 0:
             raise AssertionError(f"{entry}: instantiation not launched")
@@ -2350,9 +2471,14 @@ K1_MANGLED = {"propagate": "ILb0ELi0ELb0ELb0ELi0ELi0E",
               "propagate[records,general]": "ILb1ELi0ELb0ELb0ELi2ELi0E",
               "propagate[water]": "ILb0ELi0ELb0ELb0ELi2ELi2E",
               "propagate[records,water]": "ILb1ELi0ELb0ELb0ELi2ELi2E",
+              "propagate[expected,global]": "ILb0ELi2ELb0ELb0ELi1ELi0E",
               "propagate[expected,general]": "ILb0ELi2ELb0ELb0ELi2ELi0E",
               "propagate[expected,water]": "ILb0ELi2ELb0ELb0ELi2ELi2E",
-              "propagate[threefry]": "ILb0ELi2ELb1ELb0ELi0ELi0E"}
+              "propagate[expected,photonics]": "ILb0ELi2ELb0ELb0ELi0ELi1E",
+              "propagate[pass,global]": "ILb0ELi1ELb0ELb0ELi1ELi0E",
+              "propagate[fixed,global]": "ILb0ELi0ELb0ELb1ELi1ELi0E",
+              "propagate[threefry]": "ILb0ELi2ELb1ELb0ELi0ELi0E",
+              "propagate[threefry,global]": "ILb0ELi2ELb1ELb0ELi1ELi0E"}
 
 
 def k1_ptxas(log_text):
@@ -2390,37 +2516,46 @@ def k1_ptxas(log_text):
 
 
 def k1_turn_cases(device):
-    """[(entry, inputs, records, key, T, philox?)] of a turn: phase 2's
-    main-path inputs on hex61 and on ic86 (both random modes), the record
-    mode on both, 7a's jittered ic86 in ice and in water (with and without
-    records, and in the expected mode), and the fit's forward in threefry."""
+    """[(entry, inputs, records, key, T, philox?, steady?)] of a turn:
+    phase 2's main-path inputs on hex61 and on ic86 (both random modes),
+    the record mode on both, 7a's jittered ic86 in ice and in water (with
+    and without records), 8a's fixed-horizon cases at phase 2's shape and
+    at the steady shape, the fit's forward in threefry and the flasher
+    fit's on ic86."""
     from clsim_tpu_torch.ops import rng
     main = main_path_inputs(device)
     glob = on_ic86(main, device)
     cases7 = {e: i for e, _, i in phase7_cases(device)}
     gen, wat = cases7["propagate[general]"], cases7["propagate[water]"]
-    exp = lambda i: i[:3] + (dataclasses.replace(
-        i[3], estimator="expected", soft_binning=True,
-        expected_angular_poly=ANG_POLY),) + i[4:]
-    return [("propagate", main, False, None, PHASE2_T, True),
-            ("propagate[global]", glob, False, None, PHASE2_T, True),
-            ("propagate[records]", main, True, None, PHASE2_T, False),
-            ("propagate[records,global]", glob, True, None, PHASE2_T, False),
-            ("propagate[general]", gen, False, None, PHASE2_T, False),
-            ("propagate[records,general]", gen, True, None, PHASE2_T, False),
-            ("propagate[water]", wat, False, None, PHASE2_T, False),
-            ("propagate[records,water]", wat, True, None, PHASE2_T, False),
-            ("propagate[expected,general]", exp(gen), False, None, PHASE2_T,
-             False),
-            ("propagate[expected,water]", exp(wat), False, None, PHASE2_T,
-             False),
-            ("propagate[threefry]", fit_workload(device) + (None,), False,
-             rng.as_key(FIT_KEY), FIT_T, False)]
+    cases8 = {e: i for e, _, i, _, _ in phase8_cases(device)}
+    key = rng.as_key(FIT_KEY)
+    out = [("propagate", main, False, None, PHASE2_T, True, False),
+           ("propagate[global]", glob, False, None, PHASE2_T, True, False),
+           ("propagate[records]", main, True, None, PHASE2_T, False, False),
+           ("propagate[records,global]", glob, True, None, PHASE2_T, False,
+            False),
+           ("propagate[general]", gen, False, None, PHASE2_T, False, False),
+           ("propagate[records,general]", gen, True, None, PHASE2_T, False,
+            False),
+           ("propagate[water]", wat, False, None, PHASE2_T, False, False),
+           ("propagate[records,water]", wat, True, None, PHASE2_T, False,
+            False)]
+    for entry in FIXED_HORIZON:
+        for steady in (False, True):
+            out.append((entry, cases8[entry], False, None, PHASE2_T, False,
+                        steady))
+    return out + [
+        ("propagate[threefry]", fit_workload(device) + (None,), False, key,
+         FIT_T, False, False),
+        ("propagate[threefry,global]", fit8_workload(device)[0] + (None,),
+         False, key, FIT_T, False, False)]
 
 
 def k1_turn_worker(root):
     """One turn: import the package at `root`, time every case of
-    k1_turn_cases, print one line 'K1 {json}'."""
+    k1_turn_cases and run 8g's flashes (flash_mode_runs), print one line
+    'K1 {json}' with each case's times and account (k1_stats) and each
+    flash's wall and kernel seconds."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from clsim_tpu_torch import _build
@@ -2432,14 +2567,15 @@ def k1_turn_worker(root):
     build_s = time.perf_counter() - t0
     out = dict(root=root, build_s=build_s,
                ptxas=k1_ptxas(_build.BUILD_INFO["log"]), entries={})
-    for entry, inp, records, key, T, philox in k1_turn_cases(device):
+    for entry, inp, records, key, T, philox, steady in k1_turn_cases(device):
         medium, geo, spectra, cfg, steps, uni = inp
         cfg = dataclasses.replace(cfg, save_photons=records)
         N = int(steps.x.shape[0])
         spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg, N, T,
                                threefry=key is not None)
         tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
-        state0 = K.init_state(steps, records)
+        state0 = (steady_state(inp) if steady
+                  else K.init_state(steps, records))
         steps_p = K.pack_steps(steps)
         keys = None if key is None else rng.key_table(key, T).to(device)
         run = lambda **kw: (lambda: K.run_fused_iterations(
@@ -2453,21 +2589,27 @@ def k1_turn_worker(root):
                 fn()
             (_, _, c, *_), ms = cuda_ms(fn, reps=11)
             res[rng_mode] = dict(ms=ms, counters=[float(x) for x in c],
-                                 mode=K.kernel_mode(spec))
-        out["entries"][entry] = res
+                                 mode=K.kernel_mode(spec),
+                                 stats=k1_stats(c, N, T))
+        out["entries"][entry + ("/steady" if steady else "")] = res
+    # 8g's flashes: each fixed-horizon instantiation on its path
+    out["flash"] = {e: dict(wall=wall, kernel_s=ks, photons=photons,
+                            stats=k1_stats(res.diag_totals))
+                    for e, res, photons, wall, ks in flash_mode_runs(device)}
     print("K1 " + json.dumps(out), flush=True)
 
 
-def k1_turns(turns):
+def k1_turns(turns, json_path=None):
     """Run the turns 'label:root' in the order given, each in a process of
-    its own, and print every turn's times and the ptxas figures of each
-    body.  Returns the parsed turns."""
+    its own, and print every turn's times, each case's account in the
+    first turn of each body, and the ptxas figures of each body; with
+    json_path, also write the parsed turns there.  Returns them."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     log(card)
     here = os.path.dirname(os.path.abspath(__file__))
-    results = []
+    results, seen = [], set()
     for turn in turns:
         label, root = turn.split(":")
         proc = subprocess.run(
@@ -2486,6 +2628,18 @@ def k1_turns(turns):
             + "; ".join(f"{e} " + ", ".join(f"{m} {v[m]['ms']:.4f} ms"
                                             for m in v)
                         for e, v in r["entries"].items()))
+        log(f"  flashes {label}: " + "; ".join(
+            f"{e} simulate {v['wall']:.3f} s, kernel {v['kernel_s']:.4f} s"
+            for e, v in r["flash"].items()))
+        if label not in seen:
+            seen.add(label)
+            for e, v in r["entries"].items():
+                log(f"  account {label} {e}: " + fmt_stats(v["stream"]["stats"]))
+            for e, v in r["flash"].items():
+                log(f"  account {label} flash {e}: " + fmt_stats(v["stats"]))
+        if json_path:
+            with open(json_path, "w") as f:
+                json.dump(dict(card=card, turns=results), f)
     ptx = {}
     for r in results:
         for e, d in r["ptxas"].items():
@@ -2504,7 +2658,12 @@ def main():
     if argv[:1] == ["--k1-worker"]:
         return k1_turn_worker(argv[1])
     if argv[:1] == ["--turns"]:
-        k1_turns(argv[1:])
+        turns = argv[1:]
+        json_path = None
+        if "--json" in turns:
+            i = turns.index("--json")
+            json_path, turns = turns[i + 1], turns[:i] + turns[i + 2:]
+        k1_turns(turns, json_path)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

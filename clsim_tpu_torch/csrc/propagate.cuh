@@ -17,58 +17,69 @@
 // version is clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
 //
 // Design.  One thread owns one photon slot and keeps its photon's state in
-// registers for the launch.  Each launch runs up to `iters` iterations, in
-// step across the block of 256 threads.  An iteration has two stages:
-//  * the spawn stage: the owners of slots that need a photon (`fresh`) are
-//    listed in shared memory (a ballot and popc per warp, a prefix over the
-//    block's warps); the block's first n_spawn threads each make the photon
-//    of one listed slot (make_photon: the step row, the spectrum's binary
-//    search and solve, the medium's factors, the Cherenkov cone and its
-//    rotation, the bias) and write it to a shared slab; after a barrier
-//    each owner loads its photon.  The step rows are staged in shared
-//    memory at launch start.  The random numbers of a spawn stay keyed to
-//    the slot whose photon is made (rows 0-3 of the stream at [it, r,
-//    slot], Philox counter (it0 + it, slot, 0), threefry element r * N +
-//    slot), never to the thread that computes it, so every random mode
-//    draws what the slot-per-thread loop drew;
-//  * the propagate stage, on each owner's registers: the photon walks the
-//    layered ice until its scattering or absorption budget or the segment
-//    cap is used up, the segment is tested against the DOMs of the strings
-//    its cell may reach, a hit is deposited into the (dom, time-bin)
-//    histogram with a float atomicAdd and kills the photon, and a survivor
-//    scatters.
-// A thread whose slot has drained (or whose record finds the buffer full)
-// stays in the loop, inactive, so that every thread reaches the block's
-// barriers; the block leaves when no slot of it is live (__syncthreads_or).
+// registers for the launch.  Each launch runs up to `iters` iterations of
+// two stages, the spawn stage for the slots that need a photon (`fresh`)
+// and the propagate stage, under one of two loop policies, a constexpr of
+// the template arguments (warp_loop), so that each instantiation compiles
+// one loop:
+//  * block-synchronous, for the detect modes and the record modes (the
+//    main path among them), whose slots spawn 52-149 photons a
+//    block-iteration: the block of 256 threads iterates in step.  The fresh
+//    slots are listed in shared memory (a ballot and popc per warp, a
+//    prefix over the block's warps); the block's first n_spawn threads
+//    each make the photon of one listed slot (make_photon: the step row,
+//    the spectrum's binary search and solve, the medium's factors, the
+//    Cherenkov cone and its rotation, the bias) and write it to a shared
+//    slab; after a barrier each owner loads its photon.  A drained or
+//    stalled thread stays in the loop, inactive, so that every thread
+//    reaches the block's barriers; the block leaves when no slot of it is
+//    live (__syncthreads_or);
+//  * warp-independent, where photons live to a fixed horizon (the expected
+//    estimator, and FIXED), whose block-iterations spawn 0.6-12 photons:
+//    each warp iterates on its own, a fresh lane makes its own photon, and
+//    the warp leaves when no lane of it is live (__ballot_sync).  No
+//    barrier is in the loop; the one after the step rows are staged and
+//    the one before the counters' reduction stay.
+// The step rows are staged in shared memory at launch start.  The random
+// numbers of a spawn stay keyed to the slot whose photon is made (rows 0-3
+// of the stream at [it, r, slot], Philox counter (it0 + it, slot, 0),
+// threefry element r * N + slot), never to the thread that computes it, so
+// both policies draw what the slot-per-thread loop drew.  The propagate
+// stage, on each owner's registers: the photon walks the layered ice until
+// its scattering or absorption budget or the segment cap is used up, the
+// segment is tested against the DOMs of the strings its cell may reach, a
+// hit is deposited into the (dom, time-bin) histogram with a float
+// atomicAdd (and kills the photon when stopping), and a survivor scatters.
 // The walk tests its exit by products, (tb - t_done) * rate >= budget (both
 // rates are positive), and divides the two distances once, at its last
 // step; divisions by per-launch constants are products by reciprocals the
-// host computed (Params), and the rotation uses sincosf and rsqrtf.
-// The kernel counts its walk steps (CNT_WALK), its warp-iterations with a
-// live lane and those that ran the spawn stage (SIMT efficiency and spawn
-// lanes a spawn, chip_smoke phase 2).
+// host computed (Params), and the rotation uses sincosf and rsqrtf.  The
+// kernel counts its walk steps (CNT_WALK), its warp-iterations with a live
+// lane and those that ran the spawn stage, and each warp's clock cycles
+// (lane 0's) in the block's barriers, the propagate stage, the spawn stage
+// and, on the global plans, the collision test and its cull (kernel.py
+// CNT_*; chip_smoke's k1_stats).
 //
 // What bounds it on this card: latency, not bandwidth or arithmetic
 // (PERF.md section 5 has the measured account; NVIDIA H100 80GB HBM3,
-// 700.00 W: on the main path 2.25 walk steps a slot-iteration, every warp
-// full while no slot drains, and 1.20 lanes on the spawn path a spawn
-// where the slot-per-thread loop had 4.30).  Every thread runs
-// data-dependent loops (layer walk, candidate strings, z-window DOMs) with
-// early exits, so warps diverge, and it reads the layer and cell tables at
-// random.  The design keeps all photon state in registers for the whole
-// launch (read and written once), keeps the tables small and read-only
-// (`const __restrict__`, served from L1/L2), lays one cell's candidate
-// strings out as consecutive 16-byte entries, keeps only the `rounds`
-// closest candidates in registers, compacts the spawn so that a spawn
-// costs about one lane-iteration instead of a warp's, and reduces the
-// counters per warp and block so that one atomic per block reaches global
-// memory.  The barrier makes each iteration wait for the block's slowest
-// warp, and the spawn stage runs on few warps while the others wait: as the
-// kernel is latency-bound, a third resident block a SM (80 registers)
-// hides more of both than the registers it spills cost.  Where photons
-// rarely spawn and the propagate stage varies most between warps (the
-// expected modes on the general plan and in water), the wait costs more
-// than the compaction saves: ~20% over the slot-per-thread loop (PERF.md).
+// 700.00 W).  Every thread runs data-dependent loops (layer walk, candidate
+// strings, z-window DOMs) with early exits, so warps diverge, and it reads
+// the layer and cell tables at random.  The design keeps all photon state
+// in registers for the launch (read and written once), keeps the tables
+// small and read-only (`const __restrict__`, served from L1/L2), and
+// reduces the counters per warp and block so that one atomic per block
+// reaches global memory.  Measured on the parent body: the block's
+// barriers took 17-25% of each warp's cycles on the SubPlans and the
+// affine plan and 39-43% on the general plan and in water; the global
+// cull, one L2 read after another for 11-28 candidates a slot-iteration,
+// 39-50% on the global plans; the general plan's 57-59 DOM rows a tested
+// string 13-20%.  So: the compacted spawn stays where spawns are many and
+// the warp loop takes the fixed-horizon modes; a cell's cull entries are
+// consecutive 16-byte loads issued four at a time; the general plan tests
+// only the DOM rows of the segment's z-window (0.8-1.0 a tested string;
+// general_window in kernel.py proves the accept set unchanged); and a
+// third resident block a SM (80 registers) hides more latency than the
+// registers it spills cost.
 //
 // Random numbers: Philox4x32-10 keyed by the wrapper's 64-bit seed, counter
 // (it0 + iteration, slot, block); or, in parity mode, an external (T, 8, N)
@@ -118,18 +129,19 @@
 // Collision and media (the template's COLL and MED; the TPU kernel's
 // global plan, kernel.py:947-1003, :1270-1456, and media tables, :807-833,
 // :1606-1629).  COLL 0 is the SubPlan test above.  COLL 1 and 2 use one
-// global 2-D cell grid: a cell lists <= k_cand candidate strings as three
-// float4 each (position, cull radius, DOM offset; z extent and DOM ladder;
-// DOM count, string index and 1 / DOM spacing), and its list ends at the first padding entry
-// (cull radius -1); the cull ranks by the static segment cap,
+// global 2-D cell grid: a cell holds its candidate count and three blocks
+// of float4, one entry a candidate string each (position, cull radius, DOM
+// offset; z extent and DOM ladder; DOM count, string index, 1 / DOM spacing
+// and the z-window's half-width); the cull ranks by the static segment cap,
 // as the TPU kernel does, and the n_rounds closest culled strings stay in
 // sorted registers.  COLL 1 (affine: every DOM on its string's z0 + m*dz
 // ladder) tests the n_dom_cand ladder DOMs of the segment's z-window; COLL 2
-// (surveyed positions) tests every DOM row of the string from an (S, M)
-// float4 residual table beside a float4 per string.  The general path does
-// rounds x M sphere tests per live slot-iteration, 60 per string on IceCube,
-// against the affine path's rounds x n_dom_cand: more arithmetic and 16
-// bytes per DOM row, served from L1/L2 (a string's rows are contiguous).
+// (surveyed positions) tests the DOM rows of the segment's z-window on the
+// string's fitted ladder, widened by the string's largest residual in z
+// (the cell entry's half-width), from an (S, M) float4 residual table beside
+// a float4 per string: a row the full test accepts has its entry point on
+// the segment inside the DOM's sphere, so it lies in the window (with
+// pancake_factor >= 1; otherwise the half-width keeps every row).
 // MED 1 and 2 replace the closed-form wavelength factors at spawn by a lerp
 // of the (rows, n_wtab) wavelength table (gs, pa, qa, ra, and n, g when
 // tabulated); MED 2 (sea water) also replaces the Liu/HG scattering by the
@@ -443,25 +455,31 @@ __device__ __forceinline__ void spawn_draws(
   }
 }
 
+// A new photon: the spawned part of a slot's state, and its wavelength
+// (kept by the record mode).
+struct Spawned {
+  float x, y, z, t, dx, dy, dz, w0, igv, abs, gs, pa, qa, ra, wl;
+};
+
 // The new photon of a step (createPhotonFromTrack, kernel.cl:132-184) from
-// the step row `st` and the spawn draws u0-u3, written to column `col` of
-// the slab: emission point and time, the wavelength from the step's own
-// spectrum table (binary search and solve), the medium's factors, the
-// Cherenkov cone (a flasher keeps its direction), the absorption budget,
-// the group velocity and the bias.
-template <bool RECORDS, int DEP, bool FIXED, int MED>
-__device__ __forceinline__ void make_photon(
+// the step row `st` and the spawn draws u0-u3: emission point and time, the
+// wavelength from the step's own spectrum table (binary search and solve),
+// the medium's factors, the Cherenkov cone (a flasher keeps its direction),
+// the absorption budget, the group velocity and the bias.
+template <int DEP, bool FIXED, int MED>
+__device__ __forceinline__ Spawned make_photon(
     const Params& p, const float* st, const float* u,
     const float* __restrict__ spec_tab, const float* __restrict__ bias_tab,
-    const float* __restrict__ wtab, float (*slab)[BLOCK], int col) {
+    const float* __restrict__ wtab) {
+  Spawned q;
   const float s_dx = st[S_DX], s_dy = st[S_DY], s_dz = st[S_DZ];
   const float s_beta = st[S_BETA];
   const int src = (int)st[S_SRC];
   const float shift = st[S_LEN] * u[0];
-  slab[P_X][col] = st[S_X] + s_dx * shift;
-  slab[P_Y][col] = st[S_Y] + s_dy * shift;
-  slab[P_Z][col] = st[S_Z] + s_dz * shift;
-  slab[P_T][col] = st[S_T] + shift / (C_LIGHT * s_beta);
+  q.x = st[S_X] + s_dx * shift;
+  q.y = st[S_Y] + s_dy * shift;
+  q.z = st[S_Z] + s_dz * shift;
+  q.t = st[S_T] + shift / (C_LIGHT * s_beta);
   // wavelength: k = clip(#{acu <= u} - 1, 0, n-2), then the solve
   const int ns = p.n_spec;
   const float* __restrict__ sp_x = spec_tab + (size_t)src * 3 * ns;
@@ -512,14 +530,14 @@ __device__ __forceinline__ void make_photon(
     const float sin_c = sqrtf(fmaxf(1.0f - cos_c * cos_c, 0.0f));
     scatter_dir(cos_c, sin_c, s_dx, s_dy, s_dz, u[2], &dx, &dy, &dz);
   }
-  slab[P_DX][col] = dx;
-  slab[P_DY][col] = dy;
-  slab[P_DZ][col] = dz;
+  q.dx = dx;
+  q.dy = dy;
+  q.dz = dz;
   if constexpr (DEP == DEP_EXPECTED || FIXED)
-    slab[P_ABS][col] = p.horizon;  // fixed absorption horizon
+    q.abs = p.horizon;  // fixed absorption horizon
   else
-    slab[P_ABS][col] = -logf(1.0f - u[3]);
-  slab[P_IGV][col] = 1.0f / (C_LIGHT / n_group);
+    q.abs = -logf(1.0f - u[3]);
+  q.igv = 1.0f / (C_LIGHT / n_group);
   // bias: linear interpolation, clamped at the grid's ends; the (2, n_bias)
   // table holds the grid points, then the values
   const int nb = p.n_bias;
@@ -538,12 +556,27 @@ __device__ __forceinline__ void make_photon(
     bfrac = fminf(fmaxf((wlc - x0) / fmaxf(x1 - x0, 1e-30f), 0.0f), 1.0f);
   }
   const float f0 = bias_y[bk], f1 = bias_y[bk + 1];
-  slab[P_W0][col] = st[S_W] / fmaxf(f0 + bfrac * (f1 - f0), 1e-20f);
-  slab[P_GS][col] = gs;
-  slab[P_PA][col] = pa;
-  slab[P_QA][col] = qa;
-  slab[P_RA][col] = ra;
-  if constexpr (RECORDS) slab[P_WL][col] = wl;
+  q.w0 = st[S_W] / fmaxf(f0 + bfrac * (f1 - f0), 1e-20f);
+  q.gs = gs;
+  q.pa = pa;
+  q.qa = qa;
+  q.ra = ra;
+  q.wl = wl;
+  return q;
+}
+
+// The loop policy of an instantiation.  Where photons live to a fixed
+// horizon (the expected estimator, which passes through DOMs, and the fixed
+// absorption budget of FIXED) a block-iteration spawns 0.6-12 photons, so
+// the block-cooperative spawn has little to compact while its barriers take
+// 16-43% of each warp's cycles: there each warp iterates on its own, 6-25%
+// faster than the block loop on the same body in turns (one tie).  The
+// detect modes (DEP_PASS included: 52-59 spawns a block-iteration, a tie in
+// turns) and the record modes keep the block's step and its compacted
+// spawn (PERF.md, the fixed-horizon redesign).
+template <bool RECORDS, int DEP, bool FIXED>
+__host__ __device__ constexpr bool warp_loop() {
+  return !RECORDS && (DEP == DEP_EXPECTED || FIXED);
 }
 
 // Three resident blocks a SM, so at most 80 registers a thread.  Every
@@ -590,6 +623,20 @@ propagate_kernel(const Params p, float* __restrict__ state,
   unsigned int n_scat = 0, n_ray = 0;
   unsigned int n_walk = 0, n_warps = 0, n_swarps = 0;
   double w_sum = 0.0;
+  // clock cycles of each warp (lane 0's count is reduced) in the block's
+  // barriers, in the propagate stage and in the spawn stage: each lap adds
+  // the cycles since the last mark to one account (32-bit clock deltas,
+  // wrap-safe; a launch's account fits 32 bits)
+  unsigned int c_wait = 0, c_prop = 0, c_spawn = 0;
+  unsigned int t_mark = 0;
+  // of the propagate stage, the global plans' (COLL 1, 2) collision test
+  // and its cull (the cell lookup and the candidate loop)
+  unsigned int c_coll = 0, c_cull = 0;
+  auto lap = [&](unsigned int& acc) {
+    const unsigned int now = (unsigned int)clock();
+    acc += now - t_mark;
+    t_mark = now;
+  };
 
   // the slot's state (benign values past the last slot: such a thread only
   // takes part in the block's barriers)
@@ -642,61 +689,113 @@ propagate_kernel(const Params p, float* __restrict__ state,
     }
   }
 
+  // a spawned photon becomes the slot's
+  auto adopt = [&](const Spawned& q) {
+    x = q.x; y = q.y; z = q.z; t = q.t;
+    dx = q.dx; dy = q.dy; dz = q.dz;
+    w0 = q.w0; inv_gv = q.igv; abs_left = q.abs;
+    gs = q.gs; pa = q.pa; qa = q.qa; ra = q.ra;
+    inflight = 1.0f;
+    left -= 1.0f;
+    ++n_gen;
+    if constexpr (RECORDS) {  // spawn-time record state
+      rr.wlen = q.wl; rr.abs0 = abs_left; rr.nscat = 0.0f;
+      rr.sx = x; rr.sy = y; rr.sz = z; rr.st = t;
+      rr.sdx = dx; rr.sdy = dy; rr.sdz = dz;
+    }
+  };
+
+  t_mark = (unsigned int)clock();
   for (int it = 0; it < p.iters; ++it) {
     const bool live = valid && !stalled && (inflight > 0.5f || left > 0.5f);
     const bool fresh = live && inflight < 0.5f;
     const unsigned int fb = __ballot_sync(0xffffffffu, fresh);
     const unsigned int lb = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) s_wcnt[it & 1][warp] = __popc(fb);
-    // every thread stays in the loop until no slot of its block is live
-    if (!__syncthreads_or(live)) break;
-
-    // ---------- spawn stage: the block's fresh slots, compacted ----------
-    int base = 0, n_spawn = 0;
-#pragma unroll
-    for (int w = 0; w < BLOCK / 32; ++w) {
-      const int c = s_wcnt[it & 1][w];
-      base += w < warp ? c : 0;
-      n_spawn += c;
-    }
-    if (lane == 0) {
-      n_warps += lb != 0u;
-      n_swarps += warp * 32 < n_spawn;
-    }
-    if (n_spawn > 0) {
-      if (fresh)
-        s_list[base + __popc(fb & ((1u << lane) - 1u))] = (unsigned short)tid;
-      __syncthreads();
-      // the first n_spawn threads of the block each make the photon of one
-      // listed slot, with that slot's random numbers and step row
-      if (tid < n_spawn) {
-        const int j = s_list[tid];
-        const int s = blockIdx.x * BLOCK + j;
-        float u[4], st[NSTEP];
-        spawn_draws<THREEFRY>(p, uni, tf_keys, it, s, u);
-#pragma unroll
-        for (int f = 0; f < NSTEP; ++f) st[f] = s_step[f][j];
-        make_photon<RECORDS, DEP, FIXED, MED>(p, st, u, spec_tab, bias_tab,
-                                              wtab, s_slab, j);
+    if constexpr (warp_loop<RECORDS, DEP, FIXED>()) {
+      // ---------- the warp's own iteration: no block barrier ----------
+      lap(c_prop);  // the last iteration's propagate stage
+      if (lb == 0u) break;  // the warp leaves when no lane of it is live
+      if (lane == 0) {
+        ++n_warps;
+        n_swarps += fb != 0u;
       }
-      __syncthreads();
-      if (fresh) {
-        x = s_slab[P_X][tid]; y = s_slab[P_Y][tid]; z = s_slab[P_Z][tid];
-        t = s_slab[P_T][tid];
-        dx = s_slab[P_DX][tid]; dy = s_slab[P_DY][tid];
-        dz = s_slab[P_DZ][tid];
-        w0 = s_slab[P_W0][tid]; inv_gv = s_slab[P_IGV][tid];
-        abs_left = s_slab[P_ABS][tid];
-        gs = s_slab[P_GS][tid]; pa = s_slab[P_PA][tid];
-        qa = s_slab[P_QA][tid]; ra = s_slab[P_RA][tid];
-        inflight = 1.0f;
-        left -= 1.0f;
-        ++n_gen;
-        if constexpr (RECORDS) {  // spawn-time record state
-          rr.wlen = s_slab[P_WL][tid]; rr.abs0 = abs_left; rr.nscat = 0.0f;
-          rr.sx = x; rr.sy = y; rr.sz = z; rr.st = t;
-          rr.sdx = dx; rr.sdy = dy; rr.sdz = dz;
+      if (fb != 0u) {
+        // a fresh lane makes its own photon, from its own step row and its
+        // slot's random numbers
+        if (fresh) {
+          float u[4], st[NSTEP];
+          spawn_draws<THREEFRY>(p, uni, tf_keys, it, slot, u);
+#pragma unroll
+          for (int f = 0; f < NSTEP; ++f) st[f] = s_step[f][tid];
+          adopt(make_photon<DEP, FIXED, MED>(p, st, u, spec_tab, bias_tab,
+                                             wtab));
         }
+        lap(c_spawn);
+      }
+    } else {
+      if (lane == 0) s_wcnt[it & 1][warp] = __popc(fb);
+      lap(c_prop);  // the last iteration's propagate stage
+      // every thread stays in the loop until no slot of its block is live
+      const int any_live = __syncthreads_or(live);
+      lap(c_wait);
+      if (!any_live) break;
+
+      // ---------- spawn stage: the block's fresh slots, compacted --------
+      int base = 0, n_spawn = 0;
+#pragma unroll
+      for (int w = 0; w < BLOCK / 32; ++w) {
+        const int c = s_wcnt[it & 1][w];
+        base += w < warp ? c : 0;
+        n_spawn += c;
+      }
+      if (lane == 0) {
+        n_warps += lb != 0u;
+        n_swarps += warp * 32 < n_spawn;
+      }
+      if (n_spawn > 0) {
+        if (fresh)
+          s_list[base + __popc(fb & ((1u << lane) - 1u))] =
+              (unsigned short)tid;
+        lap(c_spawn);
+        __syncthreads();
+        lap(c_wait);
+        // the first n_spawn threads of the block each make the photon of
+        // one listed slot, with that slot's random numbers and step row
+        if (tid < n_spawn) {
+          const int j = s_list[tid];
+          const int s = blockIdx.x * BLOCK + j;
+          float u[4], st[NSTEP];
+          spawn_draws<THREEFRY>(p, uni, tf_keys, it, s, u);
+#pragma unroll
+          for (int f = 0; f < NSTEP; ++f) st[f] = s_step[f][j];
+          const Spawned q = make_photon<DEP, FIXED, MED>(
+              p, st, u, spec_tab, bias_tab, wtab);
+          const float v[NPR] = {q.x,  q.y,  q.z,   q.t,   q.dx,
+                                q.dy, q.dz, q.w0,  q.igv, q.abs,
+                                q.gs, q.pa, q.qa,  q.ra,  q.wl};
+#pragma unroll
+          for (int f = 0; f < (RECORDS ? NPR : P_WL); ++f)
+            s_slab[f][j] = v[f];
+        }
+        lap(c_spawn);
+        __syncthreads();
+        lap(c_wait);
+        if (fresh) {
+          Spawned q;
+          q.x = s_slab[P_X][tid]; q.y = s_slab[P_Y][tid];
+          q.z = s_slab[P_Z][tid]; q.t = s_slab[P_T][tid];
+          q.dx = s_slab[P_DX][tid]; q.dy = s_slab[P_DY][tid];
+          q.dz = s_slab[P_DZ][tid]; q.w0 = s_slab[P_W0][tid];
+          q.igv = s_slab[P_IGV][tid]; q.abs = s_slab[P_ABS][tid];
+          q.gs = s_slab[P_GS][tid]; q.pa = s_slab[P_PA][tid];
+          q.qa = s_slab[P_QA][tid]; q.ra = s_slab[P_RA][tid];
+          if constexpr (RECORDS)
+            q.wl = s_slab[P_WL][tid];
+          else
+            q.wl = 0.0f;
+          adopt(q);
+        }
+        lap(c_spawn);
       }
     }
     if (!live) continue;
@@ -796,16 +895,26 @@ propagate_kernel(const Params p, float* __restrict__ state,
     const float dxy2 = dx * dx + dy * dy;
     if constexpr (COLL != COLL_SUBPLANS) {
       // ---------- global cell plan (kernel.py:947-1003, :1270-1456) ----
+      const unsigned int t_c0 = (unsigned int)clock();
       if (dxy2 > 0.0f) {
         const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
         const float cxi = fminf(fmaxf(floorf((x - p.g_x0) * p.g_inv_cell),
                                       0.0f), (float)(p.g_nx - 1));
         const float cyi = fminf(fmaxf(floorf((y - p.g_y0) * p.g_inv_cell),
                                       0.0f), (float)(p.g_ny - 1));
-        // [cell][candidate][3] float4: (sx, sy, maxr^2, dom offset),
-        // (minz, maxz, z0, dz), (n doms, string index, 1 / dz, 0)
-        const float4* __restrict__ cand =
-            cells + ((int)cxi * p.g_ny + (int)cyi) * p.g_k_cand * 3;
+        // a cell: its candidate count, then three blocks of kb float4 (the
+        // cull's (sx, sy, maxr^2, dom offset), the z extent and ladder
+        // (minz, maxz, z0, dz), and (n doms, string index, 1 / dz, window
+        // half-width)), kb = K_cand rounded up to 4 (kernel.py
+        // global_cell_table)
+        const int kb = (p.g_k_cand + 3) & ~3;
+        const float4* __restrict__ cell =
+            cells + ((int)cxi * p.g_ny + (int)cyi) * (1 + 3 * kb);
+        const float4* __restrict__ cull = cell + 1;
+        const float4* __restrict__ zext = cull + kb;
+        const float4* __restrict__ lad = zext + kb;
+        const int n_c = (int)cell[0].x;
+        n_cand += n_c;
         // the cull ranks by the static segment cap; keep the n_rounds
         // closest culled strings sorted (ties keep the earlier candidate)
         float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
@@ -814,46 +923,53 @@ propagate_kernel(const Params p, float* __restrict__ state,
         for (int r = 0; r < MAX_ROUNDS; ++r) {
           rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; rci[r] = 0;
         }
-        for (int c = 0; c < p.g_k_cand; ++c) {
-          const float4 e = cand[3 * c];
-          // the cell's list ends at its padding (maxr^2 = -1, which no
-          // string passes)
-          if (e.z < 0.0f) break;
-          ++n_cand;
-          const float rx = e.x - x, ry = e.y - y;
-          const float bd2 = rx * dx + ry * dy;
-          const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
-          const float cx = rx - dx * t2d, cy = ry - dy * t2d;
-          float d2 = cx * cx + cy * cy;
-          if (!(d2 <= e.z)) continue;
-          ++n_cull;
-          const float4 ez = cand[3 * c + 1];  // the candidate's z extent
-          if ((dz > 0.0f && z > ez.y + p.r) || (dz < 0.0f && z < ez.x - p.r))
-            continue;
-          float a2 = rx * rx + ry * ry, bd = bd2;
-          int ci = c;
+        // four consecutive entries a load group, issued together so that
+        // their latencies overlap; the padding after the list (maxr^2 = -1)
+        // passes no cull
+        for (int c0 = 0; c0 < n_c; c0 += 4) {
+          float4 e4[4];
 #pragma unroll
-          for (int r = 0; r < MAX_ROUNDS; ++r) {
-            if (d2 < rd2[r]) {
-              const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
-              const int t3 = rci[r];
-              rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; rci[r] = ci;
-              d2 = t0; a2 = t1; bd = t2; ci = t3;
+          for (int q = 0; q < 4; ++q) e4[q] = cull[c0 + q];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float4 e = e4[q];
+            const float rx = e.x - x, ry = e.y - y;
+            const float bd2 = rx * dx + ry * dy;
+            const float t2d = fminf(fmaxf(bd2 * inv_dxy2, 0.0f), p.max_seg);
+            const float cx = rx - dx * t2d, cy = ry - dy * t2d;
+            float d2 = cx * cx + cy * cy;
+            if (!(d2 <= e.z)) continue;
+            ++n_cull;
+            const int c = c0 + q;
+            const float4 ez = zext[c];  // the candidate's z extent
+            if ((dz > 0.0f && z > ez.y + p.r) ||
+                (dz < 0.0f && z < ez.x - p.r))
+              continue;
+            float a2 = rx * rx + ry * ry, bd = bd2;
+            int ci = c;
+#pragma unroll
+            for (int r = 0; r < MAX_ROUNDS; ++r) {
+              if (d2 < rd2[r]) {
+                const float t0 = rd2[r], t1 = rA2[r], t2 = rBd[r];
+                const int t3 = rci[r];
+                rd2[r] = d2; rA2[r] = a2; rBd[r] = bd; rci[r] = ci;
+                d2 = t0; a2 = t1; bd = t2; ci = t3;
+              }
             }
           }
         }
+        c_cull += (unsigned int)clock() - t_c0;
         const float margin = p.r + 1.0f;
 #pragma unroll
         for (int r = 0; r < MAX_ROUNDS; ++r) {
           if (r >= p.n_rounds || !(rd2[r] < BIG)) break;
           ++n_tested;
-          const float4 e0 = cand[3 * rci[r]];
-          const int off = (int)e0.w;
+          const int off = (int)cull[rci[r]].w;
           if constexpr (COLL == COLL_AFFINE) {
             // the n_dom_cand ladder DOMs of the z-window from the ceil
             // anchor, each string's (z0, dz, n, 1 / dz) from its own entry
-            const float4 e1 = cand[3 * rci[r] + 1];
-            const float4 e2 = cand[3 * rci[r] + 2];
+            const float4 e1 = zext[rci[r]];
+            const float4 e2 = lad[rci[r]];
             const float nd = e2.x, inv_dzf = e2.z;
             const float z0 = e1.z, dzf = e1.w;
             const float m1 = (z - z0) * inv_dzf;
@@ -875,15 +991,24 @@ propagate_kernel(const Params p, float* __restrict__ state,
               }
             }
           } else {
-            // every DOM row of the string: its fitted ladder plus the
-            // residuals of the surveyed positions (its nd valid rows come
-            // first, geometry.build_geometry)
-            const float4 e2 = cand[3 * rci[r] + 2];  // nd, string index
+            // the DOM rows of the segment's z-window: the string's fitted
+            // ladder plus the residuals of the surveyed positions (its nd
+            // valid rows come first, geometry.build_geometry); the rows
+            // mlo..mhi of the segment's z-range on the ladder, widened by
+            // e2.w = (r + 1 + rz) / |dz| rows (kernel.py general_window:
+            // every row the full test would accept is inside; BIG keeps
+            // every row)
+            const float4 e2 = lad[rci[r]];  // nd, sidx, 1/dz, half
             const int sidx = (int)e2.y;
-            n_rows += (unsigned int)e2.x;
             const float4 sf = strings[sidx];  // x, y, z0, dz
             const float4* __restrict__ rows = rel + (size_t)sidx * p.m_rel;
-            for (int m = 0; m < p.m_rel; ++m) {
+            const float m1 = (z - sf.z) * e2.z;
+            const float m2 = m1 + dz * d_prop * e2.z;
+            const int mlo = (int)fmaxf(ceilf(fminf(m1, m2) - e2.w), 0.0f);
+            const int mhi =
+                (int)fminf(floorf(fmaxf(m1, m2) + e2.w), e2.x - 1.0f);
+            n_rows += (unsigned int)max(mhi - mlo + 1, 0);
+            for (int m = mlo; m <= mhi; ++m) {
               const float4 q = rows[m];  // dx, dy, dz, valid
               if (!(q.w > 0.5f)) continue;
               const float ox = sf.x + q.x - x;
@@ -903,6 +1028,7 @@ propagate_kernel(const Params p, float* __restrict__ state,
           }
         }
       }
+      c_coll += (unsigned int)clock() - t_c0;
     } else if (dxy2 > 0.0f) {  // exactly vertical photons are invisible
       const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
       const float margin = p.r + 1.0f;
@@ -1159,19 +1285,28 @@ propagate_kernel(const Params p, float* __restrict__ state,
     }
   }
 
+  // the block's last barrier: a warp that left the loop early waits here
+  lap(c_prop);
+  __syncthreads();
+  lap(c_wait);
+
   // ---------- counters: warp, then block, then one atomic per block -------
-  // (the global plans and the tabulated media add six: the bound's work)
+  // (the global plans and the tabulated media add six: the bound's work;
+  // the last NCYC, the cycle accounts, are lane 0's and need no warp sum)
   constexpr bool WIDE = !(COLL == COLL_SUBPLANS && MED == MED_CLOSED);
-  constexpr int NC = 13;
+  constexpr int NC = 18, NCYC = 5;
   __shared__ long long s_cnt[NC][BLOCK / 32];
   __shared__ double s_w[BLOCK / 32];
+  const bool l0 = lane == 0;
   long long v[NC] = {n_gen,  n_hits, n_alive, n_work, n_tested, n_cand, n_cull,
-                     n_rows, n_scat, n_ray,   n_walk, n_warps,  n_swarps};
+                     n_rows, n_scat, n_ray,   n_walk, n_warps,  n_swarps,
+                     l0 ? c_wait : 0u, l0 ? c_prop : 0u, l0 ? c_spawn : 0u,
+                     l0 ? c_coll : 0u, l0 ? c_cull : 0u};
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
 #pragma unroll
     for (int q = 0; q < NC; ++q)
-      if (WIDE || q < 4 || q >= 10)
+      if (q < NC - NCYC && (WIDE || q < 4 || q >= 10))
         v[q] += __shfl_down_sync(0xffffffffu, v[q], off);
     w_sum += __shfl_down_sync(0xffffffffu, w_sum, off);
   }

@@ -119,12 +119,20 @@ NRC = len(REC_COLUMNS)
 # that drew the Rayleigh branch.  Every instantiation counts CNT_WALK, the
 # layer-walk steps of live slot-iterations (crossings + 1, at most
 # max_layer_steps + 1 each), and two diagnostics of its own that the plain
-# version leaves 0: CNT_WARPS, warp-iterations with a live lane, and
-# CNT_SPAWN_WARPS, warp-iterations that ran the spawn path.
+# version leaves 0: CNT_WARPS, warp-iterations with a live lane,
+# CNT_SPAWN_WARPS, warp-iterations that ran the spawn path, and each warp's
+# clock cycles (lane 0's) in the block's barriers (CNT_WAIT), in the
+# propagate stage (CNT_PROP) and in the spawn stage (CNT_SPAWN_CYC), and of
+# the propagate stage's, on the global plans, those of the collision test
+# (CNT_COLL_CYC) and of its cull (CNT_CULL_CYC).
 (CNT_GEN, CNT_HITS, CNT_WSUM, CNT_DROPPED, CNT_ALIVE, CNT_QUEUED,
  CNT_WORK, CNT_STALLED, CNT_TESTED, CNT_CAND, CNT_CULL, CNT_ROWS, CNT_SCAT,
- CNT_RAYLEIGH, CNT_WALK, CNT_WARPS, CNT_SPAWN_WARPS) = range(17)
-N_CNT = 17
+ CNT_RAYLEIGH, CNT_WALK, CNT_WARPS, CNT_SPAWN_WARPS, CNT_WAIT, CNT_PROP,
+ CNT_SPAWN_CYC, CNT_COLL_CYC, CNT_CULL_CYC) = range(22)
+N_CNT = 22
+# the kernel's own counts after the TALLIES, which the plain version leaves 0
+KERNEL_ONLY = (CNT_WARPS, CNT_SPAWN_WARPS, CNT_WAIT, CNT_PROP, CNT_SPAWN_CYC,
+               CNT_COLL_CYC, CNT_CULL_CYC)
 # the tallies of the plain version, in counter order from CNT_TESTED on
 TALLIES = ("tested", "cand", "cull", "rows", "scat", "rayleigh", "walk")
 
@@ -229,6 +237,38 @@ def _affine_collision_plan(geo: DetectorGeometry, cfg: PropagationConfig):
     if n_cand > 16:
         return False, 0
     return True, n_cand
+
+
+def general_window(geo: DetectorGeometry, cfg: PropagationConfig):
+    """The z-window of the general plan's DOM rows: (half, n_win).
+
+    A row the general test accepts has 0 <= smin1 < d_prop; with
+    pancake_factor >= 1 its entry point lies on the segment inside the DOM's
+    sphere of radius r, so the DOM's z lies within r of the segment's
+    z-range, and its string's fitted ladder row z0 + m * dz within r + rz of
+    it, rz the string's largest |residual z| over its valid rows.  The
+    kernel and the plain version test only the rows m of that range widened
+    by 1 m for rounding, as the affine plan's z-window does: half[s] =
+    (r + 1 + rz_s) / |dz_s| ladder rows on each side of the segment's
+    z-range.  A string with no ladder (|dz_s| < 1e-3 m) and every string
+    when pancake_factor < 1 keep every row (half = BIG).  n_win (<= M) is
+    the most rows a window holds at the max_segment_m cap: floor(span) + 1
+    integers fit in a span, + 1 for rounding."""
+    rel = to_numpy(geo.string_dom_rel, np.float64)        # (S, M, 4)
+    feats = to_numpy(geo.string_features, np.float64)
+    valid = rel[..., 3] > 0.5
+    M = rel.shape[1]
+    rz = np.where(valid, np.abs(rel[..., 2]), 0.0).max(axis=1)
+    dzf = np.abs(feats[:, 5])
+    ladder = dzf >= 1e-3
+    if cfg.pancake_factor < 1.0:
+        ladder[:] = False
+    half = np.where(ladder, (geo.collision_radius + 1.0 + rz)
+                    / np.where(ladder, dzf, 1.0), E.BIG)
+    n_win = max([int(np.floor(cfg.max_segment_m / dzf[s] + 2.0 * half[s]))
+                 + 2 for s in np.nonzero(ladder)[0]]
+                + [int(valid[s].sum()) for s in np.nonzero(~ladder)[0]])
+    return half.astype(np.float32), min(n_win, M)
 
 
 def _grid_search(sx, sy, reach, max_cells=512, n_feat=10):
@@ -487,6 +527,7 @@ class FusedSpec(NamedTuple):
     # package's FusedSpec holds it
     affine_doms: bool     # DOMs exactly on z0 + m*dz: analytic DOM window
     n_dom_cand: int       # z-window DOM candidates of the affine test
+    n_win: int            # DOM rows of the general test's z-window, at most
     n_string_rounds: int  # closest culled strings tested (strings_per_photon)
     K_cand: int           # padded candidate strings per cell
     n_cull_cells: int     # padded nx*ny cell count
@@ -547,6 +588,8 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
         scat_table=medium.scattering.kind != "icecube",
         affine_doms=bool(affine_ok),
         n_dom_cand=int(n_cand),
+        n_win=(0 if affine_ok or plan.get("sub_plans")
+               else general_window(geo, cfg)[1]),
         n_string_rounds=int(cfg.strings_per_photon),
         K_cand=int(plan.get("K_cand", 8)),
         n_cull_cells=int(plan.get("n_cull_cells", 8)),
@@ -638,13 +681,14 @@ class FusedTables(NamedTuple):
     tilt_zc: torch.Tensor         # (nd, nz) tilt z-corrections (or (1,))
     cells: torch.Tensor           # flat candidates: (sum n_cells*K_cand,
                                   # 4) per SubPlan, or the global plan's
-                                  # (n_cells*K_cand*3, 4)
+                                  # (n_cells * (1 + 3 kb), 4)
     plan_cells: tuple             # per SubPlan: (n_cells, K_cand, 4) view
     plan_offsets: tuple           # per SubPlan: first candidate row
     doms: torch.Tensor            # (n_doms, 4) DOM centres x, y, z, 0
     scalars: dict                 # float scalars of the parameter block
-    global_cells: Optional[torch.Tensor]  # (n_cells, K_cand, 3, 4) view of
-                                  # `cells` for the global plan, else None
+    global_cells: Optional[torch.Tensor]  # (n_cells, 1 + 3 kb, 4) view of
+                                  # `cells` for the global plan
+                                  # (global_cell_table), else None
     rel: torch.Tensor             # (S, M, 4) DOM residuals dx, dy, dz, valid
                                   # (general path; else (1, 1, 4) zeros)
     strings: torch.Tensor         # (S, 4) string x, y, z0, dz of the fitted
@@ -654,17 +698,40 @@ class FusedTables(NamedTuple):
     scat: torch.Tensor            # (3, n_scat) angle, CDF, density (or (1,))
 
 
-def global_cell_table(spec: FusedSpec, cell_tab: np.ndarray) -> np.ndarray:
+def cull_block(spec: FusedSpec) -> int:
+    """Entries of each of a cell's three blocks in the global cell table:
+    K_cand rounded up to 4, the kernel's cull load group."""
+    return -(-spec.K_cand // 4) * 4
+
+
+def global_cell_table(spec: FusedSpec, cell_tab: np.ndarray,
+                      half: Optional[np.ndarray] = None) -> np.ndarray:
     """The global plan's cell table re-laid out from the JAX package's
-    feature-major (10 * K_cand, n_cells) block to [cell][candidate][12]:
-    (sx, sy, maxr2, off), (minz, maxz, z0, dzf), (nd, sidx, 1 / dzf, 0),
-    three 16-byte loads per candidate; 1 / dzf is float32(1 / dzf), the
-    quotient torch's float32 division gives."""
-    K, nc = spec.K_cand, spec.n_cull_cells
+    feature-major (10 * K_cand, n_cells) block to (n_cells, 1 + 3 kb, 4),
+    kb = cull_block(spec): per cell a header (its candidate count, 0, 0, 0),
+    then three blocks of kb 16-byte entries, the cull's (sx, sy, maxr2, off)
+    of every candidate consecutive, then (minz, maxz, z0, dzf), then (nd,
+    sidx, 1 / dzf, half); entries past K_cand are padding (maxr2 = -1).
+    1 / dzf is float32(1 / dzf), the quotient torch's float32 division
+    gives; `half` is the general plan's z-window of the candidate's string
+    (general_window; 0 on the affine plan and for the padding).  The cull
+    reads a cell's candidates as consecutive entries, four at a time."""
+    K, nc, kb = spec.K_cand, spec.n_cull_cells, cull_block(spec)
     blk = cell_tab[:10 * K, :nc].reshape(10, K, nc).transpose(2, 1, 0)
-    out = np.zeros((nc, K, 12), np.float32)
-    out[..., :10] = blk
-    out[..., 10] = 1.0 / blk[..., 7].astype(np.float64)
+    ent = np.zeros((nc, K, 12), np.float32)
+    ent[..., :10] = blk
+    ent[..., 10] = 1.0 / blk[..., 7].astype(np.float64)
+    if half is not None:
+        sidx = blk[..., 9].astype(np.int64)
+        ent[..., 11] = np.where(sidx >= 0, half[np.maximum(sidx, 0)], 0.0)
+    pad = np.zeros((nc, kb, 12), np.float32)
+    pad[..., 2], pad[..., 7], pad[..., 8], pad[..., 9] = -1.0, 1.0, 1.0, -1.0
+    pad[..., 10] = 1.0
+    pad[:, :K] = ent
+    out = np.zeros((nc, 1 + 3 * kb, 4), np.float32)
+    out[:, 0, 0] = (blk[..., 2] >= 0.0).sum(axis=1)
+    for q in range(3):
+        out[:, 1 + q * kb:1 + (q + 1) * kb] = pad[..., 4 * q:4 * q + 4]
     return out
 
 
@@ -690,7 +757,8 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
     re-laid out from the JAX package's feature-major block per SubPlan
     ([sx|sy|maxr2|off] rows x cells) to [cell][candidate][4], so a thread
     reads its cell's candidates as consecutive 16-byte entries; the global
-    plan's to [cell][candidate][12] (global_cell_table).  The general path
+    plan's to a count and three blocks a cell, the cull's entries
+    consecutive (global_cell_table).  The general path
     reads the DOM residuals as (S, M) float4 rows beside a float4 per
     string (clsim_tpu/propagate/kernel.py:2294-2306 builds the same from
     string_dom_rel and string_features)."""
@@ -705,16 +773,16 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         offsets.append(off)
         off += p.n_cells * p.K_cand
     global_cells = None
+    general = kernel_coll(spec) == COLL_GENERAL
     if spec.sub_plans:
         cells = f32(np.concatenate(blocks))
     else:
-        g = f32(global_cell_table(spec, cell_tab))
-        global_cells = g.view(spec.n_cull_cells, spec.K_cand, 3, 4)
-        cells = g.view(-1, 4)
+        half = general_window(geo, spec.cfg)[0] if general else None
+        global_cells = f32(global_cell_table(spec, cell_tab, half))
+        cells = global_cells.view(-1, 4)
     for p, o in zip(spec.sub_plans, offsets):
         views.append(cells[o:o + p.n_cells * p.K_cand].view(
             p.n_cells, p.K_cand, 4))
-    general = kernel_coll(spec) == COLL_GENERAL
     rel = (f32(to_numpy(geo.string_dom_rel)) if general
            else torch.zeros((1, 1, 4), device=dev))
     strings = (f32(to_numpy(geo.string_features)[:, [0, 1, 4, 5]])
@@ -891,8 +959,10 @@ def _check_collisions_global(state: E.SlotState, tables: FusedTables,
     (clsim_tpu/propagate/kernel.py:947-1003), and the n_string_rounds
     closest get the ray-sphere test: against the n_dom_cand DOMs of the
     z-window from the ceil anchor on an affine geometry (:1270-1381), or
-    against every DOM of the string from its residual rows otherwise
-    (:1382-1456).  The minimum entry distance over the rounds wins.  The
+    against the DOMs of the string's residual rows otherwise (:1382-1456),
+    there only the rows of the segment's z-window (general_window: the
+    same accept set as every row, so the same hits, distances and DOMs).
+    The minimum entry distance over the rounds wins.  The
     kernel's counts of this work (candidates, cull passes, strings and DOMs
     tested: TALLIES) are added to the dict `tally` when given."""
     sc = tables.scalars
@@ -907,7 +977,8 @@ def _check_collisions_global(state: E.SlotState, tables: FusedTables,
     cyi = torch.clamp(torch.floor((y - spec.cell_y0) * spec.inv_cell), 0,
                       spec.cell_ny - 1)
     cand = tables.global_cells[(cxi * spec.cell_ny + cyi).to(torch.int64)]
-    f = lambda q, c: cand[..., q, c]                     # (N, K_cand)
+    K, kb = spec.K_cand, cull_block(spec)
+    f = lambda q, c: cand[:, 1 + q * kb:1 + q * kb + K, c]   # (N, K_cand)
     rx = f(0, 0) - x[:, None]
     ry = f(0, 1) - y[:, None]
     bd2 = rx * dx[:, None] + ry * dy[:, None]
@@ -949,17 +1020,28 @@ def _check_collisions_global(state: E.SlotState, tables: FusedTables,
             dr2 = pick(A2)[:, None] + oz * oz
             valid = ok
         else:
+            # the rows mlo..mhi of the segment's z-window on the string's
+            # fitted ladder (general_window), n_win wide at most
             s = torch.clamp(pick(f(2, 1)), min=0.0).to(torch.int64)
-            rel = tables.rel[s]                           # (N, M, 4)
             st = tables.strings[s]                        # (N, 4)
-            m = torch.arange(rel.shape[1], device=x.device,
-                             dtype=x.dtype)[None, :].expand(x.shape[0], -1)
+            nd, inv_dzf, half = pick(f(2, 0)), pick(f(2, 2)), pick(f(2, 3))
+            m1 = (z - st[:, 2]) * inv_dzf
+            m2 = m1 + dz * d_prop * inv_dzf
+            mlo = torch.clamp(torch.ceil(torch.minimum(m1, m2) - half),
+                              min=0.0)
+            mhi = torch.minimum(torch.floor(torch.maximum(m1, m2) + half),
+                                nd - 1.0)
+            m = mlo[:, None] + torch.arange(spec.n_win, device=x.device,
+                                            dtype=x.dtype)   # (N, n_win)
+            M = tables.rel.shape[1]
+            rel = tables.rel[s[:, None],
+                             torch.clamp(m, max=M - 1.0).to(torch.int64)]
             ox = st[:, 0:1] + rel[..., 0] - x[:, None]
             oy = st[:, 1:2] + rel[..., 1] - y[:, None]
             oz = st[:, 2:3] + st[:, 3:4] * m + rel[..., 2] - z[:, None]
             dr2 = ox * ox + oy * oy + oz * oz
             urdot = ox * dx[:, None] + oy * dy[:, None] + oz * dz[:, None]
-            valid = ok & (rel[..., 3] > 0.5)
+            valid = ok & (m <= mhi[:, None]) & (rel[..., 3] > 0.5)
         _tally(tally, "rows", valid.sum() * (spec.n_dom_cand
                                              if spec.affine_doms else 1))
         discr = urdot * urdot - dr2 + R2
@@ -1130,7 +1212,7 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
                             zero, alive.sum().to(torch.float64), queued,
                             acc.n_work, stalled]
                            + [f64(tally.get(k, 0)) for k in TALLIES]
-                           + [zero, zero]).to(torch.float64)
+                           + [zero] * len(KERNEL_ONLY)).to(torch.float64)
     if spec.records:
         return state, acc.hist, counters, buf.result(dev)
     return state, acc.hist, counters
@@ -1328,9 +1410,9 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
         hist = torch.zeros(n_hist, dtype=f32, device=dev)
     _check_tensor("hist", hist, (n_hist,), f32, dev)
     # generated, hits, alive, work, then the TALLIES (those before "walk"
-    # zero where COLL and MED are 0), warp-iterations and spawn
-    # warp-iterations
-    cnt_i = torch.zeros(4 + len(TALLIES) + 2, dtype=torch.int64, device=dev)
+    # zero where COLL and MED are 0) and the KERNEL_ONLY counts
+    cnt_i = torch.zeros(4 + len(TALLIES) + len(KERNEL_ONLY),
+                        dtype=torch.int64, device=dev)
     cnt_w = torch.zeros(1, dtype=torch.float64, device=dev)
     cap = 0
     if spec.records:

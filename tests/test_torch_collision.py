@@ -139,25 +139,35 @@ def test_plan_collision_ic86_matches_jax():
 
 
 def test_global_table_layouts():
-    """[cell][candidate][12] rebuilt from the JAX package's feature-major
-    cell table (and float32(1 / dzf), then 0, after its ten features), and
-    the DOM residual and per-string tables equal to the rows the JAX
-    package's _build_tables builds (kernel.py:2294-2306)."""
+    """The global cell table rebuilt from the JAX package's feature-major
+    cell table: per cell its candidate count, then three blocks of kb =
+    K_cand rounded up to 4 entries (the cull's (sx, sy, maxr2, off) of
+    every candidate consecutive, then (minz, maxz, z0, dzf), then (nd,
+    sidx, float32(1 / dzf), the string's z-window half-width)), padding
+    that passes no cull; and the DOM residual and per-string tables equal
+    to the rows the JAX package's _build_tables builds
+    (kernel.py:2294-2306)."""
     medium, geo, spectra, cfg, steps, u = workload("jittered")
     spec, tables, _ = port_spec((medium, geo, spectra, cfg, steps, u))
     assert KT.kernel_coll(spec) == KT.COLL_GENERAL
     cell_j, plan_j = quiet(KJ.plan_collision, geo, cfg)
-    K, nc = spec.K_cand, spec.n_cull_cells
+    K, nc, kb = spec.K_cand, spec.n_cull_cells, KT.cull_block(spec)
+    assert kb % 4 == 0 and K <= kb < K + 4
+    half, _ = KT.general_window(geo, spec.cfg)
     g = tables.global_cells.numpy()
-    assert g.shape == (nc, K, 3, 4)
+    assert g.shape == (nc, 1 + 3 * kb, 4)
     for c in range(nc):
-        for k in range(K):
+        assert g[c, 0, 0] == (cell_j[2 * K:3 * K, c] >= 0.0).sum()
+        for k in range(kb):
+            e = np.concatenate([g[c, 1 + q * kb + k] for q in range(3)])
+            if k >= K:
+                assert e[2] == -1.0        # padding: no cull passes it
+                continue
             np.testing.assert_array_equal(
-                g[c, k].reshape(-1)[:10],
-                [cell_j[f * K + k, c] for f in range(10)])
-            assert g[c, k].reshape(-1)[10] == np.float32(
-                1.0 / np.float64(cell_j[7 * K + k, c]))
-            assert g[c, k].reshape(-1)[11] == 0
+                e[:10], [cell_j[f * K + k, c] for f in range(10)])
+            assert e[10] == np.float32(1.0 / np.float64(cell_j[7 * K + k, c]))
+            s = int(cell_j[9 * K + k, c])
+            assert e[11] == (half[s] if s >= 0 else 0.0)
     spec_j = quiet(KJ._build_spec, medium, geo, spectra, cfg, TK.N, TK.T, 1,
                    32, 1024, 2, True, True, plan=plan_j)
     rel_j = np.asarray(quiet(KJ._build_tables, spec_j, medium, geo, spectra,

@@ -334,3 +334,99 @@ def test_cuda_record_stall_loses_no_record():
         0, r["dom"][0].to(torch.int64) * nb + tb, r["weight"][0].double())
     torch.testing.assert_close(rebuilt, res.hist.reshape(-1).double(),
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", [
+    "propagate[expected,global]", "propagate[expected,general]",
+    "propagate[expected,water]", "propagate[pass,global]",
+    "propagate[fixed,global]", "propagate[expected,photonics]"])
+def test_cuda_fixed_horizon_steady_shape_matches_plain(entry, monkeypatch):
+    """Each fixed-horizon instantiation against its plain version at the
+    steady shape (chip_smoke phase 8a's inputs at 65,536 slots, advanced
+    64 iterations, then 32 on the shared stream) with few photons a slot
+    and short lives, so that slots drain at different iterations and a
+    warp that iterates on its own leaves the loop early: 2-10 photons a
+    slot and a horizon of 3 absorption lengths in ice (12 in water, whose
+    photons cross a length in fewer iterations), a photon living ~12
+    iterations; 6-20 photons in the non-stopping detect mode, whose
+    sampled budgets last ~5.  Phase 2's tolerances and the bound's
+    counts; every spawn took one photon from its slot (no slot lost); live
+    slot-iterations within max(2, 1%) of the plain version's; warp-
+    iterations at least the live slot-iterations over 32 and at most one a
+    warp an iteration."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import numpy as np
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    n, T = 65536, chip_smoke.PHASE2_T
+    monkeypatch.setattr(chip_smoke, "N_SLOTS", n)
+    dev = torch.device("cuda", 0)
+    name, inputs, records, l1_tol = {
+        e: (nm, i, r, t)
+        for e, nm, i, r, t in chip_smoke.phase8_cases(dev)}[entry]
+    medium, geo, spectra, cfg, steps, uni = inputs
+    if cfg.estimator == "expected" or cfg.fixed_abs_lens > 0:
+        cfg = dataclasses.replace(cfg, fixed_abs_lens=(
+            12.0 if entry == "propagate[expected,water]" else 3.0))
+    lo, hi = (6, 21) if entry == "propagate[pass,global]" else (2, 11)
+    few = torch.as_tensor(np.random.default_rng(13).integers(lo, hi, n),
+                          dtype=steps.num_photons.dtype, device=dev)
+    inputs = (medium, geo, spectra, cfg, steps._replace(num_photons=few),
+              uni)
+    state0 = chip_smoke.steady_state(inputs)
+    left = K.STATE_FIELDS.index("photons_left")
+    left0 = float(state0[left].double().sum())
+    out = chip_smoke.check_instantiation(name, inputs, records, l1_tol,
+                                         state0=state0)
+    medium, geo, spectra, cfg, steps, uni = inputs
+    spec, cell_tab = chip_smoke.quiet(K.fused_spec, medium, geo, spectra,
+                                      cfg, n, T)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    st_k, _, c_k = K.run_fused_iterations(state0.clone(), K.pack_steps(steps),
+                                          tables, spec, uniforms=uni)
+    st_p, _, c_p = K.run_fused_iterations_plain(
+        state0.clone(), K.pack_steps(steps), tables, spec, uniforms=uni)
+    torch.cuda.synchronize()
+    assert out["hits"] > 20
+    assert left0 - float(st_k[left].double().sum()) == float(
+        c_k[K.CNT_GEN])
+    work_k, work_p = float(c_k[K.CNT_WORK]), float(c_p[K.CNT_WORK])
+    assert abs(work_k - work_p) <= max(2.0, 0.01 * work_p)
+    assert work_k / 32 <= float(c_k[K.CNT_WARPS]) <= n // 32 * T
+    alive_k, alive_p = float(c_k[K.CNT_ALIVE]), float(c_p[K.CNT_ALIVE])
+    assert abs(alive_k - alive_p) <= max(2.0, 0.01 * alive_p)
+    assert alive_k < n     # slots drained in the run
+
+
+@pytest.mark.cuda
+def test_cuda_rows_match_plain_on_jittered_ic86(monkeypatch):
+    """The general plan's DOM rows tested (CNT_ROWS: the z-window's rows)
+    kernel against plain on jittered ic86 (chip_smoke phase 7a's general
+    case at 8,192 slots) within max(2, 1%), and at most n_win a tested
+    string."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    n = 8192
+    monkeypatch.setattr(chip_smoke, "N_SLOTS", n)
+    dev = torch.device("cuda", 0)
+    medium, geo, spectra, cfg, steps, uni = {
+        e: i for e, _, i in chip_smoke.phase7_cases(dev)}["propagate[general]"]
+    spec, cell_tab = chip_smoke.quiet(K.fused_spec, medium, geo, spectra,
+                                      cfg, n, chip_smoke.PHASE2_T)
+    assert K.kernel_coll(spec) == K.COLL_GENERAL
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    state0, steps_p = K.init_state(steps), K.pack_steps(steps)
+    _, _, c_k = K.run_fused_iterations(state0.clone(), steps_p, tables, spec,
+                                       uniforms=uni)
+    _, _, c_p = K.run_fused_iterations_plain(state0.clone(), steps_p, tables,
+                                             spec, uniforms=uni)
+    torch.cuda.synchronize()
+    rows_k, rows_p = float(c_k[K.CNT_ROWS]), float(c_p[K.CNT_ROWS])
+    assert rows_p > 0
+    assert abs(rows_k - rows_p) <= max(2.0, 0.01 * rows_p)
+    assert rows_k <= spec.n_win * float(c_k[K.CNT_TESTED])
