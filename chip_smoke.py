@@ -9,6 +9,11 @@
         # by git archive), each instantiation at phase 2's shape and the
         # fixed-horizon ones also at the steady shape, with each body's
         # account (k1_stats); PATH gets every turn's numbers as JSON
+    python3 chip_smoke.py --host-split LABEL:ROOT ... [--json PATH]
+        # phase 3's cascade and 8b's flash with the package of each
+        # checkout in turns (e.g. parent, new, new, parent), one process a
+        # turn: simulate's wall and its host split (conversion, slot
+        # assignment, copy, propagation), medians of 3
 
 Phases (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -26,8 +31,11 @@ Phases (any failure raises and exits non-zero):
      warp-iteration);
   3. the main path: Simulation.simulate of a 100 TeV EMinus cascade at the
      centre of hex61 (61 strings, 3,660 DOMs) in a seeded 171-layer ice,
-     262,144 slots; the kernel must have been launched, the photon yield
-     must match the PPC formula, nothing dropped or abandoned;
+     262,144 slots, with the native step sampler (its failing to load
+     fails the phase); the kernel must have been launched, the photon
+     yield must match the PPC formula, nothing dropped or abandoned; the
+     host split of the same call (host_split: conversion, slot
+     assignment, host-to-device copy, propagation);
   4. the bench workload (262,144 slots x 200 photons on hex61) through the
      port, and a statistical comparison of the kernel with the plain version
      (hits per generated photon, |z| < 5) at 16,384 slots x 50 photons;
@@ -123,18 +131,21 @@ Phases (any failure raises and exits non-zero):
         color-DOM flash (DOM (14, 8), 12 LEDs at 340-505 nm, ~1.9e8
         photons): generated = the steps'
         photons, nothing dropped or abandoned, histogram sum = hit weight;
+        each flash's host split;
      d. simulate_hits of the standard-DOM flash (records = hits, MCPEs
         against the sum of hit probabilities);
      e. EventPipeline.process of a cascade, the flash, an empty event and a
         Standard Candle 1 pulse (submission order, per-event counts,
-        RunStatistics), and tests/golden/config3_flasher.npz through the
-        kernel (exact n_generated, hits and histogram within 5 sigma);
+        RunStatistics), and config3_flasher from its pulse through the
+        kernel (util.golden.run_config: exact n_generated, hits and
+        histogram within 5 sigma of tests/golden/config3_flasher.npz);
      f. the flasher ice fit: one flash as 131,072 one-photon steps, the
         fit's forward (expected + threefry, global affine) against its
         plain version, then 6c's three gates and the peak memory;
      g. each new deposit mode through Simulation.simulate of the
         standard-DOM flash (launched, generated = the steps' photons), its
-        wall time beside its launches' kernel time and its account;
+        wall time beside its launches' kernel time, its host split and its
+        account;
   9. the probe kernels (csrc/probes.cu: the Pallas probes P1-P15 as four
      Hopper kernels, H1 table reads, H2 state, H3 op costs and Philox, H4
      atomics, appends, scans) at 262,144 lanes through
@@ -143,7 +154,26 @@ Phases (any failure raises and exits non-zero):
      the plain version does, the Philox bits always; the stated tolerances
      for FMA chains, intrinsics, atomic sums and scans); ptxas's registers
      and spills of the state probes; and the main-path kernel's phase 2
-     time set against the sum of its work at the probes' rates.
+     time set against the sum of its work at the probes' rates;
+ 10. particles to goldens, the oracle and the detailed propagator:
+     a. config1_cascade and config2_muon_spice from their particles
+        through the kernel (util.golden.run_config, mode 0): n_generated
+        equal to the golden's; config1's hits, coarse time groups and
+        hottest DOMs within 5 sigma (Philox is not the golden's
+        threefry; the weighted counts' variance from E[w^2]/E[w] of the
+        hits' weights, recorded by the record mode on the same steps and
+        seed), and its slot batch kernel against plain version on a
+        shared stream (phase 2's tolerances); config2's histogram
+        printed, not held (its golden was frozen with spice_lea, which
+        the repository does not hold);
+     b. tests/test_oracle.py's workload (tilt + anisotropy, pancake 4;
+        4,096 steps x ORACLE_PHOTONS) through the kernel in the Philox
+        mode and through the port's float64 oracle: |z| < 5 by
+        statistical_compare's rule, unit weights (ROADMAP contract 2);
+     c. a DetailedCascadePropagator cascade (beta spread 0.02) through
+        Simulation(propagators=[...]).simulate on hex61: generated = the
+        steps' photons, steps with beta < 1, histogram sum = hit weight,
+        nothing dropped or abandoned, mode 0 launched.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -532,6 +562,10 @@ def phase3(device):
     import torch
     from clsim_tpu_torch.propagate import kernel as K
     sim, cascade = main_path_sim(device)
+    if sim.step_generator._native is None:
+        from clsim_tpu_torch import native
+        raise AssertionError("the native step sampler did not load: "
+                             f"{native.error()}")
     energy = CASCADE_GEV
     torch.cuda.synchronize()
     K.MODE_LAUNCHES.clear()
@@ -565,17 +599,51 @@ def phase3(device):
         raise AssertionError("histogram sum differs from the hit weight")
     if diag["dropped"] != 0 or diag["abandoned"] != 0:
         raise AssertionError("photons dropped or abandoned")
-    # the same call split into its two stages, for the time breakdown
-    t0 = time.perf_counter()
-    batches = sim.steps_from_particles([cascade], np.random.default_rng(11))
-    t1 = time.perf_counter()
-    sim.run_steps(batches, 11)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
+    split = host_split(sim, [cascade], 11)
     log(f"  simulate {wall:.3f} s = {n_gen / wall:.6g} photons/s end to end; "
-        f"steps {t1 - t0:.3f} s, propagation {t2 - t1:.3f} s = "
-        f"{n_gen / (t2 - t1):.6g} photons/s")
+        + fmt_split(split, n_gen))
     return launches
+
+
+def host_split(sim, sources, seed):
+    """Simulation.simulate(sources, seed)'s stages run one after the other
+    and timed: the conversion (the step sampler and flasher conversion,
+    sources -> steps), the slot assignment, the host-to-device copy of the
+    slot batches (steps_from_numpy) and their propagation (propagate_auto,
+    the card synchronized).  Uses only what every slice's package has."""
+    import torch
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.propagate.dispatch import propagate_auto
+    from clsim_tpu_torch.sources.ppc import assign_steps_to_slots
+    from clsim_tpu_torch.types import StepBatch
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    merged = StepBatch.concatenate(sim.source_converter.convert(
+        [(p, i) for i, p in enumerate(sources)], rng))
+    t1 = time.perf_counter()
+    batches = assign_steps_to_slots(merged, sim.config.n_slots)
+    t2 = time.perf_counter()
+    steps = [steps_from_numpy(b._asdict(), sim.device) for b in batches]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    for i, st in enumerate(steps):
+        quiet(propagate_auto, st, sim.medium, sim.geometry, sim.spectra,
+              seed + i, sim.config, backend=sim.backend, **sim.fused_opts)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    return dict(steps=int(merged.n_steps), batches=len(batches),
+                conversion=t1 - t0, assignment=t2 - t1, copy=t3 - t2,
+                propagation=t4 - t3)
+
+
+def fmt_split(split, photons=None):
+    rate = ("" if photons is None else
+            f" = {photons / split['propagation']:.6g} photons/s")
+    return (f"host split: conversion {split['conversion']:.4f} s "
+            f"({split['steps']:.0f} steps), slot assignment "
+            f"{split['assignment']:.4f} s ({split['batches']:.0f} batches), "
+            f"copy {split['copy']:.4f} s, propagation "
+            f"{split['propagation']:.4f} s{rate}")
 
 
 def run_plain_to_drain(steps, medium, geo, spectra, cfg, seed, ipc=1024):
@@ -1856,7 +1924,6 @@ STD_DOM, COLOR_DOM = (0, 30), (14, 8)
 # 1/926 to 2.7e10, ~5.0e7 photons
 SC_PHOTONS = 2.7e10
 BIAS_L1_TOL = 4e-3          # tests/test_kernel.py:554-575
-GOLDEN_SEED = 20260818      # clsim_tpu/util/golden.py
 FIT8_LAYERS = (28, 35, 42)  # 8f gradient check: band layers near the flash
 
 
@@ -2007,13 +2074,12 @@ def phase8_flash(device, name, sim, pulses, mode, seed=21):
     if abs(hsum / float(res.weight_hits) - 1.0) > 1e-4:
         raise AssertionError(f"{name}: histogram sum differs from the hit "
                              "weight")
-    batches = sim.steps_from_particles(pulses, np.random.default_rng(seed))
-    _, t_prop = timed(lambda: quiet(sim.run_steps, batches, seed))
+    split = host_split(sim, pulses, seed)
     log(f"  {name}: {len(pulses)} LEDs, spectra "
         f"{sorted(set(p.spectrum_index for p in pulses))}, launches {n}, "
         f"other kernels {K_other()}; hist sum {hsum:.6g}; simulate "
         f"{wall:.3f} s = {photons / wall:.6g} photons/s end to end; "
-        f"propagation {t_prop:.3f} s = {photons / t_prop:.6g} photons/s")
+        + fmt_split(split, photons))
     if min(n.values()) <= 0:
         raise AssertionError(f"{name}: instantiation {mode} not launched")
     return n
@@ -2086,81 +2152,51 @@ def phase8e_pipeline(device, sim, mode):
     return n
 
 
-def statistical_compare(name, hits, weight, hist, g_hits, g_weight, g_hist):
-    """tests/test_oracle.py::_statistical_compare's rule (hits within 5
-    sigma; the ten coarse time groups and the ten hottest DOMs within 5
-    sigma of the weighted counts), without its unit-weight check: these
-    photons carry the acceptance bias's weights."""
-    sigma = math.sqrt(hits + g_hits)
-    z = [(hits - g_hits) / sigma]
-    coarse = lambda h: h.sum(axis=0).reshape(10, -1).sum(axis=1)
-    wbar = weight / max(hits, 1.0)
-    te, to = coarse(hist), coarse(g_hist)
-    for k in range(10):
-        if te[k] + to[k] >= 25 * wbar:
-            z.append((te[k] - to[k]) / (wbar * math.sqrt((te[k] + to[k])
-                                                         / wbar)))
-    occ_e, occ_o = hist.sum(axis=1), g_hist.sum(axis=1)
-    for d in np.argsort(occ_e + occ_o)[-10:]:
-        z.append((occ_e[d] - occ_o[d]) / (wbar * math.sqrt(
-            (occ_e[d] + occ_o[d]) / wbar)))
-    log(f"  {name}: hits {hits:.0f} / {g_hits:.0f} (run / golden), weight "
-        f"{weight:.6g} / {g_weight:.6g}; largest |z| of the hit count, the "
-        f"coarse time groups and the hottest DOMs {max(map(abs, z)):.3f}")
-    if max(map(abs, z)) >= 5.0:
-        raise AssertionError(f"{name}: outside 5 sigma of the golden")
-
-
-def phase8e_golden(device):
-    """tests/golden/config3_flasher.npz (clsim_tpu/util/golden.py
-    _sim_flasher's configuration, built here on the port) through the
-    kernel: exact n_generated (the steps come from the same numpy stream),
-    hits and histogram within 5 sigma (Philox is not the golden's
-    threefry).  Returns the launches of the main path's instantiation."""
-    from clsim_tpu_torch.api import Simulation
-    from clsim_tpu_torch.geometry import single_string_geometry
-    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
-    from clsim_tpu_torch.ops.spectrum import stack_spectra
-    from clsim_tpu_torch.sources.particles import FlasherPulse
-    from clsim_tpu_torch.types import PropagationConfig
-    sim = Simulation(
-        medium=make_homogeneous_ice(b400=0.04, a_dust400=0.006,
-                                    device=device),
-        geometry=single_string_geometry(n_doms=24, spacing=17.0, x=40.0,
-                                        z_top=200.0, oversize=5.0,
-                                        device=device),
-        config=PropagationConfig(n_slots=4096, hist_t_min=0.0,
-                                 hist_t_max=3200.0, hist_n_bins=400),
-        flasher_spectra=led_spectra((405,)))
-    # the golden was made by the JAX package's construction, which the port
-    # repaired (ROADMAP C1): the LED spectrum stacked unbiased and a
-    # correction factor of 1, set on the Simulation on purpose
-    sim.spectra = stack_spectra([sim.cherenkov, *led_spectra((405,))],
-                                device=device)
-    sim.flasher_generator.correction_factors = {}
-    pulse = FlasherPulse(x=0.0, y=0.0, z=-30.0, time=0.0, dir_x=1.0,
-                         dir_y=0.0, dir_z=0.0, num_photons_no_bias=5e5,
-                         angular_smear_polar=0.2,
-                         angular_smear_azimuthal=0.3, pulse_width=5.0,
-                         spectrum_index=1)
+def golden_run(device, name, hold_hist=True):
+    """A golden configuration from its particles through the kernel
+    (util.golden.run_config: the native sampler on the golden's numpy
+    stream, then Simulation.run_steps in the Philox stream, mode 0): the
+    golden's exact n_generated and, with hold_hist, the hits, coarse time
+    groups and hottest DOMs within 5 sigma (util.golden.statistical_compare;
+    Philox is not the golden's threefry).  The weighted counts' variance
+    takes E[w^2] / E[w] of the hits' weights, recorded by the record mode
+    on the same steps and seed.  The slot batch is also held kernel
+    against plain version on a shared stream (golden_shared_stream).
+    Returns the main path's launches."""
+    from clsim_tpu_torch.util import golden as G
+    if hold_hist:
+        golden_shared_stream(device, name)
     reset_counts()
-    res, wall = timed(lambda: sim.simulate([pulse], seed=GOLDEN_SEED))
+    res, wall = timed(lambda: G.run_config(name, device))
     n = launched([0])
-    golden = np.load(os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "tests", "golden", "config3_flasher.npz"))
-    gen, g_gen = float(res.n_generated), float(golden["n_generated"])
-    log(f"  config3_flasher: {wall:.3f} s, launches {n}; generated "
-        f"{gen:.0f} / {g_gen:.0f} (run / golden)")
+    g = G.load_golden(name)
+    gen, g_gen = float(res["n_generated"]), float(g["n_generated"])
+    l1 = float(np.abs(res["hist"] - g["hist"]).sum() / g["hist"].sum())
+    log(f"  {name}: {wall:.3f} s, launches {n}; generated {gen:.0f} / "
+        f"{g_gen:.0f} (run / golden), hits {float(res['n_hits']):.0f} / "
+        f"{float(g['n_hits']):.0f}, histogram L1 {l1:.6g} of the golden's "
+        "total")
     if gen != g_gen:
-        raise AssertionError("config3_flasher: n_generated differs from the "
-                             "golden's")
-    statistical_compare("config3_flasher", float(res.n_hits),
-                        float(res.weight_hits),
-                        res.hist.double().cpu().numpy(),
-                        float(golden["n_hits"]), float(golden["weight_hits"]),
-                        golden["hist"])
+        raise AssertionError(f"{name}: n_generated differs from the golden's")
+    if hold_hist:
+        rec = G.run_config(name, device, save_photons=True)
+        w = rec["hit_weights"]
+        factor = float((w * w).sum() / w.sum())
+        l1_rec = float(np.abs(rec["hist"] - res["hist"]).sum()
+                       / res["hist"].sum())
+        log(f"    record mode on the same steps and seed: hits "
+            f"{float(rec['n_hits']):.0f}, records {len(w)}, histogram L1 "
+            f"{l1_rec:.6g} of mode 0's; hit weights: mean {w.mean():.6g}, "
+            f"max {w.max():.6g}, E[w^2]/E[w] {factor:.6g}")
+        z = G.statistical_compare(name, float(res["n_hits"]),
+                                  float(res["weight_hits"]), res["hist"],
+                                  float(g["n_hits"]),
+                                  float(g["weight_hits"]), g["hist"],
+                                  weight_factor=factor)
+        log(f"    largest |z| of the hit count, the coarse time groups and "
+            f"the hottest DOMs {z:.3f}")
     if min(n.values()) <= 0:
-        raise AssertionError("the golden did not launch the kernel")
+        raise AssertionError(f"{name} did not launch the kernel")
     return n
 
 
@@ -2293,7 +2329,7 @@ def flash_mode_runs(device):
         reset_counts()
         with launch_times() as kernel_s:
             res, wall = timed(lambda: quiet(sim.simulate, pulses, seed=21))
-        yield entry, res, photons, wall, kernel_s[0]
+        yield entry, res, photons, wall, kernel_s[0], sim, pulses
 
 
 def phase8g(device, modes):
@@ -2302,12 +2338,14 @@ def phase8g(device, modes):
     photons, nothing dropped or abandoned, each instantiation launched;
     the wall time beside the kernel's, and the account."""
     out = {}
-    for entry, res, photons, wall, kernel_s in flash_mode_runs(device):
+    for entry, res, photons, wall, kernel_s, sim, pulses in \
+            flash_mode_runs(device):
         n = launched([modes[entry]])
         log(f"  {entry}: simulate {wall:.3f} s = {photons / wall:.6g} "
             f"photons/s, the kernel's launches {kernel_s:.4f} s, "
             f"launches {n}, other kernels {K_other()}; "
             + fmt_stats(k1_stats(res.diag_totals)))
+        log("    " + fmt_split(host_split(sim, pulses, 21), photons))
         check_run(entry, res, photons)
         if min(n.values()) <= 0:
             raise AssertionError(f"{entry}: instantiation not launched")
@@ -2481,6 +2519,181 @@ K1_MANGLED = {"propagate": "ILb0ELi0ELb0ELb0ELi0ELi0E",
               "propagate[threefry,global]": "ILb0ELi2ELb1ELb0ELi1ELi0E"}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: particles to goldens, the oracle and the detailed propagator
+# ---------------------------------------------------------------------------
+
+GOLDEN_T = 128      # iterations of golden_shared_stream's comparison
+
+
+def golden_shared_stream(device, name):
+    """The golden configuration's first slot batch, kernel against plain
+    version on one shared (GOLDEN_T, 8, N) stream: phase 2's tolerances."""
+    import torch
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.util import golden as G
+    sim, sources = G.CONFIGS[name](device)
+    batch = sim.steps_from_particles(sources, np.random.default_rng(
+        G.GOLDEN_SEED))[0]
+    steps = steps_from_numpy(batch._asdict(), device)
+    n = batch.n_steps
+    spec, cell_tab = K.fused_spec(sim.medium, sim.geometry, sim.spectra,
+                                  sim.config, n, GOLDEN_T)
+    tables = K.build_tables(spec, sim.medium, sim.geometry, sim.spectra,
+                            cell_tab)
+    uni = torch.as_tensor(np.random.default_rng(7).random(
+        (GOLDEN_T, 8, n)).astype(np.float32), device=device)
+    state0, steps_p = K.init_state(steps), K.pack_steps(steps)
+    _, h_k, c_k = K.run_fused_iterations(state0.clone(), steps_p, tables,
+                                         spec, uniforms=uni)
+    _, h_p, c_p = K.run_fused_iterations_plain(state0.clone(), steps_p,
+                                               tables, spec, uniforms=uni)
+    compare(f"{name}, shared stream, mode {K.kernel_mode(spec)}", c_k, h_k,
+            c_p, h_p)
+
+# tests/test_oracle.py::_workload's 4,096 steps at ORACLE_PHOTONS photons
+# each (the test runs 24); the float64 oracle takes a few seconds a 1e5
+# photons on one host core
+ORACLE_STEPS, ORACLE_PHOTONS = 4096, 128
+DETAILED_GEV = 1.0e4    # 10c's cascade: ~52,000 one-metre segments
+
+
+def oracle_workload(device):
+    """tests/test_oracle.py::_workload (14 layers, tilt + anisotropy, a
+    7-string hexagon at oversize 9, pancake 4, unbiased Cherenkov
+    spectrum, isotropic 3 m steps at one point), on the port."""
+    import torch
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.geometry import hexagonal_geometry
+    from clsim_tpu_torch.medium.anisotropy import AnisotropyParams
+    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
+    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
+    from clsim_tpu_torch.medium.tilt import TiltParams
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    from clsim_tpu_torch.types import PropagationConfig
+    r = np.random.default_rng(5)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+    medium = make_homogeneous_ice(n_layers=14, z_start=-350.0,
+                                  layer_height=50.0, device=device)
+    medium = medium._replace(
+        b400=t(0.015 + 0.03 * r.random(14)),
+        a_dust400=t(0.003 + 0.006 * r.random(14)),
+        delta_tau=t(0.5 + r.random(14)),
+        anisotropy=AnisotropyParams(azimuth=t(3.9), mag_along=t(0.04),
+                                    mag_perp=t(-0.08), enabled=True),
+        tilt=TiltParams(distances=t([-900.0, -250.0, 350.0, 1000.0]),
+                        first_z=t(-450.0), z_spacing=t(110.0),
+                        z_corrections=t(15.0 * r.standard_normal((4, 9))),
+                        azimuth_cos=t(np.cos(3.93)),
+                        azimuth_sin=t(np.sin(3.93)), enabled=True))
+    geo = hexagonal_geometry(n_rings=1, string_spacing=70.0,
+                             doms_per_string=12, dom_spacing=16.0,
+                             z_top=90.0, oversize=9.0, device=device)
+    cher = make_cherenkov_spectrum(DEFAULT_ICE_REF_INDEX, 265.0, 675.0)
+    spectra = stack_spectra([cher], device=device)
+    n = ORACLE_STEPS
+    cfg = PropagationConfig(n_slots=n, pancake_factor=4.0, hist_t_min=0.0,
+                            hist_t_max=2000.0, hist_n_bins=50,
+                            max_layer_steps=8, max_segment_m=120.0,
+                            stop_on_detection=True)
+    rr = np.random.default_rng(77)
+    costh = rr.uniform(-1, 1, n)
+    sinth = np.sqrt(1 - costh ** 2)
+    phi = rr.uniform(0, 2 * np.pi, n)
+    full = lambda v: np.full(n, v)
+    steps = steps_from_numpy(dict(
+        x=full(9.0), y=full(-4.0), z=full(13.0), t=full(0.0),
+        dir_x=sinth * np.cos(phi), dir_y=sinth * np.sin(phi), dir_z=costh,
+        length=full(3.0), beta=full(1.0), num_photons=full(ORACLE_PHOTONS),
+        weight=full(1.0), identifier=full(0), source_type=full(0)), device)
+    return medium, geo, cher, spectra, cfg, steps
+
+
+def phase10b(device):
+    """ROADMAP parity contract 2 on the card: oracle_workload through the
+    kernel in the Philox mode (propagate_auto, the main path's
+    instantiation) and through the port's float64 oracle on the same steps
+    (its own numpy stream): hits, coarse time groups and hottest DOMs
+    within 5 sigma, unit weights on both sides."""
+    from clsim_tpu_torch.propagate.dispatch import propagate_auto
+    from clsim_tpu_torch.util.golden import statistical_compare
+    from clsim_tpu_torch.validate.oracle import oracle_propagate
+    medium, geo, cher, spectra, cfg, steps = oracle_workload(device)
+    photons = ORACLE_STEPS * ORACLE_PHOTONS
+    reset_counts()
+    res, t_k = timed(lambda: propagate_auto(steps, medium, geo, spectra, 3,
+                                            cfg))
+    n = launched([0])
+    t0 = time.perf_counter()
+    o_hist, o_hits, o_w = oracle_propagate(
+        steps, medium, geo, (cher.x, cher.beta), (cher.bias_x, cher.bias_y),
+        cfg, np.random.default_rng(123), photons_per_step=ORACLE_PHOTONS)
+    t_o = time.perf_counter() - t0
+    hits, w = float(res.n_hits), float(res.weight_hits)
+    log(f"  {photons} photons ({ORACLE_STEPS} steps x {ORACLE_PHOTONS}): "
+        f"kernel {t_k:.3f} s, launches {n}, generated "
+        f"{float(res.n_generated):.0f}, hits {hits:.0f}; oracle {t_o:.3f} s,"
+        f" hits {o_hits}")
+    if float(res.n_generated) != photons:
+        raise AssertionError("oracle workload: generated != the steps' "
+                             "photons")
+    if not (math.isclose(w, hits, rel_tol=1e-5)
+            and math.isclose(o_w, o_hits, rel_tol=1e-9)):
+        raise AssertionError("oracle workload: weights are not unit")
+    z = statistical_compare("kernel vs oracle", hits, w,
+                            res.hist.double().cpu().numpy(), float(o_hits),
+                            o_w, o_hist)
+    log(f"    largest |z| of the hit count, the coarse time groups and the "
+        f"hottest DOMs {z:.3f}")
+    if min(n.values()) <= 0:
+        raise AssertionError("the oracle workload did not launch the kernel")
+    return n
+
+
+def phase10c(device):
+    """A DetailedCascadePropagator cascade (beta spread 0.02) through
+    Simulation(propagators=[...]).simulate on hex61 with phase 3's ice:
+    generated = the steps' photons, steps with beta < 1, histogram sum =
+    hit weight, nothing dropped or abandoned, the main path's
+    instantiation launched."""
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.sources import Particle, ParticleType
+    from clsim_tpu_torch.sources.detailed import DetailedCascadePropagator
+    from clsim_tpu_torch.types import PropagationConfig
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    geo = hex61(device)
+    det = DetailedCascadePropagator(medium, biased_cherenkov(medium, geo),
+                                    beta_spread=0.02)
+    sim = Simulation(medium=medium, geometry=geo,
+                     config=PropagationConfig(n_slots=N_SLOTS),
+                     propagators=[det])
+    cascade = Particle.cascade(ParticleType.EMinus, pos=(0.0, 0.0, 0.0),
+                               time=0.0, energy=DETAILED_GEV, zenith=1.9,
+                               azimuth=0.7)
+    batches = sim.steps_from_particles([cascade], np.random.default_rng(17))
+    photons = float(sum(int(b.num_photons.sum()) for b in batches))
+    beta = np.concatenate([b.beta[b.num_photons > 0] for b in batches])
+    reset_counts()
+    res, wall = timed(lambda: sim.simulate([cascade], seed=17))
+    n = launched([0])
+    hsum = float(res.hist.double().sum())
+    log(f"  {DETAILED_GEV:.0f} GeV cascade: {len(beta)} steps, beta "
+        f"{beta.min():.4f}-{beta.max():.4f} (mean {beta.mean():.5f}); "
+        f"simulate {wall:.3f} s, launches {n}, other kernels {K_other()}; "
+        f"hist sum {hsum:.6g}")
+    check_run("detailed cascade", res, photons)
+    if not (beta < 1.0).any():
+        raise AssertionError("detailed cascade: no step with beta < 1")
+    if abs(hsum / float(res.weight_hits) - 1.0) > 1e-4:
+        raise AssertionError("detailed cascade: histogram sum differs from "
+                             "the hit weight")
+    if min(n.values()) <= 0:
+        raise AssertionError("detailed cascade did not launch the kernel")
+    return n
+
+
 def k1_ptxas(log_text):
     """{entry: dict(registers, spill_stores, spill_loads, smem, blocks)} of
     the timed instantiations from nvcc -Xptxas -v output ({} when cached);
@@ -2595,8 +2808,80 @@ def k1_turn_worker(root):
     # 8g's flashes: each fixed-horizon instantiation on its path
     out["flash"] = {e: dict(wall=wall, kernel_s=ks, photons=photons,
                             stats=k1_stats(res.diag_totals))
-                    for e, res, photons, wall, ks in flash_mode_runs(device)}
+                    for e, res, photons, wall, ks, _, _ in
+                    flash_mode_runs(device)}
     print("K1 " + json.dumps(out), flush=True)
+
+
+def host_split_worker(root):
+    """One turn of --host-split: import the package at `root`, build its
+    kernels, then for phase 3's cascade and 8b's standard-DOM flash time
+    Simulation.simulate's wall and host_split's stages, three times each
+    after one warm-up call; print one line 'SPLIT {json}' with the
+    medians and every wall."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from clsim_tpu_torch import _build
+    device = torch.device("cuda", 0)
+    _build.load()
+    sim, cascade = main_path_sim(device)
+    fsim = flasher_sim(device)
+    out = dict(root=root, native=getattr(sim.step_generator, "_native",
+                                         None) is not None, cases={})
+    for name, s, sources, seed in (
+            ("phase 3", sim, [cascade], 11),
+            ("8b", fsim, flash(fsim.geometry, STD_DOM), 21)):
+        quiet(s.simulate, sources, seed=seed)
+        walls, splits = [], []
+        for _ in range(3):
+            walls.append(timed(lambda: quiet(s.simulate, sources,
+                                             seed=seed))[1])
+            splits.append(host_split(s, sources, seed))
+        out["cases"][name] = dict(
+            simulate=float(np.median(walls)), walls=walls,
+            **{k: float(np.median([sp[k] for sp in splits]))
+               for k in splits[0]})
+    print("SPLIT " + json.dumps(out), flush=True)
+
+
+def run_turn(flag, root, prefix):
+    """Run this script with `flag root` in a process of its own and parse
+    its line that starts with `prefix`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
+                           flag, root], cwd=here, capture_output=True,
+                          text=True, timeout=900)
+    line = next((x for x in proc.stdout.splitlines()
+                 if x.startswith(prefix)), None)
+    if proc.returncode != 0 or line is None:
+        raise RuntimeError(f"turn {root} failed:\n{proc.stdout[-3000:]}"
+                           f"\n{proc.stderr[-3000:]}")
+    return json.loads(line[len(prefix):])
+
+
+def host_split_turns(turns, json_path=None):
+    """--host-split LABEL:ROOT ...: host_split_worker for each turn in the
+    order given (e.g. parent, new, new, parent), printing each turn's
+    simulate wall and stages; with json_path, also write them there."""
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    log(card)
+    results = []
+    for turn in turns:
+        label, root = turn.split(":")
+        r = run_turn("--split-worker", root, "SPLIT ")
+        r["label"] = label
+        results.append(r)
+        for name, c in r["cases"].items():
+            log(f"turn {label} ({root}, native sampler {r['native']}) "
+                f"{name}: simulate {c['simulate']:.4f} s (walls "
+                + ", ".join(f"{w:.4f}" for w in c["walls"]) + "); "
+                + fmt_split(c))
+        if json_path:
+            with open(json_path, "w") as f:
+                json.dump(dict(card=card, turns=results), f)
+    return results
 
 
 def k1_turns(turns, json_path=None):
@@ -2608,20 +2893,10 @@ def k1_turns(turns, json_path=None):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     log(card)
-    here = os.path.dirname(os.path.abspath(__file__))
     results, seen = [], set()
     for turn in turns:
         label, root = turn.split(":")
-        proc = subprocess.run(
-            [sys.executable, os.path.join(here, "chip_smoke.py"),
-             "--k1-worker", root], cwd=here,
-            capture_output=True, text=True, timeout=900)
-        line = next((x for x in proc.stdout.splitlines()
-                     if x.startswith("K1 ")), None)
-        if proc.returncode != 0 or line is None:
-            raise RuntimeError(f"turn {turn} failed:\n{proc.stdout[-3000:]}"
-                               f"\n{proc.stderr[-3000:]}")
-        r = json.loads(line[3:])
+        r = run_turn("--k1-worker", root, "K1 ")
         r["label"] = label
         results.append(r)
         log(f"turn {label} ({root}), build {r['build_s']:.1f} s: "
@@ -2657,13 +2932,16 @@ def main():
     argv = sys.argv[1:]
     if argv[:1] == ["--k1-worker"]:
         return k1_turn_worker(argv[1])
-    if argv[:1] == ["--turns"]:
+    if argv[:1] == ["--split-worker"]:
+        return host_split_worker(argv[1])
+    if argv[:1] in (["--turns"], ["--host-split"]):
         turns = argv[1:]
         json_path = None
         if "--json" in turns:
             i = turns.index("--json")
             json_path, turns = turns[i + 1], turns[:i] + turns[i + 2:]
-        k1_turns(turns, json_path)
+        (k1_turns if argv[0] == "--turns" else host_split_turns)(
+            turns, json_path)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2757,7 +3035,7 @@ def main():
     log("phase 8e: EventPipeline (cascade, flash, empty event, Standard "
         "Candle 1) and the flasher golden")
     launches8.update(phase8e_pipeline(device, sim, flash_mode))
-    launches8.update(phase8e_golden(device))
+    launches8.update(golden_run(device, "config3_flasher"))
     lap("8e")
     log("phase 8f: the flasher ice fit on ic86 (IceFit, forward='fused')")
     res["8f"], n = phase8f(device)
@@ -2774,6 +3052,20 @@ def main():
     res["9"] = phase9(device, res["2"],
                       res["8a"]["propagate[expected,global]"]["hits"])
     log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+
+    t10 = time.perf_counter()
+    log("phase 10a: particles to goldens through the kernel "
+        "(util.golden.run_config)")
+    golden_run(device, "config1_cascade")
+    log("  config2_muon_spice: the photon count is held, the histogram only "
+        "printed: its golden was frozen with spice_lea, which the "
+        "repository does not hold (the 171-layer fallback ice runs here)")
+    golden_run(device, "config2_muon_spice", hold_hist=False)
+    log("phase 10b: the kernel (Philox) against the float64 oracle")
+    phase10b(device)
+    log("phase 10c: a detailed-propagator cascade with a beta spread")
+    phase10c(device)
+    log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
 
     at = "clsim_tpu/propagate/kernel.py:2427"
 

@@ -71,6 +71,7 @@ class Simulation:
                  backend: str = "auto",
                  fused_opts: Optional[dict] = None,
                  propagators: Sequence = None,
+                 use_native: bool = True,
                  device=None):
         if mesh is not None:
             raise NotImplementedError(MESH_ITEM)
@@ -121,7 +122,8 @@ class Simulation:
 
         self.step_generator = PPCStepGenerator(
             medium, cherenkov, photons_per_step=photons_per_step,
-            use_cascade_extension=use_cascade_extension)
+            use_cascade_extension=use_cascade_extension,
+            use_native=use_native)
         self.flasher_generator = FlasherStepGenerator(
             cherenkov, correction_factors={i + 1: f for i, (_, f)
                                            in enumerate(biased)})

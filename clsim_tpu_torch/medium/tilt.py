@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -51,6 +52,36 @@ def tilt_z_shift(p: TiltParams, x, y, z):
     val_lo = q_lh * fz_above + q_ll * fz_below
     val_hi = q_hh * fz_above + q_hl * fz_below
     return val_hi * frac_hi + val_lo * frac_lo
+
+
+def load_tilt(tilt_par_path, tilt_dat_path, detector_center_depth,
+              azimuth=225.0 * np.pi / 180.0, device="cuda"):
+    """Build TiltParams from PPC tilt.par/tilt.dat files.
+
+    File contract (reference python/util/GetIceTiltZShift.py:46-61):
+    tilt.par column 1 = distance from origin along tilt azimuth per map line;
+    tilt.dat column 0 = depth, columns 1..nd = z correction per distance; depth
+    rows are converted to ascending z via z = center_depth - depth and flipped.
+    """
+    distances = np.loadtxt(tilt_par_path, unpack=True)[1]
+    dat = np.loadtxt(tilt_dat_path, unpack=True)
+    zcoords = (detector_center_depth - dat[0])[::-1]
+    zshift = np.array([dat[i + 1][::-1] for i in range(len(distances))])
+
+    spacing = np.diff(zcoords)
+    if not np.allclose(spacing, spacing[0], atol=1e-6):
+        raise ValueError("tilt.dat depth grid is not uniform")
+
+    f32 = lambda v: torch.as_tensor(np.asarray(v, np.float32), device=device)
+    return TiltParams(
+        distances=f32(distances),
+        first_z=f32(zcoords[0]),
+        z_spacing=f32(spacing[0]),
+        z_corrections=f32(zshift),
+        azimuth_cos=f32(np.cos(azimuth)),
+        azimuth_sin=f32(np.sin(azimuth)),
+        enabled=True,
+    )
 
 
 def disabled_tilt(device="cuda"):

@@ -22,9 +22,15 @@ I3CLSimLightSourceToStepConverterPPC.cxx).  Physics contract:
   * the per-meter yield is the bias-weighted Frank-Tamm integral evaluated at
     the source layer (:113-122).
 
-Step generation runs on the host (numpy, float64) -- it is a tiny fraction
-of the work.  Only the numpy sampler is carried over; the native C++ step
-sampler of the JAX package is queued in ROADMAP.md.
+Step generation runs on the host (numpy, float64; the cascade-like steps
+through the native C++ sampler of native/ when it loads).  It is not a tiny
+fraction of the work.  For the main path's 100 TeV cascade (91,723 steps
+into 262,144 slots; `chip_smoke.py --host-split`, on the host of an H100
+machine) a slot assignment that loops over the steps, as the JAX
+package's does, took 0.306 s of `simulate`'s 0.318 s, the conversion
+0.015 s and propagation 0.017 s.  Here assign_steps_to_slots builds its
+split counts from whole-array operations (0.026 s); the JAX package keeps
+its per-step loop.
 """
 
 from __future__ import annotations
@@ -97,7 +103,13 @@ class PPCStepGenerator:
                  photons_per_step: int = 200,
                  high_photons_per_step: int = 0,
                  high_threshold: float = 1e9,
-                 use_cascade_extension: bool = True):
+                 use_cascade_extension: bool = True,
+                 use_native: bool = True):
+        # the native C++ sampler (native/): it warns once when it cannot be
+        # built or loaded, and the numpy sampler serves instead
+        from .. import native as _native
+        self._native = _native if (use_native and _native.available()) \
+            else None
         self.medium = medium
         self.photons_per_step = photons_per_step
         self.high_photons_per_step = high_photons_per_step or photons_per_step
@@ -139,20 +151,29 @@ class PPCStepGenerator:
         n = len(counts)
         if n == 0:
             return None
-        if uniform_along_length is not None:
-            longi = rng.random(n) * uniform_along_length
-        elif b > 0.0:
-            longi = b * rng.standard_gamma(a, n)
+        if self._native is not None:
+            seed = int(rng.integers(0, 2 ** 63 - 1))
+            x, y, z, t, dx, dy, dz = self._native.cascade_step_arrays(
+                seed, n, (p.x, p.y, p.z), p.time,
+                (p.dir_x, p.dir_y, p.dir_z),
+                gamma_a=a if b > 0.0 else 1.0,
+                gamma_b=b if uniform_along_length is None else 0.0,
+                uniform_length=uniform_along_length or 0.0)
         else:
-            longi = np.zeros(n)
-        cos, sin = sample_cascade_angles(rng, n)
-        dx, dy, dz = _rotate_by_angle(
-            cos, sin, np.full(n, p.dir_x), np.full(n, p.dir_y),
-            np.full(n, p.dir_z), rng.random(n))
-        x = (p.x + longi * p.dir_x).astype(np.float32)
-        y = (p.y + longi * p.dir_y).astype(np.float32)
-        z = (p.z + longi * p.dir_z).astype(np.float32)
-        t = (p.time + longi / C_LIGHT).astype(np.float32)
+            if uniform_along_length is not None:
+                longi = rng.random(n) * uniform_along_length
+            elif b > 0.0:
+                longi = b * rng.standard_gamma(a, n)
+            else:
+                longi = np.zeros(n)
+            cos, sin = sample_cascade_angles(rng, n)
+            dx, dy, dz = _rotate_by_angle(
+                cos, sin, np.full(n, p.dir_x), np.full(n, p.dir_y),
+                np.full(n, p.dir_z), rng.random(n))
+            x = (p.x + longi * p.dir_x).astype(np.float32)
+            y = (p.y + longi * p.dir_y).astype(np.float32)
+            z = (p.z + longi * p.dir_z).astype(np.float32)
+            t = (p.time + longi / C_LIGHT).astype(np.float32)
         return StepBatch(
             x=np.asarray(x, np.float32), y=np.asarray(y, np.float32),
             z=np.asarray(z, np.float32), t=np.asarray(t, np.float32),
@@ -270,10 +291,10 @@ def assign_steps_to_slots(batch: StepBatch, n_slots: int) -> List[StepBatch]:
     reps = np.where(num > 0, np.maximum(1, -(-num // target)), 1)
 
     idx = np.repeat(np.arange(len(num)), reps)
-    # split each step's photons evenly across its reps
-    split_counts = np.concatenate([
-        np.full(r, n // r, np.int64) + (np.arange(r) < (n % r))
-        for n, r in zip(num, reps)])
+    # split each step's photons evenly across its reps: repetition k of a
+    # step of n photons in r reps carries n // r, plus one while k < n % r
+    rank = np.arange(len(idx)) - np.repeat(np.cumsum(reps) - reps, reps)
+    split_counts = num[idx] // reps[idx] + (rank < num[idx] % reps[idx])
 
     def take(a):
         return np.asarray(a)[idx]

@@ -66,7 +66,10 @@ def test_import_leaves_jax_out():
             "clsim_tpu_torch.propagate.diff, clsim_tpu_torch.parallel.mesh, "
             "clsim_tpu_torch.ops.rng, clsim_tpu_torch.hits.mcpe, "
             "clsim_tpu_torch.hits.multi_pmt, clsim_tpu_torch.medium.antares, "
-            "clsim_tpu_torch.medium.photonics; "
+            "clsim_tpu_torch.medium.photonics, clsim_tpu_torch.native, "
+            "clsim_tpu_torch.util.golden, clsim_tpu_torch.validate.oracle, "
+            "clsim_tpu_torch.medium.ice_parser, "
+            "clsim_tpu_torch.sources.detailed, clsim_tpu_torch.util; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'clsim_tpu' "
             "or m.startswith('clsim_tpu.')]; "

@@ -430,3 +430,29 @@ def test_cuda_rows_match_plain_on_jittered_ic86(monkeypatch):
     assert rows_p > 0
     assert abs(rows_k - rows_p) <= max(2.0, 0.01 * rows_p)
     assert rows_k <= spec.n_win * float(c_k[K.CNT_TESTED])
+
+
+@pytest.mark.cuda
+def test_cuda_config1_golden_from_particles():
+    """chip_smoke phase 10(a) on config1: the particles through the native
+    sampler and the kernel (Philox): the golden's exact n_generated, hits,
+    time groups and hottest DOMs within 5 sigma of the golden, the
+    weighted counts' variance from the record mode's hit weights."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    from clsim_tpu_torch import native
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.util import golden as G
+    assert native.available(), native.error()
+    launches = K.MODE_LAUNCHES[0]
+    res = G.run_config("config1_cascade", "cuda")
+    golden = G.load_golden("config1_cascade")
+    assert K.MODE_LAUNCHES[0] > launches
+    assert float(res["n_generated"]) == float(golden["n_generated"])
+    w = G.run_config("config1_cascade", "cuda",
+                     save_photons=True)["hit_weights"]
+    G.statistical_compare("config1_cascade", float(res["n_hits"]),
+                          float(res["weight_hits"]), res["hist"],
+                          float(golden["n_hits"]),
+                          float(golden["weight_hits"]), golden["hist"],
+                          weight_factor=float((w * w).sum() / w.sum()))
