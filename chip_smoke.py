@@ -173,7 +173,33 @@ Phases (any failure raises and exits non-zero):
      c. a DetailedCascadePropagator cascade (beta spread 0.02) through
         Simulation(propagators=[...]).simulate on hex61: generated = the
         steps' photons, steps with beta < 1, histogram sum = hit weight,
-        nothing dropped or abandoned, mode 0 launched.
+        nothing dropped or abandoned, mode 0 launched;
+ 11. photon tables on the card (tabulator/, no kernel of its own: the
+     engine's pieces in PyTorch, the table one float64 tensor on the card
+     filled by index_add_) and scatter-history rings:
+     a. tabulate of scripts/bench_tabulator.py's workload (65,536 slots x
+        32 photons, isotropic 1 mm steps at the origin, 171 homogeneous
+        layers, 35 m segments) on the default spherical axes (83,775,864
+        float64 bins on the card): finite, positive, every comb weight in
+        the table; photons/s and profile_device_time of one run, the
+        device busy share and launches an iteration (torch.profiler over
+        the run's first two chunks), peak memory, each beside the card's
+        name and power limit;
+     b. the same workload at 8 photons a slot with scattering off, 8
+        independent runs: each radial group's content against the float64
+        expectation of validate/table_referee.py, |z| < 5 (standard error
+        from the runs' spread);
+     c. three reduced tables (spherical, cylindrical, spherical with an
+        impact-angle axis; 1,024 slots x 1 photon) on the card and on the
+        CPU with the same seed: the deposited table's L1 <= 2e-3 of its
+        total (the normalized values' printed), n_photons equal;
+        the spherical one through save_table_fits / read_fits;
+     d. Simulation.simulate of a 1 TeV cascade on the main-path
+        configuration with save_photons and 4 ring entries: the engine on
+        the card, no kernel launch, min(num_scatters, H) filled entries,
+        depths rising in ring order up to the record's depth; on one
+        (64, 8, 8192) stream the card's engine records, rings included,
+        against the CPU engine's (REC_TOLS, 2e-2 for the ring fields).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1119,6 +1145,12 @@ def device_busy(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return busy_of(prof, wall)
+
+
+def busy_of(prof, wall):
+    """device_busy's figures from a finished profiler and the wall."""
+    import torch
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_us = sum(e.device_time for e in kernels)
@@ -2694,6 +2726,387 @@ def phase10c(device):
     return n
 
 
+# ---------------------------------------------------------------------------
+# phase 11: photon tables on the card, and scatter-history rings
+# ---------------------------------------------------------------------------
+
+TAB_SLOTS = 65536        # scripts/bench_tabulator.py's workload
+TAB_PHOTONS = 32
+TAB_PROFILE_CHUNKS = 2   # 11a's first chunks, timed alone and under
+                         # torch.profiler (the whole run's ~2e6 launches
+                         # would take minutes to process)
+TAB_PROFILE_REPS = 3     # their runs without the profiler (median)
+TAB_RUNS = 8             # 11b's independent runs
+TAB_REF_PHOTONS = 8      # 11b's photons a slot (11a's 32 cut for time)
+# 11b's radial groups: data bins [lo, hi) of the default r axis (200
+# power-2 bins to 580 m), from r = 5.8 m out
+TAB_GROUPS = [(20, 40), (40, 60), (60, 80), (80, 100), (100, 120),
+              (120, 140), (140, 160), (160, 180), (180, 200)]
+TAB_SMALL = (1024, 1)    # 11c's reduced size: slots, photons a slot
+HIST_H = 4               # 11d's ring entries
+RING_GEV = 1.0e3         # 11d's cascade
+RING_TOL = 2e-2          # ring fields, card engine against the CPU engine
+RING_STREAM = (8192, 64)  # 11d's shared stream: slots, iterations
+
+
+def tab_inputs(device, b400=0.04):
+    """bench_tabulator.py's medium (171 homogeneous layers), its unbiased
+    Cherenkov spectrum and the source at the origin along +x."""
+    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
+    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
+                                              stack_spectra)
+    from clsim_tpu_torch.tabulator import make_reference_source
+    medium = make_homogeneous_ice(n_layers=171, z_start=-855.0,
+                                  layer_height=10.0, b400=b400,
+                                  device=device)
+    spectra = stack_spectra([make_cherenkov_spectrum(
+        medium.ref_index, medium.min_wlen, medium.max_wlen)], device=device)
+    source = make_reference_source(0.0, 0.0, 0.0, 0.0, np.pi / 2, 0.0,
+                                   device=device)
+    return medium, spectra, source
+
+
+def tab_steps(n, photons, device, seed=3):
+    """Isotropic 1 mm Cherenkov steps at the origin, directions from
+    default_rng(seed) (bench_tabulator.py's steps at seed 3)."""
+    r = np.random.default_rng(seed)
+    costh = r.uniform(-1, 1, n)
+    sinth = np.sqrt(1 - costh ** 2)
+    phi = r.uniform(0, 2 * np.pi, n)
+    return step_batch(n, device, x=0.0, y=0.0, z=0.0, length=1e-3,
+                      dir_x=sinth * np.cos(phi), dir_y=sinth * np.sin(phi),
+                      dir_z=costh, num_photons=photons)
+
+
+def tab_cfg(steps):
+    """bench_tabulator.py's config (35 m segments, 4 walk steps)."""
+    from clsim_tpu_torch.types import PropagationConfig
+    return PropagationConfig(n_slots=int(steps.x.shape[0]),
+                             max_layer_steps=4, max_segment_m=35.0)
+
+
+def tab_call(inputs, steps, seed, axes=None, tally=None):
+    """tabulate one batch with tab_cfg's config."""
+    from clsim_tpu_torch.tabulator import tabulate
+    medium, spectra, source = inputs
+    return tabulate([steps], medium, spectra, source, seed=seed, axes=axes,
+                    cfg=tab_cfg(steps), tally=tally)
+
+
+def check_table(name, table, tally, device):
+    """Finite values, a positive sum, the raw table float64 on `device`,
+    and every comb weight landed in it (its sum equal to the sum of all
+    comb weights)."""
+    import torch
+    raw = tally["raw"]
+    landed = float(raw.sum())
+    weight = float(tally["weight"])
+    log(f"  {name}: n_photons {table.n_photons:.0f}, iterations "
+        f"{tally['iterations']}, host syncs {tally['syncs']}, nonzero comb "
+        f"entries {tally['entries']}, table sum {landed:.10g} / comb weight "
+        f"{weight:.10g}, table {raw.numel()} bins {raw.dtype} on "
+        f"{raw.device}")
+    if raw.device.type != torch.device(device).type or \
+            raw.dtype != torch.float64:
+        raise AssertionError(f"{name}: the table is not float64 on {device}")
+    if not np.isfinite(table.values).all() or not table.values.sum() > 0:
+        raise AssertionError(f"{name}: non-finite or empty table")
+    if abs(landed - weight) > 1e-9 * weight or tally["entries"] <= 0:
+        raise AssertionError(f"{name}: deposits missing from the table")
+
+
+def phase11a(device, card):
+    """The tabulator at full size: bench_tabulator.py's 65,536 slots x 32
+    photons on the default spherical axes (83,775,864 float64 bins on the
+    card).  One run under profile_device_time (reps 1: its first call is
+    the wall clock ending in synchronize, and its CUDA-event span) gives
+    photons/s and peak memory.  The run's first TAB_PROFILE_CHUNKS chunks,
+    driven again through tabulate's own chunk and batch loop, give the
+    device busy share and the launches an iteration: their device time
+    from util.profiling.trace (torch.profiler, a Chrome trace written)
+    over the median wall of TAB_PROFILE_REPS runs of the same chunks
+    without the profiler, whose overhead is printed beside it."""
+    import torch
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.tabulator import default_spherical_axes
+    from clsim_tpu_torch.tabulator import table as TT
+    from clsim_tpu_torch.util.profiling import profile_device_time, trace
+    inputs = tab_inputs(device)
+    axes = default_spherical_axes()
+    if axes.n_bins != 83775864:
+        raise AssertionError(f"default spherical axes: {axes.n_bins} bins")
+    tab_call(inputs, tab_steps(1024, 1, device), seed=0)      # warm-up
+    steps = tab_steps(TAB_SLOTS, TAB_PHOTONS, device)
+    n_photons = TAB_SLOTS * TAB_PHOTONS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tally, out = {}, {}
+
+    def run():
+        out["table"] = tab_call(inputs, steps, 1, axes, tally)
+
+    pdt = profile_device_time(run, reps=1, warmup=0)
+    peak = torch.cuda.max_memory_allocated()
+    check_table("11a", out.pop("table"), tally, device)
+    wall, iters = pdt["first_call_s"], tally["iterations"]
+    log(f"  11a: {TAB_SLOTS} slots x {TAB_PHOTONS} photons = {n_photons} "
+        f"photons in {wall:.4f} s = {n_photons / wall:.6g} photons/s, "
+        f"{iters} iterations ({wall / iters * 1e3:.4f} ms an iteration), "
+        f"peak memory {peak / 2 ** 30:.4f} GiB, on {card}")
+    log(f"  11a profile_device_time (reps 1, warmup 0): " + ", ".join(
+        f"{k} {v}" for k, v in pdt.items()) + f"; on {card}")
+    del tally
+
+    # the same run's first chunks: tabulate's chunk on the same inputs, and
+    # batch 0's key of seed 1, as tab_call draws them
+    medium, spectra, source = inputs
+    chunk, _, _ = TT._table_chunk(medium, spectra, source, axes, None,
+                                  tab_cfg(steps), 1.0, 46.0)
+    key = rng.fold_in(rng.base_key(1, device), 0)
+    n_it = TAB_PROFILE_CHUNKS * TT.CHUNK_ITERS
+
+    def first_chunks():
+        table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
+        done = TT._tabulate_batch(chunk, steps, key, table,
+                                  max_iterations=n_it)
+        torch.cuda.synchronize()
+        if done != n_it:
+            raise AssertionError(f"11a: {done} of {n_it} iterations")
+
+    walls = []
+    for _ in range(TAB_PROFILE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first_chunks()
+        walls.append(time.perf_counter() - t0)
+    plain_wall = float(np.median(walls))
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d) as prof:
+            t0 = time.perf_counter()
+            first_chunks()
+            pwall = time.perf_counter() - t0
+        trace_mb = os.path.getsize(os.path.join(d, "trace.json")) / 2 ** 20
+    busy, kernels, _ = busy_of(prof, plain_wall)
+    if kernels == 0:
+        raise AssertionError("11a: the trace holds no kernel of the run")
+    busy_s = "not measured (no device time in the trace)" if busy is None \
+        else f"{busy:.4f} ({busy * plain_wall:.4f} s of device time)"
+    log(f"  11a's first {n_it} iterations: {plain_wall:.4f} s "
+        f"({plain_wall / n_it * 1e3:.4f} ms an iteration) without the "
+        f"profiler (median of " + ", ".join(f"{w:.4f}" for w in walls)
+        + f"), {pwall:.4f} s under it (x{pwall / plain_wall:.2f}); "
+        f"device busy share {busy_s} (device time in the trace over the "
+        f"median wall without the profiler), {kernels} kernel launches = "
+        f"{kernels / n_it:.2f} an iteration, Chrome trace {trace_mb:.1f} "
+        f"MiB; on {card}")
+
+
+def phase11b(device):
+    """The analytic referee at full size: scattering off (b400 1e-9, a
+    scattering length of ~1e9 m), no anisotropy, TAB_RUNS independent runs
+    of 65,536 slots x TAB_REF_PHOTONS photons (fresh step directions and
+    seed each) on the default spherical axes; each radial group's unnormalized content
+    summed over azimuth, cos(polar) and time against
+    validate/table_referee's float64 expectation, |z| < 5 with the
+    standard error from the runs' spread."""
+    from clsim_tpu_torch.tabulator import default_spherical_axes
+    from clsim_tpu_torch.validate import table_referee as REF
+    from clsim_tpu_torch.hits.acceptance import dom_angular_sensitivity
+    inputs = tab_inputs(device, b400=1e-9)
+    medium, spectra, _ = inputs
+    axes = default_spherical_axes()
+    shells, walls = [], []
+    for k in range(TAB_RUNS):
+        tally = {}
+        steps = tab_steps(TAB_SLOTS, TAB_REF_PHOTONS, device, seed=100 + k)
+        _, wall = timed(lambda: tab_call(inputs, steps, 50 + k, axes, tally))
+        walls.append(wall)
+        shells.append(REF.radial_shells(tally["raw"], axes.shape,
+                                        TAB_GROUPS))
+        del tally
+    per_bin = REF.radial_expectation(
+        medium, spectra, dom_angular_sensitivity(device=device),
+        axes.axes[0].bin_edges(), TAB_SLOTS * TAB_REF_PHOTONS)
+    expected = np.array([per_bin[lo:hi].sum() for lo, hi in TAB_GROUPS])
+    z = REF.radial_z(shells, expected)
+    shells = np.asarray(shells)
+    edges = axes.axes[0].bin_edges()
+    for (lo, hi), e, s, zz in zip(TAB_GROUPS, expected, shells.T, z):
+        log(f"  11b: r {edges[lo]:.3f}-{edges[hi]:.3f} m: content "
+            f"{s.sum():.8g} / expected {TAB_RUNS * e:.8g} (ratio "
+            f"{s.sum() / (TAB_RUNS * e):.6f}), run spread "
+            f"{s.std(ddof=1) / s.mean():.3e} relative, z {zz:.3f}")
+    log(f"  11b: {TAB_RUNS} runs of {TAB_SLOTS * TAB_REF_PHOTONS} photons, "
+        f"{np.mean(walls):.4f} s a run (mean), max |z| "
+        f"{np.abs(z).max():.3f}")
+    if not np.all(np.abs(z) < 5.0):
+        raise AssertionError(f"11b: radial shells off the expectation, z {z}")
+
+
+def tab_small_axes():
+    """11c's reduced axes: the default kinds at coarser binning, and the
+    spherical ones with an 8-bin impact-angle axis."""
+    from clsim_tpu_torch.tabulator import (Axis, CylindricalAxes,
+                                           SphericalAxes)
+    sph = [Axis(0.0, 580.0, 50, 2), Axis(0.0, 180.0, 12), Axis(-1.0, 1.0, 20),
+           Axis(0.0, 7000.0, 30, 2)]
+    return {"spherical": SphericalAxes(sph),
+            "cylindrical": CylindricalAxes(
+                [Axis(0.0, 580.0, 40, 2), Axis(0.0, np.pi, 12),
+                 Axis(-800.0, 800.0, 40), Axis(0.0, 7000.0, 30, 2)]),
+            "spherical + impact": SphericalAxes(sph + [Axis(-1.0, 1.0, 8)])}
+
+
+def phase11c(device):
+    """The card against the port on the CPU, same seed, reduced size
+    (TAB_SMALL): three tables, the deposited (unnormalized) table's L1 <=
+    2e-3 of its total and n_photons equal; the spherical one round-tripped
+    through save_table_fits / read_fits.  The normalized values' L1 is
+    printed beside it: normalization divides both by the same float64 bin
+    volumes, and in a cylindrical table one deposit that float rounding
+    moves between two bins near the axis (where the azimuth is
+    ill-conditioned and the bins' volumes tiny) weighs more there than
+    thousands elsewhere."""
+    import torch
+    from clsim_tpu_torch.tabulator import read_fits, save_table_fits
+    n, photons = TAB_SMALL
+    for name, axes in tab_small_axes().items():
+        out = []
+        for dev in (device, torch.device("cpu")):
+            tally = {}
+            table, wall = timed(lambda: tab_call(
+                tab_inputs(dev), tab_steps(n, photons, dev), 11, axes,
+                tally))
+            check_table(f"11c {name} on {dev.type}", table, tally, dev)
+            out.append((table, wall, tally["raw"].cpu().numpy()))
+        (tk, wk, rk), (tc, wc, rc) = out
+        l1 = float(np.abs(rk - rc).sum() / np.abs(rc).sum())
+        l1_norm = float(np.abs(tk.values - tc.values).sum()
+                        / np.abs(tc.values).sum())
+        log(f"  11c {name}: {n} slots x {photons} photons, table L1 "
+            f"{l1:.4e} of the total (card / CPU; normalized values "
+            f"{l1_norm:.4e}), n_photons {tk.n_photons:.0f} / "
+            f"{tc.n_photons:.0f}; {wk:.3f} s on the card, {wc:.3f} s on "
+            "the CPU")
+        if l1 > L1_TOL or tk.n_photons != tc.n_photons:
+            raise AssertionError(f"11c {name}: card and CPU tables differ")
+        if name == "spherical":
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, "table.fits")
+                save_table_fits(tk, path)
+                vals, edges, header, _ = read_fits(path)
+            if not (np.array_equal(vals, tk.values.astype(np.float32))
+                    and all(np.array_equal(e, a.bin_edges())
+                            for e, a in zip(edges, axes.axes))
+                    and header["n_photons"] == tk.n_photons):
+                raise AssertionError("11c: FITS round trip differs")
+            log(f"  11c: FITS round trip of the spherical table ({vals.size} "
+                "values) equal")
+
+
+def engine_ring_inputs(device, n, T):
+    """11d's shared-stream workload: phase 2's test_kernel workload (aniso
+    + tilt) at n slots with stopping records and HIST_H ring entries."""
+    medium, geo, spectra, cfg, steps, uni = small_workload(n, T, True, True,
+                                                           device)
+    cfg = dataclasses.replace(cfg, save_photons=True,
+                              photon_history_entries=HIST_H)
+    return steps, medium, geo, spectra, cfg, uni
+
+
+def match_engine_rings(name, res_a, res_b, cap):
+    """The engine's per-slot record rings of two runs on one stream: slots
+    with the same record count (>= 99.9% of them) hold records within
+    REC_TOLS and ring fields within RING_TOL (>= 99.9% of the records)."""
+    from clsim_tpu_torch.propagate import engine as E
+    ca = res_a.rec_count.cpu().numpy()
+    cb = res_b.rec_count.cpu().numpy()
+    same = ca == cb
+    valid = same[:, None] & (np.arange(cap)[None, :]
+                             < np.minimum(ca, cap)[:, None])
+    ok = np.ones(int(valid.sum()), bool)
+    worst = {}
+    fields = REC_TOLS + [(f, RING_TOL) for f in E.HIST_FIELDS]
+    for f, tol in fields:
+        a = res_a.rec[f].double().cpu().numpy()[valid]
+        b = res_b.rec[f].double().cpu().numpy()[valid]
+        close = np.abs(a - b) <= tol + 1e-3 * np.abs(b)
+        ok &= close.reshape(len(ok), -1).all(1)
+        worst[f] = float(np.abs(a - b).max()) if a.size else 0.0
+    log(f"  {name}: records {ca.sum()} / {cb.sum()}, slots with equal "
+        f"counts {same.mean():.6f}, records within tolerance "
+        f"{ok.sum()} of {len(ok)}; worst |diff| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in worst.items()))
+    if abs(int(ca.sum()) - int(cb.sum())) > max(2, 0.01 * cb.sum()):
+        raise AssertionError(f"{name}: record counts differ")
+    if same.mean() < 0.999 or ok.sum() < 0.999 * len(ok) or len(ok) < 100:
+        raise AssertionError(f"{name}: records or rings differ")
+
+
+def phase11d(device):
+    """Scatter-history rings on the card: Simulation.simulate of a 1 TeV
+    cascade on the main-path configuration with save_photons and HIST_H
+    ring entries runs the engine on the card (no kernel launch); each
+    record holds min(num_scatters, H) filled entries, depths rising in
+    ring order up to the record's depth; and on a shared stream the card's
+    engine records, rings included, match the CPU engine's."""
+    import torch
+    from clsim_tpu_torch.propagate import engine as E
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.sources import Particle, ParticleType
+    sim, _ = main_path_sim(device, save_photons=True,
+                           photon_history_entries=HIST_H)
+    cascade = Particle.cascade(ParticleType.EMinus, pos=(0.0, 0.0, 0.0),
+                               time=0.0, energy=RING_GEV, zenith=1.9,
+                               azimuth=0.7)
+    photons = steps_photons(sim, cascade, 23)
+    reset_counts()
+    res, wall = timed(lambda: sim.simulate([cascade], seed=23))
+    launches = sum(K.MODE_LAUNCHES.values())
+    rec = res.rec
+    n = int(res.rec_count[0])
+    log(f"  11d: {RING_GEV:.0f} GeV cascade on hex61, {N_SLOTS} slots, H "
+        f"{HIST_H}: generated {float(res.n_generated):.0f} (steps' photons "
+        f"{photons:.0f}), hits {float(res.n_hits):.0f}, records {n}, "
+        f"{res.n_iterations} iterations, simulate {wall:.4f} s, kernel "
+        f"launches {launches}, result on {res.hist.device}")
+    if launches != 0 or res.diag_totals is not None:
+        raise AssertionError("11d: a ring run launched the kernel")
+    if res.hist.device != device or rec["hist_x"].device != device:
+        raise AssertionError("11d: the engine did not run on the card")
+    if float(res.n_generated) != photons or n != float(res.n_hits) or n < 100:
+        raise AssertionError("11d: generated, hits or records off")
+    ns = rec["num_scatters"][0].to(torch.int64)
+    habs = rec["hist_abs"][0]
+    filled = (habs > 0).sum(1)
+    if not torch.equal(filled, torch.clamp(ns, max=HIST_H)):
+        raise AssertionError("11d: filled ring entries != min(scatters, H)")
+    # oldest entry first: a wrapped ring starts at num_scatters % H
+    j = torch.arange(HIST_H, device=device)[None, :]
+    start = torch.where(ns >= HIST_H, ns % HIST_H, 0)[:, None]
+    ordered = habs.gather(1, (start + j) % HIST_H)
+    used = j < torch.clamp(ns, max=HIST_H)[:, None]
+    rising = (ordered[:, 1:] >= ordered[:, :-1]) | ~used[:, 1:]
+    below = (habs <= rec["dist_in_abs_lens"][0][:, None] + 1e-4) | \
+        (habs == 0)
+    log(f"  11d: records with scatters {int((ns > 0).sum())}, wrapped rings "
+        f"{int((ns > HIST_H).sum())}, most scatters {int(ns.max())}")
+    if not bool(rising.all()) or not bool(below.all()):
+        raise AssertionError("11d: ring depths not rising or beyond the "
+                             "record's depth")
+    # the card's engine against the CPU engine on one stream
+    n_s, T = RING_STREAM
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        steps, medium, geo, spectra, cfg, uni = engine_ring_inputs(dev, n_s,
+                                                                   T)
+        runs.append(E.propagate(steps, medium, geo, spectra, 0, cfg,
+                                uniforms=uni))
+    match_engine_rings(f"11d shared stream ({n_s} slots x {T} iterations, "
+                       "card / CPU engine)", *runs,
+                       cfg.photon_capacity_per_slot)
+
+
 def k1_ptxas(log_text):
     """{entry: dict(registers, spill_stores, spill_loads, smem, blocks)} of
     the timed instantiations from nvcc -Xptxas -v output ({} when cached);
@@ -3066,6 +3479,26 @@ def main():
     log("phase 10c: a detailed-propagator cascade with a beta spread")
     phase10c(device)
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")
+
+    t11 = time.perf_counter()
+
+    def lap11(name):
+        log(f"  phase {name} done at {time.perf_counter() - t11:.1f} s into "
+            "phase 11")
+
+    log("phase 11a: the tabulator at full size (65,536 slots x 32 photons, "
+        "the default spherical table on the card)")
+    phase11a(device, card)
+    lap11("11a")
+    log("phase 11b: the analytic radial referee (scattering off)")
+    phase11b(device)
+    lap11("11b")
+    log("phase 11c: tables on the card against the port on the CPU")
+    phase11c(device)
+    lap11("11c")
+    log("phase 11d: scatter-history rings through the engine on the card")
+    phase11d(device)
+    lap11("11d")
 
     at = "clsim_tpu/propagate/kernel.py:2427"
 

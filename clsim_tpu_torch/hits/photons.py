@@ -41,10 +41,12 @@ def _ring_mask(rec_count, cap: int, device=None) -> torch.Tensor:
 
 def compact_records(rec: dict, rec_count):
     """Records of either contract -> the flat one: (rec with (1, R)
-    tensors, rec_count [R] int32), on the records' device."""
-    cap = rec["time"].shape[1]
+    tensors, rec_count [R] int32), on the records' device.  The
+    scatter-history fields ((N, cap, H) each) become (1, R, H)."""
+    n_slots, cap = rec["time"].shape
     valid = _ring_mask(rec_count, cap, rec["time"].device).reshape(-1)
-    flat = {k: v.reshape(-1)[valid][None, :] for k, v in rec.items()}
+    flat = {k: v.reshape((n_slots * cap,) + v.shape[2:])[valid][None]
+            for k, v in rec.items()}
     n = flat["time"].shape[1]
     return flat, torch.tensor([n], dtype=torch.int32,
                               device=rec["time"].device)
@@ -58,7 +60,9 @@ def records_to_photon_batch(rec: dict, rec_count, geo: DetectorGeometry
     in ring order; overflowed slots wrapped (oldest records overwritten),
     like the reference's bounded output buffer with its overflow clamp
     (…OpenCL.cxx:1027-1031).  Device flat DOM indices are remapped to
-    detector (string_id, om_id) pairs here, on download."""
+    detector (string_id, om_id) pairs here, on download.  The
+    scatter-history fields stay out of the batch, as in the JAX package
+    (clsim_tpu/hits/photons.py:44-45)."""
     n_slots, cap = rec["time"].shape
     mask = to_numpy(_ring_mask(to_numpy(rec_count), cap)).reshape(-1)
     flat = {k: to_numpy(v).reshape(-1)[mask] for k, v in rec.items()

@@ -11,8 +11,10 @@ function of the ice parameters (propagate/diff.py).
 
 A key is a (2,) int64 tensor holding two uint32 words (torch has no
 general uint32 arithmetic; every value here is int64 masked to 32 bits).
-Everything runs on the key's device and gives the same bits on the CPU and
-on a CUDA device:
+fold_in, random_bits and uniforms also take a (..., 2) tensor of keys and
+answer for each key at once, in one vectorised threefry call (the tabulator
+draws a chunk of iterations so).  Everything runs on the key's device and
+gives the same bits on the CPU and on a CUDA device:
 
   * base_key(seed): jax.random.PRNGKey(seed) as jax builds it in its
     default 32-bit mode, [0, seed mod 2**32];
@@ -72,11 +74,15 @@ def base_key(seed: int, device=None) -> torch.Tensor:
                         device=device)
 
 
-def fold_in(key, data: int) -> torch.Tensor:
-    """jax.random.fold_in(key, data) for a 32-bit `data`."""
+def fold_in(key, data) -> torch.Tensor:
+    """jax.random.fold_in(key, data) for a 32-bit `data`: an int, or an
+    int64 tensor broadcast against the keys of a (..., 2) key tensor.
+    Returns the (..., 2) folded keys."""
     k = as_key(key)
-    y0, y1 = threefry2x32(k[0], k[1], 0, int(data) & MASK)
-    return torch.stack([y0, y1])
+    d = (int(data) & MASK if isinstance(data, int) else
+         torch.as_tensor(data, dtype=torch.int64, device=k.device) & MASK)
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], 0, d)
+    return torch.stack(torch.broadcast_tensors(y0, y1), -1)
 
 
 def iter_key(key, iteration: int) -> torch.Tensor:
@@ -86,23 +92,25 @@ def iter_key(key, iteration: int) -> torch.Tensor:
 
 def random_bits(key, count: int) -> torch.Tensor:
     """jax.random's 32-bit random bits of a flat block of `count` elements
-    (int64 tensor of uint32 values on the key's device)."""
+    (int64 tensor of uint32 values on the key's device), shaped
+    (..., count) for a (..., 2) key tensor."""
     if count >= 2 ** 32:
         raise ValueError("a block of 2**32 or more elements needs the "
                          "64-bit counter, which is not ported")
     k = as_key(key)
     j = torch.arange(count, dtype=torch.int64, device=k.device)
-    y0, y1 = threefry2x32(k[0], k[1], 0, j)
+    y0, y1 = threefry2x32(k[..., 0:1], k[..., 1:2], 0, j)
     return y0 ^ y1
 
 
 def uniforms(key, shape, n: int) -> torch.Tensor:
     """n independent uniform [0, 1) float32 blocks of `shape` in one draw,
-    shaped (n,) + shape: jax.random.uniform(key, (n,) + shape)."""
+    shaped (n,) + shape: jax.random.uniform(key, (n,) + shape).  A (..., 2)
+    key tensor gives (...,) + (n,) + shape, one draw per key."""
     shape = (int(n),) + tuple(int(s) for s in shape)
     bits = random_bits(key, math.prod(shape))
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
-    return (f - 1.0).reshape(shape)
+    return (f - 1.0).reshape(bits.shape[:-1] + shape)
 
 
 def uniform_oc(u):
@@ -128,16 +136,19 @@ def make_uniform_stream(key, n_iterations: int, n_slots: int):
     """The shared (T, 8, N) stream: iteration i's block is
     uniforms(iter_key(key, i), (N,), 8), as the engine's key mode and the
     kernel's threefry mode draw it."""
+    return uniforms(_iteration_keys(key, n_iterations), (n_slots,), 8)
+
+
+def _iteration_keys(key, n_iterations: int) -> torch.Tensor:
+    """(T, 2) keys iter_key(key, i) of iterations 0 .. T - 1."""
     k = as_key(key)
-    return torch.stack([uniforms(iter_key(k, i), (n_slots,), 8)
-                        for i in range(int(n_iterations))])
+    return fold_in(k, torch.arange(int(n_iterations), dtype=torch.int64,
+                                   device=k.device))
 
 
 def key_table(key, n_iterations: int) -> torch.Tensor:
     """(2T,) int64 table of the folded per-iteration keys (uint32 words):
     what the CUDA kernel's threefry mode reads for iteration i at
     [2i, 2i + 1]."""
-    k = as_key(key)
-    i = torch.arange(int(n_iterations), dtype=torch.int64, device=k.device)
-    y0, y1 = threefry2x32(k[0], k[1], 0, i)   # fold_in of every i at once
-    return torch.stack([y0, y1], 1).reshape(-1)
+    return _iteration_keys(key, n_iterations).reshape(-1)
+

@@ -10,6 +10,14 @@ detect, and flasher steps over stacked spectra with a uniform or
 non-uniform bias grid.  What it refuses (backend_reason): scatter-history
 rings, records with another deposit mode, a one-point bias grid, threefry
 draws with a detect mode and the kernel's static limits.
+
+One rule sends a CUDA run to the engine on the card: scatter-history rings
+(save_photons with photon_history_entries > 0).  They ride on the engine
+only, in the JAX package too, whose kernel refuses them
+(clsim_tpu/propagate/kernel.py:1833), so "auto" runs a ring configuration
+through the engine on the tensors' device.  Without save_photons there are
+no rings and photon_history_entries is ignored, so the kernel serves the
+run.  Every other configuration the kernel refuses still raises there.
 backend="engine" asks for the engine explicitly; backend="fused" runs the
 fused call loop on any device (on CPU tensors the wrapper runs the
 kernel's plain version).
@@ -88,14 +96,18 @@ def propagate_auto(steps: StepBatch, medium: MediumProperties,
                    seed: int, cfg: PropagationConfig,
                    backend: str = "auto",
                    **fused_opts) -> PropagationResult:
-    """propagate() with backend selection by the tensors' device.
+    """propagate() with backend selection by the tensors' device: "auto"
+    runs the engine on CPU tensors and for scatter-history rings, and the
+    kernel otherwise.
 
     `backend`: "auto", "engine", or "fused".  Extra kwargs go to
     propagate_fused."""
     if backend not in ("auto", "engine", "fused"):
         raise ValueError(f"unknown backend {backend!r}")
-    if backend == "engine" or (backend == "auto"
-                               and steps.x.device.type == "cpu"):
+    # engine only, on any device; rings exist only in records
+    rings = cfg.save_photons and cfg.photon_history_entries > 0
+    if backend == "engine" or (backend == "auto" and (
+            steps.x.device.type == "cpu" or rings)):
         return propagate(steps, medium, geo, spectra, seed, cfg)
     fused_opts.setdefault("iters_per_call", ITERS_PER_CALL)
     res, _ = propagate_fused(steps, medium, geo, spectra, seed, cfg,

@@ -54,8 +54,15 @@ absorption point).  propagate() writes the records into fixed-capacity rings
 per slot, as the JAX engine does; the kernel's plain version takes the same
 per-iteration record values through `emit` instead.
 
-Not ported yet (NotImplementedError): the scatter-history rings
-(photon_history_entries).
+Scatter-history rings (cfg.photon_history_entries = H > 0, with
+save_photons; SAVE_PHOTON_HISTORY, propagation_kernel.c.cl:452-455,
+833-837): each slot's photon keeps its last H scatter points and their
+depths in absorption lengths in (N, H) rings (RecState.rings, cleared at
+spawn), and a record copies them into the (N, capacity, H) record fields
+hist_x, hist_y, hist_z and hist_abs, as the JAX engine does
+(clsim_tpu/propagate/engine.py:89, 496-500, 684-695, 763-773).  They ride
+on the engine only: the CUDA kernel refuses them, as the JAX kernel does,
+and dispatch.propagate_auto sends a ring run to the engine on the card.
 """
 
 from __future__ import annotations
@@ -84,9 +91,6 @@ from ..types import PropagationConfig, StepBatch
 EPSILON = 1e-5  # matches the reference kernel's single-precision EPSILON
 BIG = 1e30
 
-HISTORY_ITEM = ("photon scatter-history rings (photon_history_entries) are "
-                "queued (ROADMAP.md queue A item 12)")
-
 # raw record columns (the JAX kernel's REC_QUEUE_FIELDS): what the CUDA
 # kernel writes per record, and what the kernel's plain version takes from
 # the record block; records_from_rows derives the public fields from them
@@ -102,6 +106,9 @@ REC_FIELDS = ["pos_x", "pos_y", "pos_z", "time", "dir_theta", "dir_phi",
               "identifier", "dom", "start_x", "start_y", "start_z",
               "start_time", "start_theta", "start_phi", "group_velocity",
               "dist_in_abs_lens"]
+# the scatter-history record fields, (N, capacity, H) each, in the order of
+# RecState.rings
+HIST_FIELDS = ["hist_x", "hist_y", "hist_z", "hist_abs"]
 
 
 class SlotState(NamedTuple):
@@ -144,6 +151,9 @@ class RecState(NamedTuple):
     start_dy: torch.Tensor
     start_dz: torch.Tensor
     total_path: torch.Tensor    # path length so far [m] (engine rings only)
+    # scatter-history rings (hist_x, hist_y, hist_z, hist_abs), (N, H)
+    # each, with photon_history_entries > 0; engine only
+    rings: Optional[tuple] = None
 
 
 class ScoreState(NamedTuple):
@@ -160,7 +170,8 @@ class Accumulators(NamedTuple):
     weight_hits: torch.Tensor  # () float64 sum of deposited weights
     n_work: torch.Tensor       # () float64 slot-iterations with a photon
     # record rings, (N, photon_capacity_per_slot) float32 per REC_FIELDS
-    # entry, and the (N,) int32 records per slot; None without rings
+    # entry ((N, capacity, H) per HIST_FIELDS entry with history rings),
+    # and the (N,) int32 records per slot; None without rings
     rec_count: Optional[torch.Tensor] = None
     rec: Optional[dict] = None
 
@@ -211,15 +222,13 @@ def uses_score(cfg: PropagationConfig) -> bool:
 
 
 def check_supported(cfg: PropagationConfig, medium: MediumProperties):
-    """Raise NotImplementedError for configurations the port lacks, and
-    ValueError for a tabulated medium without its tables."""
+    """Raise ValueError for an unknown estimator and for a tabulated medium
+    without its tables."""
     reason = medium.missing_tables()
     if reason:
         raise ValueError(reason)
     if cfg.estimator not in ("detect", "expected"):
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
-    if cfg.photon_history_entries > 0:
-        raise NotImplementedError(HISTORY_ITEM)
 
 
 # ---------------------------------------------------------------------------
@@ -280,6 +289,10 @@ def _spawn_records(rstate: RecState, state: SlotState, wlen, fresh):
     `state` already holds the fresh photons."""
     sel = lambda new, old: torch.where(fresh, new, old)
     zero = torch.zeros_like(wlen)
+    rings = rstate.rings
+    if rings is not None:
+        # a fresh photon starts with an empty scatter history
+        rings = tuple(torch.where(fresh[:, None], 0.0, r) for r in rings)
     return RecState(
         wlen=sel(wlen, rstate.wlen), abs_init=sel(state.abs_left,
                                                   rstate.abs_init),
@@ -291,7 +304,7 @@ def _spawn_records(rstate: RecState, state: SlotState, wlen, fresh):
         start_dx=sel(state.dx, rstate.start_dx),
         start_dy=sel(state.dy, rstate.start_dy),
         start_dz=sel(state.dz, rstate.start_dz),
-        total_path=sel(zero, rstate.total_path))
+        total_path=sel(zero, rstate.total_path), rings=rings)
 
 
 def _record_values(state: SlotState, rstate: RecState, steps: StepBatch,
@@ -357,9 +370,26 @@ def _ring_write(acc: Accumulators, rec_mask, raw, rstate: RecState, dist,
                 group_velocity=1.0 / raw["inv_gv"])
     lane = torch.arange(rec_mask.shape[0], device=rec_mask.device)
     pos = (acc.rec_count % cfg.photon_capacity_per_slot).to(torch.int64)
-    for k, ring in acc.rec.items():
+    for k in REC_FIELDS:
+        ring = acc.rec[k]
         ring[lane, pos] = torch.where(rec_mask, vals[k], ring[lane, pos])
+    if rstate.rings is not None:
+        # the photon's scatter history goes with its record
+        for k, hist in zip(HIST_FIELDS, rstate.rings):
+            ring = acc.rec[k]
+            ring[lane, pos] = torch.where(rec_mask[:, None], hist,
+                                          ring[lane, pos])
     return acc._replace(rec_count=acc.rec_count + rec_mask.to(torch.int32))
+
+
+def _ring_append(rings: tuple, n_scat, do_scatter, values) -> tuple:
+    """Append one entry per scattering lane to its (N, H) history rings at
+    n_scat % H (the oldest overwritten), functionally."""
+    H = rings[0].shape[1]
+    pos = (n_scat.to(torch.int64) % H)[:, None]
+    return tuple(r.scatter(1, pos, torch.where(
+        do_scatter, v, r.gather(1, pos)[:, 0])[:, None])
+        for r, v in zip(rings, values))
 
 
 # ---------------------------------------------------------------------------
@@ -856,6 +886,13 @@ def _iteration(i, state: SlotState, acc: Accumulators, steps: StepBatch,
         dy=torch.where(do_scatter, sdy, state.dy),
         dz=torch.where(do_scatter, sdz, state.dz))
     if rstate is not None:
+        if rstate.rings is not None:
+            # ring-append the scatter point and its depth in absorption
+            # lengths (propagation_kernel.c.cl:833-837)
+            rstate = rstate._replace(rings=_ring_append(
+                rstate.rings, rstate.n_scat, do_scatter,
+                (state.x, state.y, state.z,
+                 rstate.abs_init - state.abs_left)))
         rstate = rstate._replace(n_scat=rstate.n_scat + do_scatter.to(
             rstate.n_scat.dtype))
 
@@ -889,13 +926,17 @@ def _init_state(steps: StepBatch) -> SlotState:
         abs_left=zf, gs=ones, pa=zf, qa=ones, ra=zf)
 
 
-def _init_rec_state(n: int, device) -> RecState:
+def _init_rec_state(n: int, device, history_entries: int = 0) -> RecState:
     zf = torch.zeros(n, dtype=torch.float32, device=device)
     ones = torch.ones(n, dtype=torch.float32, device=device)
+    rings = None
+    if history_entries > 0:
+        rings = tuple(torch.zeros((n, history_entries), dtype=torch.float32,
+                                  device=device) for _ in HIST_FIELDS)
     return RecState(wlen=torch.full((n,), 400.0, device=device),
                     abs_init=ones, n_scat=zf, dist_abs=zf, start_x=zf,
                     start_y=zf, start_z=zf, start_t=zf, start_dx=zf,
-                    start_dy=zf, start_dz=ones, total_path=zf)
+                    start_dy=zf, start_dz=ones, total_path=zf, rings=rings)
 
 
 def _init_acc(n_doms: int, cfg: PropagationConfig, device,
@@ -908,6 +949,10 @@ def _init_acc(n_doms: int, cfg: PropagationConfig, device,
         shape = (n_rings, cfg.photon_capacity_per_slot)
         rec = {f: torch.zeros(shape, dtype=torch.float32, device=device)
                for f in REC_FIELDS}
+        if cfg.photon_history_entries > 0:
+            hshape = shape + (cfg.photon_history_entries,)
+            rec.update({f: torch.zeros(hshape, dtype=torch.float32,
+                                       device=device) for f in HIST_FIELDS})
         rec_count = torch.zeros(n_rings, dtype=torch.int32, device=device)
     return Accumulators(
         hist=torch.zeros(n_doms * cfg.hist_n_bins, dtype=torch.float32,
@@ -940,8 +985,9 @@ def propagate(steps: StepBatch, medium: MediumProperties,
         rng.uniforms(rng.iter_key(key, i), (N,), 8): the JAX engine's
         stream for the same key.
     With cfg.save_photons the result carries the record rings
-    (photon_capacity_per_slot per slot).  Differentiable with respect to
-    the medium tensors (see the module docstring)."""
+    (photon_capacity_per_slot per slot), and with photon_history_entries
+    also each record's scatter history (HIST_FIELDS).  Differentiable with
+    respect to the medium tensors (see the module docstring)."""
     check_supported(cfg, medium)
     check_source_types(*source_type_range(steps.source_type),
                        int(spectra.x.shape[0]))
@@ -962,7 +1008,8 @@ def propagate(steps: StepBatch, medium: MediumProperties,
     acc = _init_acc(geo.n_doms, cfg, device, n_rings=n)
     rstate = dom_xyz = score = None
     if cfg.save_photons:
-        rstate, dom_xyz = _init_rec_state(n, device), dom_centres(geo)
+        rstate = _init_rec_state(n, device, cfg.photon_history_entries)
+        dom_xyz = dom_centres(geo)
     if uses_score(cfg):
         score = ScoreState(log_lik=torch.zeros(n, dtype=torch.float32,
                                                device=device))

@@ -89,11 +89,14 @@ from . import engine as E
 STATE_FIELDS = list(E.SlotState._fields)
 NSF = len(STATE_FIELDS)
 # extra state rows of the record mode: the record state (without the
-# engine-only total_path) and `pend`, the flat (dom, time-bin) index of a
-# record that did not fit into its launch's buffer (-1: none).  A recorded
-# photon is dead, so x/y/z hold its record position, t its time, and the
-# pending record is rebuilt from the state rows.
-REC_STATE_FIELDS = list(E.RecState._fields[:-1]) + ["pend"]
+# engine-only total_path and scatter-history rings) and `pend`, the flat
+# (dom, time-bin) index of a record that did not fit into its launch's
+# buffer (-1: none).  A recorded photon is dead, so x/y/z hold its record
+# position, t its time, and the pending record is rebuilt from the state
+# rows.
+_ENGINE_REC = ("total_path", "rings")
+REC_STATE_FIELDS = [f for f in E.RecState._fields
+                    if f not in _ENGINE_REC] + ["pend"]
 NRSF = len(REC_STATE_FIELDS)
 STEP_FIELDS = ["x", "y", "z", "t", "dir_x", "dir_y", "dir_z",
                "length", "beta", "weight", "source_type", "identifier"]
@@ -149,6 +152,13 @@ MAX_ANG = 8        # angular-polynomial coefficients in the parameter block
 # record mode, and every other mode one of the B6 deposit modes, the fit's
 # expected + threefry, or a COLL x MED instantiation with or without records
 MODE_LAUNCHES = collections.Counter()
+
+# the kernel carries no scatter-history rings, as the JAX kernel carries none
+# (clsim_tpu/propagate/kernel.py:1833); the engine serves them, and
+# dispatch.propagate_auto sends a ring run there (ROADMAP.md queue A, A8)
+HISTORY_REFUSED = ("the CUDA kernel does not carry photon scatter-history "
+                   "rings (photon_history_entries); the engine serves them "
+                   "(dispatch.propagate_auto; ROADMAP.md queue A, A8)")
 
 # geometries that SubPlans refuse (each plan_collision that falls back to the
 # global plan adds one; `reason` is the last refusal), as in the JAX package
@@ -855,7 +865,8 @@ def init_state(steps: StepBatch, records: bool = False) -> torch.Tensor:
     rows = list(E._init_state(steps))
     if records:
         n, dev = steps.x.shape[0], steps.x.device
-        rows += list(E._init_rec_state(n, dev))[:-1]
+        rs = E._init_rec_state(n, dev)
+        rows += [getattr(rs, f) for f in REC_STATE_FIELDS[:-1]]
         rows.append(torch.full((n,), -1.0, device=dev))
     return torch.stack(rows).contiguous()
 
@@ -1201,7 +1212,7 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
     rows = list(st)
     alive = (st.in_flight > 0.5) | (st.photons_left > 0.5)
     if spec.records:
-        rows += list(rs)[:-1] + [pend]
+        rows += [getattr(rs, f) for f in REC_STATE_FIELDS[:-1]] + [pend]
         alive = alive | (pend >= 0.0)
     state.copy_(torch.stack(rows))
     zero = torch.zeros((), dtype=torch.float64, device=dev)
@@ -1547,8 +1558,8 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
     writes at most `rec_capacity` records (fewer when the workload has
     fewer photons).  Returns (PropagationResult, totals) with totals the
     float64 CNT_* vector."""
-    if cfg.photon_history_entries > 0:
-        raise NotImplementedError(E.HISTORY_ITEM)
+    if cfg.save_photons and cfg.photon_history_entries > 0:
+        raise NotImplementedError(HISTORY_REFUSED)
     reason = fused_supported(medium, spectra, cfg)
     if reason:
         raise ValueError(f"fused path unsupported: {reason}")

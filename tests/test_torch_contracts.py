@@ -69,7 +69,11 @@ def test_import_leaves_jax_out():
             "clsim_tpu_torch.medium.photonics, clsim_tpu_torch.native, "
             "clsim_tpu_torch.util.golden, clsim_tpu_torch.validate.oracle, "
             "clsim_tpu_torch.medium.ice_parser, "
-            "clsim_tpu_torch.sources.detailed, clsim_tpu_torch.util; "
+            "clsim_tpu_torch.sources.detailed, clsim_tpu_torch.util, "
+            "clsim_tpu_torch.util.profiling, clsim_tpu_torch.tabulator, "
+            "clsim_tpu_torch.tabulator.axes, clsim_tpu_torch.tabulator.fits, "
+            "clsim_tpu_torch.tabulator.table, "
+            "clsim_tpu_torch.validate.table_referee; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'clsim_tpu' "
             "or m.startswith('clsim_tpu.')]; "

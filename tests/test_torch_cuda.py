@@ -456,3 +456,74 @@ def test_cuda_config1_golden_from_particles():
                           float(golden["n_hits"]),
                           float(golden["weight_hits"]), golden["hist"],
                           weight_factor=float((w * w).sum() / w.sum()))
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_sends_rings_to_the_engine():
+    """propagate_auto on the card: a scatter-history ring configuration runs
+    the engine there (no kernel launch, rings in the records), H > 0
+    without save_photons (no rings) launches the kernel, and the other
+    configurations the kernel refuses still raise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.propagate import dispatch as D
+    from clsim_tpu_torch.propagate import kernel as K
+    dev = torch.device("cuda", 0)
+    medium, geo, spectra, cfg, steps, _ = chip_smoke.small_workload(
+        8192, 1, False, False, dev)
+    rings = dataclasses.replace(cfg, save_photons=True,
+                                photon_history_entries=4)
+    before = sum(K.MODE_LAUNCHES.values())
+    res = D.propagate_auto(steps, medium, geo, spectra, 3, rings)
+    torch.cuda.synchronize()
+    assert sum(K.MODE_LAUNCHES.values()) == before
+    assert res.diag_totals is None and res.hist.device == dev
+    assert res.rec["hist_abs"].device == dev
+    assert res.rec["hist_abs"].shape == (8192, cfg.photon_capacity_per_slot,
+                                         4)
+    assert float(res.n_generated) == float(steps.num_photons.sum())
+    assert int(res.rec_count.sum()) == float(res.n_hits) > 0
+    with pytest.raises(NotImplementedError, match="history"):
+        D.propagate_auto(steps, medium, geo, spectra, 3, rings,
+                         backend="fused")
+    # without save_photons there are no rings: the kernel serves the run
+    no_rec = dataclasses.replace(cfg, photon_history_entries=4)
+    before = sum(K.MODE_LAUNCHES.values())
+    res = D.propagate_auto(steps, medium, geo, spectra, 3, no_rec)
+    torch.cuda.synchronize()
+    assert sum(K.MODE_LAUNCHES.values()) > before
+    assert res.diag_totals is not None
+    assert float(res.n_generated) == float(steps.num_photons.sum())
+    for change in (dict(estimator="expected",
+                        expected_angular_poly=(0.1,) * 9),
+                   dict(save_photons=True, stop_on_detection=False)):
+        with pytest.raises((ValueError, NotImplementedError)):
+            D.propagate_auto(steps, medium, geo, spectra, 3,
+                             dataclasses.replace(cfg, **change))
+
+
+@pytest.mark.cuda
+def test_cuda_tabulate_matches_cpu():
+    """chip_smoke phase 11(c) at a small size: a table on the card (float64,
+    filled by index_add_ there) against the port on the CPU, same seed:
+    the deposited table's L1 <= 2e-3 of its total, n_photons equal, every
+    comb weight landed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    import numpy as np
+    import chip_smoke
+    axes = chip_smoke.tab_small_axes()["spherical"]
+    tables = []
+    for dev in (torch.device("cuda", 0), torch.device("cpu")):
+        tally = {}
+        table = chip_smoke.tab_call(chip_smoke.tab_inputs(dev),
+                                    chip_smoke.tab_steps(256, 2, dev), 11,
+                                    axes, tally)
+        chip_smoke.check_table(f"tabulate on {dev.type}", table, tally, dev)
+        tables.append((table.n_photons, tally["raw"].cpu().numpy()))
+    (n_gpu, gpu), (n_cpu, cpu) = tables
+    assert n_gpu == n_cpu == 512
+    l1 = np.abs(gpu - cpu).sum() / np.abs(cpu).sum()
+    assert l1 <= 2e-3, l1

@@ -70,24 +70,13 @@ def test_engine_drains_and_conserves():
     assert bool(torch.isfinite(res.hist).all())
 
 
-@pytest.mark.parametrize("change", [dict(medium_kind="water"),
-                                    dict(save_photons=True,
-                                         photon_history_entries=2),
-                                    dict(estimator="expected",
-                                         soft_binning=True,
-                                         photon_history_entries=3)])
+@pytest.mark.parametrize("change", [dict(medium_kind="water")])
 def test_unported_engine_options_raise(change):
-    """The scatter-history rings still raise NotImplementedError (the
-    expected estimator and soft binning are ported:
-    tests/test_torch_expected.py); the tabulated media are ported
-    (tests/test_torch_water.py), and a water-kind medium without its
-    wavelength tables is refused with ValueError."""
+    """A water-kind medium without its wavelength tables is refused with
+    ValueError (the tabulated media are ported: tests/test_torch_water.py;
+    the expected estimator and soft binning: tests/test_torch_expected.py;
+    the scatter-history rings: tests/test_torch_history.py)."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
-    med = {k: v for k, v in change.items() if k in medium._fields}
-    cfg = dataclasses.replace(cfg, **{k: v for k, v in change.items()
-                                      if k not in med})
-    exc, match = ((ValueError, "without wavelength tables") if med
-                  else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(exc, match=match):
-        ET.propagate(steps, medium._replace(**med), geo, spectra, 0, cfg,
+    with pytest.raises(ValueError, match="without wavelength tables"):
+        ET.propagate(steps, medium._replace(**change), geo, spectra, 0, cfg,
                      uniforms=u)

@@ -263,7 +263,3 @@ def test_record_entry_points_need_save_photons():
     for fn in (sim.simulate_hits, sim.simulate_photons):
         with pytest.raises(ValueError, match="save_photons=True"):
             fn([cascade(PartT, PTT)], 0)
-    sim = SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO),
-               config=CfgT(**dict(CFG, photon_history_entries=2)))
-    with pytest.raises(NotImplementedError, match="history"):
-        sim.simulate([cascade(PartT, PTT)], 0)

@@ -154,6 +154,22 @@ def test_propagate_fused_refuses_unported_configs(change):
                            iters_per_call=TK.T, max_calls=1, uniforms=u)
 
 
+def test_propagate_fused_ignores_history_entries_without_records():
+    """photon_history_entries sizes the rings of photon records only: without
+    save_photons the kernel serves the run, as the JAX kernel does
+    (fused_supported gates it under save_photons), and its histogram is the
+    one of the run with no rings asked for."""
+    steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
+    assert not cfg.save_photons
+    runs = [KT.propagate_fused(steps, medium, geo, spectra, 0,
+                               dataclasses.replace(
+                                   cfg, photon_history_entries=h),
+                               iters_per_call=TK.T, max_calls=1,
+                               uniforms=u)[0] for h in (0, 4)]
+    assert float(runs[0].n_generated) > 0
+    assert torch.equal(runs[0].hist, runs[1].hist)
+    assert float(runs[0].n_hits) == float(runs[1].n_hits)
+
 def test_dispatch_backends():
     from clsim_tpu_torch.propagate import dispatch as D
     steps, medium, geo, spectra, cfg, _ = port_inputs(*TK._workload())

@@ -1,5 +1,7 @@
 """The port's particle sanitizers (util/sanitize.py) against the JAX
-package's, on tests/test_util.py's cases and a seeded particle list."""
+package's, on tests/test_util.py's cases and a seeded particle list; and
+the port's profiling helpers (util/profiling.py) on the CPU: a Chrome trace
+and profile_device_time's keys, as clsim_tpu.util.profiling returns them."""
 
 import dataclasses
 
@@ -73,3 +75,40 @@ def test_filter_by_detector_distance(cutoff):
     assert 0 < len(kept_t) < 60
     assert keys(kept_t) == keys(kept_j)
     assert len(filter_t(particles(PT), None)) == 60
+
+
+def test_trace_writes_a_chrome_trace(tmp_path):
+    import json
+    import torch
+    from clsim_tpu_torch.util.profiling import trace
+    with trace(str(tmp_path)) as prof:
+        x = torch.arange(1000.0)
+        (x * 2.0 + 1.0).sum()
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("aten::mul" in n for n in names)
+    assert any(e.name == "aten::mul" for e in prof.events())
+
+
+def test_profile_device_time_keys_on_the_cpu():
+    import torch
+    from clsim_tpu.util.profiling import profile_device_time as pdt_j
+    from clsim_tpu_torch.util.profiling import profile_device_time as pdt_t
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return torch.ones(64).sum()
+
+    res = pdt_t(fn, reps=3, warmup=2, device="cpu")
+    assert len(calls) == 2 + 3
+    keys_j = set(pdt_j(lambda: np.ones(4), reps=2, warmup=0))
+    assert keys_j <= set(res) and res["clock"] == "wall"
+    assert res["device_time_s"] > 0 and res["first_call_s"] > 0
+    assert res["queue_saturated"] is True
+    one = pdt_t(fn, reps=1, warmup=0, device="cpu")
+    assert one["queue_saturated"] is False and one["device_time_s"] > 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pdt_t(fn)
