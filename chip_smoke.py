@@ -14,6 +14,8 @@
         # checkout in turns (e.g. parent, new, new, parent), one process a
         # turn: simulate's wall and its host split (conversion, slot
         # assignment, copy, propagation), medians of 3
+    python3 chip_smoke.py --mesh N   # build, then phase 12b with N ranks
+        # (NCCL with a card each when there are N cards, else gloo)
 
 Phases (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -200,6 +202,26 @@ Phases (any failure raises and exits non-zero):
         depths rising in ring order up to the record's depth; on one
         (64, 8, 8192) stream the card's engine records, rings included,
         against the CPU engine's (REC_TOLS, 2e-2 for the ring fields).
+ 12. photons over ranks (parallel/mesh.py, parallel/bootstrap.py; one
+     process a rank):
+     a. initialize_distributed at world size 1 (NCCL), then
+        Simulation(mesh=global_photon_mesh()).simulate of phase 3's
+        cascade: the kernel body served, the main-path instantiation
+        launched, nothing dropped or abandoned, histogram sum = hit weight,
+        and against propagate_auto on the same slot batches with the seed
+        the mesh derives for rank 0 (equal generated counts, hits within
+        max(2, 1%), L1 <= 2e-3); the wall after a first call that sets up
+        NCCL;
+     b. two processes of this script (--mesh-worker) join a gloo group on
+        cuda:0 (NCCL refuses two ranks on one device): each propagates its
+        process_step_slice of phase 3's slot batches (2 x 262,144 slots)
+        through make_sharded_propagate and takes one IceFit(mesh=,
+        forward='fused') step on its half of the fit workload; both ranks
+        return the same result, K1 launched in each, the all-reduced result
+        against one process summing both slices with each rank's seed
+        (phase 2's tolerances), the step equal to -lr (g_0 + g_1) with each
+        rank's gradient computed in one process (rel 1e-3 in norm) and the
+        loss equal to one process's (rel 1e-4); each rank's walls.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -824,13 +846,14 @@ def phase5b(device):
         raise AssertionError("SAVE_ALL: record counts differ (records lost)")
 
 
-def main_path_sim(device, **cfg_kw):
-    """Phase 3's Simulation and cascade, with extra config fields."""
+def main_path_sim(device, mesh=None, **cfg_kw):
+    """Phase 3's Simulation and cascade, with extra config fields (and,
+    with a mesh, N_SLOTS slots a rank)."""
     from clsim_tpu_torch.api import Simulation
     from clsim_tpu_torch.sources import Particle, ParticleType
     from clsim_tpu_torch.types import PropagationConfig
     medium, _ = seeded_ice(171, -855.0, 10.0, device)
-    sim = Simulation(medium=medium, geometry=hex61(device),
+    sim = Simulation(medium=medium, geometry=hex61(device), mesh=mesh,
                      config=PropagationConfig(n_slots=N_SLOTS, **cfg_kw))
     cascade = Particle.cascade(ParticleType.EMinus, pos=(0.0, 0.0, 0.0),
                                time=0.0, energy=CASCADE_GEV, zenith=1.9,
@@ -3337,6 +3360,337 @@ def k1_turns(turns, json_path=None):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 12: photons over ranks (parallel/mesh.py, parallel/bootstrap.py)
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2           # 12b's ranks, processes sharing the one card
+MESH_FIT_LR = 1e-3       # 12b's IceFit step
+
+
+def all_reduce_ms(mesh, res, reps=3):
+    """Median milliseconds of all_reduce_result on `res` (the result's
+    float64 buffer summed, the iteration count maxed) over the mesh."""
+    import torch
+    from clsim_tpu_torch.parallel.mesh import all_reduce_result
+    times = []
+    for _ in range(reps):
+        _, t = timed(lambda: all_reduce_result(res, mesh))
+        times.append(t * 1e3)
+    return float(np.median(times))
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def batch_keys(seed, n):
+    """Simulation.run_steps' batch keys on a mesh: fold_in(PRNGKey(seed), i)."""
+    from clsim_tpu_torch.ops import rng
+    return [rng.fold_in(rng.base_key(seed), i) for i in range(n)]
+
+
+def slot_slice(batch, r, n_ranks):
+    """Rank r's contiguous slot slice of a slot batch (host or tensors)."""
+    n = int(batch.x.shape[0]) // n_ranks
+    return type(batch)(*[f[r * n:(r + 1) * n] for f in batch])
+
+
+def one_process_slices(sim, batches, seed, n_ranks):
+    """Every rank's slot slice of every batch through propagate_auto's
+    kernel with the kernel body's seed of that rank (parallel/mesh.
+    shard_seed), summed in one process: the histogram and the counters."""
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.parallel.mesh import shard_seed
+    from clsim_tpu_torch.propagate.dispatch import propagate_auto
+    hist, totals = 0.0, 0.0
+    for b, key in zip(batches, batch_keys(seed, len(batches))):
+        for r in range(n_ranks):
+            res = propagate_auto(
+                steps_from_numpy(slot_slice(b, r, n_ranks)._asdict(),
+                                 sim.device), sim.medium, sim.geometry,
+                sim.spectra, shard_seed(key, r), sim.config, backend="fused")
+            hist = hist + res.hist.double()
+            totals = totals + res.diag_totals
+    return hist, totals
+
+
+def phase12a(device, card):
+    """Simulation(mesh=) of phase 3's cascade at world size 1 on NCCL,
+    against propagate_auto on the same slot batches with rank 0's seed."""
+    import torch
+    import torch.distributed as dist
+    from clsim_tpu_torch.parallel.bootstrap import (global_photon_mesh,
+                                                    initialize_distributed)
+    from clsim_tpu_torch.propagate import kernel as K
+    ok = initialize_distributed(f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+    try:
+        backend = dist.get_backend()
+        mesh = global_photon_mesh()
+        log(f"  initialize_distributed -> {ok}, backend {backend}, mesh "
+            f"rank {mesh.rank} of {mesh.size} on {mesh.device}")
+        if not ok or backend != "nccl" or mesh.size != 1:
+            raise AssertionError("world 1 did not come up on NCCL")
+        sim, cascade = main_path_sim(device, mesh=mesh)
+        run = sim._propagate
+        if run.backend != "fused":
+            raise AssertionError(f"the mesh served {run.backend}: "
+                                 f"{run.backend_reason}")
+        photons = steps_photons(sim, cascade, 11)
+        # the first collective sets up NCCL's communicator
+        _, first = timed(lambda: sim.simulate([cascade], seed=11))
+        reset_counts()
+        res, wall = timed(lambda: sim.simulate([cascade], seed=11))
+        launches = K.MODE_LAUNCHES[0]
+        check_run("Simulation(mesh=) world 1", res, photons)
+        hsum = float(res.hist.double().sum())
+        if abs(hsum / float(res.weight_hits) - 1.0) > 1e-4:
+            raise AssertionError("histogram sum differs from the hit weight")
+        if launches <= 0:
+            raise AssertionError("the mesh did not launch the main-path "
+                                 "instantiation")
+        batches = sim.steps_from_particles([cascade],
+                                           np.random.default_rng(11))
+        h_ref, c_ref = one_process_slices(sim, batches, 11, 1)
+        compare("mesh world 1 / propagate_auto with rank 0's seed",
+                res.diag_totals, res.hist, c_ref, h_ref)
+        log(f"  launches {launches}; simulate over the mesh {wall:.4f} s = "
+            f"{photons / wall:.6g} photons/s end to end (the first call, "
+            f"NCCL's set-up included, {first:.4f} s); all_reduce_result of "
+            f"the result ({res.hist.numel() + res.diag_totals.numel() + 3} "
+            f"float64) {all_reduce_ms(mesh, res):.3f} ms, median of 3 "
+            f"({card})")
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_worker(port, rank, n_ranks, root):
+    """One rank of 12b: join the group of n_ranks processes (gloo when they
+    share the cards, NCCL with a card each: bootstrap.default_backend),
+    propagate this rank's process_step_slice of phase 3's slot batches
+    through make_sharded_propagate, take one IceFit(mesh=) step on this
+    rank's slice of the fit workload, and write root/rank<r>.pt."""
+    import torch
+    import torch.distributed as dist
+    from clsim_tpu_torch import _build
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.parallel.bootstrap import (global_photon_mesh,
+                                                    initialize_distributed,
+                                                    process_step_slice)
+    from clsim_tpu_torch.parallel.mesh import IceFit, make_sharded_propagate
+    from clsim_tpu_torch.propagate import kernel as K
+    _build.load()     # phase 1 built the library: this only loads it
+    ok = initialize_distributed(f"tcp://127.0.0.1:{port}",
+                                world_size=n_ranks, rank=rank)
+    mesh = global_photon_mesh()
+    if not ok or mesh.rank != rank or mesh.size != n_ranks:
+        raise AssertionError("the rank did not join the group")
+    device = mesh.device
+    out = dict(rank=rank, device=str(device), backend_dist=dist.get_backend())
+    sim, cascade = main_path_sim(device, mesh=mesh)
+    run = make_sharded_propagate(mesh, sim.config, medium=sim.medium,
+                                 geo=sim.geometry, spectra=sim.spectra)
+    batches = sim.steps_from_particles([cascade], np.random.default_rng(11))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist, totals = 0.0, 0.0
+    for b, key in zip(batches, batch_keys(11, len(batches))):
+        sl = process_step_slice(int(b.x.shape[0]))
+        local = steps_from_numpy({k: v[sl] for k, v in b._asdict().items()},
+                                 device)
+        res = run(local, sim.medium, sim.geometry, sim.spectra, key)
+        hist = hist + res.hist.double()
+        totals = totals + res.diag_totals
+    torch.cuda.synchronize()
+    out.update(backend=run.backend, wall=time.perf_counter() - t0,
+               launches=K.MODE_LAUNCHES[0], hist=hist.cpu(),
+               totals=totals.cpu(), batches=len(batches),
+               all_reduce_ms=all_reduce_ms(mesh, res))
+    # one IceFit step on this rank's slice of the fit workload
+    medium, geo, spectra, cfg, steps = fit_workload(device)
+    fit_in = torch.load(os.path.join(root, "fit.pt"), weights_only=True)
+    sl = process_step_slice(FIT_SLOTS)
+    fit = IceFit(cfg, geo, spectra, forward="fused", max_iterations=FIT_T,
+                 param_transform=band_transform(medium),
+                 learning_rate=MESH_FIT_LR, mesh=mesh)
+    step = lambda: fit.step({"log_s": fit_in["pert"].to(device)}, medium,
+                            type(steps)(*[f[sl] for f in steps]), FIT_KEY,
+                            fit_in["target"].to(device))
+    reset_counts()
+    (p, loss), fit_wall = timed(step)
+    out.update(fit_wall=fit_wall, loss=float(loss), log_s=p["log_s"].cpu(),
+               fit_launches=K.MODE_LAUNCHES[K.DEP_EXPECTED
+                                            | K.MODE_THREEFRY])
+    # the same step again: the first one of a process also loads the
+    # engine's CUDA kernels
+    out["fit_wall_again"] = timed(step)[1]
+    torch.save(out, os.path.join(root, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def fit_band(medium):
+    """fit_gates' band: the layers [lo, hi) whose centres lie in FIT_BAND."""
+    L = medium.n_layers
+    centres = float(medium.layers_z_start) + (np.arange(L) + 0.5) * \
+        float(medium.layer_height)
+    band = np.nonzero((centres > FIT_BAND[0]) & (centres < FIT_BAND[1]))[0]
+    return int(band[0]), int(band[-1]) + 1
+
+
+def band_transform(medium):
+    """fit_gates' a_dust400 transform: the band's layers scaled by
+    exp(log_s), the rest held at the truth."""
+    import torch
+    lo, hi = fit_band(medium)
+    true = medium.a_dust400.clone()
+    return lambda p: {"a_dust400": torch.cat([
+        true[:lo], true[lo:hi] * torch.exp(p["log_s"]), true[hi:]])}
+
+
+def mesh_batches(sim, cascade, n_ranks):
+    """Simulation.steps_from_particles of `cascade` (seed 11) on a mesh of
+    n_ranks: slot batches of n_ranks x n_slots slots."""
+    from clsim_tpu_torch.sources.ppc import assign_steps_to_slots
+    from clsim_tpu_torch.types import StepBatch
+    return assign_steps_to_slots(StepBatch.concatenate(
+        sim.source_converter.convert([(cascade, 0)],
+                                     np.random.default_rng(11))),
+        n_ranks * sim.config.n_slots)
+
+
+def phase12b(device, card, n_ranks=MESH_RANKS):
+    """n_ranks ranks, each a process of this script (--mesh-worker): by
+    default two on gloo sharing cuda:0; with a card a rank (--mesh N), NCCL.
+    The all-reduced main path against one process summing every slice with
+    its rank's seed, and one IceFit(mesh=) step against -lr * sum_r g_r
+    computed in one process."""
+    import torch
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.parallel.mesh import IceFit
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps = fit_workload(device)
+    tf = band_transform(medium)
+    lo, hi = fit_band(medium)
+    pert = torch.as_tensor(np.random.default_rng(99).normal(
+        0.0, 0.2, hi - lo).astype(np.float32), device=device)
+    fit = IceFit(cfg, geo, spectra, forward="fused", max_iterations=FIT_T,
+                 param_transform=tf)
+    slices = [slot_slice(steps, r, n_ranks) for r in range(n_ranks)]
+    keys = [rng.fold_in(rng.as_key(FIT_KEY), r) for r in range(n_ranks)]
+    with torch.no_grad():    # the target: the sharded forward at the truth
+        target = sum(fit.one_forward(medium, s, k)
+                     for s, k in zip(slices, keys))
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    torch.save(dict(pert=pert.cpu(), target=target.cpu()),
+               os.path.join(root, "fit.pt"))
+    here = os.path.abspath(__file__)
+    port = free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, here, "--mesh-worker",
+                               str(port), str(r), str(n_ranks), root],
+                              cwd=os.path.dirname(here),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(n_ranks)]
+    try:
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {r} failed ({p.returncode}):\n"
+                                 + o[-4000:])
+    ranks = [torch.load(os.path.join(root, f"rank{r}.pt"), weights_only=True)
+             for r in range(n_ranks)]
+    expected = "nccl" if n_ranks <= torch.cuda.device_count() else "gloo"
+    for r, o in enumerate(ranks):
+        if o["backend_dist"] != expected:
+            raise AssertionError(f"rank {r} joined on {o['backend_dist']}, "
+                                 f"not {expected}")
+        log(f"  rank {r} on {o['device']} ({o['backend_dist']}): "
+            f"{o['backend']} body, "
+            f"{o['batches']} batch(es), propagation {o['wall']:.4f} s "
+            f"(all_reduce_result alone {o['all_reduce_ms']:.3f} ms, median "
+            f"of 3), {o['launches']} main-path launches; IceFit step "
+            f"{o['fit_wall']:.4f} s (the same step again "
+            f"{o['fit_wall_again']:.4f} s), {o['fit_launches']} threefry "
+            f"launches, "
+            f"loss {o['loss']:.9g} ({card})")
+        if o["backend"] != "fused" or o["launches"] <= 0 \
+                or o["fit_launches"] <= 0:
+            raise AssertionError(f"rank {r} did not launch the kernel")
+    log(f"  the ranks' processes took {wall:.1f} s, start-up included")
+    r0 = ranks[0]
+    for o in ranks[1:]:
+        if not (torch.equal(o["hist"], r0["hist"])
+                and torch.equal(o["totals"], r0["totals"])
+                and torch.equal(o["log_s"], r0["log_s"])
+                and o["loss"] == r0["loss"]):
+            raise AssertionError("the ranks' results differ")
+    # one process: both slices of phase 3's batches with each rank's seed
+    sim, cascade = main_path_sim(device)
+    batches = mesh_batches(sim, cascade, n_ranks)
+    h_ref, c_ref = one_process_slices(sim, batches, 11, n_ranks)
+    compare(f"mesh world {n_ranks} / one process summing every slice",
+            r0["totals"].to(device), r0["hist"].to(device), c_ref, h_ref)
+    diag = r0["totals"]
+    if float(diag[K.CNT_DROPPED]) != 0 or float(diag[K.CNT_ALIVE]) != 0:
+        raise AssertionError("photons dropped or abandoned over the mesh")
+    # the fit: each rank's gradient dL/dH . dh_r/dp in one process
+    x = pert.clone().requires_grad_(True)
+    med = medium._replace(**tf({"log_s": x}))
+    hs = [fit.one_forward(med, s, k) for s, k in zip(slices, keys)]
+    total = sum(h.detach() for h in hs)
+    chi2 = lambda h: ((h - target) ** 2).sum() / torch.clamp(target.sum(),
+                                                              min=1.0)
+    g = [torch.autograd.grad(chi2(total + h - h.detach()), x,
+                             retain_graph=True)[0] for h in hs]
+    want = -MESH_FIT_LR * sum(g)
+    got = r0["log_s"].to(device) - pert
+    rel = float((got - want).norm() / want.norm())
+    l_ref = float(chi2(total))
+    rel_jax = float((got + MESH_FIT_LR * n_ranks * g[0]).norm()
+                    / want.norm())
+    log(f"  IceFit(mesh=) step against -lr sum_r g_r: rel {rel:.3g} (norm "
+        f"{float(want.norm()):.6g}; |g_r| "
+        + ", ".join(f"{float(v.norm()):.6g}" for v in g)
+        + f"; against the JAX rule -lr {n_ranks} g_0: {rel_jax:.3g}); loss "
+        f"{r0['loss']:.9g}, one process {l_ref:.9g}")
+    if not rel <= 1e-3:
+        raise AssertionError("the mesh's fit step is not -lr sum_r g_r")
+    if abs(r0["loss"] / l_ref - 1.0) > 1e-4:
+        raise AssertionError("the mesh's loss differs from one process's")
+
+
+def mesh_only(n_ranks):
+    """--mesh N: build, then phase 12b with N ranks, one a card when there
+    are N cards (NCCL), else sharing them (gloo)."""
+    import torch
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    log(card)
+    from clsim_tpu_torch import _build
+    t0 = time.perf_counter()
+    _build.load()
+    log(f"phase 1: built in {time.perf_counter() - t0:.2f} s; "
+        f"{torch.cuda.device_count()} cards")
+    log(f"phase 12b with {n_ranks} ranks")
+    t0 = time.perf_counter()
+    phase12b(torch.device("cuda", 0), card.replace("\n", "; "), n_ranks)
+    log(f"  phase 12b with {n_ranks} ranks passed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3347,6 +3701,10 @@ def main():
         return k1_turn_worker(argv[1])
     if argv[:1] == ["--split-worker"]:
         return host_split_worker(argv[1])
+    if argv[:1] == ["--mesh-worker"]:
+        return mesh_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
+    if argv[:1] == ["--mesh"]:
+        return mesh_only(int(argv[1]))
     if argv[:1] in (["--turns"], ["--host-split"]):
         turns = argv[1:]
         json_path = None
@@ -3499,6 +3857,15 @@ def main():
     log("phase 11d: scatter-history rings through the engine on the card")
     phase11d(device)
     lap11("11d")
+
+    t12 = time.perf_counter()
+    log("phase 12a: the main path over a mesh of one rank on NCCL "
+        "(Simulation(mesh=global_photon_mesh()), hex61, 100 TeV cascade)")
+    phase12a(device, card)
+    log("phase 12b: two ranks on gloo sharing the card (the main path's "
+        "slot slices and one IceFit step)")
+    phase12b(device, card)
+    log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
     at = "clsim_tpu/propagate/kernel.py:2427"
 

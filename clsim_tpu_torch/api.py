@@ -15,8 +15,16 @@ Wiring contract (I3CLSimMakePhotons.py:370-430, common.py setupDetector):
   * pancake factor = oversize
   * MCPE conversion divides the bias back out via the saved weights
 
-The medium and geometry tensors must live on `device`.  The multi-device
-mesh is queued in ROADMAP.md queue A (item 14).
+The medium and geometry tensors must live on `device`.
+
+Over several ranks (one process per GPU, parallel/bootstrap.py) every rank
+builds the same Simulation with mesh=global_photon_mesh() and calls
+simulate with the same particles and seed: each converts them alike,
+propagates its slot slice and returns the all-reduced result:
+
+    initialize_distributed()          # torchrun's environment
+    sim = Simulation(medium, geometry, config, mesh=global_photon_mesh())
+    result = sim.simulate(particles, seed=1234)   # the same on every rank
 """
 
 from __future__ import annotations
@@ -37,9 +45,11 @@ from .hits.photons import (compact_records, load_photons_npz,
                            photon_batch_dom_index, records_to_photon_batch,
                            save_photons_npz)
 from .medium.properties import MediumProperties
+from .ops import rng as RNG
 from .ops.spectrum import (WavelengthSpectrum, check_source_types,
                            make_cherenkov_spectrum, source_type_range,
                            stack_spectra)
+from .parallel.mesh import make_sharded_propagate, shard_steps
 from .propagate.dispatch import check_diagnostics, propagate_auto
 from .propagate.engine import PropagationResult
 from .sources.convert import (MuonSlicerPropagator, SourceConverter,
@@ -49,7 +59,6 @@ from .sources.particles import Particle
 from .sources.ppc import PPCStepGenerator, assign_steps_to_slots
 from .types import PropagationConfig, StepBatch
 
-MESH_ITEM = "multi-device propagation is queued (ROADMAP.md queue A item 14)"
 # salt of the MCPE sampler's seed: (seed, "MCPE") as in the JAX package
 MCPE_SALT = 0x4d435045
 
@@ -73,12 +82,13 @@ class Simulation:
                  propagators: Sequence = None,
                  use_native: bool = True,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
         self.medium = medium
         self.geometry = geometry
         self.backend = backend
-        self.device = medium.device if device is None else device
+        self.mesh = mesh
+        if device is None:
+            device = medium.device if mesh is None else mesh.device
+        self.device = device
         self.fused_opts = dict(fused_opts or {})
         cfg = config or PropagationConfig()
         if cfg.pancake_factor == 1.0 and geometry.oversize != 1.0:
@@ -142,23 +152,39 @@ class Simulation:
             device=self.device)
         self.angular_coeffs = dom_angular_sensitivity(device=self.device)
 
+        self._propagate = None
+        if mesh is not None:
+            # the sharded path serves the kernel whenever the configuration
+            # supports it; make_sharded_propagate records backend and
+            # backend_reason, and refuses save_photons (ROADMAP C2)
+            fopts = dict(self.fused_opts)
+            max_calls = fopts.pop("max_calls", 256)
+            self._propagate = make_sharded_propagate(
+                mesh, cfg, backend=backend, medium=medium, geo=geometry,
+                spectra=self.spectra, max_calls=max_calls, **fopts)
+
     # ------------------------------------------------------------------
     def steps_from_particles(self, particles: Sequence[Particle],
                              rng: np.random.Generator) -> List[StepBatch]:
         """Light sources -> slot-assigned host step batches through the
-        conversion queue (sources/convert.py)."""
+        conversion queue (sources/convert.py); on a mesh, batches of
+        n_slots slots for each rank."""
         batches = self.source_converter.convert(
             [(p, ident) for ident, p in enumerate(particles)], rng)
         if not batches:
             return []
-        return assign_steps_to_slots(StepBatch.concatenate(batches),
-                                     self.config.n_slots)
+        n_slots = self.config.n_slots
+        if self.mesh is not None:
+            n_slots *= self.mesh.size
+        return assign_steps_to_slots(StepBatch.concatenate(batches), n_slots)
 
     def run_steps(self, slot_batches: List[StepBatch], seed: int
                   ) -> Optional[PropagationResult]:
         """Propagate pre-assigned slot batches; accumulates over batches.
         Batch i's random stream is seeded from (seed, i) with numpy's
-        SeedSequence.
+        SeedSequence; on a mesh, by the threefry key fold_in(PRNGKey(seed),
+        i), as the JAX package keys it, and each rank propagates its slot
+        slice of every batch (parallel/mesh.shard_steps).
 
         With config.save_photons the records of every batch are kept,
         compacted to the flat (1, R) contract and concatenated.  (The JAX
@@ -167,15 +193,22 @@ class Simulation:
         undercounts; the port does not.)"""
         total, records = None, []
         for i, batch in enumerate(slot_batches):
-            bseed = int(np.random.SeedSequence([int(seed), i]).generate_state(
-                1, np.uint64)[0] & np.uint64(2 ** 63 - 1))
             # a source_type without a stacked spectrum, on the host steps
             check_source_types(*source_type_range(batch.source_type),
                                int(self.spectra.x.shape[0]))
-            steps = steps_from_numpy(batch._asdict(), self.device)
-            res = propagate_auto(steps, self.medium, self.geometry,
-                                 self.spectra, bseed, self.config,
-                                 backend=self.backend, **self.fused_opts)
+            if self._propagate is not None:
+                res = self._propagate(
+                    shard_steps(batch, self.mesh), self.medium,
+                    self.geometry, self.spectra,
+                    RNG.fold_in(RNG.base_key(seed), i))
+            else:
+                bseed = int(np.random.SeedSequence(
+                    [int(seed), i]).generate_state(1, np.uint64)[0]
+                    & np.uint64(2 ** 63 - 1))
+                steps = steps_from_numpy(batch._asdict(), self.device)
+                res = propagate_auto(steps, self.medium, self.geometry,
+                                     self.spectra, bseed, self.config,
+                                     backend=self.backend, **self.fused_opts)
             if res.rec is not None:
                 records.append(compact_records(res.rec, res.rec_count))
             if total is None:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -77,3 +78,22 @@ def post_scatter_transform(p: AnisotropyParams, dx, dy, dz):
         return dx, dy, dz
     k1, k2, kz, _, _ = _basis(p)
     return _apply_diag_in_frame(p, dx, dy, dz, 1.0 / k1, 1.0 / k2, 1.0 / kz)
+
+
+def numpy_abs_len_scaling(azimuth, mag_along, mag_perp, direction):
+    """float64 numpy oracle of abs_len_scaling for one direction (x, y, z),
+    the reference's device code written out (the tester pattern, SURVEY.md
+    section 4.1)."""
+    azx, azy = np.cos(azimuth), np.sin(azimuth)
+    k1, k2 = np.exp(mag_along), np.exp(mag_perp)
+    kz = 1.0 / (k1 * k2)
+    l1, l2, l3 = k1 * k1, k2 * k2, kz * kz
+    B2 = 1.0 / l1 + 1.0 / l2 + 1.0 / l3
+    x, y, z = direction
+    n1 = azx * x + azy * y
+    n2 = -azy * x + azx * y
+    n3 = z
+    s1, s2, s3 = n1 * n1, n2 * n2, n3 * n3
+    nB = s1 / l1 + s2 / l2 + s3 / l3
+    An = s1 * l1 + s2 * l2 + s3 * l3
+    return 1.0 / ((B2 - nB) * An / 2.0)

@@ -93,3 +93,27 @@ def disabled_tilt(device="cuda"):
         azimuth_cos=f32(1.0), azimuth_sin=f32(0.0),
         enabled=False,
     )
+
+
+def numpy_tilt_z_shift(distances, zcoords, zshift, azimuth, x, y, z):
+    """float64 numpy oracle of tilt_z_shift at one point, the reference's
+    device code written out (I3CLSimScalarFieldIceTiltZShift.cxx:145-285)."""
+    nd = len(distances)
+    nz = len(zcoords)
+    first_z = zcoords[0]
+    spacing = zcoords[1] - zcoords[0]
+    z_rescaled = (z - first_z) / spacing
+    k = int(np.clip(np.floor(z_rescaled), 0, nz - 2))
+    fz_above = z_rescaled - k
+    fz_below = 1.0 - fz_above
+    lnx, lny = np.cos(azimuth), np.sin(azimuth)
+    nr = lnx * x + lny * y
+    for j in range(1, nd):
+        if (nr < distances[j]) or (j == nd - 1):
+            w = distances[j] - distances[j - 1]
+            frac_lo = (distances[j] - nr) / w
+            frac_hi = 1.0 - frac_lo
+            val_lo = zshift[j - 1][k + 1] * fz_above + zshift[j - 1][k] * fz_below
+            val_hi = zshift[j][k + 1] * fz_above + zshift[j][k] * fz_below
+            return val_hi * frac_hi + val_lo * frac_lo
+    return 0.0

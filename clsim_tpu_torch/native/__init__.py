@@ -64,6 +64,18 @@ def build() -> Path:
     return lib
 
 
+def build_native(quiet: bool = True) -> bool:
+    """build() under the JAX package's name: True when the library exists,
+    False when it could not be built (with `quiet` False the compiler's
+    error is also warned)."""
+    try:
+        return build().exists()
+    except RuntimeError as e:
+        if not quiet:
+            warnings.warn(str(e), RuntimeWarning, stacklevel=2)
+        return False
+
+
 def load() -> Optional[ctypes.CDLL]:
     """The loaded library (built on first use), or None after warning once
     why it is unavailable."""

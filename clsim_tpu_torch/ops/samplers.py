@@ -8,6 +8,8 @@ uniforms return the same samples.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -54,6 +56,13 @@ def rayleigh_cos(u):
     v1 = -q - torch.sqrt(d)
     v1 = torch.sign(v1) * torch.abs(v1) ** (1.0 / 3.0)
     return torch.clamp(u1 + v1, -1.0, 1.0)
+
+
+def normal_box_muller(u1, u2):
+    """Standard normal via Box-Muller from two uniform tensors (the
+    reference's I3CLSimRandomValueNormalDistribution)."""
+    r = torch.sqrt(-2.0 * torch.log(torch.clamp(u1, min=1e-38)))
+    return r * torch.cos(2.0 * math.pi * u2)
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ import torch
 
 from ..constants import TWO_PI_OVER_137
 from ..medium import functions as F
-from .samplers import interp_solve, locate_segment
+from .samplers import (interp_solve, locate_segment,
+                       sample_interpolated_dist)
 
 
 def cherenkov_yield_density(ref_index: F.RefIndexParams, wlen_nm, beta=1.0):
@@ -192,6 +193,14 @@ def check_source_types(lo: int, hi: int, n_tables: int):
             "405), ...]) and set the pulse's spectrum_index to its position "
             "(FlasherPulse(spectrum_index=...), or flasher_info_to_pulses("
             "spectrum_index_by_wlen=...))")
+
+
+def sample_wavelength(spec: WavelengthSpectrum, u):
+    """Inverse-CDF wavelengths [nm] of one spectrum from uniforms `u` (a
+    tensor; the spectrum's host tables go to its device)."""
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=u.device)
+    return sample_interpolated_dist((t(spec.x), t(spec.acu), t(spec.beta)),
+                                    u)
 
 
 def wavelength_bias(spectra, wlen_nm):

@@ -18,6 +18,7 @@ from clsim_tpu.types import PropagationConfig as CfgJ
 from clsim_tpu_torch.api import Simulation as SimT
 from clsim_tpu_torch.geometry import single_string_geometry as string_t
 from clsim_tpu_torch.medium.properties import make_homogeneous_ice as ice_t
+from clsim_tpu_torch.parallel.mesh import make_mesh
 from clsim_tpu_torch.sources import Particle as PartT, ParticleType as PTT
 from clsim_tpu_torch.types import PropagationConfig as CfgT
 
@@ -69,14 +70,17 @@ def test_cascade_yield_and_hit_rate_match_jax(results):
 
 def test_unported_entry_points_raise():
     """The record entry points need save_photons=True (as in the JAX
-    package); the multi-device mesh is still queued."""
+    package); a mesh refuses save_photons (ROADMAP C2: the JAX sharded
+    propagate returns no records, tests/test_torch_parallel.py)."""
     sim = SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO),
                config=CfgT(n_slots=256))
     for fn in (sim.simulate_hits, sim.simulate_photons):
         with pytest.raises(ValueError, match="save_photons=True"):
             fn([], 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO), mesh=object())
+    with pytest.raises(ValueError, match="C2"):
+        SimT(medium=ice_t(device="cpu"), geometry=string_t(device="cpu", **GEO),
+             config=CfgT(n_slots=256, save_photons=True),
+             mesh=make_mesh(device="cpu"))
 
 
 def test_fused_backend_on_cpu_runs_plain_version():

@@ -64,6 +64,7 @@ def test_import_leaves_jax_out():
             "clsim_tpu_torch.convert, clsim_tpu_torch._build, "
             "clsim_tpu_torch.propagate.dispatch, "
             "clsim_tpu_torch.propagate.diff, clsim_tpu_torch.parallel.mesh, "
+            "clsim_tpu_torch.parallel.bootstrap, "
             "clsim_tpu_torch.ops.rng, clsim_tpu_torch.hits.mcpe, "
             "clsim_tpu_torch.hits.multi_pmt, clsim_tpu_torch.medium.antares, "
             "clsim_tpu_torch.medium.photonics, clsim_tpu_torch.native, "

@@ -187,13 +187,30 @@ def test_fit_warnings(problem):
 
 
 def test_bad_arguments_and_sharding_raise(problem):
+    """Bad IceFit arguments raise; make_sharded_propagate's backend="fused"
+    raises on an unsupported configuration or without the build-time
+    inputs, and "auto" on CPU tensors serves the engine and says why
+    (tests/test_parallel.py::test_sharded_auto_backend_reports_fallback)."""
     st, m, g, sp, c, target = problem["port"]
     for kw in (dict(forward="tpu"), dict(loss="l1"),
                dict(bwd_fraction=0.5)):
         with pytest.raises(ValueError):
             M.IceFit(c, g, sp, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.make_sharded_propagate(None, c)
+    mesh = M.make_mesh(device="cpu")
+    inputs = dict(medium=m, geo=g, spectra=sp)
+    detect_soft = dataclasses.replace(c, estimator="detect")
+    with pytest.raises(ValueError, match="unsupported: .*soft"):
+        M.make_sharded_propagate(mesh, detect_soft, backend="fused", **inputs)
+    with pytest.raises(ValueError, match="build-time"):
+        M.make_sharded_propagate(mesh, c, backend="fused")
+    run = M.make_sharded_propagate(mesh, c)
+    assert run.backend == "engine" and "build-time" in run.backend_reason
+    run = M.make_sharded_propagate(mesh, c, **inputs)
+    assert run.backend == "engine" and "cpu" in run.backend_reason
+    run = M.make_sharded_propagate(mesh, detect_soft, **inputs)
+    assert run.backend == "engine" and "soft" in run.backend_reason
+    assert M.make_sharded_propagate(mesh, c, backend="fused",
+                                    **inputs).backend == "fused"
     # a detect config is fitted through its expected-estimator twin
     fit = M.IceFit(dataclasses.replace(c, estimator="detect"), g, sp)
     assert fit.cfg.estimator == "expected" and fit.cfg.soft_binning
