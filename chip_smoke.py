@@ -176,26 +176,33 @@ Phases (any failure raises and exits non-zero):
         Simulation(propagators=[...]).simulate on hex61: generated = the
         steps' photons, steps with beta < 1, histogram sum = hit weight,
         nothing dropped or abandoned, mode 0 launched;
- 11. photon tables on the card (tabulator/, no kernel of its own: the
-     engine's pieces in PyTorch, the table one float64 tensor on the card
-     filled by index_add_) and scatter-history rings:
+ 11. photon tables on the card (the tabulator's kernel, csrc/tabulate.cu:
+     its iterations in one CUDA kernel that adds every comb sub-step into
+     the float64 table on the card with atomicAdd) and scatter-history
+     rings:
      a. tabulate of scripts/bench_tabulator.py's workload (65,536 slots x
         32 photons, isotropic 1 mm steps at the origin, 171 homogeneous
         layers, 35 m segments) on the default spherical axes (83,775,864
         float64 bins on the card): finite, positive, every comb weight in
-        the table; photons/s and profile_device_time of one run, the
-        device busy share and launches an iteration (torch.profiler over
-        the run's first two chunks), peak memory, each beside the card's
-        name and power limit;
+        the table, the kernel launched once a host sync; photons/s and
+        profile_device_time of one run, the device busy share and every
+        launch an iteration (torch.profiler over one more run), peak
+        memory, each beside the card's name and power limit; the kernel
+        against its plain version on the run's first 32 iterations (same
+        keys: equal photons made and alive slots, counts within max(2,
+        1%), table L1 <= 2e-3; the kernel row's times and bound); the eager
+        plain version's first two chunks on the card, timed and traced;
      b. the same workload at 8 photons a slot with scattering off, 8
         independent runs: each radial group's content against the float64
         expectation of validate/table_referee.py, |z| < 5 (standard error
         from the runs' spread);
      c. three reduced tables (spherical, cylindrical, spherical with an
-        impact-angle axis; 1,024 slots x 1 photon) on the card and on the
-        CPU with the same seed: the deposited table's L1 <= 2e-3 of its
-        total (the normalized values' printed), n_photons equal;
-        the spherical one through save_table_fits / read_fits;
+        impact-angle axis; 1,024 slots x 1 photon) and the spherical one in
+        a tilted anisotropic ice and in a photonics-table ice, the kernel
+        on the card against the plain version on the card and on the CPU
+        with the same seed: the deposited table's L1 <= 2e-3 of its total
+        (the normalized values' printed), n_photons equal; the spherical
+        one through save_table_fits / read_fits;
      d. Simulation.simulate of a 1 TeV cascade on the main-path
         configuration with save_photons and 4 ring entries: the engine on
         the card, no kernel launch, min(num_scatters, H) filled entries,
@@ -2755,10 +2762,11 @@ def phase10c(device):
 
 TAB_SLOTS = 65536        # scripts/bench_tabulator.py's workload
 TAB_PHOTONS = 32
-TAB_PROFILE_CHUNKS = 2   # 11a's first chunks, timed alone and under
-                         # torch.profiler (the whole run's ~2e6 launches
-                         # would take minutes to process)
-TAB_PROFILE_REPS = 3     # their runs without the profiler (median)
+TAB_REPS = 3             # 11a's runs without the profiler (median wall)
+TAB_CMP_ITERS = 32       # 11a's kernel-against-plain launch: the run's
+                         # first iterations, on the same keys
+TAB_PLAIN_CHUNKS = 2     # the eager plain version's first chunks of 16
+                         # iterations, timed on the card beside the kernel
 TAB_RUNS = 8             # 11b's independent runs
 TAB_REF_PHOTONS = 8      # 11b's photons a slot (11a's 32 cut for time)
 # 11b's radial groups: data bins [lo, hi) of the default r axis (200
@@ -2770,18 +2778,63 @@ HIST_H = 4               # 11d's ring entries
 RING_GEV = 1.0e3         # 11d's cascade
 RING_TOL = 2e-2          # ring fields, card engine against the CPU engine
 RING_STREAM = (8192, 64)  # 11d's shared stream: slots, iterations
+TAB_REPLACES = "clsim_tpu/tabulator/table.py:143"   # the JAX jitted chunk
+# Operations of csrc/tabulate.cu counted from its source as OPS_ITER is:
+# a tested sub-step on spherical axes (its distance and position 5, the
+# source-relative vector, l, h, rho and r 22 with the two square roots,
+# the azimuth's cosine, clamp, arccosine and scaling 9, cos(polar) and the
+# time residual 6, the bounds 2, frac, exponent and weight 6, four bin
+# indices at 10 each and 4 more on each of the two power-2 axes, the flat
+# index 8 and its clamp 2, the run's compare and sum 3, the counts 3), and
+# with the impact axis its two threefry draws, the direction's rotation
+# (scatter_dir 30) and the cosine with a fifth index (20).  A live
+# slot-iteration costs OPS_ITER with its four threefry draws and the
+# angular polynomial (2 a coefficient); a spawn OPS_SPAWN with five draws.
+OPS_TAB_SUBSTEP = 113
+OPS_TAB_IMPACT = 2 * OPS_RNG["threefry"] + 50
 
 
-def tab_inputs(device, b400=0.04):
-    """bench_tabulator.py's medium (171 homogeneous layers), its unbiased
-    Cherenkov spectrum and the source at the origin along +x."""
+def tab_bound(block, c, n, iters, touched):
+    """(bound_ms, bound_by, per-deposit bytes ms) of a tabulator launch of
+    `iters` iterations on n slots with counters c (TAB_COUNTERS): the larger
+    of the operations over the float32 peak and the bytes over the HBM
+    rate.  Bytes: the state read and written once, the steps and the key
+    tables read once, and each bin the launch touched (`touched`, the
+    table's nonzero bins after it) read and written once, 16 bytes (the
+    table accumulates).  The third figure charges 16 bytes to every nonzero
+    sub-step instead (each deposit its own read-modify-write)."""
+    from clsim_tpu_torch.propagate import kernel as K
+    tab, p = block.tab, block.params
+    per_iter = (OPS_ITER + 4 * OPS_RNG["threefry"]
+                + 2 * (0 if block.impact else tab.n_ang)
+                + (OPS_ANISO if p.aniso else 0)
+                + (OPS_TILT if p.nz_tilt else 0))
+    ops = (c["substeps"] * (OPS_TAB_SUBSTEP
+                            + (OPS_TAB_IMPACT if block.impact else 0))
+           + c["work"] * per_iter
+           + max(c["walk"] - c["work"], 0.0) * OPS_WALK_STEP
+           + c["generated"] * (OPS_SPAWN + 5 * OPS_RNG["threefry"]))
+    fixed = (4 * (2 * (K.NSF + 1) * n + K.NST * n) + 8 * iters
+             * (1 + (block.n_sub if block.impact else 0)))
+    t_ops = ops / FP32_PEAK * 1e3
+    t_bytes = (fixed + 16 * touched) / HBM_BYTES_S * 1e3
+    t_dep = (fixed + 16 * c["entries"]) / HBM_BYTES_S * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", t_dep)
+
+
+def tab_inputs(device, b400=0.04, medium=None):
+    """bench_tabulator.py's medium (171 homogeneous layers) or `medium`,
+    the unbiased Cherenkov spectrum of its refractive index and the source
+    at the origin along +x."""
     from clsim_tpu_torch.medium.properties import make_homogeneous_ice
     from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
                                               stack_spectra)
     from clsim_tpu_torch.tabulator import make_reference_source
-    medium = make_homogeneous_ice(n_layers=171, z_start=-855.0,
-                                  layer_height=10.0, b400=b400,
-                                  device=device)
+    if medium is None:
+        medium = make_homogeneous_ice(n_layers=171, z_start=-855.0,
+                                      layer_height=10.0, b400=b400,
+                                      device=device)
     spectra = stack_spectra([make_cherenkov_spectrum(
         medium.ref_index, medium.min_wlen, medium.max_wlen)], device=device)
     source = make_reference_source(0.0, 0.0, 0.0, 0.0, np.pi / 2, 0.0,
@@ -2826,9 +2879,9 @@ def check_table(name, table, tally, device):
     weight = float(tally["weight"])
     log(f"  {name}: n_photons {table.n_photons:.0f}, iterations "
         f"{tally['iterations']}, host syncs {tally['syncs']}, nonzero comb "
-        f"entries {tally['entries']}, table sum {landed:.10g} / comb weight "
-        f"{weight:.10g}, table {raw.numel()} bins {raw.dtype} on "
-        f"{raw.device}")
+        f"entries {tally['entries']}, table atomics {tally['atomics']}, "
+        f"table sum {landed:.10g} / comb weight {weight:.10g}, table "
+        f"{raw.numel()} bins {raw.dtype} on {raw.device}")
     if raw.device.type != torch.device(device).type or \
             raw.dtype != torch.float64:
         raise AssertionError(f"{name}: the table is not float64 on {device}")
@@ -2838,20 +2891,96 @@ def check_table(name, table, tally, device):
         raise AssertionError(f"{name}: deposits missing from the table")
 
 
+def tab_kernel_against_plain(inputs, axes, steps, key, iters, device):
+    """One launch of `iters` iterations from the initial state, the kernel
+    (TK.launch) and the plain version (tabulate_iterations_plain) on the
+    same state, steps and keys on the card: equal photons made and alive
+    slots, nonzero sub-steps, sub-steps, live slot-iterations and walk
+    steps within max(2, 1%), table sums equal to the weight sums (1e-9),
+    the tables' L1 <= L1_TOL of the total.  Returns the kernel row's
+    figures: max |table difference|, the kernel's and the plain version's
+    median ms (CUDA events around the launch alone; the kernel over
+    TAB_REPS launches, the plain version one run), the bound, the
+    counters."""
+    import torch
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.tabulator import kernel as TK
+    from clsim_tpu_torch.tabulator import table as TT
+    medium, spectra, source = inputs
+    plan, _, _ = TT._table_plan(medium, spectra, source, axes, None,
+                                tab_cfg(steps), 1.0, 46.0)
+    n = int(steps.x.shape[0])
+    state0, sp = TT.init_state(steps), K.pack_steps(steps)
+    keys = TK.launch_keys(key, 0, iters, plan.block.n_sub, plan.block.impact,
+                          device)
+    out = {}
+    for name, fn, reps in (
+            ("kernel", lambda st, tb: TK.launch(plan.block, st, sp, keys,
+                                                tb), TAB_REPS),
+            ("plain", lambda st, tb: TT.tabulate_iterations_plain(
+                plan, st, sp, keys, tb), 1)):
+        table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
+        times = []
+        for _ in range(reps):
+            state = state0.clone()
+            table.zero_()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            c = fn(state, table)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1))
+        out[name] = (dict(zip(TK.TAB_COUNTERS, c.tolist())), table,
+                     float(np.median(times)), state)
+    (ck, tk, ms, sk), (cp, tp, plain_ms, spl) = out["kernel"], out["plain"]
+    for k in ("generated", "alive"):
+        if ck[k] != cp[k]:
+            raise AssertionError(f"11a: kernel {k} {ck[k]} != plain {cp[k]}")
+    for k in ("entries", "substeps", "work", "walk"):
+        if abs(ck[k] - cp[k]) > max(2.0, 0.01 * cp[k]):
+            raise AssertionError(f"11a: kernel {k} {ck[k]} vs plain {cp[k]}")
+    for name, c, t in (("kernel", ck, tk), ("plain", cp, tp)):
+        if abs(float(t.sum()) - c["weight"]) > 1e-9 * c["weight"]:
+            raise AssertionError(f"11a: the {name} table's sum is not its "
+                                 "weight sum")
+    l1 = float((tk - tp).abs().sum() / tp.abs().sum())
+    err = float((tk - tp).abs().max())
+    touched = int((tk != 0).sum())
+    bound = tab_bound(plan.block, ck, n, iters, touched)
+    if ck["atomics"] >= ck["entries"] or l1 > L1_TOL:
+        raise AssertionError(f"11a: kernel against plain: L1 {l1}, "
+                             f"atomics {ck['atomics']}")
+    log(f"  11a kernel against plain version, first {iters} iterations on "
+        f"the same keys: table L1 {l1:.4e} of the total, max |difference| "
+        f"{err:.4e}, in_flight equal in {int((sk[1] == spl[1]).sum())} of "
+        f"{n} slots; kernel {ck}; plain {cp}; kernel {ms:.4f} ms (median "
+        f"of {TAB_REPS}), plain version {plain_ms:.2f} ms; bound "
+        f"{bound[0]:.4f} ms ({bound[1]}; {touched} bins touched; 16 B a "
+        f"nonzero sub-step instead: {bound[2]:.4f} ms)")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound[:2],
+                counters=ck)
+
+
 def phase11a(device, card):
-    """The tabulator at full size: bench_tabulator.py's 65,536 slots x 32
-    photons on the default spherical axes (83,775,864 float64 bins on the
-    card).  One run under profile_device_time (reps 1: its first call is
-    the wall clock ending in synchronize, and its CUDA-event span) gives
-    photons/s and peak memory.  The run's first TAB_PROFILE_CHUNKS chunks,
-    driven again through tabulate's own chunk and batch loop, give the
-    device busy share and the launches an iteration: their device time
-    from util.profiling.trace (torch.profiler, a Chrome trace written)
-    over the median wall of TAB_PROFILE_REPS runs of the same chunks
-    without the profiler, whose overhead is printed beside it."""
+    """The tabulator at full size on its kernel: bench_tabulator.py's
+    65,536 slots x 32 photons on the default spherical axes (83,775,864
+    float64 bins on the card).  One run under profile_device_time (reps 1:
+    its first call is the wall clock ending in synchronize, and its
+    CUDA-event span) with the launch count set to 0 just before it gives
+    photons/s, the kernel's launches and the peak memory; TAB_REPS - 1 more
+    runs the median wall, and one under torch.profiler the device busy
+    share (device time over that median wall) and every launch an
+    iteration.  Then the kernel against its plain version on the run's first
+    TAB_CMP_ITERS iterations (the kernel row), and the eager plain
+    version's first chunks on the card, timed and traced as the kernel
+    run is."""
     import torch
     from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
     from clsim_tpu_torch.tabulator import default_spherical_axes
+    from clsim_tpu_torch.tabulator import kernel as TK
     from clsim_tpu_torch.tabulator import table as TT
     from clsim_tpu_torch.util.profiling import profile_device_time, trace
     inputs = tab_inputs(device)
@@ -2868,60 +2997,97 @@ def phase11a(device, card):
     def run():
         out["table"] = tab_call(inputs, steps, 1, axes, tally)
 
+    TK.LAUNCHES["tabulate"] = 0
     pdt = profile_device_time(run, reps=1, warmup=0)
+    launches = TK.LAUNCHES["tabulate"]
     peak = torch.cuda.max_memory_allocated()
     check_table("11a", out.pop("table"), tally, device)
     wall, iters = pdt["first_call_s"], tally["iterations"]
+    if launches != tally["syncs"] or launches == 0:
+        raise AssertionError(f"11a: {launches} kernel launches, "
+                             f"{tally['syncs']} syncs")
     log(f"  11a: {TAB_SLOTS} slots x {TAB_PHOTONS} photons = {n_photons} "
         f"photons in {wall:.4f} s = {n_photons / wall:.6g} photons/s, "
-        f"{iters} iterations ({wall / iters * 1e3:.4f} ms an iteration), "
-        f"peak memory {peak / 2 ** 30:.4f} GiB, on {card}")
+        f"{iters} iterations ({wall / iters * 1e3:.4f} ms an iteration) in "
+        f"{launches} kernel launches, {tally['atomics']} table atomics for "
+        f"{tally['entries']} nonzero sub-steps "
+        f"({1 - tally['atomics'] / tally['entries']:.4f} merged), peak "
+        f"memory {peak / 2 ** 30:.4f} GiB, on {card}")
     log(f"  11a profile_device_time (reps 1, warmup 0): " + ", ".join(
         f"{k} {v}" for k, v in pdt.items()) + f"; on {card}")
     del tally
 
-    # the same run's first chunks: tabulate's chunk on the same inputs, and
-    # batch 0's key of seed 1, as tab_call draws them
+    def timed_and_traced(name, fn, n_it):
+        """fn's median wall over TAB_REPS runs (the first given), and its
+        device busy share and launches an iteration under the profiler."""
+        walls = []
+        for _ in range(TAB_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        med = float(np.median(walls))
+        with tempfile.TemporaryDirectory() as d:
+            with trace(d) as prof:
+                t0 = time.perf_counter()
+                fn()
+                pwall = time.perf_counter() - t0
+            trace_mb = os.path.getsize(os.path.join(d, "trace.json")) / 2 ** 20
+        busy, kernels, _ = busy_of(prof, med)
+        if kernels == 0:
+            raise AssertionError(f"11a: the trace of {name} holds no kernel")
+        busy_s = "not measured (no device time in the trace)" \
+            if busy is None else f"{busy:.4f} ({busy * med:.4f} s of " \
+            "device time)"
+        log(f"  11a {name}: {med:.4f} s ({med / n_it * 1e3:.4f} ms an "
+            f"iteration over {n_it}) without the profiler (median of "
+            + ", ".join(f"{w:.4f}" for w in walls) + f"), {pwall:.4f} s "
+            f"under it (x{pwall / med:.2f}); device busy share {busy_s} "
+            "(device time in the trace over the median wall without the "
+            f"profiler), {kernels} launches = {kernels / n_it:.4f} an "
+            f"iteration, Chrome trace {trace_mb:.1f} MiB; on {card}")
+        return med, busy
+
+    timed_and_traced("the whole run (kernel)", lambda: tab_call(
+        inputs, steps, 1, axes), iters)
+    # the same photons on four times the slots (more warps a SM)
+    wide = tab_steps(4 * TAB_SLOTS, TAB_PHOTONS // 4, device)
+    tally = {}
+    _, wall_w = timed(lambda: tab_call(inputs, wide, 1, axes, tally))
+    log(f"  11a on {4 * TAB_SLOTS} slots x {TAB_PHOTONS // 4} photons: "
+        f"{wall_w:.4f} s = {n_photons / wall_w:.6g} photons/s, "
+        f"{tally['iterations']} iterations in {tally['syncs']} launches; "
+        f"on {card}")
+    del tally, wide
+    key = rng.fold_in(rng.base_key(1), 0)
+    row = tab_kernel_against_plain(inputs, axes, steps, key, TAB_CMP_ITERS,
+                                   device)
+
+    # the eager plain version on the card: tabulate's iteration run through
+    # tabulate_iterations_plain for its first chunks of 16
     medium, spectra, source = inputs
-    chunk, _, _ = TT._table_chunk(medium, spectra, source, axes, None,
-                                  tab_cfg(steps), 1.0, 46.0)
-    key = rng.fold_in(rng.base_key(1, device), 0)
-    n_it = TAB_PROFILE_CHUNKS * TT.CHUNK_ITERS
+    plan, _, _ = TT._table_plan(medium, spectra, source, axes, None,
+                                tab_cfg(steps), 1.0, 46.0)
+    n_it = TAB_PLAIN_CHUNKS * TT.CHUNK_ITERS
+    table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
+
+    sp = K.pack_steps(steps)
 
     def first_chunks():
-        table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
-        done = TT._tabulate_batch(chunk, steps, key, table,
-                                  max_iterations=n_it)
-        torch.cuda.synchronize()
-        if done != n_it:
-            raise AssertionError(f"11a: {done} of {n_it} iterations")
+        # _tabulate_batch's loop, one sync a chunk, on the plain version
+        table.zero_()
+        state = TT.init_state(steps)
+        for i0 in range(0, n_it, TT.CHUNK_ITERS):
+            keys = TK.launch_keys(key, i0, TT.CHUNK_ITERS, plan.block.n_sub,
+                                  plan.block.impact, device)
+            TT.tabulate_iterations_plain(plan, state, sp, keys,
+                                         table).tolist()
 
-    walls = []
-    for _ in range(TAB_PROFILE_REPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        first_chunks()
-        walls.append(time.perf_counter() - t0)
-    plain_wall = float(np.median(walls))
-    with tempfile.TemporaryDirectory() as d:
-        with trace(d) as prof:
-            t0 = time.perf_counter()
-            first_chunks()
-            pwall = time.perf_counter() - t0
-        trace_mb = os.path.getsize(os.path.join(d, "trace.json")) / 2 ** 20
-    busy, kernels, _ = busy_of(prof, plain_wall)
-    if kernels == 0:
-        raise AssertionError("11a: the trace holds no kernel of the run")
-    busy_s = "not measured (no device time in the trace)" if busy is None \
-        else f"{busy:.4f} ({busy * plain_wall:.4f} s of device time)"
-    log(f"  11a's first {n_it} iterations: {plain_wall:.4f} s "
-        f"({plain_wall / n_it * 1e3:.4f} ms an iteration) without the "
-        f"profiler (median of " + ", ".join(f"{w:.4f}" for w in walls)
-        + f"), {pwall:.4f} s under it (x{pwall / plain_wall:.2f}); "
-        f"device busy share {busy_s} (device time in the trace over the "
-        f"median wall without the profiler), {kernels} kernel launches = "
-        f"{kernels / n_it:.2f} an iteration, Chrome trace {trace_mb:.1f} "
-        f"MiB; on {card}")
+    timed_and_traced("the eager plain version's first chunks",
+                     first_chunks, n_it)
+    row["launches"] = launches
+    return row
 
 
 def phase11b(device):
@@ -2980,39 +3146,94 @@ def tab_small_axes():
             "spherical + impact": SphericalAxes(sph + [Axis(-1.0, 1.0, 8)])}
 
 
+def tab_media(device):
+    """11c's media beyond bench_tabulator.py's ice, each with the spherical
+    reduced axes: the seeded 171-layer ice with tests/test_kernel.py's
+    anisotropy and tilt, and the photonics-table ice (a tabulated medium,
+    the kernel's MED 1)."""
+    medium, r = seeded_ice(171, -855.0, 10.0, device)
+    return {"tilt + anisotropy": aniso_tilt(medium, r, True, True, device),
+            "photonics table": photonics_ice(device)}
+
+
+def tab_plain_on(inputs, steps, seed, axes, device):
+    """tabulate's batch loop for one batch on the plain version (launches of
+    CHUNK_ITERS, one sync each, until no slot is alive): the raw table and
+    the photons made."""
+    import torch
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.tabulator import kernel as TK
+    from clsim_tpu_torch.tabulator import table as TT
+    medium, spectra, source = inputs
+    plan, _, _ = TT._table_plan(medium, spectra, source, axes, None,
+                                tab_cfg(steps), 1.0, 46.0)
+    key = rng.fold_in(rng.base_key(seed), 0)
+    table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
+    state, sp = TT.init_state(steps), K.pack_steps(steps)
+    made = 0.0
+    for i0 in range(0, TT.MAX_ITERATIONS, TT.CHUNK_ITERS):
+        keys = TK.launch_keys(key, i0, TT.CHUNK_ITERS, plan.block.n_sub,
+                              plan.block.impact, device)
+        c = dict(zip(TK.TAB_COUNTERS, TT.tabulate_iterations_plain(
+            plan, state, sp, keys, table).tolist()))
+        made += c["generated"]
+        if c["alive"] == 0:
+            break
+    return table, made
+
+
 def phase11c(device):
-    """The card against the port on the CPU, same seed, reduced size
-    (TAB_SMALL): three tables, the deposited (unnormalized) table's L1 <=
-    2e-3 of its total and n_photons equal; the spherical one round-tripped
-    through save_table_fits / read_fits.  The normalized values' L1 is
-    printed beside it: normalization divides both by the same float64 bin
-    volumes, and in a cylindrical table one deposit that float rounding
-    moves between two bins near the axis (where the azimuth is
-    ill-conditioned and the bins' volumes tiny) weighs more there than
-    thousands elsewhere."""
+    """The kernel against its plain version, same seed, reduced size
+    (TAB_SMALL), in five configurations: the three reduced axes on
+    bench_tabulator.py's ice, and the spherical ones in a tilted
+    anisotropic ice and in a photonics-table ice.  The kernel's table
+    (tabulate on the card) against the plain version's on the card and the
+    port's on the CPU: the deposited (unnormalized) table's L1 <= 2e-3 of
+    its total and n_photons equal (the photons the plain version made on
+    the card too); the spherical one round-tripped through save_table_fits
+    / read_fits.  The normalized values' L1 is printed beside it:
+    normalization divides both by the same float64 bin volumes, and in a
+    cylindrical table one deposit that float rounding moves between two
+    bins near the axis (where the azimuth is ill-conditioned and the bins'
+    volumes tiny) weighs more there than thousands elsewhere."""
     import torch
     from clsim_tpu_torch.tabulator import read_fits, save_table_fits
     n, photons = TAB_SMALL
-    for name, axes in tab_small_axes().items():
+    cpu = torch.device("cpu")
+    axes_of = tab_small_axes()
+    cases = [(name, axes, None, None) for name, axes in axes_of.items()]
+    media_card, media_cpu = tab_media(device), tab_media(cpu)
+    cases += [(name, axes_of["spherical"], media_card[name], media_cpu[name])
+              for name in media_card]
+    for name, axes, med_card, med_cpu in cases:
         out = []
-        for dev in (device, torch.device("cpu")):
+        for dev, med in ((device, med_card), (cpu, med_cpu)):
             tally = {}
             table, wall = timed(lambda: tab_call(
-                tab_inputs(dev), tab_steps(n, photons, dev), 11, axes,
-                tally))
+                tab_inputs(dev, medium=med), tab_steps(n, photons, dev), 11,
+                axes, tally))
             check_table(f"11c {name} on {dev.type}", table, tally, dev)
             out.append((table, wall, tally["raw"].cpu().numpy()))
         (tk, wk, rk), (tc, wc, rc) = out
+        (tp, made), wp = timed(lambda: tab_plain_on(
+            tab_inputs(device, medium=med_card),
+            tab_steps(n, photons, device), 11, axes, device))
+        rp = tp.cpu().numpy()
         l1 = float(np.abs(rk - rc).sum() / np.abs(rc).sum())
+        l1_p = float(np.abs(rk - rp).sum() / np.abs(rp).sum())
         l1_norm = float(np.abs(tk.values - tc.values).sum()
                         / np.abs(tc.values).sum())
-        log(f"  11c {name}: {n} slots x {photons} photons, table L1 "
-            f"{l1:.4e} of the total (card / CPU; normalized values "
-            f"{l1_norm:.4e}), n_photons {tk.n_photons:.0f} / "
-            f"{tc.n_photons:.0f}; {wk:.3f} s on the card, {wc:.3f} s on "
-            "the CPU")
-        if l1 > L1_TOL or tk.n_photons != tc.n_photons:
-            raise AssertionError(f"11c {name}: card and CPU tables differ")
+        log(f"  11c {name}: {n} slots x {photons} photons, kernel table L1 "
+            f"{l1_p:.4e} of the total against the plain version on the "
+            f"card, {l1:.4e} against the port on the CPU (normalized values "
+            f"{l1_norm:.4e}), n_photons {tk.n_photons:.0f} / plain on the "
+            f"card {made:.0f} / CPU {tc.n_photons:.0f}; kernel {wk:.3f} s, "
+            f"plain on the card {wp:.3f} s, CPU {wc:.3f} s")
+        if (l1 > L1_TOL or l1_p > L1_TOL
+                or not tk.n_photons == tc.n_photons == made):
+            raise AssertionError(f"11c {name}: kernel and plain tables "
+                                 "differ")
         if name == "spherical":
             with tempfile.TemporaryDirectory() as d:
                 path = os.path.join(d, "table.fits")
@@ -3844,14 +4065,15 @@ def main():
         log(f"  phase {name} done at {time.perf_counter() - t11:.1f} s into "
             "phase 11")
 
-    log("phase 11a: the tabulator at full size (65,536 slots x 32 photons, "
-        "the default spherical table on the card)")
-    phase11a(device, card)
+    log("phase 11a: the tabulator at full size on its kernel (65,536 slots "
+        "x 32 photons, the default spherical table on the card)")
+    res["11a"] = phase11a(device, card)
     lap11("11a")
     log("phase 11b: the analytic radial referee (scattering off)")
     phase11b(device)
     lap11("11b")
-    log("phase 11c: tables on the card against the port on the CPU")
+    log("phase 11c: the kernel's tables against the plain version's on "
+        "the card and on the CPU")
     phase11c(device)
     lap11("11c")
     log("phase 11d: scatter-history rings through the engine on the card")
@@ -3879,6 +4101,7 @@ def main():
 
     from clsim_tpu_torch.probes import REPLACES
     p2, p5, e6, t6 = res["2"], res["5a"], res["6b"], res["6a"]
+    t11 = res["11a"]
     launches_e, launches_t = res["6c"]
     log(f"kernel times on {card}")
     print(json.dumps({"kernels": [
@@ -3904,7 +4127,13 @@ def main():
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-           for k, r in res["9"].items()]}))
+           for k, r in res["9"].items()]
+        + [{"name": "tabulate", "route": "cuda",
+            "source": "clsim_tpu_torch/csrc/tabulate.cu",
+            "replaces": TAB_REPLACES, "launches": t11["launches"],
+            "max_abs_err": t11["err"], "ms": t11["ms"],
+            "plain_ms": t11["plain_ms"], "bound_ms": t11["bound"][0],
+            "bound_by": t11["bound"][1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

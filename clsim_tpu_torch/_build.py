@@ -106,7 +106,19 @@ def load():
                "clsim_record_state_rows"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
+    lib.clsim_tabulate.argtypes = [ctypes.c_int] + [vp] * 15
+    lib.clsim_tabulate.restype = ctypes.c_int
+    for fn in ("clsim_tab_params_size", "clsim_tab_counters"):
+        getattr(lib, fn).argtypes = []
+        getattr(lib, fn).restype = ctypes.c_int
     from .propagate.kernel import NRC, NRSF, _Params
+    from .tabulator.kernel import N_TAB_INT, _TabParams
+    if (lib.clsim_tab_params_size(), lib.clsim_tab_counters()) != \
+            (ctypes.sizeof(_TabParams), N_TAB_INT):
+        raise RuntimeError(
+            f"tabulator block mismatch: kernel {lib.clsim_tab_params_size()} "
+            f"bytes and {lib.clsim_tab_counters()} counters, ctypes "
+            f"{ctypes.sizeof(_TabParams)} bytes and {N_TAB_INT}")
     if lib.clsim_params_size() != ctypes.sizeof(_Params):
         raise RuntimeError(
             f"parameter block size mismatch: kernel "

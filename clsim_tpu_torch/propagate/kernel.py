@@ -560,25 +560,12 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
     fields as clsim_tpu/propagate/kernel.py:2160-2172 computes them).
     Returns (spec, cell_tab) with cell_tab in the JAX package's layout."""
     cell_tab, plan = plan_collision(geo, cfg)
-    bx = to_numpy(spectra.bias_x, np.float64)
-    tilt = medium.tilt
     affine_ok, n_cand = _affine_collision_plan(geo, cfg)
-    tabulated = medium.medium_kind != "icecube"
-    wtab = (medium.water_abs_inv if medium.medium_kind == "water"
-            else medium.fac_qa)
     return FusedSpec(
+        **medium_fields(medium, spectra),
         n_slots=int(n_slots),
         iters_per_call=int(iters_per_call),
         K=cfg.max_layer_steps,
-        L=medium.n_layers,
-        n_spec=int(spectra.x.shape[1]),
-        n_tables=int(spectra.x.shape[0]),
-        n_bias=int(bx.shape[0]),
-        bias_uniform=bool(bx.shape[0] < 2 or np.allclose(
-            np.diff(bx), bx[1] - bx[0], rtol=1e-5)),
-        nz_tilt=int(tilt.z_corrections.shape[1]) if tilt.enabled else 0,
-        nd_tilt=int(tilt.distances.shape[0]) if tilt.enabled else 0,
-        aniso=bool(medium.anisotropy.enabled),
         hist_n_bins=cfg.hist_n_bins,
         n_doms=int(geo.n_doms),
         sub_plans=tuple(plan.get("sub_plans", ())),
@@ -594,8 +581,6 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
         horizon=(float(cfg.fixed_abs_lens) if cfg.fixed_abs_lens > 0
                  else 46.0),
         threefry=bool(threefry),
-        medium_tables=tabulated,
-        scat_table=medium.scattering.kind != "icecube",
         affine_doms=bool(affine_ok),
         n_dom_cand=int(n_cand),
         n_win=(0 if affine_ok or plan.get("sub_plans")
@@ -608,11 +593,34 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
         inv_cell=float(plan.get("inv_cell", 1.0)),
         cell_nx=int(plan.get("cell_nx", 1)),
         cell_ny=int(plan.get("cell_ny", 1)),
+        cfg=cfg), cell_tab
+
+
+def medium_fields(medium: MediumProperties, spectra: SpectrumTable) -> dict:
+    """The FusedSpec fields that the medium and the spectra set: layers,
+    spectrum and bias tables, tilt and anisotropy, the tabulated media's
+    tables (the tabulator's kernel reads the same)."""
+    bx = to_numpy(spectra.bias_x, np.float64)
+    tilt = medium.tilt
+    tabulated = medium.medium_kind != "icecube"
+    wtab = (medium.water_abs_inv if medium.medium_kind == "water"
+            else medium.fac_qa)
+    return dict(
+        L=medium.n_layers,
+        n_spec=int(spectra.x.shape[1]),
+        n_tables=int(spectra.x.shape[0]),
+        n_bias=int(bx.shape[0]),
+        bias_uniform=bool(bx.shape[0] < 2 or np.allclose(
+            np.diff(bx), bx[1] - bx[0], rtol=1e-5)),
+        nz_tilt=int(tilt.z_corrections.shape[1]) if tilt.enabled else 0,
+        nd_tilt=int(tilt.distances.shape[0]) if tilt.enabled else 0,
+        aniso=bool(medium.anisotropy.enabled),
+        medium_tables=tabulated,
+        scat_table=medium.scattering.kind != "icecube",
         n_wtab=int(wtab.shape[0]) if tabulated else 0,
         ref_table=medium.ref_n_table is not None,
         n_scat=(int(medium.scattering.table_cos.shape[0])
-                if medium.scattering.kind != "icecube" else 0),
-        cfg=cfg), cell_tab
+                if medium.scattering.kind != "icecube" else 0))
 
 
 def spec_unsupported(spec: FusedSpec) -> Optional[str]:
@@ -797,14 +805,54 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
            else torch.zeros((1, 1, 4), device=dev))
     strings = (f32(to_numpy(geo.string_features)[:, [0, 1, 4, 5]])
                if general else torch.zeros((1, 4), device=dev))
-    wtab = (f32(medium_tables(medium)) if spec.medium_tables
-            else torch.zeros(1, device=dev))
     sc_ = medium.scattering
     scat = (f32(torch.stack([sc_.table_cos.reshape(-1),
                              sc_.table_cdf[0], sc_.table_cdf[1]]).cpu())
             if spec.scat_table else torch.zeros(1, device=dev))
 
     cfg = spec.cfg
+    sc = medium_scalars(medium, spectra)
+    sc.update(
+        r=float(geo.collision_radius), r2=float(geo.collision_radius) ** 2,
+        inv_pancake=1.0 / cfg.pancake_factor,
+        max_seg=float(cfg.max_segment_m),
+        hist_t0=float(cfg.hist_t_min), hist_dt=float(cfg.hist_dt))
+    return FusedTables(
+        medium=medium, spectra=spectra,
+        **medium_device_tables(medium, spectra, spec.medium_tables),
+        cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
+        doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
+            dev).contiguous(),
+        scalars=sc, global_cells=global_cells, rel=rel, strings=strings,
+        scat=scat)
+
+
+def medium_device_tables(medium: MediumProperties, spectra: SpectrumTable,
+                         tabulated: bool) -> dict:
+    """The float32 tables of the medium and the spectra on the medium's
+    device: layers (3, L), spec_tab (n_tables, 3, n_spec), bias_tab
+    (2, n_bias), tilt_zc (nd, nz) or (1,), and wtab (medium_tables) or
+    (1,) unless `tabulated`."""
+    dev = medium.b400.device
+    tl = medium.tilt
+    return dict(
+        layers=torch.stack([medium.b400, medium.a_dust400,
+                            medium.delta_tau]).to(torch.float32).contiguous(),
+        spec_tab=torch.stack([spectra.x, spectra.acu, spectra.beta],
+                             1).to(torch.float32).contiguous(),
+        bias_tab=torch.stack([spectra.bias_x, spectra.bias_y]).to(
+            torch.float32).contiguous(),
+        tilt_zc=(tl.z_corrections.to(torch.float32).contiguous()
+                 if tl.enabled else torch.zeros(1, device=dev)),
+        wtab=(torch.as_tensor(medium_tables(medium), dtype=torch.float32,
+                              device=dev).contiguous() if tabulated
+              else torch.zeros(1, device=dev)))
+
+
+def medium_scalars(medium: MediumProperties, spectra: SpectrumTable) -> dict:
+    """The parameter block's scalars of the medium (layers, wavelength
+    factors, scattering, anisotropy, tilt) and of the spectra's bias grid,
+    as Python floats (lists for n, g and tilt_d)."""
     an, tl = medium.anisotropy, medium.tilt
     host = lambda t: float(torch.as_tensor(t).detach().cpu())
     bx = to_numpy(spectra.bias_x, np.float64)
@@ -816,10 +864,6 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         abs_d=host(medium.abs_D), abs_e=host(medium.abs_E),
         mean_cos=host(medium.scattering.mean_cos),
         liu_frac=host(medium.scattering.liu_fraction),
-        r=float(geo.collision_radius), r2=float(geo.collision_radius) ** 2,
-        inv_pancake=1.0 / cfg.pancake_factor,
-        max_seg=float(cfg.max_segment_m),
-        hist_t0=float(cfg.hist_t_min), hist_dt=float(cfg.hist_dt),
         bias_x0=float(bx[0]),
         bias_inv_dx=1.0 / float(bx[1] - bx[0]) if bx.shape[0] > 1 else 1.0,
         wtab_x0=float(medium.water_wlen_first),
@@ -836,21 +880,7 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         sc.update(tilt_z0=host(tl.first_z), tilt_dz=host(tl.z_spacing),
                   tilt_ca=host(tl.azimuth_cos), tilt_sa=host(tl.azimuth_sin),
                   tilt_d=[host(v) for v in tl.distances])
-    return FusedTables(
-        medium=medium, spectra=spectra,
-        layers=torch.stack([medium.b400, medium.a_dust400,
-                            medium.delta_tau]).to(torch.float32).contiguous(),
-        spec_tab=torch.stack([spectra.x, spectra.acu, spectra.beta],
-                             1).to(torch.float32).contiguous(),
-        bias_tab=torch.stack([spectra.bias_x, spectra.bias_y]).to(
-            torch.float32).contiguous(),
-        tilt_zc=(tl.z_corrections.to(torch.float32).contiguous()
-                 if tl.enabled else torch.zeros(1, device=dev)),
-        cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
-        doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
-            dev).contiguous(),
-        scalars=sc, global_cells=global_cells, rel=rel, strings=strings,
-        wtab=wtab, scat=scat)
+    return sc
 
 
 def pack_steps(steps: StepBatch) -> torch.Tensor:
@@ -1298,20 +1328,18 @@ def _reciprocals(p) -> None:
     p.liu_beta = float((f(1.0) - g) / (f(1.0) + g))
 
 
-def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
-            seed: int, call_no: int, rec_capacity: int = 0) -> _Params:
-    sc = tables.scalars
+def medium_params(fields, sc: dict, n_slots: int, K: int,
+                  horizon: float) -> _Params:
+    """A parameter block with its medium, spectrum and walk fields set:
+    `fields` holds medium_fields' entries (a dict or a FusedSpec), `sc`
+    medium_scalars' and max_seg; the other fields are 0."""
+    get = fields.get if isinstance(fields, dict) else \
+        lambda k: getattr(fields, k)
     p = _Params()
-    p.n_slots, p.iters, p.K, p.L = (spec.n_slots, spec.iters_per_call,
-                                    spec.K, spec.L)
-    p.n_spec, p.n_bias = spec.n_spec, spec.n_bias
-    p.nz_tilt, p.nd_tilt = spec.nz_tilt, spec.nd_tilt
-    p.aniso, p.nbins = int(spec.aniso), spec.hist_n_bins
-    p.n_plans, p.use_uniforms = len(spec.sub_plans), int(use_uniforms)
-    p.n_tables, p.bias_uniform = spec.n_tables, int(spec.bias_uniform)
-    p.it0 = (call_no * spec.iters_per_call) & 0xFFFFFFFF
-    s = int(seed) & (2 ** 64 - 1)
-    p.seed_lo, p.seed_hi = s & 0xFFFFFFFF, s >> 32
+    p.n_slots, p.K, p.horizon = n_slots, K, horizon
+    for name in ("L", "n_spec", "n_bias", "nz_tilt", "nd_tilt", "n_tables",
+                 "n_wtab", "n_scat", "aniso", "bias_uniform", "ref_table"):
+        setattr(p, name, int(get(name)))
     for name, _ in _Params._fields_:
         if name in sc and not isinstance(sc[name], list):
             setattr(p, name, sc[name])
@@ -1319,6 +1347,19 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.g[:] = sc["g"]
     for j, d in enumerate(sc.get("tilt_d", [])):
         p.tilt_d[j] = d
+    _reciprocals(p)
+    return p
+
+
+def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
+            seed: int, call_no: int, rec_capacity: int = 0) -> _Params:
+    p = medium_params(spec, tables.scalars, spec.n_slots, spec.K,
+                      spec.horizon)
+    p.iters, p.nbins = spec.iters_per_call, spec.hist_n_bins
+    p.n_plans, p.use_uniforms = len(spec.sub_plans), int(use_uniforms)
+    p.it0 = (call_no * spec.iters_per_call) & 0xFFFFFFFF
+    s = int(seed) & (2 ** 64 - 1)
+    p.seed_lo, p.seed_hi = s & 0xFFFFFFFF, s >> 32
     for k, (sp, off) in enumerate(zip(spec.sub_plans, tables.plan_offsets)):
         q = p.plans[k]
         q.x0, q.y0, q.inv_cell = sp.x0, sp.y0, sp.inv_cell
@@ -1330,7 +1371,7 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.rec_cap, p.rec_all = rec_capacity, int(spec.rec_all)
     p.rec_prescale = spec.rec_prescale
     p.rec_fpk = (pancake - 1.0) / pancake   # the engine's un-pancake factor
-    p.horizon, p.soft = spec.horizon, int(spec.soft)
+    p.soft = int(spec.soft)
     p.n_ang = len(spec.ang_poly)
     for j, c in enumerate(spec.ang_poly):
         p.ang[j] = c
@@ -1339,9 +1380,6 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.g_nx, p.g_ny, p.g_k_cand = spec.cell_nx, spec.cell_ny, spec.K_cand
     p.n_dom_cand, p.n_rounds = spec.n_dom_cand, spec.n_string_rounds
     p.m_rel = tables.rel.shape[1]
-    p.n_wtab, p.ref_table, p.n_scat = (spec.n_wtab, int(spec.ref_table),
-                                       spec.n_scat)
-    _reciprocals(p)
     return p
 
 

@@ -58,15 +58,20 @@ class Axis:
         return np.sign(v - self.min) * np.abs(
             np.asarray(v, np.float64) - self.min) ** (1.0 / self.power)
 
+    def index_constants(self):
+        """(scale, offset) of bin_index: the bin of v is floor(scale *
+        inverse_transform(v) - offset), both applied in float32."""
+        scale = float(self.n_bins / (self._inv_np(self.max)
+                                     - self._inv_np(self.min)))
+        return scale, float(scale * self._inv_np(self.min))
+
     def bin_index(self, v):
         """Bin index incl. overflow handling: 0=underflow, 1..n, n+1=overflow
         (int64).  Subnormal floats count as zero, as XLA's CPU backend
         flushes them (a coordinate of -1e-45 lands in the first bin, not
         the underflow), and the float is clamped before the integer
         conversion, which gives the JAX package's saturating conversion."""
-        scale = float(self.n_bins / (self._inv_np(self.max)
-                                     - self._inv_np(self.min)))
-        offset = float(scale * self._inv_np(self.min))
+        scale, offset = self.index_constants()
         x = _flush(scale * self.inverse_transform(_flush(v)))
         raw = torch.floor(x - offset)
         return torch.clamp(raw, -1.0, float(self.n_bins)).to(torch.int64) + 1

@@ -13,15 +13,16 @@ at the source-relative spherical coordinates with weight
 the segment).  The first sub-step of each photon is randomized to decorrelate
 the comb from the emission point (kernel:562).
 
-The iteration is the port's engine pieces (engine._create_photons,
-_segment_distances, the anisotropy transforms, mixed_cos and the scatter
-rotation), run on the tensors' device, with the comb of sub-steps as
-(max_substeps, N) tensors.  The table is one float64 tensor of axes.n_bins
-on the same device; each chunk of CHUNK_ITERS iterations adds its nonzero
-comb entries into it with index_add_ (on a GPU an atomic add into global
-memory, as the reference's GPU kernel does, propagation_kernel.c.cl:296-304).
-A chunk makes one host sync, which reads the alive count and the number of
-nonzero entries together.
+The table is one float64 tensor of axes.n_bins on the medium's device.  On
+a card the iterations run in the kernel of csrc/tabulate.cu (tabulator/
+kernel.py packs its inputs): one thread a slot, each sub-step added into the
+table with atomicAdd, as the reference's GPU kernel does
+(propagation_kernel.c.cl:296-304), TAB_LAUNCH_ITERS iterations a launch.
+On the CPU they run in its plain version, tabulate_iterations_plain: the
+iteration of _make_tabulate_body (the port's engine pieces, with the comb
+of sub-steps as (max_substeps, N) tensors) and one index_add_ an iteration.
+Each launch makes one host sync, which reads its counters, the alive count
+among them.
 
 Random numbers are the JAX package's, bit for bit: key = base_key(seed),
 batch i's key fold_in(key, i), iteration i's (9, N) block
@@ -31,7 +32,8 @@ uniforms(iter_key(iter_key(iter_key(bkey, i), 0x1A7B), m), (N,), 2), so the
 same seed gives the JAX table up to float rounding.
 
 Normalization divides each spatial cell by bin_volume/(step_length*dom_area)
-(I3CLSimStepToTableConverter.cxx:513-540), in float64 numpy on the host.
+(I3CLSimStepToTableConverter.cxx:513-540) in float64, on the table's device,
+into a host array.
 """
 
 from __future__ import annotations
@@ -54,12 +56,14 @@ from ..ops.rotations import safe_sqrt, scatter_direction_by_angle
 from ..ops.samplers import mixed_cos
 from ..ops.spectrum import SpectrumTable
 from ..propagate import engine as E
+from ..propagate import kernel as K
 from ..types import PropagationConfig, StepBatch
+from . import kernel as TK
 from .axes import SphericalAxes, default_spherical_axes
+from .kernel import IMPACT_SALT  # noqa: F401  (the impact draws' salt)
 
-CHUNK_ITERS = 16          # iterations between host syncs
+CHUNK_ITERS = 16          # the JAX chunk's iterations; a CPU launch's
 MAX_ITERATIONS = 65536    # a batch's iteration cap (the JAX package's)
-IMPACT_SALT = 0x1A7B      # folded into the iteration key for impact draws
 
 
 class ReferenceSource(NamedTuple):
@@ -167,19 +171,19 @@ def _impact_direction(dx, dy, dz, u_sin, u_az):
     return scatter_direction_by_angle(cosa, sina, dx, dy, dz, u_az)
 
 
-def _make_tabulate_chunk(medium: MediumProperties, spectra: SpectrumTable,
-                         source: ReferenceSource, angular_coeffs,
-                         cfg: PropagationConfig, axes: SphericalAxes,
-                         step_length: float, min_inv_groupvel: float,
-                         tan_theta_c: float,
-                         chunk_iters: int = CHUNK_ITERS):
-    """The propagation chunk of one tabulate() run:
-    chunk(steps, key, state, remainder, i0) runs iterations i0 ..
-    i0 + chunk_iters - 1 and returns (state, remainder, idx_buf, w_buf,
-    alive), with idx_buf / w_buf the (chunk_iters, max_substeps * N) comb
-    entries (bin clipped to the table, weight 0 where nothing deposits) and
-    alive the device count of slots with a photon left (no host sync)."""
-    max_substeps = int(cfg.max_segment_m / step_length) + 2
+def _make_tabulate_body(medium: MediumProperties, spectra: SpectrumTable,
+                        source: ReferenceSource, angular_coeffs,
+                        cfg: PropagationConfig, axes: SphericalAxes,
+                        step_length: float, min_inv_groupvel: float,
+                        tan_theta_c: float):
+    """One tabulator iteration in plain PyTorch, on every slot at once:
+    body(u, ui, state, remainder, steps, offs, counts=None) returns (state,
+    remainder, idx, w), with u the (9, N) uniforms, ui the (M, 2, N) impact
+    draws (None without the impact axis), offs the (M, 1) sub-step offsets
+    and idx / w the (M * N,) comb entries (bin clipped to the table, weight 0
+    where nothing deposits).  `counts` (a dict) gains the iteration's
+    "substeps" (tested, inside their segment), "work" (live slots), "walk"
+    and "generated" as device tensors."""
     horizon = E.horizon(cfg)
     with_impact = bool(getattr(axes, "impact_angle", False))
     cylindrical = getattr(axes, "kind", "spherical") == "cylindrical"
@@ -191,8 +195,7 @@ def _make_tabulate_chunk(medium: MediumProperties, spectra: SpectrumTable,
         return _spherical_coords(px, py, pz, pt, source, min_inv_groupvel,
                                  dirp)
 
-    def body(u, sub_key, state, remainder, steps, offs):
-        n = steps.x.shape[0]
+    def body(u, ui, state, remainder, steps, offs, counts=None):
         fresh = (state.in_flight < 0.5) & (state.photons_left > 0.5)
         state, _ = E._create_photons(state, steps, medium, spectra, cfg, u,
                                      fresh)
@@ -209,7 +212,8 @@ def _make_tabulate_chunk(medium: MediumProperties, spectra: SpectrumTable,
         sca_budget = -torch.log(rng.uniform_oc(u[4]))
         abs_budget = state.abs_left * abs_corr
         d_prop, absorbed, scattered, abs_left = E._segment_distances(
-            state, medium, cfg, sca_budget, abs_budget)
+            state, medium, cfg, sca_budget, abs_budget, tally=counts,
+            active=active)
         abs_left = abs_left / abs_corr
 
         # under the fixed horizon every photon starts with `horizon`
@@ -235,9 +239,6 @@ def _make_tabulate_chunk(medium: MediumProperties, spectra: SpectrumTable,
         pt = state.t + d * state.inv_gv
         dirp = None
         if with_impact:
-            ms = torch.arange(max_substeps, dtype=torch.int64,
-                              device=sub_key.device)
-            ui = rng.uniforms(rng.fold_in(sub_key, ms), (n,), 2)
             dirp = _impact_direction(state.dx, state.dy, state.dz,
                                      ui[:, 0], ui[:, 1])
         coords = coords_of(px, py, pz, pt, dirp)
@@ -257,6 +258,10 @@ def _make_tabulate_chunk(medium: MediumProperties, spectra: SpectrumTable,
         d_last = d.gather(0, torch.clamp(n_in - 1, min=0)[None, :])[0]
         remainder = torch.where(active & (n_in > 0),
                                 d_last + step_length - d_prop, remainder)
+        if counts is not None:
+            for k, v in (("substeps", n_in.sum()), ("work", active.sum()),
+                         ("generated", fresh.sum())):
+                counts[k] = counts.get(k, 0) + v
 
         # advance / absorb / scatter (same flow as the main engine)
         state = state._replace(
@@ -286,73 +291,158 @@ def _make_tabulate_chunk(medium: MediumProperties, spectra: SpectrumTable,
                                                      state.in_flight))
         return state, remainder, idx.reshape(-1), w.reshape(-1)
 
+    return body
+
+
+def _offsets(n_sub: int, step_length: float, device) -> torch.Tensor:
+    """The (M, 1) sub-step offsets m * step_length, rounded once to
+    float32."""
+    return (torch.arange(n_sub, dtype=torch.float64) * step_length).to(
+        torch.float32).to(device)[:, None]
+
+
+def _n_sub(cfg: PropagationConfig, step_length: float) -> int:
+    """Comb sub-steps a segment, at most."""
+    return int(cfg.max_segment_m / step_length) + 2
+
+
+def _make_tabulate_chunk(medium: MediumProperties, spectra: SpectrumTable,
+                         source: ReferenceSource, angular_coeffs,
+                         cfg: PropagationConfig, axes: SphericalAxes,
+                         step_length: float, min_inv_groupvel: float,
+                         tan_theta_c: float,
+                         chunk_iters: int = CHUNK_ITERS):
+    """The JAX package's raw chunk (clsim_tpu/tabulator/table.py
+    _make_tabulate_chunk) on _make_tabulate_body:
+    chunk(steps, key, state, remainder, i0) runs iterations i0 ..
+    i0 + chunk_iters - 1 and returns (state, remainder, idx_buf, w_buf,
+    alive), with idx_buf / w_buf the (chunk_iters, max_substeps * N) comb
+    entries and alive the device count of slots with a photon left."""
+    body = _make_tabulate_body(medium, spectra, source, angular_coeffs, cfg,
+                               axes, step_length, min_inv_groupvel,
+                               tan_theta_c)
+    n_sub = _n_sub(cfg, step_length)
+
     def chunk(steps: StepBatch, key, state: E.SlotState, remainder, i0: int):
         n = steps.x.shape[0]
         dev = steps.x.device
-        K = chunk_iters
-        offs = (torch.arange(max_substeps, dtype=torch.float64) * step_length
-                ).to(torch.float32).to(dev)[:, None]
-        # the chunk's iteration keys and (9, N) uniform blocks, drawn at once
-        keys = rng.fold_in(key, torch.arange(i0, i0 + K, dtype=torch.int64,
-                                             device=dev))
-        u_all = rng.uniforms(keys, (n,), 9)
-        sub_keys = rng.fold_in(keys, IMPACT_SALT) if with_impact \
-            else [None] * K
-        idx_buf = torch.empty((K, max_substeps * n), dtype=torch.int64,
+        keys = TK.launch_keys(key, i0, chunk_iters, n_sub,
+                              axes.impact_angle, dev)
+        offs = _offsets(n_sub, step_length, dev)
+        idx_buf = torch.empty((chunk_iters, n_sub * n), dtype=torch.int64,
                               device=dev)
-        w_buf = torch.empty((K, max_substeps * n), dtype=torch.float32,
+        w_buf = torch.empty((chunk_iters, n_sub * n), dtype=torch.float32,
                             device=dev)
-        for k in range(K):
+        for k in range(chunk_iters):
             state, remainder, idx_buf[k], w_buf[k] = body(
-                u_all[k], sub_keys[k], state, remainder, steps, offs)
+                *_draws(keys, k, n), state, remainder, steps, offs)
         alive = ((state.in_flight > 0.5) | (state.photons_left > 0.5)).sum()
         return state, remainder, idx_buf, w_buf, alive
 
     return chunk
 
 
-def _deposit(table: torch.Tensor, idx_buf, w_buf, alive,
-             tally: Optional[dict]) -> int:
-    """Add a chunk's nonzero comb entries to the table (index_add_, an
-    atomic add on a GPU) and return its alive count.  The chunk's one host
-    sync reads the alive count and the nonzero count together; the entries
-    are then packed in order (cumsum positions) without another sync."""
-    w = w_buf.reshape(-1)
-    nz = w != 0.0
-    n_alive, n_nz = torch.stack([alive.to(torch.int64), nz.sum()]).tolist()
-    if n_nz:
-        # zero entries land in the spare slot n_nz, which is dropped
-        dest = torch.where(nz, torch.cumsum(nz, 0) - 1, n_nz)
-        sel_idx = torch.zeros(n_nz + 1, dtype=torch.int64,
-                              device=w.device).scatter_(
-                                  0, dest, idx_buf.reshape(-1))
-        sel_w = torch.zeros(n_nz + 1, dtype=torch.float64,
-                            device=w.device).scatter_(0, dest, w.double())
-        table.index_add_(0, sel_idx[:n_nz], sel_w[:n_nz])
-    if tally is not None:
-        tally["entries"] = tally.get("entries", 0) + n_nz
-        tally["weight"] = tally.get("weight", 0.0) + w.sum(
-            dtype=torch.float64)
-        tally["syncs"] = tally.get("syncs", 0) + 1
-    return n_alive
+def _draws(keys: TK.TabKeys, k: int, n: int):
+    """Iteration k's (9, N) uniforms and (M, 2, N) impact draws (or None)
+    from the launch's key tables."""
+    ui = None if keys.impact is None else rng.uniforms(keys.impact[k], (n,), 2)
+    return rng.uniforms(keys.iter[k], (n,), 9), ui
 
 
-def _tabulate_batch(chunk, steps: StepBatch, key, table: torch.Tensor,
+class TabPlan(NamedTuple):
+    """A tabulate() run's iteration: the kernel's packed blocks and tables,
+    and the plain version's body on the same inputs."""
+    block: TK.TabBlock
+    body: object           # _make_tabulate_body's function
+    step_length: float
+
+
+def init_state(steps: StepBatch) -> torch.Tensor:
+    """(NSF + 1, N) float32: the propagation kernel's slot state
+    (kernel.init_state) and the comb's remainder, 0."""
+    st = K.init_state(steps)
+    return torch.cat([st, st.new_zeros((1, st.shape[1]))]).contiguous()
+
+
+def tabulate_iterations_plain(plan: TabPlan, state, steps, keys: TK.TabKeys,
+                              table: torch.Tensor) -> torch.Tensor:
+    """The kernel's computation in plain PyTorch, with its interface: the
+    iterations of `keys` (TabKeys) on the (NSF + 1, N) state, updated in
+    place, and the (NST, N) step rows; each iteration's comb entries are
+    added to `table` with index_add_.  Returns the float64
+    TAB_COUNTERS vector (atomics 0) on the state's device."""
+    n = state.shape[1]
+    dev = state.device
+    st = E.SlotState(*state[:K.NSF].unbind(0))
+    sb = StepBatch(**{f: steps[k] for k, f in enumerate(K.STEP_FIELDS)},
+                   num_photons=st.photons_left)
+    rem = state[K.NSF]
+    offs = _offsets(plan.block.n_sub, plan.step_length, dev)
+    counts = {}
+    entries = weight = torch.zeros((), dtype=torch.float64, device=dev)
+    for k in range(keys.iter.shape[0]):
+        st, rem, idx, w = plan.body(*_draws(keys, k, n), st, rem, sb, offs,
+                                    counts)
+        # zero weights add nothing: the whole comb goes in, with no sync
+        table.index_add_(0, idx, w.double())
+        entries = entries + (w != 0.0).sum()
+        weight = weight + w.sum(dtype=torch.float64)
+    state[:K.NSF] = torch.stack(list(st))
+    state[K.NSF] = rem
+    alive = ((st.in_flight > 0.5) | (st.photons_left > 0.5)).sum()
+    zero = torch.zeros((), device=dev)
+    c = [entries, weight] + [counts.get(k, zero) for k in (
+        "substeps", "work", "walk")] + [alive, counts.get("generated", zero),
+                                        zero]
+    return torch.stack([torch.as_tensor(v, device=dev).to(torch.float64)
+                        for v in c])
+
+
+def tabulate_iterations(plan: TabPlan, state, steps, keys: TK.TabKeys,
+                        table: torch.Tensor) -> torch.Tensor:
+    """Run the iterations of `keys` on every slot: CUDA tensors launch the
+    kernel (csrc/tabulate.cu; it raises when the kernel cannot serve the
+    inputs or the launch fails), CPU tensors run
+    tabulate_iterations_plain.  Returns the TAB_COUNTERS vector."""
+    if state.device.type == "cuda":
+        return TK.launch(plan.block, state, steps, keys, table)
+    if state.device.type == "cpu":
+        return tabulate_iterations_plain(plan, state, steps, keys, table)
+    raise ValueError(f"no tabulator kernel for device {state.device}")
+
+
+def _tabulate_batch(plan: TabPlan, steps: StepBatch, key, table: torch.Tensor,
                     tally: Optional[dict] = None,
-                    chunk_iters: int = CHUNK_ITERS,
+                    launch_iters: Optional[int] = None,
                     max_iterations: int = MAX_ITERATIONS) -> int:
     """Propagate one slot-assigned batch in table mode, adding its
-    unnormalized contents to `table`; returns the iterations run (at most
-    `max_iterations`)."""
-    n = steps.x.shape[0]
-    state = E._init_state(steps)
-    remainder = torch.zeros(n, dtype=torch.float32, device=steps.x.device)
+    unnormalized contents to `table`, in launches of `launch_iters`
+    iterations (default TAB_LAUNCH_ITERS on a card, CHUNK_ITERS on the
+    CPU), the last one cut at `max_iterations`; returns the iterations
+    run.  A launch's one host sync reads its counters, the alive count
+    among them: the batch ends after the launch that leaves none."""
+    dev = steps.x.device
+    if launch_iters is None:
+        launch_iters = TK.TAB_LAUNCH_ITERS if dev.type == "cuda" \
+            else CHUNK_ITERS
+    state = init_state(steps)
+    sp = K.pack_steps(steps)
+    hkey = rng.as_key(key, "cpu")
     i0 = 0
-    for _ in range(max_iterations // chunk_iters):
-        state, remainder, idx_buf, w_buf, alive = chunk(
-            steps, key, state, remainder, i0)
-        i0 += chunk_iters
-        if _deposit(table, idx_buf, w_buf, alive, tally) == 0:
+    while i0 < max_iterations:
+        n_it = min(launch_iters, max_iterations - i0)
+        keys = TK.launch_keys(hkey, i0, n_it, plan.block.n_sub,
+                              plan.block.impact, dev)
+        c = dict(zip(TK.TAB_COUNTERS, tabulate_iterations(
+            plan, state, sp, keys, table).tolist()))
+        i0 += n_it
+        if tally is not None:
+            for k in ("entries", "substeps", "work", "walk", "generated",
+                      "atomics"):
+                tally[k] = tally.get(k, 0) + int(c[k])
+            tally["weight"] = tally.get("weight", 0.0) + c["weight"]
+            tally["syncs"] = tally.get("syncs", 0) + 1
+        if c["alive"] == 0:
             break
     return i0
 
@@ -373,13 +463,13 @@ class PhotonTable(NamedTuple):
     header: dict
 
 
-def _table_chunk(medium: MediumProperties, spectra: SpectrumTable,
-                 source: ReferenceSource, axes: SphericalAxes, angular_coeffs,
-                 cfg: PropagationConfig, step_length: float,
-                 abs_lens_horizon: float):
-    """tabulate()'s propagation chunk on the medium's device (the fixed
-    absorption horizon, non-stopping), with the minimum group index and
-    the phase index at its wavelength (the table header's)."""
+def _table_plan(medium: MediumProperties, spectra: SpectrumTable,
+                source: ReferenceSource, axes: SphericalAxes, angular_coeffs,
+                cfg: PropagationConfig, step_length: float,
+                abs_lens_horizon: float):
+    """tabulate()'s iteration on the medium's device (the fixed absorption
+    horizon, non-stopping), with the minimum group index and the phase
+    index at its wavelength (the table header's)."""
     device = medium.device
     if angular_coeffs is None:
         angular_coeffs = dom_angular_sensitivity(device=device)
@@ -401,10 +491,34 @@ def _table_chunk(medium: MediumProperties, spectra: SpectrumTable,
     min_inv_gv = float(np.float32(n_group[i_min] / C_LIGHT))
     tan_theta_c = float(np.float32(np.sqrt(n_phase[i_min] ** 2 - 1.0)))
 
-    chunk = _make_tabulate_chunk(medium, spectra, source, angular_coeffs,
-                                 cfg, axes, float(step_length), min_inv_gv,
-                                 tan_theta_c)
-    return chunk, n_group[i_min], n_phase[i_min]
+    step_length = float(step_length)
+    body = _make_tabulate_body(medium, spectra, source, angular_coeffs, cfg,
+                               axes, step_length, min_inv_gv, tan_theta_c)
+    block = TK.pack(medium, spectra, source, axes, angular_coeffs, cfg,
+                    step_length, min_inv_gv, tan_theta_c, E.horizon(cfg),
+                    _n_sub(cfg, step_length))
+    return (TabPlan(block=block, body=body, step_length=step_length),
+            n_group[i_min], n_phase[i_min])
+
+
+NORM_CHUNK_BYTES = 1 << 26   # device memory of one normalized slab
+
+
+def _normalized(table: torch.Tensor, shape, norm: np.ndarray) -> np.ndarray:
+    """table / norm (broadcast over the dimensions after the first three)
+    as a float64 numpy array: divided on the table's device, a slab of
+    the first axis at a time (at most NORM_CHUNK_BYTES), each slab copied
+    into the host array.  IEEE division rounds alike on the host and the
+    card, so the values equal numpy's table / norm bit for bit."""
+    values = np.empty(shape)
+    out = torch.from_numpy(values)
+    raw = table.view(shape)
+    norm_t = torch.as_tensor(norm, device=table.device).reshape(
+        norm.shape + (1,) * (len(shape) - 3))
+    step = max(1, NORM_CHUNK_BYTES // (8 * raw[0].numel()))
+    for i in range(0, shape[0], step):
+        out[i:i + step].copy_(raw[i:i + step] / norm_t[i:i + step])
+    return values
 
 
 def tabulate(step_batches, medium: MediumProperties, spectra: SpectrumTable,
@@ -418,25 +532,30 @@ def tabulate(step_batches, medium: MediumProperties, spectra: SpectrumTable,
              tally: Optional[dict] = None) -> PhotonTable:
     """Generate a photon table from slot-assigned step batches (the
     TabulatePhotonsFromSource equivalent, python/tablemaker/tabulator.py:441)
-    on the medium's device; numpy batches are copied there.
+    on the medium's device; numpy batches are copied there.  On a card
+    every iteration runs in the kernel of csrc/tabulate.cu (a failed build
+    or launch raises, and inputs it does not serve raise
+    NotImplementedError); on the CPU in its plain version.
 
     `tally` (a dict) gains the run's counts: "iterations", "entries" (the
-    nonzero comb entries added), "weight" (the float64 device sum of every
-    comb weight, which the table's sum must equal), "syncs" (host syncs)
-    and "raw" (the unnormalized flat table, float64 on the device)."""
+    nonzero comb entries added), "weight" (the float64 sum of every comb
+    weight, which the table's sum must equal), "syncs" (host syncs, one a
+    launch), "substeps", "work", "walk", "generated", "atomics"
+    (TAB_COUNTERS) and "raw" (the unnormalized flat table, float64 on the
+    device)."""
     axes = axes or default_spherical_axes()
     device = medium.device
     cfg = cfg or PropagationConfig(n_slots=int(step_batches[0].x.shape[0]))
-    chunk, n_group, n_phase = _table_chunk(medium, spectra, source, axes,
-                                           angular_coeffs, cfg, step_length,
-                                           abs_lens_horizon)
-    key = rng.base_key(seed, device)
+    plan, n_group, n_phase = _table_plan(medium, spectra, source, axes,
+                                         angular_coeffs, cfg, step_length,
+                                         abs_lens_horizon)
+    key = rng.base_key(seed)
     table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
     n_photons = 0.0
     iterations = 0
     for i, batch in enumerate(step_batches):
         steps = _steps_on(batch, device)
-        iterations += _tabulate_batch(chunk, steps, rng.fold_in(key, i),
+        iterations += _tabulate_batch(plan, steps, rng.fold_in(key, i),
                                       table, tally)
         n_photons += float(steps.num_photons.sum())
     if tally is not None:
@@ -444,7 +563,6 @@ def tabulate(step_batches, medium: MediumProperties, spectra: SpectrumTable,
         tally["raw"] = table
 
     # normalize spatial cells: content /= bin_volume/(step_length*dom_area)
-    values = table.cpu().numpy().reshape(axes.shape)
     vol = axes.bin_volumes()  # (nr, naz, nct) for the inner data bins
     dom_area = PI * dom_radius ** 2
     # only the first 3 dims are spatial; the time (and optional impact-angle)
@@ -452,7 +570,7 @@ def tabulate(step_batches, medium: MediumProperties, spectra: SpectrumTable,
     # .cxx:513-540 Normalize)
     norm = np.ones(axes.shape[:3])
     norm[1:-1, 1:-1, 1:-1] = vol / (step_length * dom_area)
-    values = values / norm.reshape(norm.shape + (1,) * (values.ndim - 3))
+    values = _normalized(table, axes.shape, norm)
 
     header = dict(n_photons=n_photons, step_length=step_length,
                   abs_lens_horizon=abs_lens_horizon, dom_radius=dom_radius,

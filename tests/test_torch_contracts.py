@@ -74,6 +74,7 @@ def test_import_leaves_jax_out():
             "clsim_tpu_torch.util.profiling, clsim_tpu_torch.tabulator, "
             "clsim_tpu_torch.tabulator.axes, clsim_tpu_torch.tabulator.fits, "
             "clsim_tpu_torch.tabulator.table, "
+            "clsim_tpu_torch.tabulator.kernel, "
             "clsim_tpu_torch.validate.table_referee; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'clsim_tpu' "

@@ -507,7 +507,8 @@ def test_cuda_dispatch_sends_rings_to_the_engine():
 @pytest.mark.cuda
 def test_cuda_tabulate_matches_cpu():
     """chip_smoke phase 11(c) at a small size: a table on the card (float64,
-    filled by index_add_ there) against the port on the CPU, same seed:
+    filled by the kernel of csrc/tabulate.cu) against the port on the CPU
+    (its plain version), same seed:
     the deposited table's L1 <= 2e-3 of its total, n_photons equal, every
     comb weight landed."""
     if not torch.cuda.is_available():
@@ -526,4 +527,58 @@ def test_cuda_tabulate_matches_cpu():
     (n_gpu, gpu), (n_cpu, cpu) = tables
     assert n_gpu == n_cpu == 512
     l1 = np.abs(gpu - cpu).sum() / np.abs(cpu).sum()
+    assert l1 <= 2e-3, l1
+
+
+@pytest.mark.cuda
+def test_cuda_tabulate_runs_the_kernel(monkeypatch):
+    """tabulate on a CUDA medium launches the kernel of csrc/tabulate.cu, one
+    launch per TAB_LAUNCH_ITERS iterations, and never runs the plain
+    version; one launch's counters against the plain version's on the card
+    (same state, steps and keys): photons made and alive slots equal,
+    nonzero sub-steps and walk steps within 1%, the table's sum the weight
+    sum, fewer atomics than sub-steps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.tabulator import kernel as TK
+    from clsim_tpu_torch.tabulator import table as TT
+    dev = torch.device("cuda", 0)
+    axes = chip_smoke.tab_small_axes()["spherical + impact"]
+    inputs = chip_smoke.tab_inputs(dev)
+    steps = chip_smoke.tab_steps(2048, 2, dev)
+    plain = TT.tabulate_iterations_plain
+    monkeypatch.setattr(TT, "tabulate_iterations_plain", None)
+    before = TK.LAUNCHES["tabulate"]
+    tally = {}
+    chip_smoke.tab_call(inputs, steps, 5, axes, tally)
+    torch.cuda.synchronize()
+    assert TK.LAUNCHES["tabulate"] - before == tally["syncs"] > 0
+    assert tally["iterations"] == tally["syncs"] * TK.TAB_LAUNCH_ITERS
+    assert tally["atomics"] < tally["entries"]
+    assert abs(float(tally["raw"].sum()) - tally["weight"]) \
+        <= 1e-9 * tally["weight"]
+    monkeypatch.setattr(TT, "tabulate_iterations_plain", plain)
+
+    medium, spectra, source = inputs
+    plan, _, _ = TT._table_plan(medium, spectra, source, axes, None,
+                                chip_smoke.tab_cfg(steps), 1.0, 46.0)
+    keys = TK.launch_keys(rng.fold_in(rng.base_key(5), 0), 0, 64,
+                          plan.block.n_sub, True, dev)
+    sp = K.pack_steps(steps)
+    out = []
+    for fn in (TK.launch, None):
+        table = torch.zeros(axes.n_bins, dtype=torch.float64, device=dev)
+        state = TT.init_state(steps)
+        c = (fn(plan.block, state, sp, keys, table) if fn else
+             plain(plan, state, sp, keys, table))
+        out.append((dict(zip(TK.TAB_COUNTERS, c.tolist())), table))
+    (ck, tk), (cp, tp) = out
+    assert ck["generated"] == cp["generated"] and ck["alive"] == cp["alive"]
+    for k in ("entries", "walk", "substeps", "work"):
+        assert abs(ck[k] - cp[k]) <= 0.01 * cp[k], (k, ck[k], cp[k])
+    assert abs(float(tk.sum()) - ck["weight"]) <= 1e-9 * ck["weight"]
+    l1 = float((tk - tp).abs().sum() / tp.abs().sum())
     assert l1 <= 2e-3, l1

@@ -253,22 +253,22 @@ def test_chunk_matches_jax_chunk():
 
 
 def test_capped_batch_is_the_first_chunks_of_tabulate():
-    """_table_chunk is tabulate's chunk: a batch run to its end through it
-    fills tabulate's raw table bit for bit, and max_iterations cuts the
-    same run after its first chunks (a prefix of its deposits)."""
+    """_table_plan is tabulate's iteration: a batch run to its end through
+    it fills tabulate's raw table bit for bit, and max_iterations cuts the
+    same run after its first launches (a prefix of its deposits)."""
     _, (mt, st, stp, cfgt) = inputs(2)
     _, at = axes_pair("spherical", SPH)
     _, src = source_pair()
     tally = {}
     TT.tabulate([stp], mt, st, src, seed=3, axes=at, cfg=cfgt, tally=tally)
-    chunk, n_group, n_phase = TT._table_chunk(mt, st, src, at, None, cfgt,
-                                              1.0, 46.0)
+    plan, n_group, n_phase = TT._table_plan(mt, st, src, at, None, cfgt,
+                                            1.0, 46.0)
     key = R.fold_in(R.base_key(3), 0)
     full = torch.zeros(at.n_bins, dtype=torch.float64)
-    assert TT._tabulate_batch(chunk, stp, key, full) == tally["iterations"]
+    assert TT._tabulate_batch(plan, stp, key, full) == tally["iterations"]
     assert torch.equal(full, tally["raw"])
     cut = torch.zeros(at.n_bins, dtype=torch.float64)
-    assert TT._tabulate_batch(chunk, stp, key, cut,
+    assert TT._tabulate_batch(plan, stp, key, cut,
                               max_iterations=TT.CHUNK_ITERS) \
         == TT.CHUNK_ITERS < tally["iterations"]
     assert 0 < float(cut.sum()) < float(full.sum())
