@@ -14,6 +14,11 @@
         # checkout in turns (e.g. parent, new, new, parent), one process a
         # turn: simulate's wall and its host split (conversion, slot
         # assignment, copy, propagation), medians of 3
+    python3 chip_smoke.py --tab-turns LABEL:ROOT ... [--json PATH]
+        # the tabulator's kernel (T1) of each checkout in turns, one
+        # process a turn: its kernel row (11a's first 32 iterations), 11a's
+        # runs with each launch between CUDA events, the 4x-slot run, the
+        # account (tab_stats) and the ptxas figures of T1 and of K1
     python3 chip_smoke.py --mesh N   # build, then phase 12b with N ranks
         # (NCCL with a card each when there are N cards, else gloo)
 
@@ -177,9 +182,10 @@ Phases (any failure raises and exits non-zero):
         steps' photons, steps with beta < 1, histogram sum = hit weight,
         nothing dropped or abandoned, mode 0 launched;
  11. photon tables on the card (the tabulator's kernel, csrc/tabulate.cu:
-     its iterations in one CUDA kernel that adds every comb sub-step into
-     the float64 table on the card with atomicAdd) and scatter-history
-     rings:
+     its iterations in one CUDA kernel that deals each warp's comb
+     sub-steps over its lanes and adds every one into the float64 table on
+     the card with atomicAdd, each launch on the slots still live) and
+     scatter-history rings:
      a. tabulate of scripts/bench_tabulator.py's workload (65,536 slots x
         32 photons, isotropic 1 mm steps at the origin, 171 homogeneous
         layers, 35 m segments) on the default spherical axes (83,775,864
@@ -187,11 +193,18 @@ Phases (any failure raises and exits non-zero):
         the table, the kernel launched once a host sync; photons/s and
         profile_device_time of one run, the device busy share and every
         launch an iteration (torch.profiler over one more run), peak
-        memory, each beside the card's name and power limit; the kernel
-        against its plain version on the run's first 32 iterations (same
-        keys: equal photons made and alive slots, counts within max(2,
-        1%), table L1 <= 2e-3; the kernel row's times and bound); the eager
-        plain version's first two chunks on the card, timed and traced;
+        memory, each kernel launch between CUDA events and the kernel's
+        own rate, its account (tab_stats: lane efficiencies, each stage's
+        share of the cycles) and the normalization (its wall, its
+        division's and copies' device time, a bare first touch of a host
+        array of the table's size), each beside the card's name
+        and power limit; the kernel against its plain version on the run's
+        first 32 iterations (same keys: equal photons made and alive slots,
+        counts within max(2, 1%), table L1 <= 2e-3, one atomic a nonzero
+        sub-step; the kernel row's times and bound) and on a compacted
+        list of half the live slots for 8 more (the same checks, the slots
+        off the list unchanged); the eager plain version's first two
+        chunks on the card, timed and traced;
      b. the same workload at 8 photons a slot with scattering off, 8
         independent runs: each radial group's content against the float64
         expectation of validate/table_referee.py, |z| < 5 (standard error
@@ -2765,6 +2778,9 @@ TAB_PHOTONS = 32
 TAB_REPS = 3             # 11a's runs without the profiler (median wall)
 TAB_CMP_ITERS = 32       # 11a's kernel-against-plain launch: the run's
                          # first iterations, on the same keys
+TAB_ROW_WARM = 3         # --tab-turns' kernel row: launches to warm the
+TAB_ROW_REPS = 11        # clocks, then launches timed (median); the
+                         # kernels line times TAB_REPS with no warm-up
 TAB_PLAIN_CHUNKS = 2     # the eager plain version's first chunks of 16
                          # iterations, timed on the card beside the kernel
 TAB_RUNS = 8             # 11b's independent runs
@@ -2891,6 +2907,27 @@ def check_table(name, table, tally, device):
         raise AssertionError(f"{name}: deposits missing from the table")
 
 
+def launch_ms(fn, state0, table, reps):
+    """(fn's last result, its state, every ms, every result) of `reps`
+    calls fn(state, table) between CUDA events, each on a fresh copy of
+    state0 and the zeroed table."""
+    import torch
+    times, results = [], []
+    for r in range(reps):
+        state = state0.clone()
+        table.zero_()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        c = fn(state, table)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1))
+        results.append(c)
+    return c, state, times, results
+
+
 def tab_kernel_against_plain(inputs, axes, steps, key, iters, device):
     """One launch of `iters` iterations from the initial state, the kernel
     (TK.launch) and the plain version (tabulate_iterations_plain) on the
@@ -2914,26 +2951,18 @@ def tab_kernel_against_plain(inputs, axes, steps, key, iters, device):
     keys = TK.launch_keys(key, 0, iters, plan.block.n_sub, plan.block.impact,
                           device)
     out = {}
+    cycles = {}
     for name, fn, reps in (
             ("kernel", lambda st, tb: TK.launch(plan.block, st, sp, keys,
                                                 tb), TAB_REPS),
             ("plain", lambda st, tb: TT.tabulate_iterations_plain(
                 plan, st, sp, keys, tb), 1)):
         table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
-        times = []
-        for _ in range(reps):
-            state = state0.clone()
-            table.zero_()
-            torch.cuda.synchronize()
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            c = fn(state, table)
-            e1.record()
-            torch.cuda.synchronize()
-            times.append(e0.elapsed_time(e1))
+        c, state, times, cs = launch_ms(fn, state0, table, reps)
         out[name] = (dict(zip(TK.TAB_COUNTERS, c.tolist())), table,
                      float(np.median(times)), state)
+        cycles[name] = [(t, tab_stats(dict(zip(TK.TAB_COUNTERS, x.tolist())))
+                         ["cycles_per_warp_iter"]) for t, x in zip(times, cs)]
     (ck, tk, ms, sk), (cp, tp, plain_ms, spl) = out["kernel"], out["plain"]
     for k in ("generated", "alive"):
         if ck[k] != cp[k]:
@@ -2949,18 +2978,171 @@ def tab_kernel_against_plain(inputs, axes, steps, key, iters, device):
     err = float((tk - tp).abs().max())
     touched = int((tk != 0).sum())
     bound = tab_bound(plan.block, ck, n, iters, touched)
-    if ck["atomics"] >= ck["entries"] or l1 > L1_TOL:
+    # one atomic for each nonzero sub-step (csrc/tabulate.cu)
+    if ck["atomics"] != ck["entries"] or l1 > L1_TOL:
         raise AssertionError(f"11a: kernel against plain: L1 {l1}, "
                              f"atomics {ck['atomics']}")
+    each = ", ".join(
+        f"{t:.4f} ms at " + ("n/a" if cy is None else f"{cy:.1f}")
+        + " cycles a warp-iteration" for t, cy in cycles["kernel"])
     log(f"  11a kernel against plain version, first {iters} iterations on "
         f"the same keys: table L1 {l1:.4e} of the total, max |difference| "
         f"{err:.4e}, in_flight equal in {int((sk[1] == spl[1]).sum())} of "
         f"{n} slots; kernel {ck}; plain {cp}; kernel {ms:.4f} ms (median "
-        f"of {TAB_REPS}), plain version {plain_ms:.2f} ms; bound "
+        f"of {TAB_REPS}: {each}), plain version {plain_ms:.2f} ms; bound "
         f"{bound[0]:.4f} ms ({bound[1]}; {touched} bins touched; 16 B a "
-        f"nonzero sub-step instead: {bound[2]:.4f} ms)")
-    return dict(err=err, ms=ms, plain_ms=plain_ms, bound=bound[:2],
-                counters=ck)
+        f"nonzero sub-step instead: {bound[2]:.4f} ms); account "
+        + fmt_tab_stats(tab_stats(ck)))
+
+    # a compacted launch: every other live slot of the plain version's
+    # state, iters // 4 iterations more, kernel against plain version; the
+    # slots off the list keep their state bit for bit
+    live = TT.live_slots(spl, int(cp["alive"]))[::2].contiguous()
+    keys2 = TK.launch_keys(key, iters, iters // 4, plan.block.n_sub,
+                           plan.block.impact, device)
+    res = []
+    for fn in (TK.launch, lambda *a: TT.tabulate_iterations_plain(plan,
+                                                                  *a[1:])):
+        st, tb = spl.clone(), torch.zeros_like(tk)
+        c = dict(zip(TK.TAB_COUNTERS, fn(plan.block, st, sp, keys2, tb,
+                                         live).tolist()))
+        res.append((c, tb, st))
+    (c2k, t2k, s2k), (c2p, t2p, s2p) = res
+    off = torch.ones(n, dtype=torch.bool, device=device)
+    off[live.long()] = False
+    for k in ("generated", "alive"):
+        if c2k[k] != c2p[k]:
+            raise AssertionError(f"11a compacted: kernel {k} {c2k[k]} != "
+                                 f"plain {c2p[k]}")
+    for k in ("entries", "substeps", "work", "walk"):
+        if abs(c2k[k] - c2p[k]) > max(2.0, 0.01 * c2p[k]):
+            raise AssertionError(f"11a compacted: kernel {k} {c2k[k]} vs "
+                                 f"plain {c2p[k]}")
+    l1c = float((t2k - t2p).abs().sum() / t2p.abs().sum())
+    if not (torch.equal(s2k[:, off], spl[:, off])
+            and torch.equal(s2p[:, off], spl[:, off])) or l1c > L1_TOL or \
+            abs(float(t2k.sum()) - c2k["weight"]) > 1e-9 * c2k["weight"]:
+        raise AssertionError(f"11a compacted: L1 {l1c}, or a slot off the "
+                             "list changed, or deposits missing")
+    log(f"  11a compacted launch ({live.shape[0]} of {n} slots, "
+        f"{iters // 4} iterations): table L1 {l1c:.4e}, kernel {c2k}, "
+        f"plain {c2p}; the {int(off.sum())} slots off the list unchanged")
+    return dict(err=max(err, float((t2k - t2p).abs().max())), ms=ms,
+                plain_ms=plain_ms, bound=bound[:2], counters=ck)
+
+
+TAB_STAGES = ("spawn", "walk", "coords", "weight", "scatter")
+
+
+def tab_stats(c):
+    """The tabulator kernel's account from counters c (TAB_COUNTERS, a
+    launch's or a run's sums): live-lane efficiency (live slot-iterations
+    over 32 x warp-iterations), the comb's lane efficiency (sub-steps over
+    the lane-slots of the rounds the kernel ran, comb_slots), sub-steps a
+    live slot-iteration, atomics a nonzero sub-step, cycles a
+    warp-iteration and each stage's share of lane 0's cycles.  A counter
+    the kernel lacks (an older checkout under --tab-turns) reads as
+    None."""
+    ratio = lambda a, b: (c[a] / c[b] if c.get(a) is not None
+                          and c.get(b) else None)
+    out = dict(live_eff=(c["work"] / (32 * c["warps"]) if c.get("warps")
+                         else None),
+               comb_eff=ratio("substeps", "comb_slots"),
+               substeps_per_iter=ratio("substeps", "work"),
+               atomics_per_entry=ratio("atomics", "entries"))
+    cyc = [c.get(f"cyc_{k}") for k in TAB_STAGES]
+    total = sum(cyc) if None not in cyc else 0
+    out["cycles_per_warp_iter"] = (total / c["warps"] if total else None)
+    out["shares"] = ({k: v / total for k, v in zip(TAB_STAGES, cyc)}
+                     if total else None)
+    return out
+
+
+def fmt_tab_stats(st):
+    f = lambda v: "n/a" if v is None else f"{v:.4f}"
+    shares = ("n/a" if st["shares"] is None else ", ".join(
+        f"{k} {v:.4f}" for k, v in st["shares"].items()))
+    return (f"live-lane efficiency {f(st['live_eff'])}, comb lane "
+            f"efficiency {f(st['comb_eff'])}, sub-steps a live slot-iteration "
+            f"{f(st['substeps_per_iter'])}, atomics a nonzero sub-step "
+            f"{f(st['atomics_per_entry'])}, cycles a warp-iteration "
+            f"{f(st['cycles_per_warp_iter'])}; shares of lane 0's cycles: "
+            + shares)
+
+
+@contextlib.contextmanager
+def tab_launch_times():
+    """Within the block, time every tabulator kernel launch
+    (tabulator.kernel.launch) between CUDA events on its stream; yields a
+    list that holds, once the block has ended (one synchronize), a dict
+    for each launch: its iterations, the slots it served, its ms and its
+    counters."""
+    import torch
+    from clsim_tpu_torch.tabulator import kernel as TK
+    inner, events, out = TK.launch, [], []
+
+    def timed_launch(block, state, steps, keys, table, *a, **kw):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        c = inner(block, state, steps, keys, table, *a, **kw)
+        e1.record()
+        slots = a[0] if a else kw.get("slots")
+        events.append((int(keys.iter.shape[0]), int(
+            state.shape[1] if slots is None else slots.shape[0]), e0, e1, c))
+        return c
+
+    TK.launch = timed_launch
+    try:
+        yield out
+    finally:
+        TK.launch = inner
+    torch.cuda.synchronize()
+    out.extend(dict(iters=i, slots=n, ms=e0.elapsed_time(e1),
+                    counters=dict(zip(TK.TAB_COUNTERS, c.tolist())))
+               for i, n, e0, e1, c in events)
+
+
+def fmt_launches(lt):
+    return ", ".join(f"{x['ms']:.4f} ms ({x['iters']} it, {x['slots']} "
+                     "slots)" for x in lt)
+
+
+def summed(lt):
+    """The counters of launches lt summed."""
+    out = collections.Counter()
+    for x in lt:
+        out.update(x["counters"])
+    return dict(out)
+
+
+def normalize_split(raw, shape, norm):
+    """table._normalized on the raw device table: its wall (s, ending in a
+    synchronize), and the device time of its division kernels and of its
+    device-to-host copies from one more call under the profiler (None
+    when the trace holds none); and the first touch of a fresh host array
+    of the table's size alone (np.empty, then filled), the host's share of
+    a copy into untouched pageable memory."""
+    import torch
+    from clsim_tpu_torch.tabulator import table as TT
+    from clsim_tpu_torch.util.profiling import trace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    TT._normalized(raw, shape, norm)
+    whole = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d) as prof:
+            TT._normalized(raw, shape, norm)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    copy = sum(e.device_time for e in dev if e.name.startswith("Memcpy"))
+    divide = sum(e.device_time for e in dev
+                 if not e.name.startswith("Memcpy"))
+    t0 = time.perf_counter()
+    np.empty(shape).fill(0.0)
+    touch = time.perf_counter() - t0
+    return dict(whole=whole, divide=divide * 1e-6 if divide else None,
+                copy=copy * 1e-6 if copy else None, touch=touch)
 
 
 def phase11a(device, card):
@@ -2998,23 +3180,39 @@ def phase11a(device, card):
         out["table"] = tab_call(inputs, steps, 1, axes, tally)
 
     TK.LAUNCHES["tabulate"] = 0
-    pdt = profile_device_time(run, reps=1, warmup=0)
+    with tab_launch_times() as lt:
+        pdt = profile_device_time(run, reps=1, warmup=0)
     launches = TK.LAUNCHES["tabulate"]
     peak = torch.cuda.max_memory_allocated()
     check_table("11a", out.pop("table"), tally, device)
     wall, iters = pdt["first_call_s"], tally["iterations"]
-    if launches != tally["syncs"] or launches == 0:
+    if launches != tally["syncs"] or launches == 0 or len(lt) != launches:
         raise AssertionError(f"11a: {launches} kernel launches, "
-                             f"{tally['syncs']} syncs")
+                             f"{tally['syncs']} syncs, {len(lt)} timed")
+    kernel_s = sum(x["ms"] for x in lt) * 1e-3
     log(f"  11a: {TAB_SLOTS} slots x {TAB_PHOTONS} photons = {n_photons} "
         f"photons in {wall:.4f} s = {n_photons / wall:.6g} photons/s, "
         f"{iters} iterations ({wall / iters * 1e3:.4f} ms an iteration) in "
         f"{launches} kernel launches, {tally['atomics']} table atomics for "
-        f"{tally['entries']} nonzero sub-steps "
-        f"({1 - tally['atomics'] / tally['entries']:.4f} merged), peak "
+        f"{tally['entries']} nonzero sub-steps, peak "
         f"memory {peak / 2 ** 30:.4f} GiB, on {card}")
+    log(f"  11a kernel launches between CUDA events: " + fmt_launches(lt)
+        + f"; summed {kernel_s:.6f} s = {n_photons / kernel_s:.6g} photons/s "
+        f"of kernel; on {card}")
+    stats = tab_stats(tally)
+    log(f"  11a kernel account over the run: " + fmt_tab_stats(stats))
     log(f"  11a profile_device_time (reps 1, warmup 0): " + ", ".join(
         f"{k} {v}" for k, v in pdt.items()) + f"; on {card}")
+    # the time outside the kernel: tabulate's normalization, by stage
+    norm = np.ones(axes.shape[:3])
+    norm[1:-1, 1:-1, 1:-1] = axes.bin_volumes() / (np.pi * 0.16510 ** 2)
+    split = normalize_split(tally["raw"], axes.shape, norm)
+    nm = lambda v: "not measured" if v is None else f"{v:.4f} s"
+    log(f"  11a outside the kernel: table._normalized {split['whole']:.4f} s;"
+        f" its division on the card {nm(split['divide'])} and device-to-host"
+        f" copies {nm(split['copy'])} of device time (profiler); a bare "
+        f"first touch of a host array of the table's size "
+        f"{split['touch']:.4f} s; on {card}")
     del tally
 
     def timed_and_traced(name, fn, n_it):
@@ -3054,11 +3252,14 @@ def phase11a(device, card):
     # the same photons on four times the slots (more warps a SM)
     wide = tab_steps(4 * TAB_SLOTS, TAB_PHOTONS // 4, device)
     tally = {}
-    _, wall_w = timed(lambda: tab_call(inputs, wide, 1, axes, tally))
+    with tab_launch_times() as lt_w:
+        _, wall_w = timed(lambda: tab_call(inputs, wide, 1, axes, tally))
+    kernel_w = sum(x["ms"] for x in lt_w) * 1e-3
     log(f"  11a on {4 * TAB_SLOTS} slots x {TAB_PHOTONS // 4} photons: "
         f"{wall_w:.4f} s = {n_photons / wall_w:.6g} photons/s, "
-        f"{tally['iterations']} iterations in {tally['syncs']} launches; "
-        f"on {card}")
+        f"{tally['iterations']} iterations in {tally['syncs']} launches "
+        f"({fmt_launches(lt_w)}; kernel {kernel_w:.6f} s against "
+        f"{kernel_s:.6f} s on {TAB_SLOTS} slots); on {card}")
     del tally, wide
     key = rng.fold_in(rng.base_key(1), 0)
     row = tab_kernel_against_plain(inputs, axes, steps, key, TAB_CMP_ITERS,
@@ -3086,7 +3287,8 @@ def phase11a(device, card):
 
     timed_and_traced("the eager plain version's first chunks",
                      first_chunks, n_it)
-    row["launches"] = launches
+    row.update(launches=launches, kernel_s=kernel_s, stats=stats,
+               split=split)
     return row
 
 
@@ -3351,20 +3553,20 @@ def phase11d(device):
                        cfg.photon_capacity_per_slot)
 
 
-def k1_ptxas(log_text):
-    """{entry: dict(registers, spill_stores, spill_loads, smem, blocks)} of
-    the timed instantiations from nvcc -Xptxas -v output ({} when cached);
-    blocks: resident blocks of 256 threads a SM by registers (8 a thread
-    per allocation unit) and static shared memory (228 KB a SM, 1 KB a
-    block reserved), at most 8 (64 warps)."""
+def ptxas_figures(log_text, pick):
+    """{label: dict(registers, spill_stores, spill_loads, smem, blocks)}
+    from nvcc -Xptxas -v output ({} when cached) for each kernel whose
+    mangled name pick(name) labels (None skips it); blocks: resident
+    blocks of 256 threads a SM by registers (8 a thread per allocation
+    unit) and static shared memory (228 KB a SM, 1 KB a block reserved),
+    at most 8 (64 warps)."""
     import re
     out, cur = {}, None
     for line in log_text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for)"
                       r" '?(\w+)'?", line)
         if m:
-            cur = next((e for e, k in K1_MANGLED.items()
-                        if "propagate_kernel" + k in m.group(1)), None)
+            cur = pick(m.group(1))
             continue
         if cur is None:
             continue
@@ -3383,6 +3585,30 @@ def k1_ptxas(log_text):
             d.update(registers=regs, smem=smem,
                      blocks=min(8, by_regs, by_smem))
     return out
+
+
+def k1_ptxas(log_text, every=False):
+    """ptxas_figures of K1's timed instantiations (K1_MANGLED), or with
+    `every` of all its instantiations by mangled name."""
+    if every:
+        return ptxas_figures(log_text, lambda f: f if "propagate_kernel" in f
+                             else None)
+    return ptxas_figures(log_text, lambda f: next(
+        (e for e, k in K1_MANGLED.items() if "propagate_kernel" + k in f),
+        None))
+
+
+def tab_ptxas(log_text):
+    """ptxas_figures of T1's 8 instantiations, labelled
+    tabulate<MED, CYL, IMPACT>."""
+    import re
+
+    def pick(f):
+        m = re.search(r"tabulate_kernelILi(\d)ELb(\d)ELb(\d)E", f)
+        return f"tabulate<{m.group(1)}, {m.group(2)}, {m.group(3)}>" \
+            if m else None
+
+    return ptxas_figures(log_text, pick)
 
 
 def k1_turn_cases(device):
@@ -3516,36 +3742,13 @@ def run_turn(flag, root, prefix):
     return json.loads(line[len(prefix):])
 
 
-def host_split_turns(turns, json_path=None):
-    """--host-split LABEL:ROOT ...: host_split_worker for each turn in the
-    order given (e.g. parent, new, new, parent), printing each turn's
-    simulate wall and stages; with json_path, also write them there."""
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, timeout=60).stdout.strip()
-    log(card)
-    results = []
-    for turn in turns:
-        label, root = turn.split(":")
-        r = run_turn("--split-worker", root, "SPLIT ")
-        r["label"] = label
-        results.append(r)
-        for name, c in r["cases"].items():
-            log(f"turn {label} ({root}, native sampler {r['native']}) "
-                f"{name}: simulate {c['simulate']:.4f} s (walls "
-                + ", ".join(f"{w:.4f}" for w in c["walls"]) + "); "
-                + fmt_split(c))
-        if json_path:
-            with open(json_path, "w") as f:
-                json.dump(dict(card=card, turns=results), f)
-    return results
-
-
-def k1_turns(turns, json_path=None):
-    """Run the turns 'label:root' in the order given, each in a process of
-    its own, and print every turn's times, each case's account in the
-    first turn of each body, and the ptxas figures of each body; with
-    json_path, also write the parsed turns there.  Returns them."""
+def run_turns(flag, prefix, turns, json_path, report):
+    """Run this script's worker `flag` for each turn 'label:root' in the
+    order given (e.g. parent, new, new, parent), each in a process of its
+    own (run_turn); after each, report(result, label, root, first, card)
+    prints it (first: the label's first turn) and, with json_path, the
+    card's name and every parsed turn are written there.  Returns the
+    turns."""
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
@@ -3553,9 +3756,35 @@ def k1_turns(turns, json_path=None):
     results, seen = [], set()
     for turn in turns:
         label, root = turn.split(":")
-        r = run_turn("--k1-worker", root, "K1 ")
+        r = run_turn(flag, root, prefix)
         r["label"] = label
         results.append(r)
+        report(r, label, root, label not in seen, card)
+        seen.add(label)
+        if json_path:
+            with open(json_path, "w") as f:
+                json.dump(dict(card=card, turns=results), f)
+    return results
+
+
+def host_split_turns(turns, json_path=None):
+    """--host-split LABEL:ROOT ...: host_split_worker for each turn in the
+    order given, printing each turn's simulate wall and stages."""
+    def report(r, label, root, first, card):
+        for name, c in r["cases"].items():
+            log(f"turn {label} ({root}, native sampler {r['native']}) "
+                f"{name}: simulate {c['simulate']:.4f} s (walls "
+                + ", ".join(f"{w:.4f}" for w in c["walls"]) + "); "
+                + fmt_split(c))
+
+    return run_turns("--split-worker", "SPLIT ", turns, json_path, report)
+
+
+def k1_turns(turns, json_path=None):
+    """--turns LABEL:ROOT ...: k1_turn_worker for each turn in the order
+    given, printing every turn's times, each case's account in the first
+    turn of each body, and the ptxas figures of each body."""
+    def report(r, label, root, first, card):
         log(f"turn {label} ({root}), build {r['build_s']:.1f} s: "
             + "; ".join(f"{e} " + ", ".join(f"{m} {v[m]['ms']:.4f} ms"
                                             for m in v)
@@ -3563,21 +3792,116 @@ def k1_turns(turns, json_path=None):
         log(f"  flashes {label}: " + "; ".join(
             f"{e} simulate {v['wall']:.3f} s, kernel {v['kernel_s']:.4f} s"
             for e, v in r["flash"].items()))
-        if label not in seen:
-            seen.add(label)
+        if first:
             for e, v in r["entries"].items():
                 log(f"  account {label} {e}: " + fmt_stats(v["stream"]["stats"]))
             for e, v in r["flash"].items():
                 log(f"  account {label} flash {e}: " + fmt_stats(v["stats"]))
-        if json_path:
-            with open(json_path, "w") as f:
-                json.dump(dict(card=card, turns=results), f)
+
+    results = run_turns("--k1-worker", "K1 ", turns, json_path, report)
     ptx = {}
     for r in results:
         for e, d in r["ptxas"].items():
             ptx.setdefault(r["label"], {})[e] = d
     for label, d in ptx.items():
         log(f"ptxas {label}: " + json.dumps(d))
+    return results
+
+
+def tab_turn_worker(root):
+    """One turn of --tab-turns: import the package at `root`, build its
+    kernels, then time T1's kernel row (11a's first TAB_CMP_ITERS
+    iterations on every slot, TAB_ROW_WARM + TAB_ROW_REPS launches between
+    CUDA events: the median of the first TAB_REPS, as the kernels line
+    times it, and of the last TAB_ROW_REPS, warm), TAB_REPS runs of 11a's
+    full tabulate (wall, and each kernel
+    launch between CUDA events) and one on four times the slots; print one
+    line 'TAB {json}' with these, the runs' counters and the ptxas figures
+    of T1's instantiations and of every K1 instantiation."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from clsim_tpu_torch import _build
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.tabulator import default_spherical_axes
+    from clsim_tpu_torch.tabulator import kernel as TK
+    from clsim_tpu_torch.tabulator import table as TT
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.load()
+    log_text = _build.BUILD_INFO["log"]
+    out = dict(root=root, build_s=time.perf_counter() - t0,
+               ptxas=tab_ptxas(log_text),
+               k1_ptxas=k1_ptxas(log_text, every=True))
+    inputs = tab_inputs(device)
+    axes = default_spherical_axes()
+    tab_call(inputs, tab_steps(1024, 1, device), seed=0)      # warm-up
+    steps = tab_steps(TAB_SLOTS, TAB_PHOTONS, device)
+    medium, spectra, source = inputs
+    plan, _, _ = TT._table_plan(medium, spectra, source, axes, None,
+                                tab_cfg(steps), 1.0, 46.0)
+    keys = TK.launch_keys(rng.fold_in(rng.base_key(1), 0), 0, TAB_CMP_ITERS,
+                          plan.block.n_sub, plan.block.impact, device)
+    state0, sp = TT.init_state(steps), K.pack_steps(steps)
+    table = torch.zeros(axes.n_bins, dtype=torch.float64, device=device)
+    c, _, times, _ = launch_ms(lambda st, tb: TK.launch(
+        plan.block, st, sp, keys, tb), state0, table,
+        TAB_ROW_WARM + TAB_ROW_REPS)
+    out["row"] = dict(ms=float(np.median(times[TAB_ROW_WARM:])),
+                      cold_ms=float(np.median(times[:TAB_REPS])),
+                      times=times,
+                      counters=dict(zip(TK.TAB_COUNTERS, c.tolist())))
+    del table
+    out["runs"] = []
+    for _ in range(TAB_REPS):
+        tally = {}
+        with tab_launch_times() as lt:
+            _, wall = timed(lambda: tab_call(inputs, steps, 1, axes, tally))
+        out["runs"].append(dict(wall=wall, iterations=tally["iterations"],
+                                kernel_ms=sum(x["ms"] for x in lt),
+                                launches=lt))
+    wide = tab_steps(4 * TAB_SLOTS, TAB_PHOTONS // 4, device)
+    with tab_launch_times() as lt:
+        _, wall = timed(lambda: tab_call(inputs, wide, 1, axes))
+    out["wide"] = dict(wall=wall, kernel_ms=sum(x["ms"] for x in lt),
+                       launches=lt)
+    print("TAB " + json.dumps(out), flush=True)
+
+
+def tab_turns(turns, json_path=None):
+    """--tab-turns LABEL:ROOT ...: tab_turn_worker for each turn in the
+    order given, printing each turn's kernel row, each run's wall and
+    kernel time with every launch, the runs' account (tab_stats) on the
+    first turn of each body, and the ptxas figures of each body (T1's,
+    and whether K1's equal the first body's)."""
+    def report(r, label, root, first, card):
+        runs = r["runs"]
+        log(f"turn {label} ({root}), build {r['build_s']:.1f} s: kernel row "
+            f"{r['row']['ms']:.4f} ms (median of {TAB_ROW_REPS} after "
+            f"{TAB_ROW_WARM}; of the first {TAB_REPS}: "
+            f"{r['row']['cold_ms']:.4f}); 11a "
+            f"kernel " + ", ".join(f"{x['kernel_ms']:.3f}" for x in runs)
+            + " ms, wall " + ", ".join(f"{x['wall']:.4f}" for x in runs)
+            + f" s; 4x slots kernel {r['wide']['kernel_ms']:.3f} ms, wall "
+            f"{r['wide']['wall']:.4f} s; on {card}")
+        log(f"  launches {label}: " + fmt_launches(runs[0]["launches"]))
+        if first:
+            log(f"  account {label} kernel row: "
+                + fmt_tab_stats(tab_stats(r["row"]["counters"])))
+            log(f"  account {label} 11a: " + fmt_tab_stats(tab_stats(
+                summed(runs[0]["launches"]))))
+            log(f"  account {label} 4x slots: " + fmt_tab_stats(tab_stats(
+                summed(r["wide"]["launches"]))))
+
+    results = run_turns("--tab-worker", "TAB ", turns, json_path, report)
+    first_k1 = next((r["k1_ptxas"] for r in results if r["k1_ptxas"]), None)
+    for r in results:
+        if r["ptxas"]:
+            log(f"ptxas {r['label']}: " + json.dumps(r["ptxas"]))
+        if r["k1_ptxas"]:
+            log(f"ptxas {r['label']}: K1's {len(r['k1_ptxas'])} "
+                f"instantiations equal the first body's: "
+                f"{r['k1_ptxas'] == first_k1}")
     return results
 
 
@@ -3920,20 +4244,22 @@ def main():
     argv = sys.argv[1:]
     if argv[:1] == ["--k1-worker"]:
         return k1_turn_worker(argv[1])
+    if argv[:1] == ["--tab-worker"]:
+        return tab_turn_worker(argv[1])
     if argv[:1] == ["--split-worker"]:
         return host_split_worker(argv[1])
     if argv[:1] == ["--mesh-worker"]:
         return mesh_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
     if argv[:1] == ["--mesh"]:
         return mesh_only(int(argv[1]))
-    if argv[:1] in (["--turns"], ["--host-split"]):
+    if argv[:1] in (["--turns"], ["--host-split"], ["--tab-turns"]):
         turns = argv[1:]
         json_path = None
         if "--json" in turns:
             i = turns.index("--json")
             json_path, turns = turns[i + 1], turns[:i] + turns[i + 2:]
-        (k1_turns if argv[0] == "--turns" else host_split_turns)(
-            turns, json_path)
+        {"--turns": k1_turns, "--host-split": host_split_turns,
+         "--tab-turns": tab_turns}[argv[0]](turns, json_path)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -106,7 +106,7 @@ def load():
                "clsim_record_state_rows"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = ctypes.c_int
-    lib.clsim_tabulate.argtypes = [ctypes.c_int] + [vp] * 15
+    lib.clsim_tabulate.argtypes = [ctypes.c_int] + [vp] * 16
     lib.clsim_tabulate.restype = ctypes.c_int
     for fn in ("clsim_tab_params_size", "clsim_tab_counters"):
         getattr(lib, fn).argtypes = []

@@ -16,7 +16,8 @@ propagation_kernel.c.cl:296-304).  It reads
     length, and the angular acceptance;
   * the slot state: the propagation kernel's NSF rows and the comb's
     remainder, (NSF + 1, N) float32; the steps as pack_steps' (NST, N)
-    rows;
+    rows; the int32 list of the slots the launch serves (thread t serves
+    slot list[t] and draws with that slot's index), or every slot;
   * the key tables of the launch (launch_keys): iteration i's folded key and,
     with the impact axis, sub-step m's impact key, folded on the host by
     ops/rng.py, so the kernel draws the JAX package's numbers bit for bit;
@@ -41,15 +42,26 @@ from ..propagate import kernel as K
 TAB_MAX_DIM = 5
 TAB_MAX_ANG = 16
 IMPACT_SALT = 0x1A7B      # folded into the iteration key for impact draws
-TAB_LAUNCH_ITERS = 512    # iterations a kernel launch (a host sync each)
+# iterations a kernel launch (a host sync each) while more than half the
+# slots live, and after that, when the launches serve the live slots alone
+TAB_LAUNCH_ITERS = 512
+TAB_TAIL_ITERS = 128
 
 # the launch's counters, in this order (csrc/tabulate.cu CNT_*, the weight
 # sum second): nonzero comb sub-steps, their float64 weight sum, sub-steps
 # tested (inside their segment), live slot-iterations, layer-walk steps,
-# slots alive at the end, photons made, and (kernel only, 0 in the plain
-# version) the table atomics after merging runs of sub-steps in one bin
+# slots alive at the end, photons made, and the kernel-only counts
+# (KERNEL_ONLY, 0 in the plain version): the table atomics (one a nonzero
+# sub-step); warp-iterations run (with a live lane); the comb's
+# lane-slots its rounds took (32 x rounds, summed over warp-iterations);
+# and each warp's clock cycles (lane 0's) in the spawn, the walk, the
+# comb's coordinates and bins, its weights and table atomics, and the
+# advance and scatter
 TAB_COUNTERS = ("entries", "weight", "substeps", "work", "walk", "alive",
-                "generated", "atomics")
+                "generated", "atomics", "warps", "comb_slots",
+                "cyc_spawn", "cyc_walk", "cyc_coords", "cyc_weight",
+                "cyc_scatter")
+KERNEL_ONLY = TAB_COUNTERS[7:]
 N_TAB_INT = len(TAB_COUNTERS) - 1
 LAUNCHES = {"tabulate": 0}   # kernel launches (the plain version counts none)
 
@@ -60,7 +72,7 @@ class _TabParams(ctypes.Structure):
                  ("stride", ctypes.c_longlong * TAB_MAX_DIM),
                  ("step_len", ctypes.c_double)]
                 + [(n, ctypes.c_int) for n in ("n_slots", "iters", "n_sub",
-                                               "n_ang")]
+                                               "n_ang", "n_list")]
                 + [(n, ctypes.c_int * TAB_MAX_DIM) for n in ("ax_n",
                                                              "ax_pow")]
                 + [(n, ctypes.c_float * TAB_MAX_DIM) for n in (
@@ -186,13 +198,16 @@ def _words(t: torch.Tensor) -> torch.Tensor:
 
 
 def launch(block: TabBlock, state: torch.Tensor, steps: torch.Tensor,
-           keys: TabKeys, table: torch.Tensor) -> torch.Tensor:
+           keys: TabKeys, table: torch.Tensor,
+           slots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the kernel for keys.iter.shape[0] iterations on the current
-    stream: `state` ((NSF + 1, N) float32) is updated in place and `table`
-    (axes.n_bins float64) receives the deposits.  Returns the float64
-    TAB_COUNTERS vector on the device (no host sync).  Raises
-    NotImplementedError for inputs the kernel does not serve and
-    RuntimeError when the launch fails."""
+    stream, one thread for each slot of `slots` (int32, the live slots in
+    any order; None serves every slot): `state` ((NSF + 1, N) float32) is
+    updated in place and `table` (axes.n_bins float64) receives the
+    deposits.  Returns the float64 TAB_COUNTERS vector on the device (no
+    host sync).  Raises NotImplementedError for inputs the kernel does not
+    serve, ValueError for an empty slot list and RuntimeError when the
+    launch fails."""
     if block.unsupported:
         raise NotImplementedError(block.unsupported)
     dev = state.device
@@ -207,12 +222,18 @@ def launch(block: TabBlock, state: torch.Tensor, steps: torch.Tensor,
                         torch.int64, dev)
     for name, t in block.tables.items():
         K._check_tensor(name, t, None, torch.float32, dev)
+    n_list = n
+    if slots is not None:
+        n_list = int(slots.shape[0])
+        K._check_tensor("slots", slots, (n_list,), torch.int32, dev)
+        if n_list == 0:
+            raise ValueError("an empty slot list: nothing to launch")
     if 9 * n >= 2 ** 32:
         raise NotImplementedError(TOO_MANY_SLOTS)
     params = K._Params.from_buffer_copy(block.params)
     params.n_slots = n
     tab = _TabParams.from_buffer_copy(block.tab)
-    tab.n_slots, tab.iters = n, iters
+    tab.n_slots, tab.iters, tab.n_list = n, iters, n_list
     cnt_i = torch.zeros(N_TAB_INT, dtype=torch.int64, device=dev)
     cnt_w = torch.zeros(1, dtype=torch.float64, device=dev)
     w_keys = _words(keys.iter)
@@ -224,7 +245,8 @@ def launch(block: TabBlock, state: torch.Tensor, steps: torch.Tensor,
     tb = block.tables
     rc = lib.clsim_tabulate(
         block.mode, ctypes.addressof(params), ctypes.addressof(tab),
-        ptr(state), ptr(steps), ptr(w_keys), ptr(w_sub), ptr(tb["layers"]),
+        ptr(state), ptr(steps), ptr(slots), ptr(w_keys), ptr(w_sub),
+        ptr(tb["layers"]),
         ptr(tb["spec_tab"]), ptr(tb["bias_tab"]), ptr(tb["tilt_zc"]),
         ptr(tb["wtab"]), ptr(table), ptr(cnt_i), ptr(cnt_w),
         torch.cuda.current_stream(dev).cuda_stream)

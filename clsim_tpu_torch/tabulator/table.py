@@ -17,12 +17,14 @@ The table is one float64 tensor of axes.n_bins on the medium's device.  On
 a card the iterations run in the kernel of csrc/tabulate.cu (tabulator/
 kernel.py packs its inputs): one thread a slot, each sub-step added into the
 table with atomicAdd, as the reference's GPU kernel does
-(propagation_kernel.c.cl:296-304), TAB_LAUNCH_ITERS iterations a launch.
+(propagation_kernel.c.cl:296-304), TAB_LAUNCH_ITERS iterations a launch
+while more than half the slots live and TAB_TAIL_ITERS after that.
 On the CPU they run in its plain version, tabulate_iterations_plain: the
 iteration of _make_tabulate_body (the port's engine pieces, with the comb
 of sub-steps as (max_substeps, N) tensors) and one index_add_ an iteration.
 Each launch makes one host sync, which reads its counters, the alive count
-among them.
+among them; every launch after the first serves only the slots still live
+(live_slots, built on the device from that count).
 
 Random numbers are the JAX package's, bit for bit: key = base_key(seed),
 batch i's key fold_in(key, i), iteration i's (9, N) block
@@ -365,85 +367,120 @@ def init_state(steps: StepBatch) -> torch.Tensor:
 
 
 def tabulate_iterations_plain(plan: TabPlan, state, steps, keys: TK.TabKeys,
-                              table: torch.Tensor) -> torch.Tensor:
+                              table: torch.Tensor,
+                              slots: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
     """The kernel's computation in plain PyTorch, with its interface: the
-    iterations of `keys` (TabKeys) on the (NSF + 1, N) state, updated in
-    place, and the (NST, N) step rows; each iteration's comb entries are
-    added to `table` with index_add_.  Returns the float64
-    TAB_COUNTERS vector (atomics 0) on the state's device."""
+    iterations of `keys` (TabKeys) on the slots of `slots` (int32; None
+    for every slot) of the (NSF + 1, N) state, updated in place, and the
+    (NST, N) step rows; each slot draws with its own index, and each
+    iteration's comb entries are added to `table` with index_add_.
+    Returns the float64 TAB_COUNTERS vector (KERNEL_ONLY 0) on the state's
+    device."""
     n = state.shape[1]
     dev = state.device
-    st = E.SlotState(*state[:K.NSF].unbind(0))
-    sb = StepBatch(**{f: steps[k] for k, f in enumerate(K.STEP_FIELDS)},
+    cols = slice(None) if slots is None else slots.long()
+    sub = state[:, cols]
+    st = E.SlotState(*sub[:K.NSF].unbind(0))
+    sb = StepBatch(**{f: steps[k, cols] for k, f in enumerate(K.STEP_FIELDS)},
                    num_photons=st.photons_left)
-    rem = state[K.NSF]
+    rem = sub[K.NSF]
     offs = _offsets(plan.block.n_sub, plan.step_length, dev)
     counts = {}
     entries = weight = torch.zeros((), dtype=torch.float64, device=dev)
     for k in range(keys.iter.shape[0]):
-        st, rem, idx, w = plan.body(*_draws(keys, k, n), st, rem, sb, offs,
+        u, ui = _draws(keys, k, n)
+        ui = None if ui is None else ui[..., cols]
+        st, rem, idx, w = plan.body(u[:, cols], ui, st, rem, sb, offs,
                                     counts)
         # zero weights add nothing: the whole comb goes in, with no sync
         table.index_add_(0, idx, w.double())
         entries = entries + (w != 0.0).sum()
         weight = weight + w.sum(dtype=torch.float64)
-    state[:K.NSF] = torch.stack(list(st))
-    state[K.NSF] = rem
+    state[:, cols] = torch.cat([torch.stack(list(st)), rem[None]])
     alive = ((st.in_flight > 0.5) | (st.photons_left > 0.5)).sum()
     zero = torch.zeros((), device=dev)
     c = [entries, weight] + [counts.get(k, zero) for k in (
-        "substeps", "work", "walk")] + [alive, counts.get("generated", zero),
-                                        zero]
+        "substeps", "work", "walk")] + [alive, counts.get("generated", zero)]
+    c += [zero] * len(TK.KERNEL_ONLY)
     return torch.stack([torch.as_tensor(v, device=dev).to(torch.float64)
                         for v in c])
 
 
 def tabulate_iterations(plan: TabPlan, state, steps, keys: TK.TabKeys,
-                        table: torch.Tensor) -> torch.Tensor:
-    """Run the iterations of `keys` on every slot: CUDA tensors launch the
-    kernel (csrc/tabulate.cu; it raises when the kernel cannot serve the
-    inputs or the launch fails), CPU tensors run
-    tabulate_iterations_plain.  Returns the TAB_COUNTERS vector."""
+                        table: torch.Tensor,
+                        slots: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Run the iterations of `keys` on the slots of `slots` (None: every
+    slot): CUDA tensors launch the kernel (csrc/tabulate.cu; it raises
+    when the kernel cannot serve the inputs or the launch fails), CPU
+    tensors run tabulate_iterations_plain.  Returns the TAB_COUNTERS
+    vector."""
     if state.device.type == "cuda":
-        return TK.launch(plan.block, state, steps, keys, table)
+        return TK.launch(plan.block, state, steps, keys, table, slots)
     if state.device.type == "cpu":
-        return tabulate_iterations_plain(plan, state, steps, keys, table)
+        return tabulate_iterations_plain(plan, state, steps, keys, table,
+                                         slots)
     raise ValueError(f"no tabulator kernel for device {state.device}")
+
+
+def live_slots(state: torch.Tensor, alive: int) -> torch.Tensor:
+    """The int32 indices, ascending, of the slots of the (NSF + 1, N) state
+    with a photon in flight or left, `alive` of them (the count the last
+    launch's counters brought to the host, so that nothing here waits on
+    the device)."""
+    n = state.shape[1]
+    live = (state[K.STATE_FIELDS.index("in_flight")] > 0.5) | \
+        (state[K.STATE_FIELDS.index("photons_left")] > 0.5)
+    pos = torch.where(live, torch.cumsum(live, 0) - 1, alive)
+    out = torch.empty(alive + 1, dtype=torch.int32, device=state.device)
+    out.scatter_(0, pos, torch.arange(n, dtype=torch.int32,
+                                      device=state.device))
+    return out[:alive]
 
 
 def _tabulate_batch(plan: TabPlan, steps: StepBatch, key, table: torch.Tensor,
                     tally: Optional[dict] = None,
                     launch_iters: Optional[int] = None,
+                    tail_iters: Optional[int] = None,
                     max_iterations: int = MAX_ITERATIONS) -> int:
     """Propagate one slot-assigned batch in table mode, adding its
     unnormalized contents to `table`, in launches of `launch_iters`
-    iterations (default TAB_LAUNCH_ITERS on a card, CHUNK_ITERS on the
-    CPU), the last one cut at `max_iterations`; returns the iterations
-    run.  A launch's one host sync reads its counters, the alive count
-    among them: the batch ends after the launch that leaves none."""
+    iterations while more than half the slots live and of `tail_iters`
+    after that (defaults TAB_LAUNCH_ITERS and TAB_TAIL_ITERS on a card,
+    CHUNK_ITERS for both on the CPU, the JAX chunk), the last one cut at
+    `max_iterations`; returns the iterations run.  The first launch serves
+    every slot, each later one the list of the slots still live.  A
+    launch's one host sync reads its counters, the alive count among them:
+    the batch ends after the launch that leaves none."""
     dev = steps.x.device
+    cuda = dev.type == "cuda"
     if launch_iters is None:
-        launch_iters = TK.TAB_LAUNCH_ITERS if dev.type == "cuda" \
-            else CHUNK_ITERS
+        launch_iters = TK.TAB_LAUNCH_ITERS if cuda else CHUNK_ITERS
+    if tail_iters is None:
+        tail_iters = TK.TAB_TAIL_ITERS if cuda else CHUNK_ITERS
     state = init_state(steps)
+    n = state.shape[1]
     sp = K.pack_steps(steps)
     hkey = rng.as_key(key, "cpu")
+    slots = None
     i0 = 0
     while i0 < max_iterations:
-        n_it = min(launch_iters, max_iterations - i0)
+        full = slots is None or 2 * slots.shape[0] > n
+        n_it = min(launch_iters if full else tail_iters, max_iterations - i0)
         keys = TK.launch_keys(hkey, i0, n_it, plan.block.n_sub,
                               plan.block.impact, dev)
         c = dict(zip(TK.TAB_COUNTERS, tabulate_iterations(
-            plan, state, sp, keys, table).tolist()))
+            plan, state, sp, keys, table, slots).tolist()))
         i0 += n_it
         if tally is not None:
-            for k in ("entries", "substeps", "work", "walk", "generated",
-                      "atomics"):
+            for k in ("entries", "substeps", "work", "walk", "generated") \
+                    + TK.KERNEL_ONLY:
                 tally[k] = tally.get(k, 0) + int(c[k])
             tally["weight"] = tally.get("weight", 0.0) + c["weight"]
             tally["syncs"] = tally.get("syncs", 0) + 1
         if c["alive"] == 0:
             break
+        slots = live_slots(state, int(c["alive"]))
     return i0
 
 
@@ -540,9 +577,9 @@ def tabulate(step_batches, medium: MediumProperties, spectra: SpectrumTable,
     `tally` (a dict) gains the run's counts: "iterations", "entries" (the
     nonzero comb entries added), "weight" (the float64 sum of every comb
     weight, which the table's sum must equal), "syncs" (host syncs, one a
-    launch), "substeps", "work", "walk", "generated", "atomics"
-    (TAB_COUNTERS) and "raw" (the unnormalized flat table, float64 on the
-    device)."""
+    launch), "substeps", "work", "walk", "generated" and the kernel-only
+    counts (TAB_COUNTERS; KERNEL_ONLY are 0 on the CPU) and "raw" (the
+    unnormalized flat table, float64 on the device)."""
     axes = axes or default_spherical_axes()
     device = medium.device
     cfg = cfg or PropagationConfig(n_slots=int(step_batches[0].x.shape[0]))

@@ -533,11 +533,11 @@ def test_cuda_tabulate_matches_cpu():
 @pytest.mark.cuda
 def test_cuda_tabulate_runs_the_kernel(monkeypatch):
     """tabulate on a CUDA medium launches the kernel of csrc/tabulate.cu, one
-    launch per TAB_LAUNCH_ITERS iterations, and never runs the plain
-    version; one launch's counters against the plain version's on the card
+    launch per TAB_LAUNCH_ITERS iterations and, in the tail, per
+    TAB_TAIL_ITERS, and never runs the plain version; one launch's counters against the plain version's on the card
     (same state, steps and keys): photons made and alive slots equal,
     nonzero sub-steps and walk steps within 1%, the table's sum the weight
-    sum, fewer atomics than sub-steps."""
+    sum, one atomic a nonzero sub-step."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
     import chip_smoke
@@ -556,8 +556,15 @@ def test_cuda_tabulate_runs_the_kernel(monkeypatch):
     chip_smoke.tab_call(inputs, steps, 5, axes, tally)
     torch.cuda.synchronize()
     assert TK.LAUNCHES["tabulate"] - before == tally["syncs"] > 0
-    assert tally["iterations"] == tally["syncs"] * TK.TAB_LAUNCH_ITERS
-    assert tally["atomics"] < tally["entries"]
+    # launches of TAB_LAUNCH_ITERS, then of TAB_TAIL_ITERS once at most
+    # half the slots live
+    n_long = (tally["iterations"] - tally["syncs"] * TK.TAB_TAIL_ITERS) // (
+        TK.TAB_LAUNCH_ITERS - TK.TAB_TAIL_ITERS)
+    assert 1 <= n_long <= tally["syncs"]
+    assert tally["iterations"] == n_long * TK.TAB_LAUNCH_ITERS + (
+        tally["syncs"] - n_long) * TK.TAB_TAIL_ITERS
+    assert tally["warps"] > 0 and tally["comb_slots"] > 0
+    assert tally["atomics"] == tally["entries"]   # one a nonzero sub-step
     assert abs(float(tally["raw"].sum()) - tally["weight"]) \
         <= 1e-9 * tally["weight"]
     monkeypatch.setattr(TT, "tabulate_iterations_plain", plain)
@@ -582,3 +589,55 @@ def test_cuda_tabulate_runs_the_kernel(monkeypatch):
     assert abs(float(tk.sum()) - ck["weight"]) <= 1e-9 * ck["weight"]
     l1 = float((tk - tp).abs().sum() / tp.abs().sum())
     assert l1 <= 2e-3, l1
+
+
+@pytest.mark.cuda
+def test_cuda_tabulate_compacted_matches_plain():
+    """The kernel on a compacted slot list (live_slots after a first launch,
+    and the same list reversed) against the plain version on the card on
+    the same list, state, steps and keys: photons made and alive slots
+    equal, nonzero sub-steps, sub-steps, live slot-iterations and walk
+    steps within max(2, 1%), table L1 <= 2e-3, the table's sum the weight
+    sum, and the slots off the list unchanged bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.tabulator import kernel as TK
+    from clsim_tpu_torch.tabulator import table as TT
+    dev = torch.device("cuda", 0)
+    axes = chip_smoke.tab_small_axes()["spherical"]
+    medium, spectra, source = chip_smoke.tab_inputs(dev)
+    steps = chip_smoke.tab_steps(4096, 2, dev)
+    plan, _, _ = TT._table_plan(medium, spectra, source, axes, None,
+                                chip_smoke.tab_cfg(steps), 1.0, 46.0)
+    key = rng.fold_in(rng.base_key(7), 0)
+    sp = K.pack_steps(steps)
+    state = TT.init_state(steps)
+    table = torch.zeros(axes.n_bins, dtype=torch.float64, device=dev)
+    keys = TK.launch_keys(key, 0, 96, plan.block.n_sub, False, dev)
+    c = dict(zip(TK.TAB_COUNTERS, TK.launch(plan.block, state, sp, keys,
+                                            table).tolist()))
+    assert 0 < c["alive"] < 4096
+    live = TT.live_slots(state, int(c["alive"]))
+    off = torch.ones(4096, dtype=torch.bool, device=dev)
+    off[live.long()] = False
+    keys = TK.launch_keys(key, 96, 64, plan.block.n_sub, False, dev)
+    for slots in (live, live.flip(0).contiguous()):
+        out = []
+        for fn in (lambda *a: TK.launch(plan.block, *a),
+                   lambda *a: TT.tabulate_iterations_plain(plan, *a)):
+            st = state.clone()
+            tb = torch.zeros_like(table)
+            c = dict(zip(TK.TAB_COUNTERS, fn(st, sp, keys, tb,
+                                             slots).tolist()))
+            assert torch.equal(st[:, off], state[:, off])
+            out.append((c, tb))
+        (ck, tk), (cp, tp) = out
+        assert ck["generated"] == cp["generated"]
+        assert ck["alive"] == cp["alive"]
+        for k in ("entries", "substeps", "work", "walk"):
+            assert abs(ck[k] - cp[k]) <= max(2.0, 0.01 * cp[k]), k
+        assert abs(float(tk.sum()) - ck["weight"]) <= 1e-9 * ck["weight"]
+        assert float((tk - tp).abs().sum() / tp.abs().sum()) <= 2e-3

@@ -6,7 +6,8 @@ written out in numpy, against the same), iterations against the JAX raw
 chunk and whole tables against clsim_tpu.tabulator.tabulate in four
 configurations (spherical, cylindrical, spherical with the impact axis, and
 spherical in a tilted anisotropic ice), a table that does not depend on
-the iterations a launch, the iteration cap, and the counters.
+the iterations a launch or on the launches' schedule, launches on a list
+of live slots, the iteration cap, and the counters.
 
 Tolerances are tests/test_torch_tabulator.py's: positions within 2e-3
 (abs) / 1e-4 (rel), remainders 1e-4, the depth so far 1e-5 (abs) and, as
@@ -284,6 +285,92 @@ def test_table_does_not_depend_on_launch_length(spherical):
     assert t_64["syncs"] < tally["syncs"]
     for k in ("entries", "substeps", "work", "walk", "generated"):
         assert t_64[k] == tally[k], k
+
+
+@pytest.mark.parametrize("launch_iters,tail_iters", [(16, 4), (512, 128)])
+def test_tail_schedule_matches_fixed_launches(spherical, launch_iters,
+                                              tail_iters):
+    """The shortened tail (launches of tail_iters once no more than half
+    the slots live, each on the live slots alone) against fixed launches of
+    launch_iters on every slot: the same table bit for bit, the same
+    counters, and the iterations of the same run cut at a shorter launch's
+    end (no more, and fewer by less than one long launch)."""
+    port, plan, _ = spherical
+    stp, at = port[2], port[4]
+    key = R.fold_in(R.base_key(3), 0)
+    out = []
+    for tail in (tail_iters, launch_iters):
+        table, tally = torch.zeros(at.n_bins, dtype=torch.float64), {}
+        n = TT._tabulate_batch(plan, stp, key, table, tally,
+                               launch_iters=launch_iters, tail_iters=tail)
+        out.append((n, table, tally))
+    (n_s, t_s, c_s), (n_f, t_f, c_f) = out
+    assert torch.equal(t_s, t_f)
+    for k in ("entries", "substeps", "work", "walk", "generated", "weight"):
+        assert c_s[k] == c_f[k], k
+    assert n_f - launch_iters < n_s <= n_f
+    assert n_f % launch_iters == 0 and (n_s - launch_iters) % tail_iters == 0
+
+
+def test_compacted_slot_list_matches_full_run(spherical):
+    """The plain version on the list of live slots (live_slots, ascending,
+    and the same list reversed) after a first launch gives the state of a
+    run on every slot bit for bit, the same counters and the same table
+    within 1e-12 relative; the slots off the list keep their state."""
+    port, plan, _ = spherical
+    stp, at = port[2], port[4]
+    key = R.fold_in(R.base_key(3), 0)
+    sp = K.pack_steps(stp)
+    state = TT.init_state(stp)
+    keys = TK.launch_keys(key, 0, 42, plan.block.n_sub, False, "cpu")
+    c0 = TT.tabulate_iterations_plain(plan, state, sp, keys,
+                                      torch.zeros(at.n_bins,
+                                                  dtype=torch.float64))
+    alive = int(c0[TK.TAB_COUNTERS.index("alive")])
+    assert 0 < alive < SLOTS
+    live = TT.live_slots(state, alive)
+    assert live.dtype == torch.int32
+    want = torch.nonzero((state[1] > 0.5) | (state[0] > 0.5)).flatten()
+    assert torch.equal(live.long(), want)
+    keys = TK.launch_keys(key, 42, 8, plan.block.n_sub, False, "cpu")
+    runs = []
+    for slots in (None, live, live.flip(0)):
+        st, tb = state.clone(), torch.zeros(at.n_bins, dtype=torch.float64)
+        c = TT.tabulate_iterations_plain(plan, st, sp, keys, tb, slots)
+        runs.append((st, tb, c))
+    (s_all, t_all, c_all) = runs[0]
+    assert float(t_all.sum()) > 0
+    for st, tb, c in runs[1:]:
+        assert torch.equal(st, s_all)
+        assert torch.equal(c, c_all)
+        np.testing.assert_allclose(tb.numpy(), t_all.numpy(), rtol=1e-12,
+                                   atol=1e-12 * float(t_all.abs().max()))
+    off = torch.ones(SLOTS, dtype=torch.bool)
+    off[live.long()] = False
+    assert torch.equal(s_all[:, off], state[:, off])
+
+
+def test_kernel_only_counters_are_named(spherical):
+    """TAB_COUNTERS names the kernel-only counts (atomics, warp-iterations,
+    the comb's lane-slots and each stage's clock cycles) after the shared
+    ones, the library's count of integer counters is N_TAB_INT, and the
+    plain version and a CPU run report 0 for each."""
+    port, plan, tally = spherical
+    assert TK.TAB_COUNTERS[:7] == ("entries", "weight", "substeps", "work",
+                                   "walk", "alive", "generated")
+    assert TK.KERNEL_ONLY == ("atomics", "warps", "comb_slots", "cyc_spawn",
+                              "cyc_walk", "cyc_coords", "cyc_weight",
+                              "cyc_scatter")
+    assert TK.N_TAB_INT == len(TK.TAB_COUNTERS) - 1 == 14
+    stp, at = port[2], port[4]
+    keys = TK.launch_keys(R.base_key(3), 0, 4, plan.block.n_sub, False,
+                          "cpu")
+    c = dict(zip(TK.TAB_COUNTERS, TT.tabulate_iterations_plain(
+        plan, TT.init_state(stp), K.pack_steps(stp), keys,
+        torch.zeros(at.n_bins, dtype=torch.float64)).tolist()))
+    assert c["work"] > 0 and c["substeps"] > 0
+    for k in TK.KERNEL_ONLY:
+        assert c[k] == 0 and tally[k] == 0, k
 
 
 def test_iteration_cap_cuts_a_prefix(spherical):
