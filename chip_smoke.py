@@ -72,9 +72,8 @@ Phases (any failure raises and exits non-zero):
      iterations):
      a. the threefry stream: rng.make_uniform_stream's bits on the card
         equal the CPU's; the threefry kernel against the kernel fed the
-        materialized stream (main-path configuration in expected mode, as
-        threefry is built with the expected estimator only, and the fit
-        workload):
+        materialized stream (main-path configuration in expected mode, the
+        fit's, and the fit workload; 13a holds the detect modes):
         equal generated and hit counts, histograms equal up to atomic
         order (L1 <= 1e-5 of the total); the threefry kernel against its
         plain version with phase 2's tolerances;
@@ -242,6 +241,36 @@ Phases (any failure raises and exits non-zero):
         (phase 2's tolerances), the step equal to -lr (g_0 + g_1) with each
         rank's gradient computed in one process (rel 1e-3 in norm) and the
         loss equal to one process's (rel 1e-4); each rank's walls.
+ 13. every configuration the JAX kernel serves (K1·B4, B5):
+     a. in-kernel threefry in stopping, non-stopping, fixed-horizon and
+        non-stopping + fixed detect and with records, on the main-path
+        configuration and on ic86 at 262,144 slots x 32 iterations: each
+        against the same kernel fed rng.make_uniform_stream of the key
+        (equal generated and hit counts and record counts, histograms
+        equal up to atomic order, L1 <= 1e-5) and against its plain
+        version with the key table (phase 2's tolerances and walk steps,
+        records by 5a's matching), timed beside its Philox sibling with
+        both bounds; then phase 3's cascade through propagate_fused(
+        threefry_key=) in each mode on hex61 and on ic86 (one call of
+        TF_PATH_T iterations a slot batch; generated = the steps' photons,
+        nothing dropped or abandoned, records = hits);
+     b. config1_cascade, config2_muon_spice and config3_flasher from their
+        particles in their own threefry stream through the kernel (slot
+        batch i with fold_in(PRNGKey(GOLDEN_SEED), i), the engine's keys
+        in util.golden): n_generated equal to the golden's, hits within
+        max(2, 1%), histogram L1 <= 2e-3 of the total, printed beside
+        compare_to_golden's 1e-3; config2's histogram and hits against the
+        port's engine on the card in the same stream when spice_lea, with
+        which its golden was frozen, is not in the repository;
+     c. the fit workload with the 11-coefficient hole-ice polynomial
+        (HOLE_ICE_H2_50CM) in the expected estimator with threefry: the
+        kernel against its plain version (phase 2's tolerances), then 6c's
+        gates (loss at truth, the gradient against central differences)
+        and one Adam step;
+     d. the main-path ice with the Antares scattering angle on the
+        closed-form medium (MED_CLOSED_SCAT), detect and expected: the
+        kernel against its plain version on phase 2's shared stream (7a's
+        checks), and Simulation.simulate of phase 3's cascade in that ice.
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1102,6 +1131,11 @@ OPS_INDEX_POLY, OPS_INDEX_TABLE = 18, 6
 # bisection step, 3 the clamp), solved as the wavelength is (22) and its
 # cosine taken (with the test, 27 besides the bisection).
 OPS_HG_LIU, OPS_RAYLEIGH, OPS_PETZOLD, OPS_BISECT = 17, 19, 27, 4
+# The closed-form ice with the tabulated angle (MED 3) spawns as MED 0 does
+# and scatters as water does.  The expected estimator's angular polynomial
+# costs a clamp and the cosine (7) and one Horner step (2) a coefficient at
+# each deposit (CNT_HITS).
+OPS_ANG_SETUP, OPS_ANG_COEF = 7, 2
 # Flasher spectra (K1·B4): with stacked spectra a spawn offsets the spectrum
 # table by its step's source_type (OPS_TABLE: the conversion to int and the
 # multiply-add).  OPS_SPAWN holds the uniform bias grid's index math
@@ -1133,15 +1167,16 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
     cnt = lambda k: float(counters[k])
     work, gen = cnt(K.CNT_WORK), cnt(K.CNT_GEN)
     coll, med = K.kernel_coll(spec), K.kernel_med(spec)
+    tab_angle = med in (K.MED_WATER, K.MED_CLOSED_SCAT)
     per_iter = (OPS_ITER + 4 * OPS_RNG[rng_mode]
                 + sum(OPS_PER_PLAN + OPS_PER_CAND * p.K_cand
                       for p in spec.sub_plans)
                 + (OPS_PER_PLAN if coll != K.COLL_SUBPLANS else 0)
-                - (OPS_HG_LIU if med == K.MED_WATER else 0)
+                - (OPS_HG_LIU if tab_angle else 0)
                 + (OPS_ANISO if spec.aniso else 0)
                 + (OPS_TILT if spec.nz_tilt else 0))
     per_spawn = OPS_SPAWN + 4 * OPS_RNG[rng_mode]
-    if med != K.MED_CLOSED:
+    if med in (K.MED_TABLES, K.MED_WATER):
         per_spawn += (OPS_FACTORS_TABLE - OPS_FACTORS_CLOSED
                       + (OPS_INDEX_TABLE - OPS_INDEX_POLY
                          if spec.ref_table else 0))
@@ -1160,13 +1195,17 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
            + cnt(K.CNT_CAND) * OPS_PER_CAND + cnt(K.CNT_CULL) * OPS_ZPASS
            + cnt(K.CNT_TESTED) * round_ops + cnt(K.CNT_ROWS) * sphere_ops
            + cnt(K.CNT_RAYLEIGH) * OPS_RAYLEIGH
-           + (cnt(K.CNT_SCAT) - cnt(K.CNT_RAYLEIGH)) * petzold)
+           + (cnt(K.CNT_SCAT) - cnt(K.CNT_RAYLEIGH)) * petzold
+           + (cnt(K.CNT_HITS) * (OPS_ANG_SETUP + OPS_ANG_COEF
+                                 * len(spec.ang_poly))
+              if spec.expected and spec.ang_poly else 0.0))
     rows = K.NSF + (K.NRSF if spec.records else 0)
     nbytes = 4 * (2 * rows * N + K.NST * N + spec.n_doms * spec.hist_n_bins
                   + sum(t.numel() for t in (
                       tables.layers, tables.spec_tab, tables.bias_tab,
                       tables.tilt_zc, tables.cells, tables.rel,
                       tables.strings, tables.wtab, tables.scat))
+                  + len(spec.ang_poly)
                   + {"stream": 4 * (work + gen),
                      "threefry": 2 * T}.get(rng_mode, 0)
                   + K.NRC * n_records)
@@ -1220,8 +1259,8 @@ def phase6a(device):
     medium, _ = seeded_ice(171, -855.0, 10.0, device)
     _, geo, spectra, _, steps = bench_workload(N_SLOTS, 200, device)
     from clsim_tpu_torch.types import PropagationConfig
-    # threefry is built with the expected estimator alone (the fit's
-    # forward), so the main-path configuration runs in that mode here
+    # the fit's forward: the main-path configuration in the expected mode
+    # (13a holds threefry in the detect modes)
     main_cfg = PropagationConfig(n_slots=N_SLOTS, pancake_factor=5.0,
                                  estimator="expected", soft_binning=True)
     fit = fit_workload(device)
@@ -1320,13 +1359,13 @@ def phase6b(device):
     return dict(timing, err=max_err[True])
 
 
-def fit_gates(device, workload, grad_layers):
+def fit_gates(device, workload, grad_layers, adam_steps=10):
     """The fit's three gates on a workload, IceFit(forward='fused'): the
     loss at truth on the common stream <= 1e-6 of the loss at a +-20%
     lognormal perturbation of the band's a_dust400; the autograd gradient
     (kernel forward, engine backward) of grad_layers' log scale against
-    central differences of the kernel forward (rel GRAD_RTOL); ten Adam
-    steps lower the loss.  Launch counts are zeroed before the Adam steps.
+    central differences of the kernel forward (rel GRAD_RTOL); `adam_steps`
+    Adam steps lower the loss.  Launch counts are zeroed before the Adam steps.
     Returns what phase 6c reads further."""
     import functools
     import torch
@@ -1391,7 +1430,7 @@ def fit_gates(device, workload, grad_layers):
     if worst > GRAD_RTOL:
         raise AssertionError(f"gradient off its finite difference by "
                              f"{worst:.3g} > {GRAD_RTOL}")
-    # 10 Adam steps in log space from the perturbed start
+    # Adam steps in log space from the perturbed start
     adam = IceFit(cfg, geo, spectra, forward="fused", max_iterations=FIT_T,
                   param_transform=tf_a,
                   optimizer=functools.partial(torch.optim.Adam, lr=0.05))
@@ -1399,14 +1438,14 @@ def fit_gates(device, workload, grad_layers):
     torch.cuda.synchronize()
     K.MODE_LAUNCHES.clear()
     t0 = time.perf_counter()
-    for _ in range(10):
+    for _ in range(adam_steps):
         p, l_k = adam.step(p, medium, steps, key, target)
         losses.append(float(l_k))
     torch.cuda.synchronize()
     t_steps = time.perf_counter() - t0
     with torch.no_grad():
         l_end = loss(p["log_s"])
-    log(f"  Adam (lr 0.05) 10 steps in {t_steps:.3f} s: loss "
+    log(f"  Adam (lr 0.05) {adam_steps} steps in {t_steps:.3f} s: loss "
         + " ".join(f"{v:.5g}" for v in losses) + f" -> {l_end:.5g}; "
         f"|log scale - truth| {float(pert.norm()):.4f} -> "
         f"{float(p['log_s'].norm()):.4f}")
@@ -3598,6 +3637,48 @@ def k1_ptxas(log_text, every=False):
         None))
 
 
+def k1_ptxas_modes(log_text):
+    """ptxas_figures of every K1 instantiation keyed by its mode (kernel.py
+    kernel_mode) from its template arguments <RECORDS, DEP, THREEFRY,
+    FIXED, COLL, MED>, so that bodies whose kernel signatures differ
+    compare instantiation by instantiation."""
+    import re
+    out = {}
+    for name, d in k1_ptxas(log_text, every=True).items():
+        m = re.search(r"ILb(\d)ELi(\d)ELb(\d)ELb(\d)ELi(\d)ELi(\d)E", name)
+        if m is not None:
+            r, dep, tf, fx, coll, med = map(int, m.groups())
+            out[dep | 4 * tf | 8 * fx | 16 * r | coll << 5 | med << 7] = d
+    return out
+
+
+def k1_ptxas_lines(log_text):
+    """One line per K1 instantiation from nvcc's -Xptxas -v log, in mode
+    order: its mode, registers, spilled bytes and resident blocks a SM."""
+    return [f"K1 mode {mode}: {d.get('registers')} registers, spill "
+            f"{d.get('spill_stores', 0)}/{d.get('spill_loads', 0)} bytes, "
+            f"{d.get('blocks')} blocks a SM"
+            for mode, d in sorted(k1_ptxas_modes(log_text).items())]
+
+
+def k1_ptxas_against(results):
+    """For each turn's body with a build log's K1 figures (`k1_ptxas`,
+    k1_ptxas_modes' by mode, JSON keys), a line: its instantiations, and
+    of those the first body also has, how many have equal figures and
+    which modes differ."""
+    first = next((r["k1_ptxas"] for r in results if r["k1_ptxas"]), None)
+    for r in results:
+        d = r["k1_ptxas"]
+        if not d:
+            continue
+        common = [m for m in d if m in first]
+        differ = [m for m in common if d[m] != first[m]]
+        log(f"ptxas {r['label']}: K1's {len(d)} instantiations; of the "
+            f"{len(common)} the first body also builds, "
+            f"{len(common) - len(differ)} equal the first body's figures"
+            + (f", modes {differ} differ" if differ else ""))
+
+
 def tab_ptxas(log_text):
     """ptxas_figures of T1's 8 instantiations, labelled
     tabulate<MED, CYL, IMPACT>."""
@@ -3662,7 +3743,8 @@ def k1_turn_worker(root):
     _build.load()
     build_s = time.perf_counter() - t0
     out = dict(root=root, build_s=build_s,
-               ptxas=k1_ptxas(_build.BUILD_INFO["log"]), entries={})
+               ptxas=k1_ptxas(_build.BUILD_INFO["log"]),
+               k1_ptxas=k1_ptxas_modes(_build.BUILD_INFO["log"]), entries={})
     for entry, inp, records, key, T, philox, steady in k1_turn_cases(device):
         medium, geo, spectra, cfg, steps, uni = inp
         cfg = dataclasses.replace(cfg, save_photons=records)
@@ -3805,6 +3887,7 @@ def k1_turns(turns, json_path=None):
             ptx.setdefault(r["label"], {})[e] = d
     for label, d in ptx.items():
         log(f"ptxas {label}: " + json.dumps(d))
+    k1_ptxas_against(results)
     return results
 
 
@@ -3832,7 +3915,7 @@ def tab_turn_worker(root):
     log_text = _build.BUILD_INFO["log"]
     out = dict(root=root, build_s=time.perf_counter() - t0,
                ptxas=tab_ptxas(log_text),
-               k1_ptxas=k1_ptxas(log_text, every=True))
+               k1_ptxas=k1_ptxas_modes(log_text))
     inputs = tab_inputs(device)
     axes = default_spherical_axes()
     tab_call(inputs, tab_steps(1024, 1, device), seed=0)      # warm-up
@@ -3894,14 +3977,10 @@ def tab_turns(turns, json_path=None):
                 summed(r["wide"]["launches"]))))
 
     results = run_turns("--tab-worker", "TAB ", turns, json_path, report)
-    first_k1 = next((r["k1_ptxas"] for r in results if r["k1_ptxas"]), None)
     for r in results:
         if r["ptxas"]:
             log(f"ptxas {r['label']}: " + json.dumps(r["ptxas"]))
-        if r["k1_ptxas"]:
-            log(f"ptxas {r['label']}: K1's {len(r['k1_ptxas'])} "
-                f"instantiations equal the first body's: "
-                f"{r['k1_ptxas'] == first_k1}")
+    k1_ptxas_against(results)
     return results
 
 
@@ -4216,6 +4295,337 @@ def phase12b(device, card, n_ranks=MESH_RANKS):
         raise AssertionError("the mesh's loss differs from one process's")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: every configuration the JAX kernel serves (K1·B4, B5): in-kernel
+# threefry with the detect modes and records, the goldens in their own
+# stream, the hole-ice angular polynomial at full length, the tabulated
+# scattering angle in the closed-form ice
+# ---------------------------------------------------------------------------
+
+TF_KEY = (13, 2026)        # 13a's threefry key
+# 13a's deposit modes, each with threefry: config changes and entry names
+TF_MODES = {"stop": dict(), "pass": dict(stop_on_detection=False),
+            "fixed": dict(fixed_abs_lens=8.0),
+            "pass,fixed": dict(stop_on_detection=False, fixed_abs_lens=8.0),
+            "records": dict(save_photons=True)}
+# iterations of one threefry call on a path (the key table covers one
+# call): enough to drain phase 3's cascade and the goldens' slot batches
+TF_PATH_T = 32768
+
+
+def tf_entry(mode, glob):
+    return f"propagate[threefry,{mode}{',global' if glob else ''}]"
+
+
+def tf_against(name, inputs, key):
+    """One threefry instantiation at phase 2's shape: the kernel against the
+    same kernel fed rng.make_uniform_stream of the key (equal generated
+    and hit counts, histograms equal up to atomic order, L1 <= 1e-5, and
+    equal record counts) and against its plain version with the key table
+    (phase 2's tolerances, the walk steps, records by 5a's matching); the
+    Philox sibling (the same mode without threefry) timed beside it."""
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps, uni = inputs
+    rec = cfg.save_photons
+    spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg, N_SLOTS,
+                           PHASE2_T, threefry=True)
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    sib = spec._replace(threefry=False)
+    state0, steps_p = K.init_state(steps, rec), K.pack_steps(steps)
+    keys = rng.key_table(key, PHASE2_T).to(state0.device)
+    run = lambda sp, **kw: (lambda: K.run_fused_iterations(
+        state0.clone(), steps_p, tables, sp, **kw))
+    run_t, run_s = run(spec, keys=keys), run(sib, uniforms=uni)
+    run_x = run(sib, seed=PHILOX_SEED)
+    run_p = lambda: K.run_fused_iterations_plain(state0.clone(), steps_p,
+                                                 tables, spec, keys=keys)
+    run_t()
+    (_, h_t, c_t, *r_t), ms_t = cuda_ms(run_t)
+    (_, h_s, c_s, *r_s), ms_s = cuda_ms(run_s, reps=1)
+    run_x()
+    (_, _, c_x, *_), ms_x = cuda_ms(run_x)
+    (_, h_p, c_p, *r_p), ms_p = cuda_ms(run_p, reps=1)
+    l1 = float((h_t.double() - h_s.double()).abs().sum())
+    tot = float(h_s.double().sum())
+    log(f"  {name}: threefry / stream-fed kernel: generated "
+        f"{float(c_t[K.CNT_GEN]):.0f} / {float(c_s[K.CNT_GEN]):.0f}, hits "
+        f"{float(c_t[K.CNT_HITS]):.0f} / {float(c_s[K.CNT_HITS]):.0f}, hist "
+        f"L1 {l1:.6g} of {tot:.6g}")
+    if float(c_t[K.CNT_GEN]) != float(c_s[K.CNT_GEN]) or \
+            float(c_t[K.CNT_HITS]) != float(c_s[K.CNT_HITS]):
+        raise AssertionError(f"{name}: threefry and stream-fed kernel counts "
+                             "differ")
+    if l1 > 1e-5 * tot:
+        raise AssertionError(f"{name}: threefry and stream-fed kernel "
+                             "histograms differ beyond atomic order")
+    err = compare(name + ", threefry kernel / plain", c_t, h_t, c_p, h_p,
+                  1e-5)
+    check_walk(name, c_t, c_p)
+    n_rec = 0
+    if rec:
+        (r_t,), (r_s,), (r_p,) = r_t, r_s, r_p
+        n_rec = r_t.shape[0]
+        if n_rec != r_s.shape[0]:
+            raise AssertionError(f"{name}: threefry and stream-fed record "
+                                 "counts differ")
+        for who, c, r in (("kernel", c_t, r_t), ("plain", c_p, r_p)):
+            if not r.shape[0] == float(c[K.CNT_HITS]) \
+                    == float(c[K.CNT_QUEUED]):
+                raise AssertionError(f"{name}: {who} records != hits")
+        if abs(n_rec - r_p.shape[0]) > max(2.0, 0.01 * r_p.shape[0]):
+            raise AssertionError(f"{name}: record counts differ")
+        n_ok, nk, npl = match_records(name, r_t, r_p, cfg.hist_n_bins)
+        if n_ok < 0.999 * max(nk, npl):
+            raise AssertionError(f"{name}: {n_ok} of {nk} / {npl} records "
+                                 "match")
+    bound = kernel_bound(spec, tables, c_t, "threefry", n_records=n_rec)
+    bound_x = kernel_bound(sib, tables, c_x, "philox", n_records=n_rec)
+    log(f"  {name}: mode {K.kernel_mode(spec)}, threefry kernel "
+        f"{ms_t:.4f} ms (median of 5), bound {bound[0]:.4f} ms by "
+        f"{bound[1]}; Philox sibling (mode {K.kernel_mode(sib)}) "
+        f"{ms_x:.4f} ms (median of 5), bound {bound_x[0]:.4f} ms by "
+        f"{bound_x[1]}; stream-fed {ms_s:.4f} ms, plain {ms_p:.3f} ms "
+        f"({N_SLOTS} slots x {PHASE2_T} iterations); "
+        + fmt_stats(k1_stats(c_t, N_SLOTS, PHASE2_T)))
+    return dict(ms=ms_t, plain_ms=ms_p, err=err, bound=bound,
+                mode=K.kernel_mode(spec), ms_philox=ms_x)
+
+
+def phase13a(device):
+    """Threefry with every detect mode and with records, on the main-path
+    configuration (mode 0's family) and on ic86 (global affine), each at
+    phase 2's shape (tf_against).  Returns {entry: figures}."""
+    from clsim_tpu_torch.ops import rng
+    key = rng.as_key(TF_KEY)
+    main = main_path_inputs(device)
+    uni = rng.make_uniform_stream(key.to(device), PHASE2_T, N_SLOTS)
+    out = {}
+    for glob, inputs in ((False, main), (True, on_ic86(main, device))):
+        medium, geo, spectra, cfg, steps, _ = inputs
+        for mode, change in TF_MODES.items():
+            name = tf_entry(mode, glob)
+            out[name] = tf_against(
+                name, (medium, geo, spectra,
+                       dataclasses.replace(cfg, **change), steps, uni), key)
+    return out
+
+
+def tf_run(name, steps_list, medium, geo, spectra, cfg, key, photons):
+    """The slot batches through propagate_fused(threefry_key=fold_in(key,
+    i), max_calls=1) in one call of TF_PATH_T iterations each, summed;
+    with records, a buffer for every photon.  Holds nothing dropped or
+    abandoned, generated = `photons` when given, records = hits.  Returns
+    (hist, totals, records, wall)."""
+    import torch
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    hist, totals, n_rec = 0.0, 0.0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, st in enumerate(steps_list):
+        kw = {}
+        if cfg.save_photons:
+            kw["rec_capacity"] = int(st.num_photons.sum()) + 1
+        res, tot = quiet(K.propagate_fused, st, medium, geo, spectra, 0, cfg,
+                         iters_per_call=TF_PATH_T, max_calls=1,
+                         threefry_key=rng.fold_in(key, i), **kw)
+        hist = hist + res.hist.double()
+        totals = totals + tot
+        if cfg.save_photons:
+            n_rec += int(res.rec_count[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gen, hits = float(totals[K.CNT_GEN]), float(totals[K.CNT_HITS])
+    log(f"  {name}: {len(steps_list)} slot batch(es) in {wall:.3f} s; "
+        f"generated {gen:.0f}" + ("" if photons is None else
+                                   f" (steps' photons {photons:.0f})")
+        + f", hits {hits:.0f}, abandoned {float(totals[K.CNT_ALIVE]):.0f}, "
+        f"dropped {float(totals[K.CNT_DROPPED]):.0f}"
+        + (f", records {n_rec}" if cfg.save_photons else ""))
+    if photons is not None and gen != photons:
+        raise AssertionError(f"{name}: generated != the steps' photons")
+    if float(totals[K.CNT_ALIVE]) != 0 or float(totals[K.CNT_DROPPED]) != 0:
+        raise AssertionError(f"{name}: photons abandoned or dropped")
+    if not hits > 0 or not bool(hist.isfinite().all()):
+        raise AssertionError(f"{name}: no hits or a non-finite histogram")
+    if cfg.save_photons and n_rec != hits:
+        raise AssertionError(f"{name}: records != hits")
+    return hist, totals, n_rec, wall
+
+
+def phase13a_path(device, entries):
+    """13a's instantiations on a path: phase 3's cascade (seed 11) through
+    propagate_fused with threefry_key = fold_in(TF_KEY, batch) in each
+    mode, on hex61 and on ic86.  Returns the launches of each mode."""
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.ops import rng
+    sim, cascade = main_path_sim(device)
+    batches = sim.steps_from_particles([cascade], np.random.default_rng(11))
+    steps_list = [steps_from_numpy(b._asdict(), device) for b in batches]
+    photons = float(sum(int(b.num_photons.sum()) for b in batches))
+    g86 = ic86(device)
+    key = rng.as_key(TF_KEY)
+    n = {}
+    for glob, geo, spectra in ((False, sim.geometry, sim.spectra),
+                               (True, g86, medium_spectra(sim.medium, g86,
+                                                          device))):
+        for mode, change in TF_MODES.items():
+            name = tf_entry(mode, glob)
+            cfg = dataclasses.replace(sim.config, **change)
+            reset_counts()
+            tf_run(name + " path (phase 3's cascade)", steps_list, sim.medium,
+                   geo, spectra, cfg, key, photons)
+            n.update(launched([entries[name]["mode"]]))
+            log(f"    launches {K_other()}")
+            if n[entries[name]["mode"]] <= 0:
+                raise AssertionError(f"{name}: not launched on its path")
+    return n
+
+
+def phase13b(device):
+    """The goldens in their own threefry stream through the kernel: each
+    slot batch i through propagate_fused(threefry_key=fold_in(
+    base_key(GOLDEN_SEED), i), max_calls=1), the keys util.golden's
+    engine run takes, summed; n_generated equal to the golden's, hits
+    within max(2, 1%), histogram L1 <= 2e-3 of the golden's total (phase
+    2's contract for kernel against plain), printed beside
+    compare_to_golden's 1e-3.  config2's golden was frozen with spice_lea:
+    without it in the repository its histogram is held against the port's
+    engine on the card in the same stream and on the same fallback ice
+    (util.golden._run_threefry), and its photon count against the golden.
+    Returns the launches."""
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.util import golden as G
+    n = collections.Counter()
+    for name, make in G.CONFIGS.items():
+        sim, sources = make(device)
+        batches = sim.steps_from_particles(
+            sources, np.random.default_rng(G.GOLDEN_SEED))
+        steps_list = [steps_from_numpy(b._asdict(), device) for b in batches]
+        g = G.load_golden(name)
+        reset_counts()
+        hist, tot, _, _ = tf_run(f"{name} (threefry, kernel)", steps_list,
+                                 sim.medium, sim.geometry, sim.spectra,
+                                 sim.config, rng.base_key(G.GOLDEN_SEED),
+                                 float(g["n_generated"]))
+        n.update(K.MODE_LAUNCHES)
+        log(f"    launches {K_other()}")
+        hist = hist.cpu().numpy().reshape(-1)
+        gen, hits = float(tot[K.CNT_GEN]), float(tot[K.CNT_HITS])
+        l1_g = float(np.abs(hist - g["hist"].ravel()).sum()
+                     / g["hist"].sum())
+        ref, what = g, "golden"
+        if name == "config2_muon_spice" and not G.REFERENCE_ICE.is_dir():
+            ref, wall = timed(lambda: G._run_threefry(sim, batches))
+            what = "engine"
+            log(f"    no spice_lea: the port's engine on the card in the "
+                f"same stream and ice, {wall:.2f} s, is the reference")
+        l1 = float(np.abs(hist - ref["hist"].ravel()).sum()
+                   / ref["hist"].sum())
+        log(f"  {name}: generated {gen:.0f} / {float(g['n_generated']):.0f}"
+            f" (kernel / golden), hits {hits:.0f} / "
+            f"{float(ref['n_hits']):.0f} (kernel / {what}); histogram L1 "
+            f"{l1:.6g} of the {what}'s total (held <= {L1_TOL}; "
+            f"compare_to_golden's bound 1e-3); L1 to the golden {l1_g:.6g}")
+        if gen != float(g["n_generated"]):
+            raise AssertionError(f"{name}: n_generated differs from the "
+                                 "golden's")
+        if abs(hits - float(ref["n_hits"])) > max(2.0, 0.01 *
+                                                  float(ref["n_hits"])):
+            raise AssertionError(f"{name}: hits differ from the {what}'s")
+        if l1 > L1_TOL:
+            raise AssertionError(f"{name}: histogram L1 {l1} > {L1_TOL}")
+    return n
+
+
+def phase13c(device):
+    """The fit workload with the hole-ice polynomial (HOLE_ICE_H2_50CM, 11
+    coefficients) in the expected estimator and threefry: the kernel
+    against its plain version (phase 2's tolerances), then IceFit's gates
+    through fit_gates with one Adam step (its launches counted)."""
+    from clsim_tpu_torch.hits.acceptance import HOLE_ICE_H2_50CM
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps = fit_workload(device)
+    poly = tuple(float(c) for c in HOLE_ICE_H2_50CM["coefficients"])
+    cfg = dataclasses.replace(cfg, expected_angular_poly=poly)
+    key = rng.as_key(FIT_KEY)
+    run_k, spec, tables = kernel_run(medium, geo, spectra, cfg, steps, FIT_T,
+                                     key=key)
+    run_p, _, _ = kernel_run(medium, geo, spectra, cfg, steps, FIT_T,
+                             key=key, plain=True)
+    run_k()
+    (_, h_k, c_k), ms_k = cuda_ms(run_k)
+    (_, h_p, c_p), ms_p = cuda_ms(run_p, reps=1)
+    name = f"fit workload + hole-ice polynomial ({len(poly)} coefficients)"
+    err = compare(name + ", threefry kernel / plain", c_k, h_k, c_p, h_p)
+    bound = kernel_bound(spec, tables, c_k, "threefry")
+    log(f"  {name}: mode {K.kernel_mode(spec)}, kernel {ms_k:.4f} ms "
+        f"(median of 5), plain {ms_p:.3f} ms ({FIT_SLOTS} slots x {FIT_T} "
+        f"iterations), bound {bound[0]:.4f} ms by {bound[1]}; "
+        + fmt_stats(k1_stats(c_k, FIT_SLOTS, FIT_T)))
+    mode = K.kernel_mode(spec)
+    fit_gates(device, (medium, geo, spectra, cfg, steps), GRAD_LAYERS,
+              adam_steps=1)
+    n = launched([mode])
+    log(f"  launches of the Adam step and the end loss: {n}")
+    if n[mode] <= 0:
+        raise AssertionError("the hole-ice fit did not launch the kernel")
+    return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound, mode=mode), n
+
+
+def closed_scat_inputs(device):
+    """Phase 2's main-path inputs with the Antares scattering angle on the
+    closed-form seeded ice (the kernel's MED_CLOSED_SCAT)."""
+    from clsim_tpu_torch.medium.antares import make_antares_water
+    medium, geo, spectra, cfg, steps, uni = main_path_inputs(device)
+    medium = medium._replace(
+        scattering=make_antares_water(device=device).scattering)
+    return medium, geo, spectra, cfg, steps, uni
+
+
+CLOSED_SCAT = {"propagate[closed-scat]": dict(),
+               "propagate[expected,closed-scat]": dict(
+                   estimator="expected", soft_binning=True)}
+
+
+def phase13d(device):
+    """B5: the main-path ice with the Antares scattering table on the
+    closed-form medium, the kernel against its plain version on phase 2's
+    shared stream in detect and in expected mode (check_instantiation),
+    then Simulation.simulate of phase 3's cascade in that ice in each mode
+    (its launches counted)."""
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.types import PropagationConfig
+    medium, geo, spectra, cfg, steps, uni = closed_scat_inputs(device)
+    out, n = {}, {}
+    _, cascade = main_path_sim(device)
+    for name, change in CLOSED_SCAT.items():
+        r = check_instantiation(name, (medium, geo, spectra,
+                                       dataclasses.replace(cfg, **change),
+                                       steps, uni), False)
+        if r["mode"] >> K.MED_SHIFT != K.MED_CLOSED_SCAT:
+            raise AssertionError(f"{name}: mode {r['mode']} is not "
+                                 "MED_CLOSED_SCAT's")
+        out[name] = r
+        sim = Simulation(medium=medium, geometry=hex61(device),
+                         config=PropagationConfig(n_slots=N_SLOTS, **change))
+        photons = steps_photons(sim, cascade, 11)
+        reset_counts()
+        res, wall = timed(lambda: sim.simulate([cascade], seed=11))
+        n.update(launched([r["mode"]]))
+        log(f"  {name}: Simulation.simulate {wall:.3f} s = "
+            f"{photons / wall:.6g} photons/s; launches {K_other()}")
+        check_run(name + " (phase 3's cascade)", res, photons)
+        if n[r["mode"]] <= 0:
+            raise AssertionError(f"{name}: not launched on its path")
+    return out, n
+
+
 def mesh_only(n_ranks):
     """--mesh N: build, then phase 12b with N ranks, one a card when there
     are N cards (NCCL), else sharing them (gloo)."""
@@ -4278,9 +4688,10 @@ def main():
     _build.load()
     log(f"  built {_build.BUILD_INFO['path']} in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in _build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log("  " + line.strip())
+    for line in k1_ptxas_lines(_build.BUILD_INFO["log"]):
+        log("  " + line)
+    for k, d in tab_ptxas(_build.BUILD_INFO["log"]).items():
+        log(f"  {k}: {d}")
 
     res = {}
     log("phase 2: kernel against plain version")
@@ -4415,6 +4826,37 @@ def main():
     phase12b(device, card)
     log(f"  phase 12 took {time.perf_counter() - t12:.1f} s")
 
+    t13 = time.perf_counter()
+
+    def lap13(name):
+        log(f"  phase {name} done at {time.perf_counter() - t13:.1f} s into "
+            "phase 13")
+
+    log("phase 13a: threefry with every detect mode and with records "
+        "(main-path config and ic86) against the stream-fed kernel and the "
+        "plain version")
+    res["13a"] = phase13a(device)
+    lap13("13a")
+    log("phase 13a path: phase 3's cascade through propagate_fused("
+        "threefry_key=) in each mode, hex61 and ic86")
+    launches13 = collections.Counter(phase13a_path(device, res["13a"]))
+    lap13("13a path")
+    log("phase 13b: the goldens in their own threefry stream through the "
+        "kernel")
+    launches13.update(phase13b(device))
+    lap13("13b")
+    log("phase 13c: the fit with the hole-ice angular polynomial (11 "
+        "coefficients)")
+    res["13c"], n = phase13c(device)
+    launches13c = collections.Counter(n)
+    lap13("13c")
+    log("phase 13d: the closed-form ice with the Antares scattering angle "
+        "(MED_CLOSED_SCAT)")
+    res["13d"], n = phase13d(device)
+    launches13.update(n)
+    lap13("13d")
+    log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
     at = "clsim_tpu/propagate/kernel.py:2427"
 
     def entry(name, launches, err, ms, plain_ms, bound):
@@ -4459,7 +4901,15 @@ def main():
             "replaces": TAB_REPLACES, "launches": t11["launches"],
             "max_abs_err": t11["err"], "ms": t11["ms"],
             "plain_ms": t11["plain_ms"], "bound_ms": t11["bound"][0],
-            "bound_by": t11["bound"][1], "library_ms": None}]}))
+            "bound_by": t11["bound"][1], "library_ms": None}]
+        + [entry(name, launches13[r["mode"]], r["err"], r["ms"],
+                 r["plain_ms"], r["bound"])
+           for name, r in list(res["13a"].items())
+           + list(res["13d"].items())]
+        + [entry("propagate[threefry,hole-ice]",
+                 launches13c[res["13c"]["mode"]], res["13c"]["err"],
+                 res["13c"]["ms"], res["13c"]["plain_ms"],
+                 res["13c"]["bound"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

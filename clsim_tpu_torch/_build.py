@@ -96,9 +96,9 @@ def load():
         return _LIB
     lib = ctypes.CDLL(str(build()))
     vp = ctypes.c_void_p
-    lib.clsim_propagate.argtypes = [ctypes.c_int] + [vp] * 18
+    lib.clsim_propagate.argtypes = [ctypes.c_int] + [vp] * 19
     lib.clsim_propagate.restype = ctypes.c_int
-    lib.clsim_propagate_records.argtypes = [ctypes.c_int] + [vp] * 20
+    lib.clsim_propagate_records.argtypes = [ctypes.c_int] + [vp] * 21
     lib.clsim_propagate_records.restype = ctypes.c_int
     lib.clsim_error_string.argtypes = [ctypes.c_int]
     lib.clsim_error_string.restype = ctypes.c_char_p

@@ -5,16 +5,18 @@
 //
 // Replaces the Pallas TPU kernel clsim_tpu/propagate/kernel.py::_make_kernel
 // (pl.pallas_call at clsim_tpu/propagate/kernel.py:2427) in these
-// configurations: IceCube layered ice with optional tilt and anisotropy, or
-// a tabulated medium (sea water, photonics-table ice); the Cherenkov
-// spectrum and any stacked flasher spectra, with a uniform or non-uniform
-// bias grid; per-subdetector SubPlan collision or the global cell plan
-// (affine or general); the detect estimator with or without
+// configurations: IceCube layered ice with optional tilt and anisotropy,
+// with its Liu/HG scattering or a tabulated scattering angle mixed with
+// Rayleigh, or a tabulated medium (sea water, photonics-table ice); the
+// Cherenkov spectrum and any stacked flasher spectra, with a uniform or
+// non-uniform bias grid; per-subdetector SubPlan collision or the global
+// cell plan (affine or general); the detect estimator with or without
 // stop-on-detection and with a sampled or fixed absorption budget, or the
-// expected estimator (survival-weight deposits, soft binning, angular
-// polynomial), with every collision plan and medium; Philox, an external
-// stream or in-kernel threefry for the random numbers.  Its plain PyTorch
-// version is clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
+// expected estimator (survival-weight deposits, soft binning, an angular
+// polynomial of any length), with every collision plan and medium; Philox,
+// an external stream or in-kernel threefry for the random numbers, in every
+// deposit mode and with records.  Its plain PyTorch version is
+// clsim_tpu_torch/propagate/kernel.py::run_fused_iterations_plain.
 //
 // Design.  One thread owns one photon slot and keeps its photon's state in
 // registers for the launch.  Each launch runs up to `iters` iterations of
@@ -84,15 +86,17 @@
 // Random numbers: Philox4x32-10 keyed by the wrapper's 64-bit seed, counter
 // (it0 + iteration, slot, block); or, in parity mode, an external (T, 8, N)
 // float32 stream read at [iteration, row, slot]; or, in the THREEFRY
-// instantiation (the TPU kernel's `threefry`, kernel.py:341-361, :447-456,
-// :758-773; built with DEP_EXPECTED only, the fit's forward, which is the
-// one entry point that draws in-kernel threefry), threefry2x32 keyed by the
-// host-folded key of the iteration
-// (a (2T,) uint32 table), counter (0, row * N + slot), the two output words
-// XORed and mapped to [0, 1) as jax.random.uniform does: bit-exact to
-// ops/rng.py and to jax.random, so the engine run with the same key (the
-// fit's backward) sees the same numbers.  Rows 0-3 are drawn only when the
-// slot spawns (the values are those of the full (8, N) block: a counter-
+// instantiations (the TPU kernel's `threefry`, kernel.py:341-361, :447-456,
+// :758-773; built with every deposit mode and with records, as the TPU
+// kernel takes a key with any estimator: the fit's forward, and a detect
+// run in the goldens' own stream), threefry2x32 keyed by the host-folded
+// key of the iteration (a (2T,) uint32 table), counter (0, row * N + slot),
+// the two output words XORed and mapped to [0, 1) as jax.random.uniform
+// does: bit-exact to ops/rng.py and to jax.random, so the engine run with
+// the same key (the fit's backward) sees the same numbers.  THREEFRY stays
+// a template argument: a runtime branch would put the 20 rounds into the
+// register allocation of the Philox modes.  Rows 0-3 are drawn only when
+// the slot spawns (the values are those of the full (8, N) block: a counter-
 // based draw depends on nothing but its counter); ~100 integer operations
 // per row.
 //
@@ -101,7 +105,9 @@
 // :1478-1529).  DEP_STOP is the main path: a hit deposits w0 and kills the
 // photon.  DEP_PASS (non-stopping detect) deposits w0 and keeps flying.
 // DEP_EXPECTED deposits the survival weight w0 exp(-(tau_start + frac *
-// tau_seg)) at every DOM entry, times the clipped angular polynomial, into
+// tau_seg)) at every DOM entry, times the clipped angular polynomial (its
+// n_ang coefficients read from a device table, Horner's rule in the loop:
+// any length, as the TPU kernel unrolls any length), into
 // one bin or (soft) two neighbouring bins; the photon passes through and
 // dies only at the fixed horizon.  FIXED sets the spawn budget to the
 // horizon in detect mode.  What bounds these modes beyond the main path:
@@ -120,8 +126,10 @@
 // counter.  The host call loop sets the capacity: a thread whose append
 // finds it full keeps the record pending (the photon is dead, so its x/y/z
 // and t already hold the record; `pend` keeps the flat index) and sits out
-// the rest of the launch; the next launch writes the pending record first.  No record is lost
-// and the buffer stays bounded.  What bounds the mode beyond the main path:
+// the rest of the launch; the next launch writes the pending record first.
+// No record is lost and the buffer stays bounded (a threefry run has one
+// launch, whose key table covers its iterations, so the host gives it room
+// for every record).  What bounds the mode beyond the main path:
 // one atomic per record on a single counter and 88 scattered bytes per
 // record, both small beside the photon's walk.  The main path's
 // instantiation (RECORDS = false) compiles none of this.
@@ -144,10 +152,13 @@
 // pancake_factor >= 1; otherwise the half-width keeps every row).
 // MED 1 and 2 replace the closed-form wavelength factors at spawn by a lerp
 // of the (rows, n_wtab) wavelength table (gs, pa, qa, ra, and n, g when
-// tabulated); MED 2 (sea water) also replaces the Liu/HG scattering by the
-// Rayleigh cubic mixed with the tabulated Petzold angle, located in its CDF
-// by binary search and solved as the wavelength is.  The main path is
-// COLL 0, MED 0: none of this is compiled there.
+// tabulated); MED 2 (sea water) and MED 3 (the closed-form ice with a
+// tabulated scattering angle, e.g. Antares's) replace the Liu/HG scattering
+// by the Rayleigh cubic mixed with the tabulated (Petzold) angle, located
+// in its CDF by binary search and solved as the wavelength is; the
+// Rayleigh fraction rides in liu_frac, as the TPU kernel reads it from
+// PF_LIU_FRAC (kernel.py:1606-1629).  The main path is COLL 0, MED 0: none
+// of this is compiled there.
 //
 // Flasher spectra and the bias grid (the TPU kernel's `sample_wavelength`
 // row mask and `wavelength_bias`, kernel.py:533-580).  The spectrum table
@@ -180,7 +191,6 @@
 #define MAX_PLANS 4
 #define MAX_ROUNDS 4
 #define MAX_TILT_D 16
-#define MAX_ANG 8
 #define BLOCK 256
 
 // parameter block, mirrored field for field by the ctypes structures in
@@ -204,8 +214,7 @@ struct Params {
   int rec_cap, rec_all;        // record mode: buffer capacity, SAVE_ALL
   float rec_prescale, rec_fpk;  // SAVE_ALL prescale, (pancake - 1) / pancake
   float horizon;               // fixed absorption horizon [abs. lengths]
-  int soft, n_ang;             // soft binning; angular coefficients used
-  float ang[MAX_ANG];          // angular polynomial in cos(eta), ascending
+  int soft, n_ang;             // soft binning; angular coefficients
   float pmt_ax, pmt_ay, pmt_az;  // PMT axis of the angular polynomial
   // the global cell plan (COLL 1, 2): grid, candidates per cell, DOM-window
   // candidates (affine), test rounds, DOM rows per string (general)
@@ -229,7 +238,18 @@ struct Params {
 
 // collision (template COLL) and medium (template MED) instantiations
 enum { COLL_SUBPLANS = 0, COLL_AFFINE = 1, COLL_GENERAL = 2 };
-enum { MED_CLOSED = 0, MED_TABLES = 1, MED_WATER = 2 };
+enum { MED_CLOSED = 0, MED_TABLES = 1, MED_WATER = 2, MED_CLOSED_SCAT = 3 };
+
+// the closed-form wavelength factors at spawn (MED 0, 3), and the tabulated
+// scattering angle mixed with Rayleigh (MED 2, 3)
+template <int MED>
+__host__ __device__ constexpr bool closed_form() {
+  return MED == MED_CLOSED || MED == MED_CLOSED_SCAT;
+}
+template <int MED>
+__host__ __device__ constexpr bool tabulated_angle() {
+  return MED == MED_WATER || MED == MED_CLOSED_SCAT;
+}
 
 // deposit modes (template DEP) and the host's mode flags (kernel.py
 // kernel_mode: DEP | MODE_THREEFRY | MODE_FIXED)
@@ -489,7 +509,7 @@ __device__ __forceinline__ Spawned make_photon(
   const float wl = interp_solve(u[1], sp_x[k], sp_x[k + 1], sp_beta[k],
                                 sp_beta[k + 1], sp_acu[k]);
   float n_phase, n_group, gs, pa, qa, ra;
-  if constexpr (MED == MED_CLOSED) {
+  if constexpr (closed_form<MED>()) {
     const float wl_um = wl * 1e-3f;
     n_phase = poly4(p.n, wl_um);
     n_group = n_phase * poly4(p.g, wl_um);
@@ -600,7 +620,8 @@ propagate_kernel(const Params p, float* __restrict__ state,
                  const float4* __restrict__ rel,
                  const float4* __restrict__ strings,
                  const float* __restrict__ wtab,
-                 const float* __restrict__ scat) {
+                 const float* __restrict__ scat,
+                 const float* __restrict__ ang_tab) {
   __shared__ float s_slab[RECORDS ? NPR : P_WL][BLOCK];
   __shared__ float s_step[NSTEP][BLOCK];
   __shared__ unsigned short s_list[BLOCK];
@@ -615,10 +636,10 @@ propagate_kernel(const Params p, float* __restrict__ state,
   unsigned int n_gen = 0, n_hits = 0, n_work = 0, n_alive = 0;
   // the work the bound counts beyond the main path's (kernel.py CNT_*): the
   // global plans' candidates culled, cull passes, strings given the sphere
-  // test and DOM rows tested (COLL 1, 2); water's scatters and those that
-  // drew Rayleigh (MED 2); in every instantiation the layer-walk steps, and
-  // (lane 0 of each warp) warp-iterations with a live lane and those that
-  // ran the spawn stage
+  // test and DOM rows tested (COLL 1, 2); the tabulated angle's scatters
+  // and those that drew Rayleigh (MED 2, 3); in every instantiation the
+  // layer-walk steps, and (lane 0 of each warp) warp-iterations with a live
+  // lane and those that ran the spawn stage
   unsigned int n_cand = 0, n_cull = 0, n_tested = 0, n_rows = 0;
   unsigned int n_scat = 0, n_ray = 0;
   unsigned int n_walk = 0, n_warps = 0, n_swarps = 0;
@@ -1134,7 +1155,7 @@ propagate_kernel(const Params p, float* __restrict__ state,
           const float ce = fminf(fmaxf(-(dx * p.pmt_ax + dy * p.pmt_ay +
                                          dz * p.pmt_az), -1.0f), 1.0f);
           float ang = 0.0f;
-          for (int q = p.n_ang - 1; q >= 0; --q) ang = ang * ce + p.ang[q];
+          for (int q = p.n_ang - 1; q >= 0; --q) ang = ang * ce + ang_tab[q];
           w *= fmaxf(ang, 0.0f);
         }
         const float t_hit = t + inv_gv * best;
@@ -1202,9 +1223,10 @@ propagate_kernel(const Params p, float* __restrict__ state,
         aniso_transform(p, p.an_k1, p.an_k2, p.an_kz, &pdx, &pdy, &pdz);
       const float g = p.mean_cos;
       float cos_s;
-      if constexpr (MED == MED_WATER) {
+      if constexpr (tabulated_angle<MED>()) {
         // Rayleigh mixed with the tabulated (Petzold) scattering angle, u5
-        // the branch, u6 the sample (kernel.py:1606-1629)
+        // the branch, u6 the sample, whatever the medium's wavelength
+        // factors (kernel.py:1606-1629)
         ++n_scat;
         if (u[5] < p.liu_frac) {
           ++n_ray;
@@ -1354,6 +1376,7 @@ struct LaunchArgs {
   const float* strings;
   const float* wtab;
   const float* scat;
+  const float* ang;
   void* stream;
 };
 
@@ -1370,19 +1393,20 @@ static int launch(const LaunchArgs& a) {
           reinterpret_cast<const float4*>(a.doms), a.rec_buf,
           reinterpret_cast<unsigned long long*>(a.rec_cnt),
           reinterpret_cast<const float4*>(a.rel),
-          reinterpret_cast<const float4*>(a.strings), a.wtab, a.scat);
+          reinterpret_cast<const float4*>(a.strings), a.wtab, a.scat, a.ang);
   return (int)cudaGetLastError();
 }
 
-// The seven instantiations of one (COLL, MED) pair, by mode (kernel.py
+// The twelve instantiations of one (COLL, MED) pair, by mode (kernel.py
 // kernel_mode): stopping detect with and without records, stopping and
 // non-stopping detect with and without the fixed horizon, the expected
-// estimator, and the expected estimator with in-kernel threefry (the fit's
-// forward).  -1 for a mode of another pair, or one that is not built
-// (threefry with a detect mode, records with another deposit mode).
+// estimator, each of these six in Philox / external-stream form and in
+// in-kernel threefry form.  -1 for a mode of another pair, or one that is
+// not built (records with another deposit mode).
 template <int COLL, int MED>
 static int launch_family(int mode, const LaunchArgs& a) {
   constexpr int base = COLL << COLL_SHIFT | MED << MED_SHIFT;
+  constexpr int TF = MODE_THREEFRY;
   switch (mode) {
     case base:
       return launch<false, DEP_STOP, false, false, COLL, MED>(a);
@@ -1396,7 +1420,17 @@ static int launch_family(int mode, const LaunchArgs& a) {
       return launch<false, DEP_PASS, false, true, COLL, MED>(a);
     case base | DEP_EXPECTED:
       return launch<false, DEP_EXPECTED, false, false, COLL, MED>(a);
-    case base | DEP_EXPECTED | MODE_THREEFRY:
+    case base | TF:
+      return launch<false, DEP_STOP, true, false, COLL, MED>(a);
+    case base | TF | MODE_RECORDS:
+      return launch<true, DEP_STOP, true, false, COLL, MED>(a);
+    case base | TF | MODE_FIXED:
+      return launch<false, DEP_STOP, true, true, COLL, MED>(a);
+    case base | TF | DEP_PASS:
+      return launch<false, DEP_PASS, true, false, COLL, MED>(a);
+    case base | TF | DEP_PASS | MODE_FIXED:
+      return launch<false, DEP_PASS, true, true, COLL, MED>(a);
+    case base | TF | DEP_EXPECTED:
       return launch<false, DEP_EXPECTED, true, false, COLL, MED>(a);
     default:
       return -1;
@@ -1414,3 +1448,6 @@ int dispatch_affine_tables(int mode, const LaunchArgs& a);
 int dispatch_affine_water(int mode, const LaunchArgs& a);
 int dispatch_general_tables(int mode, const LaunchArgs& a);
 int dispatch_general_water(int mode, const LaunchArgs& a);
+int dispatch_scat(int mode, const LaunchArgs& a);          // propagate_scat.cu
+int dispatch_affine_scat(int mode, const LaunchArgs& a);
+int dispatch_general_scat(int mode, const LaunchArgs& a);

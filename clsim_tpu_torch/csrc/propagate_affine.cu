@@ -1,4 +1,4 @@
-// The seven instantiations of the global affine plan (K1·B3) in the
+// The twelve instantiations of the global affine plan (K1·B3) in the
 // closed-form medium: COLL_AFFINE with MED_CLOSED, every deposit mode
 // (launch_family in propagate.cuh; the entry points are in propagate.cu).
 

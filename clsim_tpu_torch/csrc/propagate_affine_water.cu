@@ -1,4 +1,4 @@
-// The seven instantiations of the global affine plan (K1·B3) in sea water
+// The twelve instantiations of the global affine plan (K1·B3) in sea water
 // (K1·B7): COLL_AFFINE with MED_WATER, every deposit mode (launch_family
 // in propagate.cuh; the entry points are in propagate.cu).
 

@@ -1,4 +1,4 @@
-// The seven instantiations of the global general plan (K1·B3) in the
+// The twelve instantiations of the global general plan (K1·B3) in the
 // closed-form medium: COLL_GENERAL with MED_CLOSED, every deposit mode
 // (launch_family in propagate.cuh; the entry points are in propagate.cu).
 

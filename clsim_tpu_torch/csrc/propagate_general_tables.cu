@@ -1,4 +1,4 @@
-// The seven instantiations of the global general plan (K1·B3) in the
+// The twelve instantiations of the global general plan (K1·B3) in the
 // photonics-table medium (K1·B7): COLL_GENERAL with MED_TABLES, every
 // deposit mode (launch_family in propagate.cuh; the entry points are in
 // propagate.cu).

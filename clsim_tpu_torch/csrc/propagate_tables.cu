@@ -1,4 +1,4 @@
-// The seven instantiations of the photonics-table medium (K1·B7) with
+// The twelve instantiations of the photonics-table medium (K1·B7) with
 // SubPlan collision: COLL_SUBPLANS with MED_TABLES, every deposit mode
 // (launch_family in propagate.cuh; the entry points are in propagate.cu).
 

@@ -1,4 +1,4 @@
-// The seven instantiations of sea water (K1·B7) with SubPlan collision:
+// The twelve instantiations of sea water (K1·B7) with SubPlan collision:
 // COLL_SUBPLANS with MED_WATER, every deposit mode (launch_family in
 // propagate.cuh; the entry points are in propagate.cu).
 

@@ -3,13 +3,19 @@ engine for CPU tensors (PyTorch counterpart of clsim_tpu.propagate.dispatch).
 
 On a CUDA device, "auto" takes the kernel when the configuration is
 supported and otherwise raises with the reason: a GPU run never quietly
-drops to the engine.  The kernel serves every collision plan and medium
-with every deposit mode (stopping and non-stopping detect, the fixed
-absorption horizon, the expected estimator), photon records with stopping
-detect, and flasher steps over stacked spectra with a uniform or
-non-uniform bias grid.  What it refuses (backend_reason): scatter-history
-rings, records with another deposit mode, a one-point bias grid, threefry
-draws with a detect mode and the kernel's static limits.
+drops to the engine.  The kernel serves every configuration the JAX
+kernel serves: every collision plan and medium (the closed-form ice with
+the Liu/HG mixture or a tabulated scattering angle, tabulated media) with
+every deposit mode (stopping and non-stopping detect, the fixed
+absorption horizon, the expected estimator with an angular polynomial of
+any length), each with Philox, an external stream or in-kernel threefry,
+photon records with stopping detect, and flasher steps over stacked
+spectra with a uniform or non-uniform bias grid.  What it refuses
+(backend_reason): scatter-history rings, records with another deposit
+mode and a one-point bias grid (as the JAX package does), and the
+kernel's static limits on SubPlans, test rounds, DOM candidates and tilt
+distances (register arrays of its collision loops), which no geometry or
+ice the repository builds reaches.
 
 One rule sends a CUDA run to the engine on the card: scatter-history rings
 (save_photons with photon_history_entries > 0).  They ride on the engine

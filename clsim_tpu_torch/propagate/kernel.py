@@ -32,14 +32,15 @@ This module holds
     until no slot is alive or max_calls is reached.
 
 The expected estimator (spec.expected: survival-weight deposits, soft
-binning, the angular polynomial), non-stopping detect and the fixed
-absorption horizon (B6) are the kernel's deposit modes, and in-kernel
-threefry (spec.threefry, B8b, with the expected estimator only: the fit's
-forward) its third random-number mode: the kernel
-reads a (2T,) table of per-iteration keys folded on the host by ops/rng.py
-and draws bit-exactly the stream of rng.uniforms, so the engine run with
-the same key (the fit's backward, propagate/diff.py) consumes the same
-numbers without a materialized (T, 8, N) stream.
+binning, the angular polynomial, whose coefficients the kernel reads from a
+device table of any length), non-stopping detect and the fixed absorption
+horizon (B6) are the kernel's deposit modes, and in-kernel threefry
+(spec.threefry, B8b) its third random-number mode, in every deposit mode
+and with records: the kernel reads a (2T,) table of per-iteration keys
+folded on the host by ops/rng.py and draws bit-exactly the stream of
+rng.uniforms, so the engine run with the same key (the fit's backward,
+propagate/diff.py, or a golden's slot batch) consumes the same numbers
+without a materialized (T, 8, N) stream.
 
 Collision (B3) and media (B7) are the kernel's COLL and MED template
 arguments (kernel_coll / kernel_med): COLL 0 the per-subdetector SubPlans,
@@ -50,9 +51,11 @@ every DOM of a string (surveyed geometries, off the z0 + m*dz ladder); MED
 0 the closed-form icecube medium, 1 tabulated wavelength factors (water or
 photonics-table ice) with the Liu/HG scattering mixture, 2 tabulated
 factors with the tabulated (Petzold) angle mixed with Rayleigh (sea
-water).  Every (COLL, MED) pair is built with every deposit mode: stopping
-detect with or without records, non-stopping detect, the fixed horizon,
-the expected estimator and its threefry variant.
+water), 3 the closed-form factors with the tabulated angle mixed with
+Rayleigh (B5: e.g. the Antares angle on IceCube ice).  Every (COLL, MED)
+pair is built with every deposit mode, each with Philox or an external
+stream and with threefry: stopping detect with or without records,
+non-stopping detect, the fixed horizon, the expected estimator.
 
 Stacked spectra (flashers, B4) are read per slot: the kernel offsets its
 (n_tables, 3, n_spec) spectrum table by the step's source_type and
@@ -63,9 +66,9 @@ stacked spectrum is refused on the host (check_source_types), so the
 kernel never reads past its table.  Tilt and anisotropy may be on or off,
 and photon records (with SAVE_ALL and its prescale) may be on with
 stopping detect.  spec_unsupported() names why any other configuration is
-refused (records with the B6 modes, a one-point bias grid, threefry with
-a detect mode, the static limits), and the wrapper raises rather than
-fall back.
+refused (records with the B6 modes and a one-point bias grid, as in the
+JAX package; the static limits of the collision loops and the tilt grid),
+and the wrapper raises rather than fall back.
 """
 
 from __future__ import annotations
@@ -144,7 +147,6 @@ MAX_PLANS = 4
 MAX_ROUNDS = 4
 MAX_TILT_D = 16
 MAX_DOM_CAND = 16
-MAX_ANG = 8        # angular-polynomial coefficients in the parameter block
 
 # launches of the CUDA kernel, MODE_LAUNCHES[kernel_mode(spec)] per
 # instantiation (the wrapper adds one per launch): mode 0 is the main path
@@ -626,30 +628,18 @@ def medium_fields(medium: MediumProperties, spectra: SpectrumTable) -> dict:
 def spec_unsupported(spec: FusedSpec) -> Optional[str]:
     """None if the CUDA kernel serves this spec, else why not."""
     if spec.records and (spec.expected or not spec.stopping
-                         or spec.fixed_abs or spec.threefry):
+                         or spec.fixed_abs):
         return ("photon records are fused only with stopping detect, as in "
                 "the JAX package (clsim_tpu/propagate/kernel.py:1830-1834): "
-                "records with the B6 deposit modes, a fixed horizon or "
-                "threefry draws are not in the CUDA kernel")
+                "records with the B6 deposit modes or a fixed horizon are "
+                "not in the CUDA kernel")
     if spec.n_bias < 2:
         return (f"the bias grid has {spec.n_bias} point(s); the kernel "
                 "interpolates between two at least, as the JAX kernel "
                 "does (clsim_tpu/propagate/kernel.py:2327 reads bias_x[1])")
-    if len(spec.ang_poly) > MAX_ANG:
-        return (f"the angular polynomial has {len(spec.ang_poly)} "
-                f"coefficients, the kernel takes <= {MAX_ANG} (ROADMAP.md B6)")
-    if spec.threefry and not spec.expected:
-        return ("in-kernel threefry is built with the expected estimator "
-                "only (the fit's forward, propagate/diff.py); detect modes "
-                "draw Philox or an external stream (ROADMAP.md B8b, "
-                "threefry with a detect mode)")
     if spec.threefry and 8 * spec.n_slots >= 2 ** 32:
         return ("threefry draws need 8 * n_slots < 2**32 (one 32-bit "
                 "counter per element of an iteration's (8, N) block)")
-    if spec.scat_table and not spec.medium_tables:
-        return ("tabulated scattering is built with a tabulated medium "
-                "(water) only, not with the closed-form icecube medium "
-                "(ROADMAP.md B7)")
     if (len(spec.sub_plans) > MAX_PLANS
             or any(p.rounds > MAX_ROUNDS or p.n_dom_cand > MAX_DOM_CAND
                    for p in spec.sub_plans)
@@ -659,13 +649,15 @@ def spec_unsupported(spec: FusedSpec) -> Optional[str]:
             or spec.nd_tilt > MAX_TILT_D):
         return (f"spec exceeds the kernel's static limits (<= {MAX_PLANS} "
                 f"SubPlans, <= {MAX_ROUNDS} rounds, <= {MAX_DOM_CAND} DOM "
-                f"candidates, <= {MAX_TILT_D} tilt distances)")
+                f"candidates, <= {MAX_TILT_D} tilt distances: the sizes "
+                "of register arrays in its collision loops and of its "
+                "parameter block; ROADMAP.md B5)")
     return None
 
 
 # collision (COLL) and medium (MED) instantiations of csrc/propagate.cu
 COLL_SUBPLANS, COLL_AFFINE, COLL_GENERAL = 0, 1, 2
-MED_CLOSED, MED_TABLES, MED_WATER = 0, 1, 2
+MED_CLOSED, MED_TABLES, MED_WATER, MED_CLOSED_SCAT = 0, 1, 2, 3
 
 
 def kernel_coll(spec: FusedSpec) -> int:
@@ -677,10 +669,13 @@ def kernel_coll(spec: FusedSpec) -> int:
 
 
 def kernel_med(spec: FusedSpec) -> int:
-    """MED of the instantiation: closed form, wavelength tables, or
-    wavelength tables with the tabulated scattering angle."""
+    """MED of the instantiation: the closed-form wavelength factors or the
+    wavelength tables, each with the Liu/HG scattering mixture or with the
+    tabulated scattering angle mixed with Rayleigh (the JAX kernel sets
+    scat_table apart from medium_tables, clsim_tpu/propagate/kernel.py:
+    2179-2181)."""
     if not spec.medium_tables:
-        return MED_CLOSED
+        return MED_CLOSED_SCAT if spec.scat_table else MED_CLOSED
     return MED_WATER if spec.scat_table else MED_TABLES
 
 
@@ -714,6 +709,8 @@ class FusedTables(NamedTuple):
     wtab: torch.Tensor            # (rows, n_wtab) gs, pa, qa, ra [, n, g]
                                   # on the medium's wavelength grid (or (1,))
     scat: torch.Tensor            # (3, n_scat) angle, CDF, density (or (1,))
+    ang: torch.Tensor             # (n_ang,) the expected estimator's angular
+                                  # polynomial, ascending powers (or (1,))
 
 
 def cull_block(spec: FusedSpec) -> int:
@@ -809,6 +806,8 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
     scat = (f32(torch.stack([sc_.table_cos.reshape(-1),
                              sc_.table_cdf[0], sc_.table_cdf[1]]).cpu())
             if spec.scat_table else torch.zeros(1, device=dev))
+    ang = (f32(np.asarray(spec.ang_poly, np.float32)) if spec.ang_poly
+           else torch.zeros(1, device=dev))
 
     cfg = spec.cfg
     sc = medium_scalars(medium, spectra)
@@ -824,7 +823,7 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
         doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
             dev).contiguous(),
         scalars=sc, global_cells=global_cells, rel=rel, strings=strings,
-        scat=scat)
+        scat=scat, ang=ang)
 
 
 def medium_device_tables(medium: MediumProperties, spectra: SpectrumTable,
@@ -1292,7 +1291,6 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_float) for n in ("rec_prescale", "rec_fpk",
                                          "horizon")]
         + [(n, ctypes.c_int) for n in ("soft", "n_ang")]
-        + [("ang", ctypes.c_float * MAX_ANG)]
         + [(n, ctypes.c_float) for n in ("pmt_ax", "pmt_ay", "pmt_az")]
         + [(n, ctypes.c_float) for n in ("g_x0", "g_y0", "g_inv_cell")]
         + [(n, ctypes.c_int) for n in ("g_nx", "g_ny", "g_k_cand",
@@ -1373,8 +1371,6 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.rec_fpk = (pancake - 1.0) / pancake   # the engine's un-pancake factor
     p.soft = int(spec.soft)
     p.n_ang = len(spec.ang_poly)
-    for j, c in enumerate(spec.ang_poly):
-        p.ang[j] = c
     p.pmt_ax, p.pmt_ay, p.pmt_az = spec.pmt_axis
     p.g_x0, p.g_y0, p.g_inv_cell = spec.cell_x0, spec.cell_y0, spec.inv_cell
     p.g_nx, p.g_ny, p.g_k_cand = spec.cell_nx, spec.cell_ny, spec.K_cand
@@ -1431,13 +1427,14 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     _check_tensor("state", state, (rows, N), f32, dev)
     _check_tensor("steps", steps, (NST, N), f32, dev)
     for name in ("layers", "spec_tab", "bias_tab", "tilt_zc", "cells", "doms",
-                 "rel", "strings", "wtab", "scat"):
+                 "rel", "strings", "wtab", "scat", "ang"):
         _check_tensor(name, getattr(tables, name), None, f32, dev)
     if tables.doms.shape != (spec.n_doms, 4):
         raise ValueError("DOM table does not match the spec")
     if tables.layers.shape != (3, spec.L) or \
             tables.spec_tab.shape != (spec.n_tables, 3, spec.n_spec) or \
-            tables.bias_tab.shape != (2, spec.n_bias):
+            tables.bias_tab.shape != (2, spec.n_bias) or \
+            tables.ang.numel() < len(spec.ang_poly):
         raise ValueError("tables do not match the spec")
     if uniforms is not None:
         _check_tensor("uniforms", uniforms, None, f32, dev)
@@ -1485,9 +1482,10 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
     stream = torch.cuda.current_stream(dev).cuda_stream
     if spec.records:
         rc = lib.clsim_propagate_records(
-            *args, ptr(tables.doms), ptr(rec_buf), ptr(rec_cnt), stream)
+            *args, ptr(tables.doms), ptr(rec_buf), ptr(rec_cnt), ptr(keys32),
+            stream)
     else:
-        rc = lib.clsim_propagate(*args, ptr(keys32), stream)
+        rc = lib.clsim_propagate(*args, ptr(tables.ang), ptr(keys32), stream)
     if rc != 0:
         raise RuntimeError("propagation kernel launch failed: "
                            + lib.clsim_error_string(rc).decode())
@@ -1588,13 +1586,18 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
     `steps` are slot-assigned tensors on the propagation device.
     `uniforms`: optional (T >= iters_per_call, 8, n_slots) float32 stream
     (parity mode; requires max_calls=1).  `threefry_key`: optional threefry
-    key (ops/rng.py), exclusive with `uniforms` and taken only with
-    cfg.estimator='expected': the kernel draws in-kernel
-    the stream rng.make_uniform_stream(threefry_key, iters_per_call, N)
-    would hold, from the folded per-iteration keys (requires max_calls=1:
-    the key table covers one call's iterations).  With cfg.save_photons each launch
-    writes at most `rec_capacity` records (fewer when the workload has
-    fewer photons).  Returns (PropagationResult, totals) with totals the
+    key (ops/rng.py), exclusive with `uniforms`, with any estimator and with
+    records: the kernel draws in-kernel the stream
+    rng.make_uniform_stream(threefry_key, iters_per_call, N) would hold,
+    from the folded per-iteration keys (requires max_calls=1: the key table
+    covers one call's iterations, as in the JAX package).  With
+    cfg.save_photons each launch writes at most `rec_capacity` records
+    (fewer when the workload has fewer photons).  A record that does not
+    fit stalls its slot until the next launch, which a threefry run does
+    not have (its one call's keys would be reused); so a threefry record
+    run needs room for every record, rec_capacity >= the photons + 1, and
+    raises otherwise (the JAX kernel would drop the records past its queue,
+    CNT_DROPPED).  Returns (PropagationResult, totals) with totals the
     float64 CNT_* vector."""
     if cfg.save_photons and cfg.photon_history_entries > 0:
         raise NotImplementedError(HISTORY_REFUSED)
@@ -1605,9 +1608,6 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
         raise ValueError("external uniforms (parity mode) require "
                          "max_calls=1: each call would replay the stream")
     if threefry_key is not None:
-        if cfg.estimator != "expected":
-            raise ValueError("threefry_key requires cfg.estimator="
-                             "'expected' (the fit's forward)")
         if uniforms is not None:
             raise ValueError("threefry_key and uniforms are exclusive")
         if max_calls != 1:
@@ -1634,9 +1634,15 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
         keys = rng.key_table(threefry_key, iters_per_call).to(
             steps.x.device)
     if spec.records:
-        # a run records at most one photon per photon, plus nothing pending
-        rec_capacity = min(int(rec_capacity),
-                           int(steps.num_photons.sum()) + 1)
+        # a run records at most one record per photon
+        photons = int(steps.num_photons.sum())
+        if threefry_key is not None and int(rec_capacity) < photons + 1:
+            raise ValueError(
+                f"threefry_key with save_photons needs rec_capacity >= the "
+                f"photons + 1 ({photons + 1}), got {int(rec_capacity)}: a "
+                "record that finds the buffer full waits for the next "
+                "launch, and the key table covers one call")
+        rec_capacity = min(int(rec_capacity), photons + 1)
     return _run_fused(init_state(steps, spec.records), pack_steps(steps),
                       tables, spec, seed, max_calls, uniforms=uniforms,
                       rec_capacity=rec_capacity, keys=keys)

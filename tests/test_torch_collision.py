@@ -243,8 +243,7 @@ def test_spec_gate_refuses_deposit_modes_on_global_plans(change, dep):
     """The global plans serve every deposit mode (K1·B3/B7 × B6/B8b), each
     in its own instantiation of the general plan; what the gate refuses
     there is what it refuses everywhere: records with a B6 deposit mode
-    (as the JAX package does, clsim_tpu/propagate/kernel.py:1830-1834)
-    and threefry draws with a detect mode."""
+    (as the JAX package does, clsim_tpu/propagate/kernel.py:1830-1834)."""
     inputs = workload("jittered")
     spec, tables, (steps, u) = port_spec(inputs)
     assert KT.spec_unsupported(spec) is None
@@ -261,7 +260,7 @@ def test_spec_gate_refuses_deposit_modes_on_global_plans(change, dep):
     bad = mode_spec._replace(records=True)
     assert "records" in KT.spec_unsupported(bad)
     assert KT.spec_unsupported(mode_spec._replace(
-        threefry=True, expected=False)) is not None
+        threefry=True, expected=False)) is None
     with pytest.raises(NotImplementedError, match="records"):
         KT._launch(KT.init_state(steps, True), KT.pack_steps(steps), tables,
                    bad, u, 0, 0, None)

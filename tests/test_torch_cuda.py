@@ -141,6 +141,102 @@ def test_cuda_threefry_matches_stream_and_diff_runs():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("glob", [False, True])
+@pytest.mark.parametrize("mode", ["stop", "pass", "fixed", "pass,fixed",
+                                  "records"])
+def test_cuda_threefry_detect_modes_match_stream_and_plain(mode, glob,
+                                                           monkeypatch):
+    """In-kernel threefry in every detect mode and with records (chip_smoke
+    phase 13a's check at 8,192 slots, on the main-path configuration and
+    on ic86): the kernel against the same kernel fed
+    rng.make_uniform_stream of the key (equal counts, histograms equal up
+    to atomic order, equal record counts) and against its plain version
+    with the key table (phase 2's tolerances, records matched on (slot,
+    dom)); its own instantiation launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    monkeypatch.setattr(chip_smoke, "N_SLOTS", 8192)
+    dev = torch.device("cuda", 0)
+    key = rng.as_key(chip_smoke.TF_KEY)
+    main = chip_smoke.main_path_inputs(dev)
+    medium, geo, spectra, cfg, steps, _ = (chip_smoke.on_ic86(main, dev)
+                                           if glob else main)
+    uni = rng.make_uniform_stream(key.to(dev), chip_smoke.PHASE2_T, 8192)
+    cfg = dataclasses.replace(cfg, **chip_smoke.TF_MODES[mode])
+    before = K.MODE_LAUNCHES.copy()
+    out = chip_smoke.tf_against(chip_smoke.tf_entry(mode, glob),
+                                (medium, geo, spectra, cfg, steps, uni), key)
+    torch.cuda.synchronize()
+    assert out["mode"] & K.MODE_THREEFRY
+    # a warm-up and five timed threefry launches
+    assert K.MODE_LAUNCHES[out["mode"]] - before[out["mode"]] == 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threefry", [False, True])
+def test_cuda_hole_ice_polynomial_matches_plain_version(threefry):
+    """The expected estimator with the 11-coefficient hole-ice polynomial,
+    read from the angular table, on the fit workload at 8,192 slots:
+    kernel against plain version (phase 2's tolerances), on a shared
+    stream and with threefry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.hits.acceptance import HOLE_ICE_H2_50CM
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    dev = torch.device("cuda", 0)
+    n, T = 8192, chip_smoke.FIT_T
+    medium, geo, spectra, cfg, steps = chip_smoke.fit_workload(dev, n)
+    cfg = dataclasses.replace(cfg, expected_angular_poly=tuple(
+        float(c) for c in HOLE_ICE_H2_50CM["coefficients"]))
+    key = rng.as_key(chip_smoke.FIT_KEY)
+    src = (dict(key=key) if threefry else dict(
+        uniforms=rng.make_uniform_stream(key.to(dev), T, n)))
+    run_k, spec, tables = chip_smoke.kernel_run(medium, geo, spectra, cfg,
+                                                steps, T, **src)
+    run_p, _, _ = chip_smoke.kernel_run(medium, geo, spectra, cfg, steps, T,
+                                        plain=True, **src)
+    assert tables.ang.numel() == len(spec.ang_poly) == 11
+    mode = K.kernel_mode(spec)
+    launches = K.MODE_LAUNCHES[mode]
+    _, h_k, c_k = run_k()
+    _, h_p, c_p = run_p()
+    torch.cuda.synchronize()
+    assert K.MODE_LAUNCHES[mode] == launches + 1
+    chip_smoke.compare("cuda hole-ice polynomial", c_k, h_k, c_p, h_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["propagate[closed-scat]",
+                                   "propagate[expected,closed-scat]"])
+def test_cuda_closed_ice_with_tabulated_angle_matches_plain_version(
+        entry, monkeypatch):
+    """The closed-form ice with the Antares scattering angle (the kernel's
+    MED_CLOSED_SCAT; chip_smoke phase 13d's check at 8,192 slots) in detect
+    and expected mode against its plain version on a shared stream: phase
+    2's tolerances, the tabulated angle's scatter counts within max(2,
+    1%)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    monkeypatch.setattr(chip_smoke, "N_SLOTS", 8192)
+    dev = torch.device("cuda", 0)
+    medium, geo, spectra, cfg, steps, uni = chip_smoke.closed_scat_inputs(dev)
+    cfg = dataclasses.replace(cfg, **chip_smoke.CLOSED_SCAT[entry])
+    out = chip_smoke.check_instantiation(
+        entry, (medium, geo, spectra, cfg, steps, uni), False)
+    assert out["mode"] >> K.MED_SHIFT == K.MED_CLOSED_SCAT
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("entry", [
     "propagate[global]", "propagate[general]", "propagate[water]",
     "propagate[photonics]", "propagate[records,global]",
@@ -462,8 +558,10 @@ def test_cuda_config1_golden_from_particles():
 def test_cuda_dispatch_sends_rings_to_the_engine():
     """propagate_auto on the card: a scatter-history ring configuration runs
     the engine there (no kernel launch, rings in the records), H > 0
-    without save_photons (no rings) launches the kernel, and the other
-    configurations the kernel refuses still raise."""
+    without save_photons (no rings) launches the kernel, an angular
+    polynomial past the parameter block's old limit of 8 coefficients
+    launches the kernel (it reads them from a device table), and records
+    with another deposit mode, which the kernel refuses, still raise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
     import dataclasses
@@ -496,12 +594,17 @@ def test_cuda_dispatch_sends_rings_to_the_engine():
     assert sum(K.MODE_LAUNCHES.values()) > before
     assert res.diag_totals is not None
     assert float(res.n_generated) == float(steps.num_photons.sum())
-    for change in (dict(estimator="expected",
-                        expected_angular_poly=(0.1,) * 9),
-                   dict(save_photons=True, stop_on_detection=False)):
-        with pytest.raises((ValueError, NotImplementedError)):
-            D.propagate_auto(steps, medium, geo, spectra, 3,
-                             dataclasses.replace(cfg, **change))
+    nine = dataclasses.replace(cfg, estimator="expected",
+                               expected_angular_poly=(0.1,) * 9)
+    before = K.MODE_LAUNCHES[K.DEP_EXPECTED]
+    res = D.propagate_auto(steps, medium, geo, spectra, 3, nine)
+    torch.cuda.synchronize()
+    assert K.MODE_LAUNCHES[K.DEP_EXPECTED] > before
+    assert float(res.n_generated) == float(steps.num_photons.sum())
+    assert float(res.weight_hits) > 0.0
+    with pytest.raises((ValueError, NotImplementedError)):
+        D.propagate_auto(steps, medium, geo, spectra, 3, dataclasses.replace(
+            cfg, save_photons=True, stop_on_detection=False))
 
 
 @pytest.mark.cuda

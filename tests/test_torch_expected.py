@@ -133,17 +133,20 @@ def test_plain_version_threefry_matches_engine_key_mode(mode):
 
 @pytest.mark.parametrize("mode", ["nonstopping", "fixed_abs"])
 def test_threefry_key_refused_in_detect_modes(mode):
-    """In-kernel threefry serves the fit's forward (the expected estimator)
-    alone: propagate_fused refuses threefry_key in a detect mode, and the
-    spec names why."""
+    """In-kernel threefry serves the detect modes too, as the JAX kernel
+    takes a key with any estimator: propagate_fused(threefry_key=) in a
+    detect mode runs, the spec passes the gate, and the result is the
+    engine's in key mode on the same key."""
     steps, medium, geo, spectra, cfg, _ = port_inputs(*workload(mode, True))
-    with pytest.raises(ValueError, match="expected"):
-        KT.propagate_fused(steps, medium, geo, spectra, 0, cfg,
-                           iters_per_call=TK.T, max_calls=1,
-                           threefry_key=KEY)
+    res, _ = KT.propagate_fused(steps, medium, geo, spectra, 0, cfg,
+                                iters_per_call=TK.T, max_calls=1,
+                                threefry_key=KEY)
+    ref = ET.propagate(steps, medium, geo, spectra, 0, cfg,
+                       max_iterations=TK.T, key=KEY)
+    compare_res(ref, res)
     spec, _ = KT.fused_spec(medium, geo, spectra, cfg, TK.N, TK.T,
                             threefry=True)
-    assert "expected estimator" in KT.spec_unsupported(spec)
+    assert KT.spec_unsupported(spec) is None
 
 
 @pytest.mark.parametrize("threefry", [False, True])
@@ -162,10 +165,7 @@ def test_spec_fields_match_jax(mode, threefry):
         assert getattr(spec, f) == getattr(spec_j, f), f
     assert spec.ang_poly == tuple(float(c) for c in spec_j.ang_poly)
     assert spec.pmt_axis == tuple(float(a) for a in spec_j.pmt_axis)
-    if threefry and not spec.expected:
-        assert "expected estimator" in KT.spec_unsupported(spec)
-    else:
-        assert KT.spec_unsupported(spec) is None
+    assert KT.spec_unsupported(spec) is None
     assert D.backend_reason(medium, spectra, cfg, geo, TK.N) is None
     mode_bits = KT.kernel_mode(spec)
     assert bool(mode_bits & KT.MODE_THREEFRY) == threefry

@@ -107,16 +107,12 @@ def test_abandoned_photons_are_reported():
     (dict(records=True, fixed_abs=True), "B6"),
     (dict(records=True, expected=True), "B6"),
     (dict(n_bias=1), "bias grid"),
-    (dict(ang_poly=(0.1,) * (KT.MAX_ANG + 1)), "angular polynomial"),
-    (dict(threefry=True), "threefry with a detect mode"),
 ])
 def test_cuda_wrapper_spec_gate_raises(change, item):
     """The CUDA wrapper checks the spec before anything else and never falls
     back to the plain version.  What it still refuses: records with the B6
-    deposit modes (as the JAX package does), a one-point bias grid (the JAX
-    kernel cannot serve one either), an angular polynomial past the
-    parameter block's static limit, and threefry draws with a detect
-    mode."""
+    deposit modes (as the JAX package does) and a one-point bias grid (the
+    JAX kernel cannot serve one either)."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
     spec, cell_tab = KT.fused_spec(medium, geo, spectra, cfg, TK.N, TK.T)
     tables = KT.build_tables(spec, medium, geo, spectra, cell_tab)
@@ -132,26 +128,42 @@ def test_cuda_wrapper_spec_gate_raises(change, item):
     dict(medium_tables=True, scat_table=True, expected=True),
     dict(n_tables=2, bias_uniform=False),
     dict(sub_plans=(), stopping=False),
+    dict(expected=True, ang_poly=(0.1,) * 11),
+    dict(threefry=True),
+    dict(scat_table=True),
 ])
 def test_cuda_wrapper_spec_gate_serves_flashers_and_deposit_modes(change):
     """Served since the flasher slice: the expected estimator in a tabulated
     medium, stacked flasher spectra with a non-uniform bias grid (K1·B4),
-    and non-stopping detect on the global plan (K1·B3/B7 × B6/B8b)."""
+    and non-stopping detect on the global plan (K1·B3/B7 × B6/B8b); since
+    the slice that serves every configuration of the JAX kernel, an
+    angular polynomial of any length (the default hole-ice model has 11
+    coefficients), threefry draws in a detect mode, and the tabulated
+    scattering angle in the closed-form ice (MED_CLOSED_SCAT)."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
     spec, _ = KT.fused_spec(medium, geo, spectra, cfg, TK.N, TK.T)
     assert KT.spec_unsupported(spec._replace(**change)) is None
 
 
-@pytest.mark.parametrize("change", [dict(save_photons=True,
-                                         photon_history_entries=2),
-                                    dict(estimator="expected",
-                                         expected_angular_poly=(0.1,) * 9)])
-def test_propagate_fused_refuses_unported_configs(change):
+@pytest.mark.parametrize("change,refused", [
+    (dict(save_photons=True, photon_history_entries=2), True),
+    (dict(estimator="expected", expected_angular_poly=(0.1,) * 9), False)])
+def test_propagate_fused_refuses_unported_configs(change, refused):
+    """Scatter-history rings stay refused (the engine serves them); a
+    nine-coefficient angular polynomial, once past the parameter block's
+    limit, runs: the kernel reads its coefficients from a device table."""
     steps, medium, geo, spectra, cfg, u = port_inputs(*TK._workload())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KT.propagate_fused(steps, medium, geo, spectra, 0,
-                           dataclasses.replace(cfg, **change),
-                           iters_per_call=TK.T, max_calls=1, uniforms=u)
+    run = lambda: KT.propagate_fused(steps, medium, geo, spectra, 0,
+                                     dataclasses.replace(cfg, **change),
+                                     iters_per_call=TK.T, max_calls=1,
+                                     uniforms=u)
+    if refused:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            run()
+        return
+    res, totals = run()
+    assert float(res.n_generated) == float(totals[KT.CNT_GEN]) > 0
+    assert float(res.n_hits) > 20 and float(res.weight_hits) > 0.0
 
 
 def test_propagate_fused_ignores_history_entries_without_records():
