@@ -19,6 +19,13 @@
         # process a turn: its kernel row (11a's first 32 iterations), 11a's
         # runs with each launch between CUDA events, the 4x-slot run, the
         # account (tab_stats) and the ptxas figures of T1 and of K1
+    python3 chip_smoke.py --loop-turns LABEL:ROOT ... [--json PATH]
+        # phase 14b's cases (phase 3's cascade, 8b's flash) and 7b's ic86
+        # cascade at iters_per_call 256, 1024, 4096 with repack off, on and
+        # with balance, the package of each checkout in turns (parent,
+        # new, new, parent), one process a turn: simulate's wall and the
+        # kernel launches' summed ms, medians of 5, each body's spread; a
+        # checkout without repack runs its own loop as "off"
     python3 chip_smoke.py --mesh N   # build, then phase 12b with N ranks
         # (NCCL with a card each when there are N cards, else gloo)
 
@@ -271,6 +278,26 @@ Phases (any failure raises and exits non-zero):
         closed-form medium (MED_CLOSED_SCAT), detect and expected: the
         kernel against its plain version on phase 2's shared stream (7a's
         checks), and Simulation.simulate of phase 3's cascade in that ice.
+ 14. the call loop and the event pipeline (no kernel added: K1 launches
+     over the live prefix, Params.n_active):
+     a. the uneven workload (phase 2's main-path configuration, (i * 7919)
+        % 97 photons in slot i) through propagate_fused on a replayed
+        (256, 8, N) stream with repack off, on and with balance: every
+        launch of the loop also run by the plain version from the same
+        state and n_active (phase 2's tolerances on the summed launches),
+        generated = the steps' photons, nothing abandoned or dropped,
+        histogram sum = hit weight; a launch over a prefix leaves the slots
+        past it unchanged bit for bit;
+     b. the tail: phase 3's cascade and 8b's flash at iters_per_call 256,
+        1024 and 4096 with repack off, on and with balance: each launch's
+        ms, n_active, alive after it and live share, each repack's ms, the
+        kernel's summed ms and simulate's s (medians of 5);
+     c. EventPipeline at max_in_flight 1 (the synchronous loop) and 4 (the
+        harvester thread) on 8e's four events four times (ic86 flasher
+        Simulation) and on 16 of phase 3's cascades: events/s, photons/s,
+        DeviceUtilization <= 1, the wall split; every event equal at both
+        depths (generated, hits, per-particle counts; histogram L1 <= 1e-6
+        of its total).
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -2241,8 +2268,10 @@ def phase8e_pipeline(device, sim, mode):
         + ", ".join(f"{r.event_id}: ({r.n_generated:.0f}, {r.n_hits:.0f})"
                     for r in results))
     log("  RunStatistics: " + ", ".join(f"{k} {v:.6g}" for k, v in d.items()))
-    log(f"  DeviceUtilization {d['DeviceUtilization']:.6g} (CUDA-event span "
-        "of each batch's propagate_auto over its submission-to-harvest time)")
+    log(f"  DeviceUtilization {d['DeviceUtilization']:.6g} (the union of "
+        "the batches' CUDA-event spans around propagate_auto over process's "
+        "wall from its start to the last harvest; max_in_flight 2: the "
+        "harvester thread propagates while this thread prepares)")
     if [r.event_id for r in results] != list(range(len(events))):
         raise AssertionError("pipeline results not in submission order")
     for r in results:
@@ -4626,6 +4655,447 @@ def phase13d(device):
     return out, n
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the call loop (repack and balance between launches, each launch
+# over the live prefix) and the event pipeline (host and device overlapped)
+# ---------------------------------------------------------------------------
+
+UNEVEN_T = 256           # 14a: iterations a call of the replayed stream
+UNEVEN_CALLS = 64        # 14a: calls at most
+LOOP_IPC = (256, 1024, 4096)   # 14b: iterations a call
+LOOP_MODES = (("off", dict(repack=False)), ("repack", dict(repack=True)),
+              ("balance", dict(repack=True, balance=True)))
+LOOP_REPS = 5            # 14b: simulate runs a case (medians)
+PIPE_DEPTHS = (1, 4)     # 14c: the synchronous loop and the default depth
+PIPE_COPIES = 4          # 14c: 8e's four events, four times
+PIPE_CASCADES = 16       # 14c: the host-bound stream of phase 3's cascades
+
+
+def uneven_inputs(device, n=None, T=UNEVEN_T):
+    """14a's workload: phase 2's main-path configuration (hex61, the seeded
+    171-layer ice) with (i * 7919) % 97 photons in slot i, so that the
+    queue depths spread over 0-96, and one (T, 8, n) stream."""
+    import torch
+    from clsim_tpu_torch.types import PropagationConfig
+    n = N_SLOTS if n is None else n
+    medium, _ = seeded_ice(171, -855.0, 10.0, device)
+    _, geo, spectra, _, steps = bench_workload(
+        n, (np.arange(n, dtype=np.int64) * 7919) % 97, device)
+    cfg = PropagationConfig(n_slots=n, pancake_factor=5.0)
+    uni = torch.rand((T, 8, n), generator=torch.Generator(
+        device=device).manual_seed(7), device=device)
+    return medium, geo, spectra, cfg, steps, uni
+
+
+def prefix_launch_check(inputs, n_active):
+    """One launch over the first n_active slots (state advanced one launch
+    first, so that the slots past the prefix hold photons in flight):
+    the state past the prefix unchanged bit for bit, and the launch against
+    its plain version with the same n_active (phase 2's tolerances, the
+    main path's generated-count allowance).  Returns (kernel counters,
+    plain counters)."""
+    import torch
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps, uni = inputs
+    n = int(steps.x.shape[0])
+    spec, cell_tab = quiet(K.fused_spec, medium, geo, spectra, cfg, n,
+                           int(uni.shape[0]))
+    tables = K.build_tables(spec, medium, geo, spectra, cell_tab)
+    steps_p = K.pack_steps(steps)
+    state0, _, _ = K.run_fused_iterations(K.init_state(steps), steps_p,
+                                          tables, spec, uniforms=uni)
+    state_k, h_k, c_k = K.run_fused_iterations(
+        state0.clone(), steps_p, tables, spec, uniforms=uni, call_no=1,
+        n_active=n_active)
+    _, h_p, c_p = K.run_fused_iterations_plain(
+        state0.clone(), steps_p, tables, spec, uniforms=uni, call_no=1,
+        n_active=n_active)
+    torch.cuda.synchronize()
+    live_past = int(((state0[0, n_active:] > 0.5)
+                     | (state0[1, n_active:] > 0.5)).sum())
+    if not torch.equal(state_k[:, n_active:], state0[:, n_active:]):
+        raise AssertionError("a launch over the live prefix changed a slot "
+                             "past it")
+    log(f"  launch over the first {n_active} of {n} slots: the {n - n_active}"
+        f" slots past it unchanged bit for bit ({live_past} of them live); "
+        f"live slot-iterations {float(c_k[K.CNT_WORK]):.0f} (at most "
+        f"{n_active * spec.iters_per_call})")
+    if float(c_k[K.CNT_WORK]) > n_active * spec.iters_per_call:
+        raise AssertionError("the prefix launch ran slots past the prefix")
+    compare(f"prefix launch ({n_active} slots)", c_k, h_k, c_p, h_p,
+            gen_rtol=1e-5)
+    return c_k, c_p
+
+
+def repack_against_plain(name, inputs, max_calls=UNEVEN_CALLS, first=None,
+                         **opts):
+    """propagate_fused of `inputs` with its replayed stream
+    (allow_uniform_replay) and the repack options `opts`, every launch of
+    its call loop also run by the plain version from the same state, the
+    same n_active and the same stream: the path's gates (generated = the
+    steps' photons, abandoned 0, dropped 0, histogram sum = hit weight),
+    the launches' summed counters and histograms kernel against plain
+    (phase 2's tolerances, the main path's generated-count allowance: the
+    plain version restarts from the kernel's state at every launch), and
+    every launch over a prefix leaving the slots past it unchanged.  The
+    first launch starts from the initial state whatever the options, so a
+    dict `first` shared by runs of the same inputs keeps its plain result
+    for the next run.  Returns (the launches [(n_active, alive after)],
+    the result, max abs error)."""
+    import torch
+    from clsim_tpu_torch.propagate import kernel as K
+    medium, geo, spectra, cfg, steps, uni = inputs
+    n = int(steps.x.shape[0])
+    inner = K.run_fused_iterations
+    acc = dict(hist=None, c_k=0.0, c_p=0.0, launches=[])
+
+    def both(state, steps_p, tables, spec, **kw):
+        before = state.clone()
+        out = inner(state, steps_p, tables, spec, **kw)
+        if kw["call_no"] == 0 and first is not None and first:
+            acc["hist"], c_p = first["hist"].clone(), first["c"]
+        else:
+            _, acc["hist"], c_p = K.run_fused_iterations_plain(
+                before, steps_p, tables, spec, **dict(kw, hist=acc["hist"]))
+            if kw["call_no"] == 0 and first is not None:
+                first.update(hist=acc["hist"].clone(), c=c_p)
+        n_act = kw.get("n_active") or n
+        if n_act < n and not torch.equal(out[0][:, n_act:],
+                                         before[:, n_act:]):
+            raise AssertionError(f"{name}: a prefix launch changed a slot "
+                                 "past it")
+        acc["c_k"] = acc["c_k"] + out[2]
+        acc["c_p"] = acc["c_p"] + c_p
+        acc["launches"].append((n_act, out[2][K.CNT_ALIVE]))
+        return out
+
+    photons = float(steps.num_photons.sum())
+    K.run_fused_iterations = both
+    try:
+        res, tot = K.propagate_fused(
+            steps, medium, geo, spectra, 5, cfg,
+            iters_per_call=int(uni.shape[0]), max_calls=max_calls,
+            uniforms=uni, allow_uniform_replay=True, **opts)
+    finally:
+        K.run_fused_iterations = inner
+    launches = [(a, float(b)) for a, b in acc["launches"]]
+    hsum = float(res.hist.double().sum())
+    log(f"  {name}: {len(launches)} launches (n_active, alive after): "
+        + ", ".join(f"({a}, {b:.0f})" for a, b in launches)
+        + f"; generated {float(tot[K.CNT_GEN]):.0f} (steps' photons "
+        f"{photons:.0f}), abandoned {float(tot[K.CNT_ALIVE]):.0f}, dropped "
+        f"{float(tot[K.CNT_DROPPED]):.0f}, hist sum {hsum:.6g}, weight "
+        f"{float(tot[K.CNT_WSUM]):.6g}")
+    if float(tot[K.CNT_GEN]) != photons:
+        raise AssertionError(f"{name}: generated != the steps' photons")
+    if float(tot[K.CNT_ALIVE]) != 0 or float(tot[K.CNT_DROPPED]) != 0:
+        raise AssertionError(f"{name}: photons abandoned or dropped")
+    if abs(hsum / float(tot[K.CNT_WSUM]) - 1.0) > 1e-4:
+        raise AssertionError(f"{name}: histogram sum differs from the hit "
+                             "weight")
+    err = compare(name + ", launches summed", acc["c_k"],
+                  res.hist.reshape(-1), acc["c_p"], acc["hist"].reshape(-1),
+                  gen_rtol=1e-5)
+    return launches, res, err
+
+
+def phase14a(device):
+    """The call loop's repack against the plain version on the uneven
+    workload at N_SLOTS: repack off, on, and on with balance; and one
+    launch over a prefix.  Returns the largest max abs error."""
+    from clsim_tpu_torch.propagate import kernel as K
+    inputs = uneven_inputs(device)
+    # the prefix launch on the stream's first 32 iterations (the plain
+    # version's time at full width is ~12 ms an iteration)
+    prefix_launch_check(inputs[:5] + (inputs[5][:32].contiguous(),),
+                        N_SLOTS // 2 + 3 * K.BLOCK)
+    err, runs, first = 0.0, {}, {}
+    for mode, opts in LOOP_MODES:
+        launches, res, e = repack_against_plain(
+            f"uneven queues, repack {mode}", inputs, first=first, **opts)
+        runs[mode] = (launches, res.n_iterations)
+        err = max(err, e)
+    if not any(a < N_SLOTS for a, _ in runs["repack"][0]):
+        raise AssertionError("repack never launched over a prefix")
+    log("  iterations to drain: " + ", ".join(
+        f"{m} {it} ({len(ls)} launches)" for m, (ls, it) in runs.items()))
+    return err
+
+
+@contextlib.contextmanager
+def loop_account():
+    """Within the block, time each kernel launch (run_fused_iterations) and
+    each repack (repack_slots, where the package has it) between CUDA
+    events, keeping each launch's n_active, iterations and counters; the
+    yielded dict holds, once the block has ended (one synchronize),
+    'launches' [{ms, n_active, iters, alive, work, live_share, and
+    repack_ms where a repack ran just before the launch}] and 'repacks'
+    [ms]."""
+    import torch
+    from clsim_tpu_torch.propagate import kernel as K
+    inner_l = K.run_fused_iterations
+    inner_r = getattr(K, "repack_slots", None)
+    raw, out = dict(launches=[], repacks=[]), {}
+
+    def events():
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        return e
+
+    def launch(state, steps_p, tables, spec, **kw):
+        e = events()
+        r = inner_l(state, steps_p, tables, spec, **kw)
+        e[1].record()
+        raw["launches"].append((e, kw.get("n_active") or spec.n_slots,
+                                spec.iters_per_call, r[2]))
+        return r
+
+    def repack(*a, **kw):
+        e = events()
+        r = inner_r(*a, **kw)
+        e[1].record()
+        raw["repacks"].append((e, len(raw["launches"])))
+        return r
+
+    K.run_fused_iterations = launch
+    if inner_r is not None:
+        K.repack_slots = repack
+    try:
+        yield out
+    finally:
+        K.run_fused_iterations = inner_l
+        if inner_r is not None:
+            K.repack_slots = inner_r
+    torch.cuda.synchronize()
+    out["launches"] = [dict(
+        ms=e[0].elapsed_time(e[1]), n_active=na, iters=T,
+        alive=float(c[K.CNT_ALIVE]), work=float(c[K.CNT_WORK]),
+        live_share=float(c[K.CNT_WORK]) / (na * T))
+        for e, na, T, c in raw["launches"]]
+    out["repacks"] = [e[0].elapsed_time(e[1]) for e, _ in raw["repacks"]]
+    for (e, before), ms in zip(raw["repacks"], out["repacks"]):
+        if before < len(out["launches"]):
+            out["launches"][before]["repack_ms"] = ms
+
+
+def loop_workloads(device):
+    """14b's workloads: [(name, Simulation, sources, seed)]: phase 3's
+    cascade on hex61 and 8b's standard-DOM flash on ic86."""
+    sim, cascade = main_path_sim(device)
+    fsim = flasher_sim(device)
+    return [("phase 3 cascade", sim, [cascade], 11),
+            ("8b flash", fsim, flash(fsim.geometry, STD_DOM), 21)]
+
+
+def loop_cases(sim, sources, seed, reps=LOOP_REPS, modes=LOOP_MODES):
+    """Simulation.simulate of `sources` at each LOOP_IPC x repack mode
+    (sim.fused_opts), `reps` times each: {case: {simulate, kernel_ms (the
+    launches' summed ms), repack_ms (summed), walls, launches (the last
+    run's, loop_account)}}, medians over the runs."""
+    out = {}
+    quiet(sim.simulate, sources, seed=seed)
+    for ipc in LOOP_IPC:
+        for mode, opts in modes:
+            sim.fused_opts = dict(iters_per_call=ipc, **opts)
+            walls, kms, rms = [], [], []
+            for _ in range(reps):
+                with loop_account() as acc:
+                    res, wall = timed(lambda: quiet(sim.simulate, sources,
+                                                    seed=seed))
+                walls.append(wall)
+                kms.append(sum(x["ms"] for x in acc["launches"]))
+                rms.append(sum(acc["repacks"]))
+                if res.diagnostics["abandoned"] != 0:
+                    raise AssertionError(f"ipc {ipc} {mode}: abandoned")
+            out[f"{ipc} {mode}"] = dict(
+                simulate=float(np.median(walls)), walls=walls,
+                kernel_ms=float(np.median(kms)),
+                repack_ms=float(np.median(rms)), launches=acc["launches"],
+                repacks=acc["repacks"],
+                generated=float(res.n_generated), hits=float(res.n_hits))
+    sim.fused_opts = {}
+    return out
+
+
+def fmt_launches14(c):
+    """Each launch of a loop_account run, the repack before it beside it."""
+    return ", ".join(
+        (f"[repack {x['repack_ms']:.4f} ms = "
+         f"{x['repack_ms'] / x['ms']:.3f} of the launch] "
+         if "repack_ms" in x else "")
+        + f"{x['ms']:.4f} ms ({x['n_active']} slots x {x['iters']} it, "
+        f"alive after {x['alive']:.0f}, live share {x['live_share']:.4f})"
+        for x in c["launches"])
+
+
+def phase14b(device, card):
+    """The tail, measured: 14b's workloads at each LOOP_IPC with repack
+    off, on and on + balance; each launch's ms, n_active, alive after it
+    and live share (live slot-iterations over n_active x iterations), each
+    repack's ms, and each case's kernel ms and simulate s (medians of
+    LOOP_REPS).  The kernel must launch on each path."""
+    from clsim_tpu_torch.propagate import kernel as K
+    for name, sim, sources, seed in loop_workloads(device):
+        reset_counts()
+        cases = loop_cases(sim, sources, seed)
+        if sum(K.MODE_LAUNCHES.values()) <= 0:
+            raise AssertionError(f"{name}: the kernel was not launched")
+        gen = {c["generated"] for c in cases.values()}
+        if len(gen) != 1:
+            raise AssertionError(f"{name}: generated counts differ by case")
+        for case, c in cases.items():
+            log(f"  {name}, iters_per_call {case}: kernel {c['kernel_ms']:.4f}"
+                f" ms, repacks {c['repack_ms']:.4f} ms, simulate "
+                f"{c['simulate']:.4f} s (medians of {LOOP_REPS}); hits "
+                f"{c['hits']:.0f}; last run's launches: " + fmt_launches14(c))
+    log(f"  (14b on {card})")
+
+
+def pipeline_events(device, fsim):
+    """14c's streams: 8e's four events PIPE_COPIES times on the flasher
+    Simulation (the k-th batch draws from SeedSequence([seed, k]) and the
+    conversions from the one generator, so the copies are distinct
+    events), and PIPE_CASCADES of phase 3's cascades on hex61."""
+    from clsim_tpu_torch.sources.flasher_extras import standard_candle_pulses
+    msim, cascade = main_path_sim(device)
+    events = [[cascade], flash(fsim.geometry, STD_DOM), [],
+              standard_candle_pulses(1, photons_per_pulse=SC_PHOTONS,
+                                     spectrum_index=LED_INDEX[405])]
+    return [("8e's events x4", fsim, events * PIPE_COPIES),
+            ("phase 3 cascades", msim, [[cascade]] * PIPE_CASCADES)]
+
+
+def run_pipeline(sim, events, depth, seed=13):
+    """EventPipeline(sim, depth).process(events): (results, process's
+    wall, RunStatistics)."""
+    from clsim_tpu_torch.parallel.pipeline import EventPipeline
+    pipe = EventPipeline(sim, max_in_flight=depth)
+    results, wall = timed(lambda: quiet(pipe.process, events, seed=seed))
+    return results, wall, pipe.stats.as_dict()
+
+
+def phase14c(device, fsim, card):
+    """EventPipeline at max_in_flight 1 and at the default depth on 14c's
+    two streams: events/s, photons/s, DeviceUtilization (<= 1) and the
+    wall split; the two runs equal in every event's generated count, hits
+    and per-particle counts, histograms within L1 1e-6 of the total."""
+    from clsim_tpu_torch.propagate import kernel as K
+    out = {}
+    for name, sim, events in pipeline_events(device, fsim):
+        runs = {}
+        quiet(sim.simulate, events[0] or events[1], seed=1)   # warm-up
+        for depth in PIPE_DEPTHS:
+            reset_counts()
+            results, wall, d = run_pipeline(sim, events, depth)
+            if sum(K.MODE_LAUNCHES.values()) <= 0:
+                raise AssertionError(f"{name}: the kernel was not launched")
+            gen = sum(r.n_generated for r in results)
+            util = d["DeviceUtilization"]
+            log(f"  {name}, max_in_flight {depth}: {len(events)} events in "
+                f"{wall:.4f} s = {len(events) / wall:.6g} events/s, "
+                f"{gen / wall:.6g} photons/s; DeviceUtilization {util:.6g} "
+                f"(device spans' union {d['TotalDeviceTime'] * 1e-9:.4f} s "
+                f"over process's {d['TotalHostTime'] * 1e-9:.4f} s from its "
+                f"start to the last harvest; "
+                f"{wall - d['TotalHostTime'] * 1e-9:.4f} s after it); "
+                f"{d['NumKernelCalls']:.0f} batches, launches "
+                f"{dict(K.MODE_LAUNCHES)}")
+            if not 0.0 < util <= 1.0:
+                raise AssertionError(f"{name}: DeviceUtilization {util}")
+            if d["TotalNumHitsDropped"] or d["TotalNumPhotonsAbandoned"]:
+                raise AssertionError(f"{name}: hits dropped or photons "
+                                     "abandoned")
+            runs[depth] = results
+            out[(name, depth)] = dict(wall=wall, util=util,
+                                      events_s=len(events) / wall)
+        a, b = (runs[d] for d in PIPE_DEPTHS)
+        worst = 0.0
+        for ra, rb in zip(a, b):
+            if (ra.event_id, ra.n_generated, ra.n_hits, ra.per_particle) != (
+                    rb.event_id, rb.n_generated, rb.n_hits, rb.per_particle):
+                raise AssertionError(f"{name}: event {ra.event_id} differs "
+                                     "between the two depths")
+            tot = float(np.abs(ra.hist).sum())
+            l1 = float(np.abs(ra.hist.astype(np.float64)
+                              - rb.hist.astype(np.float64)).sum())
+            if l1 > 1e-6 * tot + 1e-9:
+                raise AssertionError(f"{name}: event {ra.event_id} histogram"
+                                     f" L1 {l1} of {tot}")
+            worst = max(worst, l1 / tot if tot else 0.0)
+        log(f"  {name}: the {len(a)} events equal at both depths (generated,"
+            f" hits, per-particle counts), histogram L1 at most {worst:.3g} "
+            "of the event's total")
+    log(f"  (14c on {card})")
+    return out
+
+
+def loop_turn_worker(root):
+    """One turn of --loop-turns: import the package at `root`, build its
+    kernels, then run loop_cases on 14b's workloads and 7b's ic86 cascade
+    (the repack modes only where the package's propagate_fused takes
+    `repack`; an older checkout runs its own loop as "off"); print one
+    line 'LOOP {json}'."""
+    sys.path.insert(0, os.path.abspath(root))
+    import inspect
+    import torch
+    from clsim_tpu_torch import _build
+    from clsim_tpu_torch.api import Simulation
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.types import PropagationConfig
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.load()
+    build_s = time.perf_counter() - t0
+    has_repack = "repack" in inspect.signature(K.propagate_fused).parameters
+    modes = LOOP_MODES if has_repack else (("off", {}),)
+    ice, _ = seeded_ice(171, -855.0, 10.0, device)
+    sim86 = quiet(Simulation, medium=ice, geometry=ic86(device),
+                  config=PropagationConfig(n_slots=N_SLOTS))
+    work = loop_workloads(device)
+    work.append(("7b ic86 cascade", sim86, work[0][2], 11))
+    out = dict(root=root, repack=has_repack, build_s=build_s, cases={})
+    for name, sim, sources, seed in work:
+        out["cases"][name] = loop_cases(sim, sources, seed, modes=modes)
+    print("LOOP " + json.dumps(out), flush=True)
+
+
+def loop_turns(turns, json_path=None):
+    """--loop-turns LABEL:ROOT ...: loop_turn_worker for each turn in the
+    order given (parent, this, this, parent), printing each turn's cases
+    (each launch on a body's first turn), then for every case each body's
+    turns, its spread ((max - min) / mean of its turns) and its median."""
+    def report(r, label, root, first, card):
+        log(f"turn {label} ({root}), build {r['build_s']:.1f} s, repack "
+            f"{r['repack']}")
+        for name, cases in r["cases"].items():
+            for case, c in cases.items():
+                log(f"  {label} {name}, iters_per_call {case}: simulate "
+                    f"{c['simulate']:.4f} s, kernel {c['kernel_ms']:.4f} ms,"
+                    f" repacks {c['repack_ms']:.4f} ms"
+                    + (": " + fmt_launches14(c) if first else ""))
+
+    results = run_turns("--loop-worker", "LOOP ", turns, json_path, report)
+    table = {}
+    for r in results:
+        for name, cases in r["cases"].items():
+            for case, c in cases.items():
+                row = table.setdefault((name, case), {}).setdefault(
+                    r["label"], [])
+                row.append((c["simulate"], c["kernel_ms"]))
+    for (name, case), bodies in table.items():
+        parts = []
+        for label, vals in bodies.items():
+            for j, unit in ((0, "s"), (1, "ms")):
+                v = [x[j] for x in vals]
+                spread = (max(v) - min(v)) / np.mean(v) if len(v) > 1 else 0.0
+                parts.append(f"{label} {'simulate' if j == 0 else 'kernel'} "
+                             + " / ".join(f"{x:.4f}" for x in v)
+                             + f" {unit} (median {np.median(v):.4f}, spread "
+                             f"{spread:.3f})")
+        log(f"{name}, iters_per_call {case}: " + "; ".join(parts))
+    return results
+
+
 def mesh_only(n_ranks):
     """--mesh N: build, then phase 12b with N ranks, one a card when there
     are N cards (NCCL), else sharing them (gloo)."""
@@ -4658,18 +5128,22 @@ def main():
         return tab_turn_worker(argv[1])
     if argv[:1] == ["--split-worker"]:
         return host_split_worker(argv[1])
+    if argv[:1] == ["--loop-worker"]:
+        return loop_turn_worker(argv[1])
     if argv[:1] == ["--mesh-worker"]:
         return mesh_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
     if argv[:1] == ["--mesh"]:
         return mesh_only(int(argv[1]))
-    if argv[:1] in (["--turns"], ["--host-split"], ["--tab-turns"]):
+    if argv[:1] in (["--turns"], ["--host-split"], ["--tab-turns"],
+                    ["--loop-turns"]):
         turns = argv[1:]
         json_path = None
         if "--json" in turns:
             i = turns.index("--json")
             json_path, turns = turns[i + 1], turns[:i] + turns[i + 2:]
         {"--turns": k1_turns, "--host-split": host_split_turns,
-         "--tab-turns": tab_turns}[argv[0]](turns, json_path)
+         "--tab-turns": tab_turns,
+         "--loop-turns": loop_turns}[argv[0]](turns, json_path)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -4856,6 +5330,26 @@ def main():
     launches13.update(n)
     lap13("13d")
     log(f"  phase 13 took {time.perf_counter() - t13:.1f} s")
+
+    t14 = time.perf_counter()
+
+    def lap14(name):
+        log(f"  phase {name} done at {time.perf_counter() - t14:.1f} s into "
+            "phase 14")
+
+    log("phase 14a: the call loop's repack and balance against the plain "
+        "version (uneven queues, 262,144 slots, a replayed stream)")
+    phase14a(device)
+    lap14("14a")
+    log("phase 14b: the tail of the call loop (phase 3's cascade, 8b's "
+        "flash; repack off, on, with balance)")
+    phase14b(device, card)
+    lap14("14b")
+    log("phase 14c: EventPipeline, host and device overlapped against the "
+        "synchronous loop")
+    phase14c(device, sim, card)
+    lap14("14c")
+    log(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
     at = "clsim_tpu/propagate/kernel.py:2427"
 

@@ -234,6 +234,10 @@ struct Params {
   float inv_layer_h, inv_tilt_dz;
   float an_il1, an_il2, an_il3, an_b2, an_ik1, an_ik2, an_ikz;
   float liu_beta;
+  // the slots a launch runs, the first n_active (the live prefix the call
+  // loop's repack leaves; n_slots for a whole launch); n_slots stays every
+  // row's stride and the random numbers' slot index
+  int n_active;
 };
 
 // collision (template COLL) and medium (template MED) instantiations
@@ -630,7 +634,7 @@ propagate_kernel(const Params p, float* __restrict__ state,
   const int N = p.n_slots;
   const int tid = threadIdx.x;
   const int slot = blockIdx.x * BLOCK + tid;
-  const bool valid = slot < N;
+  const bool valid = slot < p.n_active;
   const int lane = tid & 31, warp = tid >> 5;
   // a thread's counts (32 bits: one launch's fit; the block sums in 64)
   unsigned int n_gen = 0, n_hits = 0, n_work = 0, n_alive = 0;
@@ -1382,7 +1386,8 @@ struct LaunchArgs {
 
 template <bool RECORDS, int DEP, bool THREEFRY, bool FIXED, int COLL, int MED>
 static int launch(const LaunchArgs& a) {
-  const int n = a.params->n_slots;
+  const int n = a.params->n_active;
+  if (n < 1 || n > a.params->n_slots) return (int)cudaErrorInvalidValue;
   const int grid = (n + BLOCK - 1) / BLOCK;
   propagate_kernel<RECORDS, DEP, THREEFRY, FIXED, COLL, MED>
       <<<grid, BLOCK, 0, (cudaStream_t)a.stream>>>(

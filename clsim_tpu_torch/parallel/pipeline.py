@@ -3,10 +3,25 @@ lists) through the propagation with bounded in-flight device work
 (PyTorch counterpart of clsim_tpu.parallel.pipeline).
 
 The reference runs feeder and harvester threads around a bounded queue
-(I3CLSimModule / I3CLSimClientModule, I3CLSimQueue).  Here one host loop
-prepares each event's slot batches (numpy), hands them to propagate_auto
-and harvests the results in submission order, holding at most
-`max_in_flight` results on the device before it reads the oldest back.
+(I3CLSimModule / I3CLSimClientModule, I3CLSimQueue; SURVEY §2.9), and the
+JAX pipeline gets its overlap from asynchronous dispatch: its call loop is
+a device-side while loop, so the device works on batch k while the host
+prepares batch k+1.  The port's call loop reads each launch's alive count
+on the host, so propagate_auto returns only when its kernels have ended;
+the overlap therefore comes from a thread.  `process` gives each slot
+batch's propagation and harvest to one worker thread, the harvester, while
+the calling thread, the feeder, converts the next events (the step and
+flasher generators), assigns their slots and copies their batches to the
+device, at most `max_in_flight` batches ahead in a bounded queue.  The
+feeder alone draws from the one np.random.Generator, event by event in
+submission order, so every event's steps are the ones a synchronous run
+makes, bit for bit; results come back in submission order.  On CUDA the
+feeder copies on a side stream and the harvester's stream waits on a CUDA
+event recorded after the copy (no host sync orders them).  With
+`max_in_flight=1` there is no thread: every event is prepared first, then
+each batch is propagated and harvested in turn (the synchronous loop).
+An exception on the harvester is raised again from `process` with its
+traceback, and the thread is joined before `process` returns or raises.
 Events stay attributed through the step identifier, event k's source i
 carrying k * IDENT_STRIDE + i (the reference's particleCache,
 I3CLSimModule.cxx:1039-1296).
@@ -16,18 +31,26 @@ Two choices differ from the JAX pipeline:
     and `fused_opts`, as Simulation.run_steps does (the JAX pipeline drops
     both, clsim_tpu/parallel/pipeline.py:151-152), and batch k draws from
     the seed SeedSequence([seed, k]), as run_steps' batches do;
-  * the device time of a batch is the span between two CUDA events
-    recorded on the current stream before and after its propagate_auto
-    (on CPU tensors, the host time of that call).  The fused call loop
-    reads each launch's alive count, so a batch's kernels have ended when
-    propagate_auto returns; the span includes the host's table building
-    between the events, so it bounds the device's busy time from above.
-    The JAX pipeline estimates it from the gaps between completions.
+  * device time: a batch's span runs from a CUDA event recorded before its
+    propagate_auto to one recorded after it, on the harvester's stream (on
+    CPU tensors, the host clock around that call), and every span is read
+    against one reference event recorded when `process` starts.
+    RunStatistics gets, for batch k, the part of its span that no earlier
+    span covers as device time and the wall from the previous harvest (the
+    start of `process` for k = 0) to its harvest as host time, so that its
+    DeviceUtilization is the union of the spans on the card over the wall
+    of `process` from its start to the last harvest (the host's
+    preparation included, in either mode), at most 1.
+    A span includes the host's table building between its events, so it
+    bounds the device's busy time from above.  The JAX pipeline estimates
+    device time from the gaps between completions.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 import time
 from typing import Dict, List, Sequence
 
@@ -62,12 +85,54 @@ def batch_seed(seed: int, k: int) -> int:
         1, np.uint64)[0] & np.uint64(2 ** 63 - 1))
 
 
+class _Harvester:
+    """One worker thread that runs `work` on each submitted item in
+    submission order, at most `depth` items waiting in its queue; outputs
+    keeps the results in that order.  An exception of `work` is kept in
+    `error` (the items after it are skipped) for the caller to raise."""
+
+    def __init__(self, work, depth: int):
+        self._work, self._cancel = work, False
+        self._queue = queue.Queue(maxsize=depth)
+        self.outputs, self.error = [], None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="EventPipeline-harvester")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            if self.error is not None or self._cancel:
+                continue
+            try:
+                self.outputs.append(self._work(item))
+            except BaseException as err:   # raised again by the caller
+                self.error = err
+
+    def submit(self, item):
+        """Queue an item (blocks while `depth` wait); raises the worker's
+        exception if it has failed."""
+        if self.error is not None:
+            raise self.error
+        self._queue.put(item)
+
+    def close(self, cancel: bool):
+        """Let the worker finish the queue (or skip it, `cancel`) and join
+        it."""
+        self._cancel = cancel
+        self._queue.put(None)
+        self._thread.join()
+
+
 class EventPipeline:
     """Processes a stream of events with bounded in-flight device work.
 
     `max_in_flight` plays the role of the reference's bounded queue depth
-    (queueToOpenCL_ size 5, I3CLSimStepToPhotonConverterOpenCL.cxx:77): at
-    most that many batches' results wait on the device for harvest."""
+    (queueToOpenCL_ size 5, I3CLSimStepToPhotonConverterOpenCL.cxx:77): the
+    host prepares and copies up to that many batches ahead of the one the
+    harvester propagates; 1 runs the synchronous loop, with no thread."""
 
     def __init__(self, simulation, max_in_flight: int = 4):
         if max_in_flight < 1:
@@ -76,34 +141,35 @@ class EventPipeline:
         self.max_in_flight = max_in_flight
         self.stats = RunStatistics()
 
+    def _prepare_event(self, ev_id: int, sources, rng: np.random.Generator):
+        """(event_id, slot_batches, per_particle) of one event (see
+        prepare)."""
+        sim = self.sim
+        batches, per_particle = [], {}
+        for i, src in enumerate(sources):
+            ident = ev_id * IDENT_STRIDE + i
+            gen = (sim.flasher_generator if isinstance(src, FlasherPulse)
+                   else sim.step_generator)
+            for b in gen.convert(src, ident, rng):
+                per_particle[ident] = per_particle.get(ident, 0) + int(
+                    np.asarray(b.num_photons).sum())
+                batches.append(b)
+        slot_batches = []
+        if batches:
+            merged = StepBatch.concatenate(batches)
+            check_source_types(*source_type_range(merged.source_type),
+                               int(sim.spectra.x.shape[0]))
+            slot_batches = assign_steps_to_slots(merged, sim.config.n_slots)
+        return ev_id, slot_batches, per_particle
+
     def prepare(self, events: Sequence[Sequence], rng: np.random.Generator):
         """[(event_id, slot_batches, per_particle)] on the host: flasher
         pulses through sim.flasher_generator, particles through
         sim.step_generator, event k's source i with identifier
         k * IDENT_STRIDE + i; per_particle counts each identifier's
         photons."""
-        sim = self.sim
-        n_tables = int(sim.spectra.x.shape[0])
-        prepared = []
-        for ev_id, sources in enumerate(events):
-            batches, per_particle = [], {}
-            for i, src in enumerate(sources):
-                ident = ev_id * IDENT_STRIDE + i
-                gen = (sim.flasher_generator if isinstance(src, FlasherPulse)
-                       else sim.step_generator)
-                for b in gen.convert(src, ident, rng):
-                    per_particle[ident] = per_particle.get(ident, 0) + int(
-                        np.asarray(b.num_photons).sum())
-                    batches.append(b)
-            slot_batches = []
-            if batches:
-                merged = StepBatch.concatenate(batches)
-                check_source_types(*source_type_range(merged.source_type),
-                                   n_tables)
-                slot_batches = assign_steps_to_slots(merged,
-                                                     sim.config.n_slots)
-            prepared.append((ev_id, slot_batches, per_particle))
-        return prepared
+        return [self._prepare_event(ev_id, sources, rng)
+                for ev_id, sources in enumerate(events)]
 
     def process(self, events: Sequence[Sequence], seed: int
                 ) -> List[EventResult]:
@@ -111,56 +177,136 @@ class EventPipeline:
         (the FlushFrameCache contract: results reassembled per event
         through the identifiers)."""
         sim = self.sim
-        prepared = self.prepare(events, np.random.default_rng(seed))
-        results = {ev_id: EventResult(
-            event_id=ev_id,
-            hist=np.zeros((sim.geometry.n_doms, sim.config.hist_n_bins),
-                          np.float32),
-            n_generated=0.0, n_hits=0.0, weight_hits=0.0,
-            per_particle=per_particle)
-            for ev_id, _, per_particle in prepared}
-        in_flight = []   # (event_id, result, host t0, device-time thunk)
+        n_tables = int(sim.spectra.x.shape[0])
+        # a pulse without its stacked spectrum is refused before any batch
+        # is dispatched, as when every event is prepared first
+        for sources in events:
+            for src in sources:
+                if isinstance(src, FlasherPulse):
+                    check_source_types(int(src.spectrum_index),
+                                       int(src.spectrum_index), n_tables)
+        rng = np.random.default_rng(seed)
+        results: Dict[int, EventResult] = {}
+        cuda = torch.device(sim.device).type == "cuda"
+        # the start: host time and the spans' reference event
+        clock = dict(t0=time.perf_counter())
+        if cuda:
+            clock["ref"] = torch.cuda.Event(enable_timing=True)
+            clock["ref"].record()
 
-        def harvest(entry):
-            ev_id, res, t0, device_time = entry
+        def open_event(ev_id, per_particle):
+            results[ev_id] = EventResult(
+                event_id=ev_id,
+                hist=np.zeros((sim.geometry.n_doms, sim.config.hist_n_bins),
+                              np.float32),
+                n_generated=0.0, n_hits=0.0, weight_hits=0.0,
+                per_particle=per_particle)
+
+        def work(item):
+            """Propagate one batch and read it back (a sync): the
+            harvester's job, or the loop's own with max_in_flight=1."""
+            ev_id, k, steps, ready = item
+            if cuda:
+                stream = torch.cuda.current_stream(steps.x.device)
+                if ready is not None:
+                    stream.wait_event(ready)
+                    for t in steps:
+                        t.record_stream(stream)
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record(stream)
+            t_start = time.perf_counter()
+            res = propagate_auto(steps, sim.medium, sim.geometry, sim.spectra,
+                                 batch_seed(seed, k), sim.config,
+                                 backend=sim.backend, **sim.fused_opts)
+            t_end = time.perf_counter()
+            if cuda:
+                ev[1].record(stream)
             hist = res.hist.cpu().numpy()     # sync point
             diag = check_diagnostics(res) or {}
-            host_t = time.perf_counter() - t0
-            r = results[ev_id]
-            r.hist = r.hist + hist
-            r.n_generated += float(res.n_generated)
-            r.n_hits += float(res.n_hits)
-            r.weight_hits += float(res.weight_hits)
-            self.stats.record(float(res.n_generated), float(res.n_hits),
-                              float(res.weight_hits), device_time(), host_t,
-                              n_dropped=diag.get("dropped", 0.0),
-                              n_abandoned=diag.get("abandoned", 0.0))
+            if cuda:
+                span = (clock["ref"].elapsed_time(ev[0]) * 1e-3,
+                        clock["ref"].elapsed_time(ev[1]) * 1e-3)
+            else:
+                span = (t_start - clock["t0"], t_end - clock["t0"])
+            return dict(ev_id=ev_id, hist=hist,
+                        counts=(float(res.n_generated), float(res.n_hits),
+                                float(res.weight_hits)),
+                        lost=(diag.get("dropped", 0.0),
+                              diag.get("abandoned", 0.0)),
+                        span=span, harvested=time.perf_counter())
 
-        k = 0
-        for ev_id, slot_batches, _ in prepared:
-            for batch in slot_batches:
-                steps = steps_from_numpy(batch._asdict(), sim.device)
-                t0 = time.perf_counter()
-                cuda = steps.x.device.type == "cuda"
-                if cuda:
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    ev[0].record()
-                res = propagate_auto(steps, sim.medium, sim.geometry,
-                                     sim.spectra, batch_seed(seed, k),
-                                     sim.config, backend=sim.backend,
-                                     **sim.fused_opts)
-                k += 1
-                if cuda:
-                    ev[1].record()
-                    device_time = (lambda e=ev: e[0].elapsed_time(e[1])
-                                   * 1e-3)
-                else:
-                    dt = time.perf_counter() - t0
-                    device_time = lambda dt=dt: dt
-                in_flight.append((ev_id, res, t0, device_time))
-                if len(in_flight) >= self.max_in_flight:
-                    harvest(in_flight.pop(0))
-        while in_flight:
-            harvest(in_flight.pop(0))
+        if self.max_in_flight == 1:
+            prepared = self.prepare(events, rng)
+            outputs, k = [], 0
+            for ev_id, slot_batches, per_particle in prepared:
+                open_event(ev_id, per_particle)
+            for ev_id, slot_batches, _ in prepared:
+                for batch in slot_batches:
+                    steps = steps_from_numpy(batch._asdict(), sim.device)
+                    outputs.append(work((ev_id, k, steps, None)))
+                    k += 1
+        else:
+            outputs = self._overlapped(events, rng, open_event, work, cuda)
+        self._merge(outputs, results, clock)
         return [results[k] for k in sorted(results)]
+
+    def _overlapped(self, events, rng, open_event, work, cuda):
+        """The feeder loop: each event prepared in turn on this thread, its
+        batches copied (on a side stream on CUDA) and handed to the
+        harvester; returns the harvester's outputs in submission order."""
+        sim = self.sim
+        copy_stream = torch.cuda.Stream(sim.device) if cuda else None
+
+        def harvest(item):
+            if cuda:   # the kernels launch on the thread's current device
+                torch.cuda.set_device(item[2].x.device)
+            return work(item)
+
+        harvester = _Harvester(harvest, self.max_in_flight)
+        failed = True
+        try:
+            k = 0
+            for ev_id, sources in enumerate(events):
+                ev_id, slot_batches, per_particle = self._prepare_event(
+                    ev_id, sources, rng)
+                open_event(ev_id, per_particle)
+                for batch in slot_batches:
+                    ready = None
+                    if cuda:
+                        with torch.cuda.stream(copy_stream):
+                            steps = steps_from_numpy(batch._asdict(),
+                                                     sim.device)
+                            ready = torch.cuda.Event()
+                            ready.record(copy_stream)
+                    else:
+                        steps = steps_from_numpy(batch._asdict(), sim.device)
+                    harvester.submit((ev_id, k, steps, ready))
+                    k += 1
+            failed = False
+        finally:
+            harvester.close(cancel=failed)
+        if harvester.error is not None:
+            raise harvester.error
+        return harvester.outputs
+
+    def _merge(self, outputs, results, clock):
+        """Add each batch's output to its event's result and to
+        RunStatistics, in submission order (device time: the part of its
+        span no earlier span covers; host time: the wall since the last
+        harvest; see the module docstring)."""
+        covered, last = 0.0, clock["t0"]
+        for out in outputs:
+            r = results[out["ev_id"]]
+            r.hist = r.hist + out["hist"]
+            gen, hits, weight = out["counts"]
+            r.n_generated += gen
+            r.n_hits += hits
+            r.weight_hits += weight
+            start, end = out["span"]
+            device_t = max(end - max(start, covered), 0.0)
+            covered = max(covered, end)
+            host_t = out["harvested"] - last
+            last = out["harvested"]
+            self.stats.record(gen, hits, weight, device_t, host_t,
+                              n_dropped=out["lost"][0],
+                              n_abandoned=out["lost"][1])

@@ -60,7 +60,14 @@ def backend_reason(medium: MediumProperties, spectra: SpectrumTable,
 # reads the alive count (a sync).  On the bench workload (262,144 slots x 200
 # photons, H100 80GB HBM3 at 700 W) 256, 1024, 4096 and 16384 gave 1.01-1.04,
 # 0.98-1.01, 1.09-1.11 and 1.09-1.10 e9 photons/s (two runs each, PERF.md):
-# one launch that covers a slot's whole workload is best.
+# one launch that covers a slot's whole workload is best.  With the call
+# loop's repack between launches (each launch after one over the live
+# prefix), chip_smoke.py --loop-turns on the H100 at 700 W found no choice
+# faster on all three of phase 3's cascade, 8b's flash and 7b's ic86
+# cascade by more than the turns' spread: kernel medians at 256 / 4096
+# iterations 10.57 / 10.69 ms, 103.95 / 104.89 ms (balance, off by
+# default, 98.02 at 256) and 11.96 / 12.11 ms (spread up to 2.9%), and
+# simulate's walls within their 1-37% spread (PERF.md).
 #
 # Record mode (config.save_photons) takes the same 4096 iterations per
 # launch, and kernel.REC_CAPACITY (2**21 records, 185 MB) as the record

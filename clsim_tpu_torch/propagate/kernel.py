@@ -29,7 +29,9 @@ This module holds
     kernel (or raises); on CPU tensors it runs run_fused_iterations_plain,
     the same function in plain PyTorch built on engine._iteration,
   * propagate_fused / _run_fused: the call loop that launches the kernel
-    until no slot is alive or max_calls is reached.
+    until no slot is alive or max_calls is reached, repacking the slots
+    between launches (repack_slots, the JAX do_repack) and launching the
+    next call over the live prefix alone (the kernel's n_active).
 
 The expected estimator (spec.expected: survival-weight deposits, soft
 binning, the angular polynomial, whose coefficients the kernel reads from a
@@ -1160,7 +1162,7 @@ def _pending_columns(st: E.SlotState, rs: E.RecState, sb: StepBatch, pend,
 def run_fused_iterations_plain(state, steps, tables: FusedTables,
                                spec: FusedSpec, *, uniforms=None, keys=None,
                                seed=0, call_no=0, hist=None,
-                               rec_capacity=None):
+                               rec_capacity=None, n_active=None):
     """The kernel's computation in plain PyTorch: up to iters_per_call
     iterations of engine._iteration on the kernel's state layout, with the
     kernel's collision test.  Updates `state` in place and returns
@@ -1174,11 +1176,22 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
 
     With spec.records the records of the engine's record block are kept
     as (R, NRC) rows under the kernel's capacity rule (_RecordBuffer), and
-    the return value gains them (see run_fused_iterations)."""
+    the return value gains them (see run_fused_iterations).
+
+    `n_active` (default: every slot) runs the first n_active slots alone,
+    as the kernel's launch over the live prefix does: the slots past it
+    are left untouched, and slot s still reads column s of the stream (the
+    kernel's row stride stays n_slots)."""
     # the score function's primal factor is exp(0) = 1: the kernel and its
     # plain version compute the primal only
     cfg = dataclasses.replace(spec.cfg, score_function=False)
     dev = state.device
+    full, n_all = state, state.shape[1]
+    n_active = _check_active(n_all if n_active is None else n_active, n_all)
+    if n_active < n_all:
+        state, steps = state[:, :n_active], steps[:, :n_active]
+        if uniforms is not None:
+            uniforms = uniforms[:, :, :n_active]
     st = E.SlotState(*state[:NSF].unbind(0))
     sb = StepBatch(**{f: steps[k] for k, f in enumerate(STEP_FIELDS)},
                    num_photons=st.photons_left)
@@ -1189,8 +1202,8 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
     if spec.threefry:
         if keys is None or uniforms is not None:
             raise ValueError("threefry mode draws from `keys` alone")
-        n = st.x.shape[0]
-        uniforms = lambda i: rng.uniforms(keys[2 * i:2 * i + 2], (n,), 8)
+        uniforms = lambda i: rng.uniforms(keys[2 * i:2 * i + 2], (n_all,),
+                                          8)[:, :n_active]
     elif uniforms is None:
         generator = torch.Generator(device=dev)
         generator.manual_seed(_seed64(seed, call_no))
@@ -1254,8 +1267,8 @@ def run_fused_iterations_plain(state, steps, tables: FusedTables,
                            + [f64(tally.get(k, 0)) for k in TALLIES]
                            + [zero] * len(KERNEL_ONLY)).to(torch.float64)
     if spec.records:
-        return state, acc.hist, counters, buf.result(dev)
-    return state, acc.hist, counters
+        return full, acc.hist, counters, buf.result(dev)
+    return full, acc.hist, counters
 
 
 # ---------------------------------------------------------------------------
@@ -1299,7 +1312,8 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int) for n in ("n_wtab", "ref_table", "n_scat")]
         + [(n, ctypes.c_float) for n in (
             "inv_layer_h", "inv_tilt_dz", "an_il1", "an_il2", "an_il3",
-            "an_b2", "an_ik1", "an_ik2", "an_ikz", "liu_beta")])
+            "an_b2", "an_ik1", "an_ik2", "an_ikz", "liu_beta")]
+        + [("n_active", ctypes.c_int)])
 
 
 def _recip(x) -> float:
@@ -1334,7 +1348,7 @@ def medium_params(fields, sc: dict, n_slots: int, K: int,
     get = fields.get if isinstance(fields, dict) else \
         lambda k: getattr(fields, k)
     p = _Params()
-    p.n_slots, p.K, p.horizon = n_slots, K, horizon
+    p.n_slots, p.n_active, p.K, p.horizon = n_slots, n_slots, K, horizon
     for name in ("L", "n_spec", "n_bias", "nz_tilt", "nd_tilt", "n_tables",
                  "n_wtab", "n_scat", "aniso", "bias_uniform", "ref_table"):
         setattr(p, name, int(get(name)))
@@ -1416,7 +1430,8 @@ def _check_tensor(name, t, shape, dtype, device):
 
 
 def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
-            seed, call_no, hist, rec_capacity=None, keys=None):
+            seed, call_no, hist, rec_capacity=None, keys=None,
+            n_active=None):
     reason = spec_unsupported(spec)
     if reason:
         raise NotImplementedError(reason)
@@ -1469,6 +1484,7 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
         rec_buf = torch.empty((cap, NRC), dtype=f32, device=dev)
         rec_cnt = torch.zeros(1, dtype=torch.int64, device=dev)
     params = _params(spec, tables, uniforms is not None, seed, call_no, cap)
+    params.n_active = _check_active(N if n_active is None else n_active, N)
 
     from .._build import load
     lib = load()
@@ -1507,7 +1523,7 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
 
 def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
                          *, uniforms=None, keys=None, seed=0, call_no=0,
-                         hist=None, rec_capacity=None):
+                         hist=None, rec_capacity=None, n_active=None):
     """Run up to spec.iters_per_call propagation iterations on every slot.
 
     state (NSF, N) float32 ((NSF + NRSF, N) with spec.records) is updated in
@@ -1518,16 +1534,21 @@ def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
     launch wrote (REC_COLUMNS; at most rec_capacity, default
     default_rec_capacity(spec)).  With spec.threefry the draws come from
     `keys`, the (2 * iters_per_call,) int64 table of per-iteration threefry
-    keys (rng.key_table).  CUDA tensors launch the CUDA kernel (or raise);
-    CPU tensors run run_fused_iterations_plain."""
+    keys (rng.key_table).  `n_active` (default: every slot) launches over
+    the first n_active slots only, the live prefix that repack_slots
+    leaves: the grid covers them, the slots past them keep their state
+    bit for bit, and n_slots stays every row's stride (the random numbers
+    of slot s are keyed or read at s whatever n_active is).  CUDA tensors
+    launch the CUDA kernel (or raise); CPU tensors run
+    run_fused_iterations_plain."""
     if state.device.type == "cuda":
         return _launch(state, steps, tables, spec, uniforms, seed, call_no,
-                       hist, rec_capacity, keys=keys)
+                       hist, rec_capacity, keys=keys, n_active=n_active)
     if state.device.type == "cpu":
         return run_fused_iterations_plain(
             state, steps, tables, spec, uniforms=uniforms, keys=keys,
             seed=seed, call_no=call_no, hist=hist,
-            rec_capacity=rec_capacity)
+            rec_capacity=rec_capacity, n_active=n_active)
     raise ValueError(f"no propagation kernel for device {state.device}")
 
 
@@ -1535,30 +1556,139 @@ def run_fused_iterations(state, steps, tables: FusedTables, spec: FusedSpec,
 # driver
 # ---------------------------------------------------------------------------
 
+# threads a block of csrc/propagate.cuh (BLOCK): a launch over the live
+# prefix covers the live slots rounded up to whole blocks
+BLOCK = 256
+# the call loop repacks between launches while fewer than this share of the
+# slots is alive (the JAX call loop's rule, kernel.py:2571-2575)
+REPACK_BELOW = 0.9
+
+
+def _check_active(n_active, n_slots: int) -> int:
+    n_active = int(n_active)
+    if not 0 < n_active <= n_slots:
+        raise ValueError(f"n_active must be in [1, {n_slots}], got "
+                         f"{n_active}")
+    return n_active
+
+
+def live_prefix(n_live: int, n_slots: int) -> int:
+    """The slots a launch covers after repack_slots left `n_live` live
+    slots in front: n_live rounded up to whole blocks, at most n_slots."""
+    return min(n_slots, -(-int(n_live) // BLOCK) * BLOCK)
+
+
+def repack_slots(state, steps_p, balance: bool = False):
+    """Balance, then stable-partition the slots between two launches: the
+    counterpart of the JAX call loop's do_repack
+    (clsim_tpu/propagate/kernel.py:2501-2555), line for line, in torch ops
+    on the tensors' device (cumsums and scatters, no sort, no host sync).
+
+    `state` is the (NSF, N) slot state, `steps_p` the (NST, N) step rows.
+    Balance (optional): the k-th slot with at least 2 photons left gives
+    floor(left / 2) of them to the k-th drained slot, with a copy of its
+    step row (identifier included, so hits stay attributed), ranks taken
+    from two cumsums.  Photons of one step are i.i.d. given its fields, so
+    splitting a slot's remaining count over two slots with independent
+    random streams leaves the distribution as it was.  Partition: a stable
+    partition, live slots first, state and step rows together.
+
+    The live rule is the kernel's own (csrc/propagate.cuh: a photon in
+    flight or photons left, in_flight > 0.5 or photons_left > 0.5).  The
+    JAX rule adds `pend > 0`, the TPU kernel's deferred-hit queue; the CUDA
+    kernel deposits each hit when it finds it and has no such queue, so
+    that term is 0 here.
+
+    Returns (state, steps_p, n_live): new tensors, and the live count as a
+    0-d int64 tensor on the device."""
+    if state.shape[0] != NSF or steps_p.shape[0] != NST:
+        raise ValueError(f"repack_slots takes ({NSF}, N) state and ({NST}, "
+                         f"N) step rows, got {tuple(state.shape)} and "
+                         f"{tuple(steps_p.shape)}")
+    dev = state.device
+    n = state.shape[1]
+    left, inf = state[0], state[1]
+    iota = torch.arange(n, device=dev)
+    if balance:
+        dead = (left <= 0.5) & (inf <= 0.5)
+        donor = left >= 2.0
+        drank = torch.cumsum(donor.long(), 0) - 1
+        rrank = torch.cumsum(dead.long(), 0) - 1
+        n_pairs = torch.minimum(drank[-1], rrank[-1]) + 1
+        # rank -> slot; the sentinel column n takes the slots of no rank
+        donor_by_rank = torch.full((n + 1,), n, dtype=torch.long, device=dev)
+        donor_by_rank.scatter_(0, torch.where(donor, drank, n), iota)
+        recip_by_rank = torch.full((n + 1,), n, dtype=torch.long, device=dev)
+        recip_by_rank.scatter_(0, torch.where(dead, rrank, n), iota)
+        valid = iota < n_pairs
+        d_idx = torch.where(valid, donor_by_rank[:n], 0)
+        r_idx = torch.where(valid, recip_by_rank[:n], 0)
+        give = torch.where(valid, torch.floor(left[d_idx] * 0.5),
+                           torch.zeros((), device=dev))
+        # invalid pairs add 0 at slot 0
+        left = left.index_add(0, d_idx, -give).index_add(0, r_idx, give)
+        state = torch.cat([left[None], state[1:]])
+        moved = steps_p.index_select(1, d_idx)
+        padded = torch.cat([steps_p, steps_p.new_zeros((NST, 1))], 1)
+        padded[:, torch.where(valid, r_idx, n)] = moved
+        steps_p = padded[:, :n]
+    live = (left > 0.5) | (state[1] > 0.5)
+    livei = live.long()
+    n_live_inc = torch.cumsum(livei, 0)
+    pos = torch.where(live, n_live_inc - 1,
+                      n_live_inc[-1] + torch.cumsum(1 - livei, 0) - 1)
+    perm = torch.zeros(n, dtype=torch.long, device=dev).scatter_(0, pos,
+                                                                 iota)
+    both = torch.cat([state, steps_p]).index_select(1, perm)
+    return (both[:NSF].contiguous(), both[NSF:].contiguous(),
+            n_live_inc[-1])
+
+
 def _run_fused(state, steps_p, tables: FusedTables, spec: FusedSpec, seed,
-               max_calls: int, uniforms=None, rec_capacity=None, keys=None):
+               max_calls: int, uniforms=None, rec_capacity=None, keys=None,
+               repack: bool = False, balance: bool = False):
     """Launch until no slot is alive or max_calls is reached; photons still
     alive after the last call are reported as abandoned (CNT_ALIVE).  With
-    spec.records every launch's records are kept and the result carries
-    them in the flat contract: rec a dict of (1, R) tensors, rec_count
-    [R] (the JAX call loop's, kernel.py:2687-2722)."""
+    `repack`, between two launches while 0 < alive < REPACK_BELOW * N, the
+    slots are repacked (repack_slots, with `balance`) and the next launch
+    covers the live prefix alone (live_prefix); the one host sync a launch
+    reads the alive count and, with balance, the donor count, from which
+    the live count after the repack follows.  With spec.records every
+    launch's records are kept and the result carries them in the flat
+    contract: rec a dict of (1, R) tensors, rec_count [R] (the JAX call
+    loop's, kernel.py:2687-2722); records never repack, as in the JAX
+    package."""
+    if repack and spec.records:
+        raise ValueError("the record mode does not repack")
     dev = state.device
+    n = spec.n_slots
     hist = torch.zeros(spec.n_doms * spec.hist_n_bins, dtype=torch.float32,
                        device=dev)
     totals = torch.zeros(N_CNT, dtype=torch.float64, device=dev)
-    calls, alive, chunks = 0, 0.0, []
+    calls, alive, chunks, n_active = 0, 0.0, [], n
     for call_no in range(max_calls):
         out = run_fused_iterations(
             state, steps_p, tables, spec, uniforms=uniforms, keys=keys,
-            seed=seed, call_no=call_no, hist=hist, rec_capacity=rec_capacity)
+            seed=seed, call_no=call_no, hist=hist, rec_capacity=rec_capacity,
+            n_active=n_active)
         state, hist, cnt = out[:3]
         if spec.records:
             chunks.append(out[3])
         totals += cnt
         calls += 1
-        alive = float(cnt[CNT_ALIVE])
+        last = call_no == max_calls - 1
+        if repack and balance and not last:
+            alive, donors = torch.stack([
+                cnt[CNT_ALIVE], (state[0] >= 2.0).sum().to(cnt.dtype)]
+            ).tolist()
+        else:
+            alive, donors = float(cnt[CNT_ALIVE]), 0.0
         if alive == 0.0:
             break
+        if repack and not last and alive < REPACK_BELOW * n:
+            state, steps_p, _ = repack_slots(state, steps_p, balance)
+            # balance makes one drained slot live for each donor it pairs
+            n_active = live_prefix(alive + min(donors, n - alive), n)
     totals[CNT_ALIVE] = alive
     rec = rec_count = None
     if spec.records:
@@ -1580,12 +1710,21 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
                     iters_per_call: int = 4096,
                     max_calls: int = 256,
                     uniforms=None, rec_capacity: int = REC_CAPACITY,
-                    threefry_key=None):
+                    threefry_key=None, repack: bool = True,
+                    balance: bool = False,
+                    allow_uniform_replay: bool = False):
     """Drive the fused kernel until all photons are drained.
 
     `steps` are slot-assigned tensors on the propagation device.
+    `repack` (the JAX package's default, on) repacks the slots between
+    launches while 0 < alive < 0.9 N, live slots first, and launches the
+    next call over the live prefix alone; `balance` (off by default) also
+    hands half the photons of the slots with >= 2 left to drained slots
+    (repack_slots).  The record mode never repacks, as in the JAX package.
     `uniforms`: optional (T >= iters_per_call, 8, n_slots) float32 stream
-    (parity mode; requires max_calls=1).  `threefry_key`: optional threefry
+    (parity mode; requires max_calls=1, unless `allow_uniform_replay`:
+    then every call replays rows [0, iters_per_call) of the stream, for
+    conservation checks, and repacks as any run).  `threefry_key`: optional threefry
     key (ops/rng.py), exclusive with `uniforms`, with any estimator and with
     records: the kernel draws in-kernel the stream
     rng.make_uniform_stream(threefry_key, iters_per_call, N) would hold,
@@ -1604,9 +1743,12 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
     reason = fused_supported(medium, spectra, cfg)
     if reason:
         raise ValueError(f"fused path unsupported: {reason}")
-    if uniforms is not None and max_calls != 1:
+    if uniforms is not None and max_calls != 1 and not allow_uniform_replay:
         raise ValueError("external uniforms (parity mode) require "
-                         "max_calls=1: each call would replay the stream")
+                         "max_calls=1: each call would replay the same "
+                         "uniform stream (pass allow_uniform_replay=True "
+                         "for conservation checks where that is "
+                         "acceptable)")
     if threefry_key is not None:
         if uniforms is not None:
             raise ValueError("threefry_key and uniforms are exclusive")
@@ -1645,4 +1787,5 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
         rec_capacity = min(int(rec_capacity), photons + 1)
     return _run_fused(init_state(steps, spec.records), pack_steps(steps),
                       tables, spec, seed, max_calls, uniforms=uniforms,
-                      rec_capacity=rec_capacity, keys=keys)
+                      rec_capacity=rec_capacity, keys=keys,
+                      repack=repack and not spec.records, balance=balance)

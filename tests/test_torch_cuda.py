@@ -744,3 +744,42 @@ def test_cuda_tabulate_compacted_matches_plain():
             assert abs(ck[k] - cp[k]) <= max(2.0, 0.01 * cp[k]), k
         assert abs(float(tk.sum()) - ck["weight"]) <= 1e-9 * ck["weight"]
         assert float((tk - tp).abs().sum() / tp.abs().sum()) <= 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_prefix_launch_leaves_the_rest_untouched():
+    """A launch over the first n_active slots (the live prefix a repack
+    leaves) keeps every slot past it bit for bit and agrees with its
+    plain version over the same prefix (chip_smoke.prefix_launch_check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    dev = torch.device("cuda", 0)
+    n = 16384
+    inputs = chip_smoke.uneven_inputs(dev, n=n, T=32)
+    launches = K.MODE_LAUNCHES[0]
+    c_k, _ = chip_smoke.prefix_launch_check(inputs, n // 2 + K.BLOCK)
+    assert K.MODE_LAUNCHES[0] == launches + 2
+    assert float(c_k[K.CNT_WORK]) <= (n // 2 + K.BLOCK) * 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("balance", [False, True])
+def test_cuda_repack_kernel_matches_plain(balance):
+    """The call loop with repack (and balance) on a replayed stream: every
+    launch against its plain version from the same state and n_active,
+    the path's conservation gates (chip_smoke.repack_against_plain), and
+    a launch over a prefix among them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    dev = torch.device("cuda", 0)
+    n = 16384
+    inputs = chip_smoke.uneven_inputs(dev, n=n, T=64)
+    launches, res, _ = chip_smoke.repack_against_plain(
+        f"cuda test, balance {balance}", inputs, repack=True,
+        balance=balance)
+    assert len(launches) > 1
+    assert any(a < n for a, _ in launches)
+    assert launches[-1][1] == 0.0

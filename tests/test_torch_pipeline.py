@@ -156,3 +156,60 @@ def test_run_statistics_match_jax():
                  n_abandoned=1.0)
     assert st.as_dict() == sj.as_dict()
     assert st.as_dict()["DeviceUtilization"] == pytest.approx(0.05 / 0.09)
+
+
+def test_overlapped_pipeline_equals_the_synchronous_one():
+    """max_in_flight 1 (the synchronous loop, no thread) and 3 (the feeder
+    prepares and copies ahead of the harvester thread) give equal
+    EventResults, bit for bit, in submission order, from one seed: the
+    feeder alone draws from the generator, event by event.  Both report a
+    DeviceUtilization of at most 1 (the union of the batches' spans over
+    the dispatch phase's wall)."""
+    events = [[cascade(2.0, 0.0), pulse(600.0)], [pulse(300.0, z=-20.0)],
+              [], [cascade(2.0, 30.0)]]
+    runs = {}
+    for depth in (1, 3):
+        sim = make_sim(n_slots=64)
+        sim.flasher_generator.photons_per_step = 5
+        pipe = EventPipeline(sim, max_in_flight=depth)
+        runs[depth] = (pipe.process(events, seed=5), pipe.stats.as_dict())
+    (res_1, d_1), (res_3, d_3) = runs[1], runs[3]
+    assert [r.event_id for r in res_3] == list(range(len(events)))
+    for a, b in zip(res_1, res_3):
+        np.testing.assert_array_equal(a.hist, b.hist)
+        assert (a.event_id, a.n_generated, a.n_hits, a.weight_hits,
+                a.per_particle) == (b.event_id, b.n_generated, b.n_hits,
+                                    b.weight_hits, b.per_particle)
+    assert res_1[0].n_hits > 0 and res_1[2].n_generated == 0
+    for d in (d_1, d_3):
+        assert d["NumKernelCalls"] == d_1["NumKernelCalls"] >= len(events)
+        assert 0.0 < d["DeviceUtilization"] <= 1.0
+        assert d["TotalNumPhotonsGenerated"] == sum(r.n_generated
+                                                    for r in res_1)
+
+
+def test_harvester_exception_is_raised_from_process(monkeypatch):
+    """An exception in the harvester thread (here propagate_auto failing on
+    the second batch) is raised again from process with the harvester's
+    frames in its traceback, and no harvester thread is left alive; the
+    synchronous loop raises the same."""
+    import threading
+    from clsim_tpu_torch.parallel import pipeline as P
+    inner, calls = P.propagate_auto, []
+
+    def failing_propagate(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("propagation failed on the harvester")
+        return inner(*a, **kw)
+
+    monkeypatch.setattr(P, "propagate_auto", failing_propagate)
+    sim = make_sim(n_slots=64)
+    events = [[cascade(2.0, 0.0)] for _ in range(6)]
+    for depth in (3, 1):
+        calls.clear()
+        with pytest.raises(RuntimeError, match="on the harvester") as info:
+            EventPipeline(sim, max_in_flight=depth).process(events, seed=2)
+        assert any(e.name == "failing_propagate" for e in info.traceback)
+        assert not [t for t in threading.enumerate()
+                    if t.name == "EventPipeline-harvester"]
