@@ -28,6 +28,12 @@
         # checkout without repack runs its own loop as "off"
     python3 chip_smoke.py --mesh N   # build, then phase 12b with N ranks
         # (NCCL with a card each when there are N cards, else gloo)
+    python3 chip_smoke.py --oracle-matrix
+        # build, then phase 10b's four configurations at 4,096 x 245
+        # photons (>= 1e6; the biased one x 489, >= 2e6) through the
+        # kernel and the card's engine, every statistic of
+        # scripts/validate_oracle.py held (the usable equal-count bins
+        # too); one JSON line of the cases
 
 Phases (any failure raises and exits non-zero):
   0. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
@@ -179,10 +185,18 @@ Phases (any failure raises and exits non-zero):
         shared stream (phase 2's tolerances); config2's histogram
         printed, not held (its golden was frozen with spice_lea, which
         the repository does not hold);
-     b. tests/test_oracle.py's workload (tilt + anisotropy, pancake 4;
-        4,096 steps x ORACLE_PHOTONS) through the kernel in the Philox
-        mode and through the port's float64 oracle: |z| < 5 by
-        statistical_compare's rule, unit weights (ROADMAP contract 2);
+     b. the BASELINE matrix (validate/matrix.py, the workloads of
+        tests/test_oracle.py: the cascade with tilt + anisotropy at 4,096
+        steps x ORACLE_PHOTONS, a 250 m muon track and a 405 nm flasher
+        at 4,096 x MATRIX_PHOTONS, the biased cascade with per-hit
+        records at 4,096 x FULL_MATRIX_PHOTONS, with both propagator
+        seeds of matrix.SEEDS) through the
+        kernel in the Philox mode (the record mode in the biased one) and
+        through the port's float64 oracle (host worker processes): every
+        statistic of scripts/validate_oracle.py within 5 sigma, generated
+        = the steps' photons, unit weights where unbiased, records = hits
+        and each record's weight 1 / bias(its wavelength) where biased
+        (ROADMAP contract 2);
      c. a DetailedCascadePropagator cascade (beta spread 0.02) through
         Simulation(propagators=[...]).simulate on hex61: generated = the
         steps' photons, steps with beta < 1, histogram sum = hit weight,
@@ -2695,104 +2709,141 @@ def golden_shared_stream(device, name):
     compare(f"{name}, shared stream, mode {K.kernel_mode(spec)}", c_k, h_k,
             c_p, h_p)
 
-# tests/test_oracle.py::_workload's 4,096 steps at ORACLE_PHOTONS photons
-# each (the test runs 24); the float64 oracle takes a few seconds a 1e5
-# photons on one host core
-ORACLE_STEPS, ORACLE_PHOTONS = 4096, 128
+# the BASELINE matrix (clsim_tpu_torch/validate/matrix.py), 4,096 steps a
+# configuration.  Phase 10b runs the cascade at ORACLE_PHOTONS photons a
+# step, muon and flasher at MATRIX_PHOTONS, and cascade-biased at
+# FULL_MATRIX_PHOTONS, validate_oracle.py's 1e6: at 262,144 photons one
+# kernel hit of weight 1.075e6 (1 / bias at 262.5 nm, a legitimate draw
+# from the spectrum's edge) put a coarse time bin 12 sigma off, since the
+# weighted bins take their variance from the oracle's sample, which held
+# no such hit.  The biased cascade runs with both of matrix.SEEDS against
+# its one oracle sample.  --oracle-matrix runs three at FULL_MATRIX_PHOTONS (>= 1e6)
+# and cascade-biased at FULL_BIASED_PHOTONS (>= 2e6, the size at which the
+# JAX package recorded its four usable equal-count bins, VALIDATION.md),
+# through the kernel and the card's engine.  The float64 oracle takes ~17
+# s a 524,288 photons on one host core; the configurations' oracles run in
+# worker processes on the host while the card runs the propagator.
+ORACLE_PHOTONS = 128
+MATRIX_PHOTONS = 64
+FULL_MATRIX_PHOTONS = 245
+FULL_BIASED_PHOTONS = 489
+ORACLE_WORKERS = 4
 DETAILED_GEV = 1.0e4    # 10c's cascade: ~52,000 one-metre segments
 
 
-def oracle_workload(device):
-    """tests/test_oracle.py::_workload (14 layers, tilt + anisotropy, a
-    7-string hexagon at oversize 9, pancake 4, unbiased Cherenkov
-    spectrum, isotropic 3 m steps at one point), on the port."""
-    import torch
-    from clsim_tpu_torch.convert import steps_from_numpy
-    from clsim_tpu_torch.geometry import hexagonal_geometry
-    from clsim_tpu_torch.medium.anisotropy import AnisotropyParams
-    from clsim_tpu_torch.medium.functions import DEFAULT_ICE_REF_INDEX
-    from clsim_tpu_torch.medium.properties import make_homogeneous_ice
-    from clsim_tpu_torch.medium.tilt import TiltParams
-    from clsim_tpu_torch.ops.spectrum import (make_cherenkov_spectrum,
-                                              stack_spectra)
-    from clsim_tpu_torch.types import PropagationConfig
-    r = np.random.default_rng(5)
-    t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
-    medium = make_homogeneous_ice(n_layers=14, z_start=-350.0,
-                                  layer_height=50.0, device=device)
-    medium = medium._replace(
-        b400=t(0.015 + 0.03 * r.random(14)),
-        a_dust400=t(0.003 + 0.006 * r.random(14)),
-        delta_tau=t(0.5 + r.random(14)),
-        anisotropy=AnisotropyParams(azimuth=t(3.9), mag_along=t(0.04),
-                                    mag_perp=t(-0.08), enabled=True),
-        tilt=TiltParams(distances=t([-900.0, -250.0, 350.0, 1000.0]),
-                        first_z=t(-450.0), z_spacing=t(110.0),
-                        z_corrections=t(15.0 * r.standard_normal((4, 9))),
-                        azimuth_cos=t(np.cos(3.93)),
-                        azimuth_sin=t(np.sin(3.93)), enabled=True))
-    geo = hexagonal_geometry(n_rings=1, string_spacing=70.0,
-                             doms_per_string=12, dom_spacing=16.0,
-                             z_top=90.0, oversize=9.0, device=device)
-    cher = make_cherenkov_spectrum(DEFAULT_ICE_REF_INDEX, 265.0, 675.0)
-    spectra = stack_spectra([cher], device=device)
-    n = ORACLE_STEPS
-    cfg = PropagationConfig(n_slots=n, pancake_factor=4.0, hist_t_min=0.0,
-                            hist_t_max=2000.0, hist_n_bins=50,
-                            max_layer_steps=8, max_segment_m=120.0,
-                            stop_on_detection=True)
-    rr = np.random.default_rng(77)
-    costh = rr.uniform(-1, 1, n)
-    sinth = np.sqrt(1 - costh ** 2)
-    phi = rr.uniform(0, 2 * np.pi, n)
-    full = lambda v: np.full(n, v)
-    steps = steps_from_numpy(dict(
-        x=full(9.0), y=full(-4.0), z=full(13.0), t=full(0.0),
-        dir_x=sinth * np.cos(phi), dir_y=sinth * np.sin(phi), dir_z=costh,
-        length=full(3.0), beta=full(1.0), num_photons=full(ORACLE_PHOTONS),
-        weight=full(1.0), identifier=full(0), source_type=full(0)), device)
-    return medium, geo, cher, spectra, cfg, steps
+def oracle_matrix_cases(device, sizes, backends, power, second_draw=()):
+    """Each configuration of `sizes` (config -> photons a step) through
+    matrix.propagate with each backend on the card (the configurations of
+    `second_draw` also with its second seed) and through the oracle (in
+    host worker processes, matrix.oracle_of), held by matrix.check_case:
+    the statistics (with the usable equal-count bins when `power`),
+    generated = the steps' photons, unit weights in the unbiased
+    configurations, every hit recorded with weight 1/bias in the biased
+    one (the kernel's buffer holds every photon, its stalled launches
+    logged), and the kernel launched by "auto" only.  Every case runs
+    before a failure raises.  Returns a list of one dict a case (config,
+    backend, seed, photons, hits, oracle hits, largest |z|, usable bins,
+    seconds, kernel launches)."""
+    import concurrent.futures
+    import multiprocessing
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.validate import matrix as MX
+    ctx = multiprocessing.get_context("spawn")
+    out, failures = [], []
+    with concurrent.futures.ProcessPoolExecutor(
+            min(ORACLE_WORKERS, len(sizes)), mp_context=ctx) as pool:
+        oracles = {c: pool.submit(MX.oracle_of, c, pps)
+                   for c, pps in sizes.items()}
+        for config, pps in sizes.items():
+            w = MX.workload(config, device, pps)
+            photons = MX.N_STEPS * pps
+            runs = []
+            for backend in backends:
+                for draw in (0, 1) if config in second_draw else (0,):
+                    (res, n), t_k = timed(
+                        lambda: MX.propagate(w, backend, draw))
+                    runs.append((backend, MX.SEEDS[draw], res, t_k, n))
+            o, t_o = oracles[config].result()
+            for backend, seed, res, t_k, n in runs:
+                name = f"{config} [{backend}, seed {seed}]"
+                case = MX.check_case(config, w, res, n, o, backend, power)
+                cmp, hits = case.cmp, float(res.n_hits)
+                usable = [s.value for s in cmp.stats if s.kind == "usable"]
+                stalled = (None if res.diag_totals is None
+                           else float(res.diag_totals[K.CNT_STALLED]))
+                log(f"  {name}: {photons} photons ({MX.N_STEPS} x {pps}), "
+                    f"generated {float(res.n_generated):.0f}, hits "
+                    f"{hits:.0f}, oracle hits {o[1]}; largest |z| "
+                    f"{cmp.max_z:.3f}"
+                    + (f", usable equal-count bins {usable[0]:.0f}"
+                       if usable else "")
+                    + f"; {backend} {t_k:.3f} s ({n} kernel launches"
+                    + ("" if stalled is None
+                       else f", {stalled:.0f} stalled record launches")
+                    + f"), oracle {t_o:.3f} s")
+                if case.records is not None:
+                    log(f"    records {len(case.records[1])}, largest weight "
+                        f"{case.records[1].max():.6g}, |weight x bias - 1| "
+                        f"{case.unfold:.3g}")
+                if case.problems or case.records is not None or power:
+                    for line in cmp.lines:
+                        log("    " + line)
+                if case.problems:
+                    failures.append(f"{name}: {'; '.join(case.problems)}")
+                out.append(dict(config=config, backend=backend, seed=seed,
+                                photons=photons, hits=hits,
+                                oracle_hits=int(o[1]), max_z=cmp.max_z,
+                                usable=usable[0] if usable else None,
+                                seconds=t_k, launches=n, stalled=stalled))
+    if failures:
+        raise AssertionError("the oracle matrix failed: "
+                             + " | ".join(failures))
+    return out
 
 
 def phase10b(device):
-    """ROADMAP parity contract 2 on the card: oracle_workload through the
-    kernel in the Philox mode (propagate_auto, the main path's
-    instantiation) and through the port's float64 oracle on the same steps
-    (its own numpy stream): hits, coarse time groups and hottest DOMs
-    within 5 sigma, unit weights on both sides."""
-    from clsim_tpu_torch.propagate.dispatch import propagate_auto
-    from clsim_tpu_torch.util.golden import statistical_compare
-    from clsim_tpu_torch.validate.oracle import oracle_propagate
-    medium, geo, cher, spectra, cfg, steps = oracle_workload(device)
-    photons = ORACLE_STEPS * ORACLE_PHOTONS
-    reset_counts()
-    res, t_k = timed(lambda: propagate_auto(steps, medium, geo, spectra, 3,
-                                            cfg))
-    n = launched([0])
+    """ROADMAP parity contract 2 on the card: the BASELINE matrix through
+    the kernel in the Philox mode (propagate_auto; the record mode in the
+    biased configuration) against the port's float64 oracle on the same
+    steps (its own numpy stream), every statistic within 5 sigma: the
+    cascade at 4,096 x ORACLE_PHOTONS photons, muon and flasher at 4,096 x
+    MATRIX_PHOTONS, cascade-biased at 4,096 x FULL_MATRIX_PHOTONS with
+    both propagator seeds against its one oracle sample (its usable
+    equal-count bins, which need ~2e6 photons, are logged, held by
+    --oracle-matrix)."""
+    sizes = {"cascade": ORACLE_PHOTONS, "muon": MATRIX_PHOTONS,
+             "flasher": MATRIX_PHOTONS,
+             "cascade-biased": FULL_MATRIX_PHOTONS}
+    return oracle_matrix_cases(device, sizes, ("auto",), power=False,
+                               second_draw=("cascade-biased",))
+
+
+def oracle_matrix_only():
+    """--oracle-matrix: build, then the four configurations at 4,096 x
+    FULL_MATRIX_PHOTONS photons (cascade-biased FULL_BIASED_PHOTONS)
+    through the kernel (backend auto) and the card's engine against the
+    oracle, with every statistic of scripts/validate_oracle.py held; prints
+    one JSON line of the cases."""
+    import torch
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    log(card)
+    from clsim_tpu_torch import _build
+    from clsim_tpu_torch.validate import matrix as MX
     t0 = time.perf_counter()
-    o_hist, o_hits, o_w = oracle_propagate(
-        steps, medium, geo, (cher.x, cher.beta), (cher.bias_x, cher.bias_y),
-        cfg, np.random.default_rng(123), photons_per_step=ORACLE_PHOTONS)
-    t_o = time.perf_counter() - t0
-    hits, w = float(res.n_hits), float(res.weight_hits)
-    log(f"  {photons} photons ({ORACLE_STEPS} steps x {ORACLE_PHOTONS}): "
-        f"kernel {t_k:.3f} s, launches {n}, generated "
-        f"{float(res.n_generated):.0f}, hits {hits:.0f}; oracle {t_o:.3f} s,"
-        f" hits {o_hits}")
-    if float(res.n_generated) != photons:
-        raise AssertionError("oracle workload: generated != the steps' "
-                             "photons")
-    if not (math.isclose(w, hits, rel_tol=1e-5)
-            and math.isclose(o_w, o_hits, rel_tol=1e-9)):
-        raise AssertionError("oracle workload: weights are not unit")
-    z = statistical_compare("kernel vs oracle", hits, w,
-                            res.hist.double().cpu().numpy(), float(o_hits),
-                            o_w, o_hist)
-    log(f"    largest |z| of the hit count, the coarse time groups and the "
-        f"hottest DOMs {z:.3f}")
-    if min(n.values()) <= 0:
-        raise AssertionError("the oracle workload did not launch the kernel")
-    return n
+    _build.load()
+    log(f"phase 1: built in {time.perf_counter() - t0:.2f} s")
+    log("the oracle matrix at full size")
+    t0 = time.perf_counter()
+    cases = oracle_matrix_cases(
+        torch.device("cuda", 0),
+        {c: FULL_BIASED_PHOTONS if c == "cascade-biased"
+         else FULL_MATRIX_PHOTONS for c in MX.CONFIGS}, ("auto", "engine"),
+        power=True)
+    log(f"  the oracle matrix passed in {time.perf_counter() - t0:.1f} s "
+        f"on {card}")
+    print(json.dumps({"oracle_matrix": cases, "card": card}))
 
 
 def phase10c(device):
@@ -5134,6 +5185,8 @@ def main():
         return mesh_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
     if argv[:1] == ["--mesh"]:
         return mesh_only(int(argv[1]))
+    if argv[:1] == ["--oracle-matrix"]:
+        return oracle_matrix_only()
     if argv[:1] in (["--turns"], ["--host-split"], ["--tab-turns"],
                     ["--loop-turns"]):
         turns = argv[1:]
@@ -5264,8 +5317,11 @@ def main():
         "printed: its golden was frozen with spice_lea, which the "
         "repository does not hold (the 171-layer fallback ice runs here)")
     golden_run(device, "config2_muon_spice", hold_hist=False)
-    log("phase 10b: the kernel (Philox) against the float64 oracle")
+    log("phase 10b: the BASELINE matrix, the kernel (Philox) against the "
+        "float64 oracle")
+    t10b = time.perf_counter()
     phase10b(device)
+    log(f"  phase 10b took {time.perf_counter() - t10b:.1f} s")
     log("phase 10c: a detailed-propagator cascade with a beta spread")
     phase10c(device)
     log(f"  phase 10 took {time.perf_counter() - t10:.1f} s")

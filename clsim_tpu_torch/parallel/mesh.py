@@ -191,27 +191,32 @@ def make_sharded_propagate(mesh: PhotonMesh, cfg: PropagationConfig,
     The kernel body serves the run when the configuration is supported
     (dispatch.backend_reason on the build-time medium, geo and spectra) and
     the rank's device is CUDA: it seeds the fused call loop
-    (kernel.propagate_fused, `max_calls`, `fused_opts` such as
-    iters_per_call) with shard_seed(key, rank).  Otherwise the engine body
-    propagates with key folded by the rank (rng.fold_in), the JAX shard's
-    own stream.  backend="engine" asks for the engine, backend="fused"
-    for the kernel body (its plain version on CPU tensors) and raises when
-    the configuration is unsupported; "auto" records in run.backend_reason
-    why it served the engine: the build-time arguments are missing, or
-    the rank's device is not CUDA.  On a CUDA device an unsupported
-    configuration raises, as dispatch.propagate_auto does.
+    (kernel.propagate_fused, `max_calls`, with balance off) with
+    shard_seed(key, rank).  `fused_opts` are iters_per_call and repack
+    (default True), as the JAX shard body takes them; the engine body
+    accepts and ignores them, as the JAX one never reads them.  Otherwise
+    the engine body propagates with key folded by the rank (rng.fold_in),
+    the JAX shard's own stream.  backend="engine" asks for the engine,
+    backend="fused" for the kernel body (its plain version on CPU tensors)
+    and raises when the configuration is unsupported; "auto" records in
+    run.backend_reason why it served the engine: the build-time arguments
+    are missing, or the rank's device is not CUDA.  On a CUDA device an
+    unsupported configuration raises, as dispatch.propagate_auto does.
 
     `with_uniforms` builds the parity variant: run takes a sixth argument,
     a (T, 8, cfg.n_slots * mesh.size) uniform stream, of which rank r reads
     the columns of its slots [r * n_slots, (r + 1) * n_slots), and runs
-    one call of T iterations of the kernel body.
+    one call of T iterations of the kernel body, which never repacks: a
+    `repack` option there raises TypeError, as the JAX rule `repack =
+    (not with_uniforms) and fused_opts.pop("repack", True)` leaves the
+    key unread and its check of the options raises.
 
     Photon records are refused (RECORDS_REFUSED)."""
     if backend not in ("auto", "engine", "fused"):
         raise ValueError(f"unknown backend {backend!r}")
     if cfg.save_photons:
         raise ValueError(RECORDS_REFUSED)
-    unknown = set(fused_opts) - {"iters_per_call"}
+    unknown = set(fused_opts) - {"iters_per_call", "repack"}
     if unknown:
         raise TypeError(f"unknown fused options: {sorted(unknown)}")
     reason = None
@@ -233,6 +238,8 @@ def make_sharded_propagate(mesh: PhotonMesh, cfg: PropagationConfig,
     if with_uniforms and not use_fused:
         raise ValueError("with_uniforms runs the kernel body: "
                          f"{reason or 'backend=engine'}")
+    if with_uniforms and "repack" in fused_opts:
+        raise TypeError("unknown fused options: ['repack']")
 
     def run(steps: StepBatch, medium, geo, spectra, key, uniforms=None):
         if int(steps.x.shape[0]) != cfg.n_slots:
@@ -246,6 +253,7 @@ def make_sharded_propagate(mesh: PhotonMesh, cfg: PropagationConfig,
                               key=rng.fold_in(rng.as_key(key), mesh.rank))
             return all_reduce_result(res, mesh)
         opts = dict(fused_opts)
+        repack = opts.pop("repack", True) and not with_uniforms
         calls = max_calls
         if with_uniforms:
             lo = mesh.rank * cfg.n_slots
@@ -256,7 +264,8 @@ def make_sharded_propagate(mesh: PhotonMesh, cfg: PropagationConfig,
         opts.setdefault("iters_per_call", ITERS_PER_CALL)
         res, _ = propagate_fused(steps, medium, geo, spectra,
                                  shard_seed(key, mesh.rank), cfg,
-                                 max_calls=calls, uniforms=uniforms, **opts)
+                                 max_calls=calls, uniforms=uniforms,
+                                 repack=repack, balance=False, **opts)
         return all_reduce_result(res, mesh)
 
     run.backend = "fused" if use_fused else "engine"

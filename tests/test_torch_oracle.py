@@ -1,12 +1,17 @@
 """The port's float64 oracle (validate/oracle.py) against the JAX package's
-(clsim_tpu/validate/oracle.py): tests/test_oracle.py's workload (tilt +
-anisotropy, pancake 4) cut to ~2,000 photons, carried across to the port's
-containers; with the same numpy rng both oracles give the same histogram,
-hit count, weight sum and per-hit weights, exactly."""
+(clsim_tpu/validate/oracle.py): tests/test_oracle.py's workloads (the
+cascade with tilt + anisotropy and pancake 4, with and without the
+wavelength bias; the muon track; the flasher's stacked LED spectrum) cut to
+~2,000 photons, carried across to the port's containers; with the same
+numpy rng both oracles give the same histogram, hit count, weight sum and
+per-hit weights, exactly."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_oracle import _workload_flasher, _workload_muon
 
 from clsim_tpu.geometry import hexagonal_geometry
 from clsim_tpu.hits.acceptance import icecube_dom_acceptance
@@ -26,7 +31,25 @@ from clsim_tpu_torch.validate import oracle as OT
 N_STEPS, PHOTONS_PER_STEP = 512, 4
 
 
-def workload(bias):
+def first_steps(config):
+    """tests/test_oracle.py's muon or flasher workload with its first
+    N_STEPS steps of PHOTONS_PER_STEP photons."""
+    if config == "muon":
+        medium, geo, spec, cfg, steps = _workload_muon()
+        spectrum_xy = (np.asarray(spec.x[0]), np.asarray(spec.beta[0]))
+    else:
+        medium, geo, spec, cfg, steps, spectrum_xy = _workload_flasher()
+    steps = StepBatch(*[np.asarray(f)[:N_STEPS] for f in steps])._replace(
+        num_photons=np.full(N_STEPS, PHOTONS_PER_STEP, np.int32))
+    return (medium, geo, spectrum_xy,
+            (np.asarray(spec.bias_x), np.asarray(spec.bias_y)),
+            dict(dataclasses.asdict(cfg), n_slots=N_STEPS), steps)
+
+
+def workload(config):
+    if config in ("muon", "flasher"):
+        return first_steps(config)
+    bias = config == "cascade-biased"
     r = np.random.default_rng(5)
     medium = make_homogeneous_ice(n_layers=14, z_start=-350.0,
                                   layer_height=50.0)
@@ -72,14 +95,16 @@ def workload(bias):
         dir_z=costh.astype(np.float32), length=full(3.0), beta=full(1.0),
         num_photons=full(PHOTONS_PER_STEP, np.int32), weight=full(1.0),
         identifier=full(0, np.int32), source_type=full(0, np.int32))
-    return medium, geo, spec, cfg, steps
+    return (medium, geo, (np.asarray(spec.x), np.asarray(spec.beta)),
+            (np.asarray(spec.bias_x), np.asarray(spec.bias_y)), cfg, steps)
 
 
-@pytest.mark.parametrize("bias", [False, True])
-def test_oracle_propagate_matches_jax_exactly(bias):
-    medium, geo, spec, cfg, steps = workload(bias)
-    spectrum_xy = (np.asarray(spec.x), np.asarray(spec.beta))
-    bias_xy = (np.asarray(spec.bias_x), np.asarray(spec.bias_y))
+# the cascade without and with the bias keep their first ids
+@pytest.mark.parametrize("config", [
+    pytest.param("cascade", id="False"),
+    pytest.param("cascade-biased", id="True"), "muon", "flasher"])
+def test_oracle_propagate_matches_jax_exactly(config):
+    medium, geo, spectrum_xy, bias_xy, cfg, steps = workload(config)
     out_j = OJ.oracle_propagate(steps, medium, geo, spectrum_xy, bias_xy,
                                 CfgJ(**cfg), np.random.default_rng(123),
                                 photons_per_step=PHOTONS_PER_STEP,

@@ -19,7 +19,14 @@ CPU devices that tests/conftest.py forces.
     (rel 1e-5) and its update equals -lr * (g_0 + g_1), each rank's
     gradient computed in one process (rtol 1e-3), where the JAX step is
     -lr * 2 * g_0 (ROADMAP C4);
-  * bootstrap without a launcher, and records refused on a mesh (C2).
+  * bootstrap without a launcher, and records refused on a mesh (C2);
+  * the fused options as the JAX shard body takes them (C5): repack=False
+    reaches each rank's call loop (the two ranks equal one process summing
+    the slices without repack, at 16 iterations a call, where the repack
+    loop gives another histogram); balance, and repack with a uniform
+    stream, raise TypeError in both packages; the engine body takes
+    repack and ignores it; Simulation(mesh=, fused_opts={"repack": False})
+    constructs.
 The workers start once for the module and run while the JAX side compiles
 in threads.
 """
@@ -83,6 +90,7 @@ A0 = np.full(4, 0.012, np.float32)
 SIM_SEED = 5
 SIM_GEV = 100.0
 NO_U = np.zeros((1, 8, 1), np.float32)
+NOREPACK_IPC = 16      # iterations a call of the repack=False slice job
 
 
 def jax_mesh():
@@ -174,6 +182,10 @@ def jobs():
         out[f"slice_{backend}"] = dict(
             kind="propagate", steps=st, medium=m, geo=g, spectra=sp, cfg=c,
             key=KEY_C, backend=backend, feed="process_step_slice")
+    out["slice_fused_norepack"] = dict(
+        kind="propagate", steps=st, medium=m, geo=g, spectra=sp, cfg=c,
+        key=KEY_C, backend="fused", feed="process_step_slice",
+        opts=dict(repack=False, iters_per_call=NOREPACK_IPC))
     _, batches, port = sim_case()
     out["run_steps"] = dict(kind="run_steps", seed=SIM_SEED, **port,
                             batches=[StepBatch(*[np.asarray(f) for f in b])
@@ -370,6 +382,95 @@ def test_process_step_slices_sum_to_one_process(ranks, backend):
     assert d["n_generated"] == gen == 128 * 16
     assert d["n_hits"] == hits > 20
     np.testing.assert_allclose(d["hist"], hist, rtol=1e-5, atol=1e-6)
+
+
+def test_process_step_slices_sum_without_repack(ranks):
+    """C5: repack=False reaches each rank's call loop, as the JAX shard
+    body passes it on (clsim_tpu/parallel/mesh.py:119, :143)."""
+    st, m, g, sp, c, _ = slice_case()
+    hists = {}
+    for repack in (False, True):
+        hist, hits = 0.0, 0.0
+        for r in (0, 1):
+            res, _ = propagate_fused(slot_slice(st, r, c.n_slots), m, g, sp,
+                                     M.shard_seed(KEY_C, r), c,
+                                     iters_per_call=NOREPACK_IPC,
+                                     repack=repack)
+            hist = hist + res.hist.double().numpy()
+            hits += float(res.n_hits)
+        hists[repack] = hist, hits
+    d = same_on_both_ranks(*ranks("slice_fused_norepack"))
+    assert str(d["backend"]) == "fused"
+    assert d["n_generated"] == 128 * 16
+    assert d["n_hits"] == hists[False][1] > 20
+    np.testing.assert_allclose(d["hist"], hists[False][0], rtol=1e-5,
+                               atol=1e-6)
+    # the repack loop moves slots to other stream columns
+    assert np.abs(hists[True][0] - hists[False][0]).sum() > 0
+
+
+def jax_slice_inputs(n_slots):
+    medium = ice_j(b400=0.05, a_dust400=0.01)
+    geo = string_j(n_doms=8, spacing=17.0, x=10.0, z_top=60.0, oversize=16.0)
+    spectra = stack_spectra([make_cherenkov_spectrum(
+        DEFAULT_ICE_REF_INDEX, 265.0, 675.0)])
+    return medium, geo, spectra, CfgJ(n_slots=n_slots)
+
+
+@pytest.mark.parametrize("opts, with_uniforms, raises", [
+    (dict(repack=False), False, False),
+    (dict(balance=True), False, True),
+    (dict(repack=False), True, True),
+    (dict(repack=True), True, True)])
+def test_fused_options_follow_the_jax_shard_body(opts, with_uniforms,
+                                                 raises):
+    """C5, construction only: the kernel body takes repack, refuses
+    balance, and under with_uniforms refuses repack (the JAX rule leaves
+    the key unread, so its check of the options raises), in both
+    packages; the JAX kernel body on a 2-device CPU mesh in interpret
+    mode, the port's on the CPU (the plain version)."""
+    medium, geo, spectra, cfg = jax_slice_inputs(128)
+    build_j = lambda: MJ.make_sharded_propagate(
+        jax_mesh(), cfg, backend="fused", medium=medium, geo=geo,
+        spectra=spectra, interpret=True, with_uniforms=with_uniforms,
+        **opts)
+    _, m, g, sp, c, _ = slice_case()
+    build_t = lambda: M.make_sharded_propagate(
+        M.make_mesh(device="cpu"), dataclasses.replace(c, n_slots=128),
+        backend="fused", medium=m, geo=g, spectra=sp,
+        with_uniforms=with_uniforms, **opts)
+    for build in (build_j, build_t):
+        if raises:
+            with pytest.raises(TypeError, match="unknown fused options"):
+                build()
+        else:
+            assert build().backend == "fused"
+
+
+def test_engine_body_and_simulation_take_repack():
+    """C5: the engine body accepts repack and ignores it (the JAX engine
+    body never reads its options), so a mesh Simulation with
+    fused_opts={"repack": False} constructs on CPU ranks; with
+    backend="fused" it builds the kernel body."""
+    run_j = MJ.make_sharded_propagate(jax_mesh(), jax_slice_inputs(64)[3],
+                                      backend="engine", repack=False)
+    assert run_j.backend == "engine"
+    st, m, g, sp, c, _ = slice_case()
+    mesh = M.make_mesh(device="cpu")
+    for backend in ("engine", "auto"):
+        run_t = M.make_sharded_propagate(mesh, c, backend=backend, medium=m,
+                                         geo=g, spectra=sp, repack=False)
+        assert run_t.backend == "engine"
+    res = run_t(slot_slice(st, 0, 64), m, g, sp, KEY_C)
+    ref = ET.propagate(slot_slice(st, 0, 64), m, g, sp, 0, c,
+                       key=rng.fold_in(rng.as_key(KEY_C), 0))
+    np.testing.assert_array_equal(res.hist.numpy(), ref.hist.numpy())
+    for backend in ("auto", "fused"):
+        sim = SimT(medium=m, geometry=g, config=c, mesh=mesh,
+                   backend=backend, use_native=False,
+                   fused_opts={"repack": False})
+        assert sim._propagate.backend == ("engine" if backend == "auto"
+                                          else "fused")
 
 
 def test_ice_fit_two_ranks_fused_forward_takes_the_true_gradient(ranks):
