@@ -44,6 +44,17 @@ Two choices differ from the JAX pipeline:
     A span includes the host's table building between its events, so it
     bounds the device's busy time from above.  The JAX pipeline estimates
     device time from the gaps between completions.
+
+While a torch.profiler runs on the calling thread, or inside
+util/profiling.recording(), `process` records the program's spans
+(util/profiling.span): on the feeder an "event" span per event (its
+conversion, "convert", and slot assignment, "assign", then its batches'
+copies and hand-over) and the "photons" counter; on the harvester
+"queue_wait" (waiting for the feeder) and a "batch" span per slot batch,
+with the call loop's "plan" and "repack" under it; on both a "wait" span
+at each host read of a device value, by site.  Spans carry the event's
+identifier and, on the harvester, the batch index k; a "merge" span covers
+the feeder's sum of the batches into the events' results at the end.
 """
 
 from __future__ import annotations
@@ -63,6 +74,7 @@ from ..propagate.dispatch import check_diagnostics, propagate_auto
 from ..sources.particles import FlasherPulse
 from ..sources.ppc import assign_steps_to_slots
 from ..types import StepBatch
+from ..util import profiling as P
 from ..util.stats import RunStatistics
 
 IDENT_STRIDE = 65536   # identifier = event * IDENT_STRIDE + source index
@@ -101,7 +113,10 @@ class _Harvester:
 
     def _run(self):
         while True:
-            item = self._queue.get()
+            with P.span("queue_wait") as sp:
+                item = self._queue.get()
+                if item is not None:
+                    sp.set(event=item[0], batch=item[1])
             if item is None:
                 return
             if self.error is not None or self._cancel:
@@ -146,20 +161,24 @@ class EventPipeline:
         prepare)."""
         sim = self.sim
         batches, per_particle = [], {}
-        for i, src in enumerate(sources):
-            ident = ev_id * IDENT_STRIDE + i
-            gen = (sim.flasher_generator if isinstance(src, FlasherPulse)
-                   else sim.step_generator)
-            for b in gen.convert(src, ident, rng):
-                per_particle[ident] = per_particle.get(ident, 0) + int(
-                    np.asarray(b.num_photons).sum())
-                batches.append(b)
+        with P.span("convert"):
+            for i, src in enumerate(sources):
+                ident = ev_id * IDENT_STRIDE + i
+                gen = (sim.flasher_generator if isinstance(src, FlasherPulse)
+                       else sim.step_generator)
+                for b in gen.convert(src, ident, rng):
+                    per_particle[ident] = per_particle.get(ident, 0) + int(
+                        np.asarray(b.num_photons).sum())
+                    batches.append(b)
+        P.count("photons", sum(per_particle.values()), event=ev_id)
         slot_batches = []
         if batches:
-            merged = StepBatch.concatenate(batches)
-            check_source_types(*source_type_range(merged.source_type),
-                               int(sim.spectra.x.shape[0]))
-            slot_batches = assign_steps_to_slots(merged, sim.config.n_slots)
+            with P.span("assign"):
+                merged = StepBatch.concatenate(batches)
+                check_source_types(*source_type_range(merged.source_type),
+                                   int(sim.spectra.x.shape[0]))
+                slot_batches = assign_steps_to_slots(merged,
+                                                     sim.config.n_slots)
         return ev_id, slot_batches, per_particle
 
     def prepare(self, events: Sequence[Sequence], rng: np.random.Generator):
@@ -167,15 +186,24 @@ class EventPipeline:
         pulses through sim.flasher_generator, particles through
         sim.step_generator, event k's source i with identifier
         k * IDENT_STRIDE + i; per_particle counts each identifier's
-        photons."""
-        return [self._prepare_event(ev_id, sources, rng)
-                for ev_id, sources in enumerate(events)]
+        photons; each event in an "event" span."""
+        out = []
+        for ev_id, sources in enumerate(events):
+            with P.span("event", event=ev_id):
+                out.append(self._prepare_event(ev_id, sources, rng))
+        return out
 
     def process(self, events: Sequence[Sequence], seed: int
                 ) -> List[EventResult]:
         """Run all events; returns one result per event in submission order
         (the FlushFrameCache contract: results reassembled per event
-        through the identifiers)."""
+        through the identifiers).  Spans and counters are recorded while
+        a torch.profiler runs on the calling thread (profiling's
+        follow_profiler), on the harvester's thread too."""
+        with P.follow_profiler():
+            return self._process(events, seed)
+
+    def _process(self, events, seed):
         sim = self.sim
         n_tables = int(sim.spectra.x.shape[0])
         # a pulse without its stacked spectrum is refused before any batch
@@ -206,34 +234,39 @@ class EventPipeline:
             """Propagate one batch and read it back (a sync): the
             harvester's job, or the loop's own with max_in_flight=1."""
             ev_id, k, steps, ready = item
-            if cuda:
-                stream = torch.cuda.current_stream(steps.x.device)
-                if ready is not None:
-                    stream.wait_event(ready)
-                    for t in steps:
-                        t.record_stream(stream)
-                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-                ev[0].record(stream)
-            t_start = time.perf_counter()
-            res = propagate_auto(steps, sim.medium, sim.geometry, sim.spectra,
-                                 batch_seed(seed, k), sim.config,
-                                 backend=sim.backend, **sim.fused_opts)
-            t_end = time.perf_counter()
-            if cuda:
-                ev[1].record(stream)
-            hist = res.hist.cpu().numpy()     # sync point
-            diag = check_diagnostics(res) or {}
-            if cuda:
-                span = (clock["ref"].elapsed_time(ev[0]) * 1e-3,
-                        clock["ref"].elapsed_time(ev[1]) * 1e-3)
-            else:
-                span = (t_start - clock["t0"], t_end - clock["t0"])
-            return dict(ev_id=ev_id, hist=hist,
-                        counts=(float(res.n_generated), float(res.n_hits),
-                                float(res.weight_hits)),
-                        lost=(diag.get("dropped", 0.0),
-                              diag.get("abandoned", 0.0)),
-                        span=span, harvested=time.perf_counter())
+            with P.span("batch", event=ev_id, batch=k):
+                if cuda:
+                    stream = torch.cuda.current_stream(steps.x.device)
+                    if ready is not None:
+                        stream.wait_event(ready)
+                        for t in steps:
+                            t.record_stream(stream)
+                    ev = [torch.cuda.Event(enable_timing=True)
+                          for _ in range(2)]
+                    ev[0].record(stream)
+                t_start = time.perf_counter()
+                res = propagate_auto(steps, sim.medium, sim.geometry,
+                                     sim.spectra, batch_seed(seed, k),
+                                     sim.config, backend=sim.backend,
+                                     **sim.fused_opts)
+                t_end = time.perf_counter()
+                if cuda:
+                    ev[1].record(stream)
+                with P.wait("hist"):
+                    hist = res.hist.cpu().numpy()     # sync point
+                diag = check_diagnostics(res) or {}
+                if cuda:
+                    span = (clock["ref"].elapsed_time(ev[0]) * 1e-3,
+                            clock["ref"].elapsed_time(ev[1]) * 1e-3)
+                else:
+                    span = (t_start - clock["t0"], t_end - clock["t0"])
+                with P.wait("counts", 3):
+                    counts = (float(res.n_generated), float(res.n_hits),
+                              float(res.weight_hits))
+                return dict(ev_id=ev_id, hist=hist, counts=counts,
+                            lost=(diag.get("dropped", 0.0),
+                                  diag.get("abandoned", 0.0)),
+                            span=span, harvested=time.perf_counter())
 
         if self.max_in_flight == 1:
             prepared = self.prepare(events, rng)
@@ -242,12 +275,14 @@ class EventPipeline:
                 open_event(ev_id, per_particle)
             for ev_id, slot_batches, _ in prepared:
                 for batch in slot_batches:
-                    steps = steps_from_numpy(batch._asdict(), sim.device)
+                    with P.wait("steps_h2d", len(batch)):
+                        steps = steps_from_numpy(batch._asdict(), sim.device)
                     outputs.append(work((ev_id, k, steps, None)))
                     k += 1
         else:
             outputs = self._overlapped(events, rng, open_event, work, cuda)
-        self._merge(outputs, results, clock)
+        with P.span("merge"):
+            self._merge(outputs, results, clock)
         return [results[k] for k in sorted(results)]
 
     def _overlapped(self, events, rng, open_event, work, cuda):
@@ -267,21 +302,25 @@ class EventPipeline:
         try:
             k = 0
             for ev_id, sources in enumerate(events):
-                ev_id, slot_batches, per_particle = self._prepare_event(
-                    ev_id, sources, rng)
-                open_event(ev_id, per_particle)
-                for batch in slot_batches:
-                    ready = None
-                    if cuda:
-                        with torch.cuda.stream(copy_stream):
-                            steps = steps_from_numpy(batch._asdict(),
-                                                     sim.device)
-                            ready = torch.cuda.Event()
-                            ready.record(copy_stream)
-                    else:
-                        steps = steps_from_numpy(batch._asdict(), sim.device)
-                    harvester.submit((ev_id, k, steps, ready))
-                    k += 1
+                with P.span("event", event=ev_id):
+                    ev_id, slot_batches, per_particle = self._prepare_event(
+                        ev_id, sources, rng)
+                    open_event(ev_id, per_particle)
+                    for batch in slot_batches:
+                        ready = None
+                        if cuda:
+                            with torch.cuda.stream(copy_stream):
+                                with P.wait("steps_h2d", len(batch)):
+                                    steps = steps_from_numpy(
+                                        batch._asdict(), sim.device)
+                                ready = torch.cuda.Event()
+                                ready.record(copy_stream)
+                        else:
+                            with P.wait("steps_h2d", len(batch)):
+                                steps = steps_from_numpy(batch._asdict(),
+                                                         sim.device)
+                        harvester.submit((ev_id, k, steps, ready))
+                        k += 1
             failed = False
         finally:
             harvester.close(cancel=failed)

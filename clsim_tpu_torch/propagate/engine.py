@@ -87,6 +87,7 @@ from ..ops.spectrum import (SpectrumTable, check_source_types,
                             sample_wavelength_dispatch, source_type_range,
                             wavelength_bias)
 from ..types import PropagationConfig, StepBatch
+from ..util import profiling as P
 
 EPSILON = 1e-5  # matches the reference kernel's single-precision EPSILON
 BIG = 1e30
@@ -197,7 +198,8 @@ class PropagationResult(NamedTuple):
         """Host-side dict of the fused counters (syncs the device)."""
         if self.diag_totals is None:
             return None
-        t = self.diag_totals.detach().cpu().numpy().astype(np.float64)
+        with P.wait("diagnostics"):
+            t = self.diag_totals.detach().cpu().numpy().astype(np.float64)
         return {"generated": t[0], "hits": t[1], "weight_sum": t[2],
                 "dropped": t[3], "abandoned": t[4], "queued": t[5],
                 "work": t[6], "stalled": t[7]}

@@ -83,13 +83,22 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..geometry import DetectorGeometry, to_numpy
+from ..geometry import DetectorGeometry, to_numpy as _to_numpy
 from ..medium.properties import MediumProperties
 from ..ops import rng
 from ..ops.rotations import cart_to_sph
 from ..ops.spectrum import SpectrumTable, check_source_types
 from ..types import PropagationConfig, StepBatch
+from ..util import profiling as P
 from . import engine as E
+
+
+def to_numpy(a, dtype=None):
+    """geometry.to_numpy, its read a "wait" span of site "to_numpy": the
+    plan's host copies of the geometry's and the medium's tensors."""
+    with P.wait("to_numpy"):
+        return _to_numpy(a, dtype)
+
 
 STATE_FIELDS = list(E.SlotState._fields)
 NSF = len(STATE_FIELDS)
@@ -780,8 +789,11 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
     string (clsim_tpu/propagate/kernel.py:2294-2306 builds the same from
     string_dom_rel and string_features)."""
     dev = medium.b400.device
-    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32,
-                                    device=dev).contiguous()
+
+    def f32(a):
+        with P.wait("tables_h2d"):
+            return torch.as_tensor(a, dtype=torch.float32,
+                                   device=dev).contiguous()
     blocks, views, offsets, off = [], [], [], 0
     for p in spec.sub_plans:
         blk = cell_tab[p.row_off:p.row_off + 4 * p.K_cand, :p.n_cells]
@@ -855,7 +867,10 @@ def medium_scalars(medium: MediumProperties, spectra: SpectrumTable) -> dict:
     factors, scattering, anisotropy, tilt) and of the spectra's bias grid,
     as Python floats (lists for n, g and tilt_d)."""
     an, tl = medium.anisotropy, medium.tilt
-    host = lambda t: float(torch.as_tensor(t).detach().cpu())
+
+    def host(t):
+        with P.wait("medium_scalars"):
+            return float(torch.as_tensor(t).detach().cpu())
     bx = to_numpy(spectra.bias_x, np.float64)
     sc = dict(
         z_start=host(medium.layers_z_start),
@@ -872,11 +887,14 @@ def medium_scalars(medium: MediumProperties, spectra: SpectrumTable) -> dict:
         n=[host(v) for v in medium.ref_index.n],
         g=[host(v) for v in medium.ref_index.g])
     if an.enabled:
-        k1 = torch.exp(torch.as_tensor(an.mag_along).cpu())
-        k2 = torch.exp(torch.as_tensor(an.mag_perp).cpu())
-        sc.update(an_ca=host(torch.cos(torch.as_tensor(an.azimuth).cpu())),
-                  an_sa=host(torch.sin(torch.as_tensor(an.azimuth).cpu())),
-                  an_k1=host(k1), an_k2=host(k2), an_kz=host(1.0 / (k1 * k2)))
+        with P.wait("medium_scalars", 4):
+            k1 = torch.exp(torch.as_tensor(an.mag_along).cpu())
+            k2 = torch.exp(torch.as_tensor(an.mag_perp).cpu())
+            cos_az = torch.cos(torch.as_tensor(an.azimuth).cpu())
+            sin_az = torch.sin(torch.as_tensor(an.azimuth).cpu())
+        # host tensors from here on
+        sc.update(an_ca=float(cos_az), an_sa=float(sin_az), an_k1=float(k1),
+                  an_k2=float(k2), an_kz=float(1.0 / (k1 * k2)))
     if tl.enabled:
         sc.update(tilt_z0=host(tl.first_z), tilt_dz=host(tl.z_spacing),
                   tilt_ca=host(tl.azimuth_cos), tilt_sa=host(tl.azimuth_sin),
@@ -1512,7 +1530,8 @@ def _launch(state, steps, tables: FusedTables, spec: FusedSpec, uniforms,
         counters = torch.cat([torch.stack([c[0], c[1], cnt_w[0], zero, c[2],
                                            c[1], c[3], zero]), c[4:]])
         return state, hist, counters
-    n_rec = int(rec_cnt)          # appends tried; those past cap stalled
+    with P.wait("rec_count"):
+        n_rec = int(rec_cnt)      # appends tried; those past cap stalled
     n_written = min(n_rec, cap)
     f64 = lambda v: torch.tensor(float(v), dtype=torch.float64, device=dev)
     counters = torch.cat([torch.stack([c[0], c[1], cnt_w[0], zero, c[2],
@@ -1677,19 +1696,23 @@ def _run_fused(state, steps_p, tables: FusedTables, spec: FusedSpec, seed,
         totals += cnt
         calls += 1
         last = call_no == max_calls - 1
-        if repack and balance and not last:
-            alive, donors = torch.stack([
-                cnt[CNT_ALIVE], (state[0] >= 2.0).sum().to(cnt.dtype)]
-            ).tolist()
-        else:
-            alive, donors = float(cnt[CNT_ALIVE]), 0.0
+        with P.wait("alive"):
+            if repack and balance and not last:
+                alive, donors = torch.stack([
+                    cnt[CNT_ALIVE], (state[0] >= 2.0).sum().to(cnt.dtype)]
+                ).tolist()
+            else:
+                alive, donors = float(cnt[CNT_ALIVE]), 0.0
         if alive == 0.0:
             break
         if repack and not last and alive < REPACK_BELOW * n:
-            state, steps_p, _ = repack_slots(state, steps_p, balance)
-            # balance makes one drained slot live for each donor it pairs
-            n_active = live_prefix(alive + min(donors, n - alive), n)
-    totals[CNT_ALIVE] = alive
+            with P.span("repack"):
+                state, steps_p, _ = repack_slots(state, steps_p, balance)
+                # balance makes one drained slot live for each donor it
+                # pairs
+                n_active = live_prefix(alive + min(donors, n - alive), n)
+    with P.wait("totals"):
+        totals[CNT_ALIVE] = alive
     rec = rec_count = None
     if spec.records:
         rows = torch.cat(chunks)
@@ -1756,35 +1779,43 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
             raise ValueError("threefry_key requires max_calls=1 (the key "
                              "table covers one call's iterations)")
     n = int(steps.x.shape[0])
-    # one sync: the largest per-slot photon count and the source_type range
-    top, lo, hi = torch.stack([a.to(torch.int64) for a in (
-        steps.num_photons.max(), steps.source_type.min(),
-        steps.source_type.max())]).tolist()
-    if top >= 2 ** 24:
-        raise ValueError("per-slot photon counts must stay below 2^24 "
-                         "(float32 slot state); use more slots")
-    check_source_types(lo, hi, int(spectra.x.shape[0]))
-    spec, cell_tab = fused_spec(medium, geo, spectra, cfg, n, iters_per_call,
-                                threefry=threefry_key is not None)
-    reason = spec_unsupported(spec)
-    if reason:
-        raise NotImplementedError(reason)
-    tables = build_tables(spec, medium, geo, spectra, cell_tab)
-    keys = None
-    if threefry_key is not None:
-        # per-iteration folded keys, bit-identical to rng.iter_key
-        keys = rng.key_table(threefry_key, iters_per_call).to(
-            steps.x.device)
-    if spec.records:
-        # a run records at most one record per photon
-        photons = int(steps.num_photons.sum())
-        if threefry_key is not None and int(rec_capacity) < photons + 1:
-            raise ValueError(
-                f"threefry_key with save_photons needs rec_capacity >= the "
-                f"photons + 1 ({photons + 1}), got {int(rec_capacity)}: a "
-                "record that finds the buffer full waits for the next "
-                "launch, and the key table covers one call")
-        rec_capacity = min(int(rec_capacity), photons + 1)
+    with P.span("plan"):
+        # one sync: the largest per-slot photon count and the source_type
+        # range
+        with P.wait("check"):
+            top, lo, hi = torch.stack([a.to(torch.int64) for a in (
+                steps.num_photons.max(), steps.source_type.min(),
+                steps.source_type.max())]).tolist()
+        if top >= 2 ** 24:
+            raise ValueError("per-slot photon counts must stay below 2^24 "
+                             "(float32 slot state); use more slots")
+        check_source_types(lo, hi, int(spectra.x.shape[0]))
+        spec, cell_tab = fused_spec(medium, geo, spectra, cfg, n,
+                                    iters_per_call,
+                                    threefry=threefry_key is not None)
+        reason = spec_unsupported(spec)
+        if reason:
+            raise NotImplementedError(reason)
+        tables = build_tables(spec, medium, geo, spectra, cell_tab)
+        keys = None
+        if threefry_key is not None:
+            # per-iteration folded keys, bit-identical to rng.iter_key
+            keys = rng.key_table(threefry_key, iters_per_call).to(
+                steps.x.device)
+        if spec.records:
+            # a run records at most one record per photon
+            with P.wait("rec_photons"):
+                photons = int(steps.num_photons.sum())
+            if threefry_key is not None and int(rec_capacity) < photons + 1:
+                raise ValueError(
+                    f"threefry_key with save_photons needs rec_capacity >= "
+                    f"the photons + 1 ({photons + 1}), got "
+                    f"{int(rec_capacity)}: a record that finds the buffer "
+                    "full waits for the next launch, and the key table "
+                    "covers one call")
+            rec_capacity = min(int(rec_capacity), photons + 1)
+    # the state and the packed steps go in as temporaries: a repack in
+    # _run_fused then frees them
     return _run_fused(init_state(steps, spec.records), pack_steps(steps),
                       tables, spec, seed, max_calls, uniforms=uniforms,
                       rec_capacity=rec_capacity, keys=keys,

@@ -44,6 +44,7 @@ from ..constants import C_LIGHT, PPC_NPH_CONST, PPC_NPH_REF_DENSITY
 from ..medium.properties import MediumProperties
 from ..ops.spectrum import WavelengthSpectrum, photons_per_meter
 from ..types import StepBatch
+from ..util import profiling as P
 from .particles import (EM_TYPES, HADRON_TYPES, MUON_TYPES, TAU_TYPES,
                         Particle)
 from .shower import shower_parameters
@@ -115,13 +116,13 @@ class PPCStepGenerator:
         self.high_photons_per_step = high_photons_per_step or photons_per_step
         self.high_threshold = high_threshold
         self.use_cascade_extension = use_cascade_extension
-        self.density = float(medium.density)
-
         # per-layer bias-weighted Frank-Tamm yield (PPC.cxx:113-122)
         n_layers = medium.n_layers
-        ppm = photons_per_meter(medium.ref_index, spectrum.bias_x,
-                                spectrum.bias_y, medium.min_wlen,
-                                medium.max_wlen)
+        with P.wait("generator_init", 2):
+            self.density = float(medium.density)
+            ppm = photons_per_meter(medium.ref_index, spectrum.bias_x,
+                                    spectrum.bias_y, medium.min_wlen,
+                                    medium.max_wlen)
         # the refractive index is layer-independent in every shipped model,
         # so the per-layer yields coincide; keep the per-layer array for
         # API parity with the reference
@@ -130,7 +131,9 @@ class PPCStepGenerator:
     # ------------------------------------------------------------------
     def _layer_for(self, z: float) -> int:
         m = self.medium
-        i = int(max(0.0, (z - float(m.layers_z_start)) / float(m.layer_height)))
+        with P.wait("layer_for", 2):
+            z0, h = float(m.layers_z_start), float(m.layer_height)
+        i = int(max(0.0, (z - z0) / h))
         return min(i, m.n_layers - 1)
 
     def _steps_for_counts(self, num_photons: int, pps: int):
