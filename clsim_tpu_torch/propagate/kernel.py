@@ -28,6 +28,9 @@ This module holds
   * run_fused_iterations: the wrapper.  On CUDA tensors it launches the
     kernel (or raises); on CPU tensors it runs run_fused_iterations_plain,
     the same function in plain PyTorch built on engine._iteration,
+  * plan_call: the spec and the tables of a call, in a geometry part and a
+    medium part, each kept while its inputs are the same objects with
+    their tensors unedited, so that a stream of batches plans once,
   * propagate_fused / _run_fused: the call loop that launches the kernel
     until no slot is alive or max_calls is reached, repacking the slots
     between launches (repack_slots, the JAX do_repack) and launching the
@@ -78,6 +81,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -572,10 +576,20 @@ def fused_spec(medium: MediumProperties, geo: DetectorGeometry,
     """Plan the collision test and build the kernel spec (the estimator
     fields as clsim_tpu/propagate/kernel.py:2160-2172 computes them).
     Returns (spec, cell_tab) with cell_tab in the JAX package's layout."""
+    fields, cell_tab = geometry_fields(geo, cfg, n_slots, iters_per_call,
+                                       threefry)
+    return FusedSpec(**medium_fields(medium, spectra), **fields), cell_tab
+
+
+def geometry_fields(geo: DetectorGeometry, cfg: PropagationConfig,
+                    n_slots: int, iters_per_call: int, threefry: bool):
+    """The FusedSpec fields that the geometry, the config, the slots, the
+    iterations a launch and the draws set: the collision plan
+    (plan_collision) and the estimator's fields.  Returns (fields,
+    cell_tab)."""
     cell_tab, plan = plan_collision(geo, cfg)
     affine_ok, n_cand = _affine_collision_plan(geo, cfg)
-    return FusedSpec(
-        **medium_fields(medium, spectra),
+    return dict(
         n_slots=int(n_slots),
         iters_per_call=int(iters_per_call),
         K=cfg.max_layer_steps,
@@ -788,12 +802,36 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
     reads the DOM residuals as (S, M) float4 rows beside a float4 per
     string (clsim_tpu/propagate/kernel.py:2294-2306 builds the same from
     string_dom_rel and string_features)."""
-    dev = medium.b400.device
+    return _join_tables(
+        geometry_tables(spec, geo, cell_tab, medium.b400.device),
+        medium_part_tables(medium, spectra, spec.medium_tables,
+                           spec.scat_table))
 
+
+def _join_tables(geom: dict, med: dict) -> FusedTables:
+    """FusedTables of geometry_tables' and medium_part_tables' entries, the
+    scalars of both in one dict."""
+    return FusedTables(**{**geom, **med,
+                          "scalars": {**med["scalars"], **geom["scalars"]}})
+
+
+def _upload(a, dev) -> torch.Tensor:
+    """A float32 copy of `a` on `dev`, its read a "wait" span of site
+    "tables_h2d"."""
+    with P.wait("tables_h2d"):
+        return torch.as_tensor(a, dtype=torch.float32,
+                               device=dev).contiguous()
+
+
+def geometry_tables(spec: FusedSpec, geo: DetectorGeometry,
+                    cell_tab: np.ndarray, dev) -> dict:
+    """FusedTables' entries that the geometry and the config set, on `dev`:
+    the cell tables, the DOM centres, the general path's DOM residuals and
+    strings, the angular polynomial and the scalars of the collision sphere,
+    the segment cap and the histogram.  They read only spec's geometry
+    fields (geometry_fields)."""
     def f32(a):
-        with P.wait("tables_h2d"):
-            return torch.as_tensor(a, dtype=torch.float32,
-                                   device=dev).contiguous()
+        return _upload(a, dev)
     blocks, views, offsets, off = [], [], [], 0
     for p in spec.sub_plans:
         blk = cell_tab[p.row_off:p.row_off + 4 * p.K_cand, :p.n_cells]
@@ -816,28 +854,35 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
            else torch.zeros((1, 1, 4), device=dev))
     strings = (f32(to_numpy(geo.string_features)[:, [0, 1, 4, 5]])
                if general else torch.zeros((1, 4), device=dev))
-    sc_ = medium.scattering
-    scat = (f32(torch.stack([sc_.table_cos.reshape(-1),
-                             sc_.table_cdf[0], sc_.table_cdf[1]]).cpu())
-            if spec.scat_table else torch.zeros(1, device=dev))
     ang = (f32(np.asarray(spec.ang_poly, np.float32)) if spec.ang_poly
            else torch.zeros(1, device=dev))
-
     cfg = spec.cfg
-    sc = medium_scalars(medium, spectra)
-    sc.update(
+    sc = dict(
         r=float(geo.collision_radius), r2=float(geo.collision_radius) ** 2,
         inv_pancake=1.0 / cfg.pancake_factor,
         max_seg=float(cfg.max_segment_m),
         hist_t0=float(cfg.hist_t_min), hist_dt=float(cfg.hist_dt))
-    return FusedTables(
-        medium=medium, spectra=spectra,
-        **medium_device_tables(medium, spectra, spec.medium_tables),
+    return dict(
         cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
         doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
             dev).contiguous(),
         scalars=sc, global_cells=global_cells, rel=rel, strings=strings,
-        scat=scat, ang=ang)
+        ang=ang)
+
+
+def medium_part_tables(medium: MediumProperties, spectra: SpectrumTable,
+                       tabulated: bool, scat_table: bool) -> dict:
+    """FusedTables' entries that the medium and the spectra set, on the
+    medium's device: medium_device_tables, the scattering-angle CDF (with
+    `scat_table`), medium_scalars and the two objects themselves."""
+    sc_ = medium.scattering
+    scat = (_upload(torch.stack([sc_.table_cos.reshape(-1),
+                                 sc_.table_cdf[0], sc_.table_cdf[1]]).cpu(),
+                    medium.b400.device)
+            if scat_table else torch.zeros(1, device=medium.b400.device))
+    return dict(medium=medium, spectra=spectra,
+                **medium_device_tables(medium, spectra, tabulated),
+                scat=scat, scalars=medium_scalars(medium, spectra))
 
 
 def medium_device_tables(medium: MediumProperties, spectra: SpectrumTable,
@@ -900,6 +945,104 @@ def medium_scalars(medium: MediumProperties, spectra: SpectrumTable) -> dict:
                   tilt_ca=host(tl.azimuth_cos), tilt_sa=host(tl.azimuth_sin),
                   tilt_d=[host(v) for v in tl.distances])
     return sc
+
+
+# ---------------------------------------------------------------------------
+# the plan of a call, reused while its inputs are unchanged
+# ---------------------------------------------------------------------------
+
+# entries each part of the plan keeps, the least recently used dropped
+# first: a fit builds a new medium every step (diff.replace_leaves), whose
+# medium part then misses every time while the geometry part hits
+PLAN_CACHE_SIZE = 4
+_PLAN_LOCK = threading.Lock()
+
+
+def _versions(objs: tuple) -> tuple:
+    """The _version of every floating-point tensor of `objs` (NamedTuples
+    of tensors): an in-place edit of any of them changes the tuple."""
+    from .diff import tensor_leaves
+    return tuple(t._version for o in objs for _, t in tensor_leaves(o))
+
+
+class _PartCache:
+    """One part of the plan, per inputs, least recently used first.  An
+    entry matches where its inputs are the very objects given (held by the
+    entry, so that a recycled id() never matches), their tensors' versions
+    are unchanged and the rest of its key is equal."""
+
+    def __init__(self):
+        self.entries = []         # [(objs, versions, key, value)]
+
+    def _index(self, objs: tuple, vers: tuple, key: tuple):
+        for i, (o, v, k, _) in enumerate(self.entries):
+            if all(a is b for a, b in zip(o, objs)) and v == vers \
+                    and k == key:
+                return i
+        return None
+
+    def find(self, objs: tuple, key: tuple):
+        """(the matching entry's value or None, the versions of objs)."""
+        vers = _versions(objs)
+        with _PLAN_LOCK:
+            i = self._index(objs, vers, key)
+            if i is None:
+                return None, vers
+            self.entries.append(self.entries.pop(i))
+            return self.entries[-1][3], vers
+
+    def put(self, objs: tuple, vers: tuple, key: tuple, value):
+        """Keep `value` as the newest entry, in place of an equal one that
+        another thread built meanwhile."""
+        with _PLAN_LOCK:
+            i = self._index(objs, vers, key)
+            if i is not None:
+                del self.entries[i]
+            self.entries.append((objs, vers, key, value))
+            del self.entries[:-PLAN_CACHE_SIZE]
+
+
+# the geometry part: geometry_fields and geometry_tables of (geometry,
+# config, n_slots, iters_per_call, threefry, device); the medium part:
+# medium_fields and medium_part_tables of (medium, spectra)
+GEOMETRY_PLANS = _PartCache()
+MEDIUM_PLANS = _PartCache()
+
+
+def clear_plans():
+    """Drop every kept plan and the inputs and device tables it holds: the
+    next call plans anew."""
+    with _PLAN_LOCK:
+        GEOMETRY_PLANS.entries.clear()
+        MEDIUM_PLANS.entries.clear()
+
+
+def plan_call(medium: MediumProperties, geo: DetectorGeometry,
+              spectra: SpectrumTable, cfg: PropagationConfig, n_slots: int,
+              iters_per_call: int, threefry: bool = False):
+    """(spec, tables) of fused_spec and build_tables, each of their two
+    parts (GEOMETRY_PLANS, MEDIUM_PLANS) built once and reused while its
+    inputs are unchanged; the spec and the tables equal a fresh build's.
+    Counts "plan_reuse" where both parts were kept, else "plan_build"."""
+    dev = medium.b400.device
+    med, m_vers = MEDIUM_PLANS.find((medium, spectra), ())
+    gkey = (cfg, int(n_slots), int(iters_per_call), bool(threefry), dev)
+    geom, g_vers = GEOMETRY_PLANS.find((geo,), gkey)
+    P.count("plan_build" if med is None or geom is None else "plan_reuse")
+    if med is None:
+        fields = medium_fields(medium, spectra)
+        med = fields, medium_part_tables(medium, spectra,
+                                         fields["medium_tables"],
+                                         fields["scat_table"])
+        MEDIUM_PLANS.put((medium, spectra), m_vers, (), med)
+    if geom is None:
+        fields, cell_tab = geometry_fields(geo, cfg, n_slots,
+                                           iters_per_call, threefry)
+        spec = FusedSpec(**med[0], **fields)
+        geom = fields, geometry_tables(spec, geo, cell_tab, dev)
+        GEOMETRY_PLANS.put((geo,), g_vers, gkey, geom)
+    spec = FusedSpec(**med[0], **dict(geom[0], cfg=cfg))
+    return spec, _join_tables(geom[1], med[1])
 
 
 def pack_steps(steps: StepBatch) -> torch.Tensor:
@@ -1759,8 +1902,9 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
     not have (its one call's keys would be reused); so a threefry record
     run needs room for every record, rec_capacity >= the photons + 1, and
     raises otherwise (the JAX kernel would drop the records past its queue,
-    CNT_DROPPED).  Returns (PropagationResult, totals) with totals the
-    float64 CNT_* vector."""
+    CNT_DROPPED).  The collision plan and the device tables are kept
+    between calls while their inputs are unchanged (plan_call).  Returns
+    (PropagationResult, totals) with totals the float64 CNT_* vector."""
     if cfg.save_photons and cfg.photon_history_entries > 0:
         raise NotImplementedError(HISTORY_REFUSED)
     reason = fused_supported(medium, spectra, cfg)
@@ -1790,13 +1934,12 @@ def propagate_fused(steps: StepBatch, medium: MediumProperties,
             raise ValueError("per-slot photon counts must stay below 2^24 "
                              "(float32 slot state); use more slots")
         check_source_types(lo, hi, int(spectra.x.shape[0]))
-        spec, cell_tab = fused_spec(medium, geo, spectra, cfg, n,
-                                    iters_per_call,
-                                    threefry=threefry_key is not None)
+        spec, tables = plan_call(medium, geo, spectra, cfg, n,
+                                 iters_per_call,
+                                 threefry=threefry_key is not None)
         reason = spec_unsupported(spec)
         if reason:
             raise NotImplementedError(reason)
-        tables = build_tables(spec, medium, geo, spectra, cell_tab)
         keys = None
         if threefry_key is not None:
             # per-iteration folded keys, bit-identical to rng.iter_key

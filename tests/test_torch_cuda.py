@@ -783,3 +783,43 @@ def test_cuda_repack_kernel_matches_plain(balance):
     assert len(launches) > 1
     assert any(a < n for a, _ in launches)
     assert launches[-1][1] == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_second_call_launches_on_the_kept_tables(monkeypatch):
+    """propagate_fused plans a (medium, geometry) once (kernel.plan_call):
+    a second call with the same inputs launches on the same device tables
+    and reads no planning value back from the card (no medium_scalars,
+    to_numpy or tables_h2d wait)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import chip_smoke
+    from clsim_tpu_torch.propagate import kernel as K
+    from clsim_tpu_torch.util import profiling as P
+    dev = torch.device("cuda", 0)
+    n, T = 8192, 16
+    medium, geo, spectra, cfg, steps, _ = chip_smoke.small_workload(
+        n, T, True, True, dev)
+    kept, plan_call = [], K.plan_call
+    monkeypatch.setattr(K, "plan_call", lambda *a, **k: kept.append(
+        plan_call(*a, **k)) or kept[-1])
+    K.clear_plans()
+    calls = []
+    for _ in range(2):
+        with P.recording() as rec:
+            K.propagate_fused(steps, medium, geo, spectra, 5, cfg,
+                              iters_per_call=T)
+            torch.cuda.synchronize()
+        calls.append((rec.total("plan_build"), rec.total("plan_reuse"),
+                      {s["site"] for s in rec.spans("wait")}))
+    K.clear_plans()
+    (_, first), (_, second) = kept
+    for name in ("cells", "doms", "rel", "strings", "ang", "layers",
+                 "spec_tab", "bias_tab", "tilt_zc", "wtab", "scat"):
+        a, b = getattr(first, name), getattr(second, name)
+        assert a.is_cuda and a.data_ptr() == b.data_ptr(), name
+    assert first.scalars == second.scalars
+    planning = {"medium_scalars", "to_numpy", "tables_h2d"}
+    assert calls[0][:2] == (1, 0) and planning <= calls[0][2]
+    assert calls[1][:2] == (0, 1) and not planning & calls[1][2]
+    assert {"check", "alive"} <= calls[1][2]
