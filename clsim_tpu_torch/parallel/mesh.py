@@ -62,6 +62,7 @@ from ..propagate import engine as E
 from ..propagate.dispatch import ITERS_PER_CALL, backend_reason
 from ..propagate.kernel import propagate_fused
 from ..types import PropagationConfig, StepBatch
+from ..util import profiling as P
 
 # the name of the JAX package's mesh axis; here the ranks are that axis
 PHOTON_AXIS = "photons"
@@ -287,6 +288,10 @@ class IceFit:
     slice (shard_steps) and every rank returns the same parameters and
     loss."""
 
+    # the gradient the last step() applied, {name: tensor} (all-reduced on
+    # a mesh); None before the first step
+    last_grads = None
+
     # MediumProperties fields whose perturbation changes the sampling law of
     # scatter events: their gradients need the score-function term (the
     # detached estimator is wrong-signed on a beam workload, tests/
@@ -354,6 +359,7 @@ class IceFit:
         self._opt = None
         self._leaves = None
         self._warned = set()
+        self._steps = 0
 
     # -- the loss -----------------------------------------------------------
 
@@ -444,7 +450,19 @@ class IceFit:
 
     def step(self, fit_params: dict, medium: MediumProperties,
              steps: StepBatch, key, target_hist):
-        """One optimizer step.  Returns (new_params, loss)."""
+        """One optimizer step.  Returns (new_params, loss); the gradient it
+        applied is kept in `last_grads`.
+
+        Spans and counters are recorded while a torch.profiler runs on the
+        calling thread (profiling's follow_profiler): the root "fit_step"
+        (the step's index as batch=), with "fit_forward" and
+        "fit_optimizer" inside it; the backward's spans (propagate/diff.py)
+        lie on autograd's device thread on CUDA tensors."""
+        with P.follow_profiler(), P.span("fit_step", batch=self._steps):
+            self._steps += 1
+            return self._step(fit_params, medium, steps, key, target_hist)
+
+    def _step(self, fit_params, medium, steps, key, target_hist):
         dev = medium.b400.device
         vals = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
                 for k, v in fit_params.items()}
@@ -466,21 +484,25 @@ class IceFit:
         loss = self.loss_fn(leaves, medium, steps, key, target)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves.values(), grads)]
-        if self.mesh is not None and self.mesh.active:
-            # every rank's dL/dH . dh_r/dp, summed: the gradient of the loss
-            flat = self.mesh.all_reduce_(torch.cat([g.reshape(-1)
-                                                    for g in grads]))
-            grads = [f.reshape(g.shape) for f, g in zip(
-                torch.split(flat, [g.numel() for g in grads]), grads)]
-        if self.optimizer is None:
-            new = {k: (p - self.lr * g).detach()
-                   for (k, p), g in zip(leaves.items(), grads)}
-        else:
-            for p, g in zip(leaves.values(), grads):
-                p.grad = g
-            self._opt.step()
-            self._opt.zero_grad(set_to_none=True)
-            new = {k: p.detach().clone() for k, p in leaves.items()}
+        with P.span("fit_optimizer"):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(leaves.values(), grads)]
+            if self.mesh is not None and self.mesh.active:
+                # every rank's dL/dH . dh_r/dp, summed: the gradient of the
+                # loss
+                flat = self.mesh.all_reduce_(torch.cat([g.reshape(-1)
+                                                        for g in grads]))
+                grads = [f.reshape(g.shape) for f, g in zip(
+                    torch.split(flat, [g.numel() for g in grads]), grads)]
+            self.last_grads = {k: g.detach()
+                               for k, g in zip(leaves, grads)}
+            if self.optimizer is None:
+                new = {k: (p - self.lr * g).detach()
+                       for (k, p), g in zip(leaves.items(), grads)}
+            else:
+                for p, g in zip(leaves.values(), grads):
+                    p.grad = g
+                self._opt.step()
+                self._opt.zero_grad(set_to_none=True)
+                new = {k: p.detach().clone() for k, p in leaves.items()}
         return new, loss.detach()

@@ -11,6 +11,11 @@ threefry draws (ops/rng.py) are bit-identical to the engine's key mode, so
 the engine's vector-Jacobian product is the gradient of the returned primal
 up to float rounding, and finite differences of the forward check it.
 
+While recording (util/profiling), the forward is the span "fit_forward"
+(the kernel launch and its "plan" span) and counts its slots under
+"fit_photons"; the backward is "fit_backward", with "fit_replay" (the
+engine under grad) and "fit_vjp" (autograd.grad) inside it.
+
 The JAX package has no backward Pallas kernel either: its backward is jax.vjp
 of its engine (clsim_tpu/propagate/diff.py:82-94, :126-157), so the port's
 backward is autograd of the port's engine and needs no kernel of its own.
@@ -28,6 +33,7 @@ from ..ops import rng
 from ..ops.rng import make_uniform_stream
 from ..ops.spectrum import SpectrumTable
 from ..types import PropagationConfig, StepBatch
+from ..util import profiling as P
 from . import engine as E
 from . import kernel as K
 
@@ -93,46 +99,58 @@ class _ExpectedHist(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, prob: _Problem, *leaves):
-        medium = replace_leaves(prob.medium, dict(zip(prob.paths, leaves)))
-        res, totals = K.propagate_fused(
-            prob.steps, medium, prob.geo, prob.spectra, 0, prob.cfg,
-            iters_per_call=prob.n_iterations, max_calls=1,
-            uniforms=prob.uniforms, threefry_key=prob.key)
-        ctx.prob = prob
-        ctx.save_for_backward(*leaves)
-        # hits the kernel could not deposit poison the histogram, so a fit
-        # loss goes NaN loudly instead of losing weight silently
-        poison = torch.where(totals[K.CNT_DROPPED] > 0.0,
-                             torch.tensor(float("nan"), device=totals.device),
-                             torch.tensor(0.0, device=totals.device))
-        return res.hist + poison.to(res.hist.dtype)
+        with P.span("fit_forward"):
+            P.count("fit_photons", int(prob.steps.x.shape[0]))
+            medium = replace_leaves(prob.medium,
+                                    dict(zip(prob.paths, leaves)))
+            res, totals = K.propagate_fused(
+                prob.steps, medium, prob.geo, prob.spectra, 0, prob.cfg,
+                iters_per_call=prob.n_iterations, max_calls=1,
+                uniforms=prob.uniforms, threefry_key=prob.key)
+            ctx.prob = prob
+            ctx.save_for_backward(*leaves)
+            # hits the kernel could not deposit poison the histogram, so a
+            # fit loss goes NaN loudly instead of losing weight silently
+            dev = totals.device
+            poison = torch.where(totals[K.CNT_DROPPED] > 0.0,
+                                 torch.tensor(float("nan"), device=dev),
+                                 torch.tensor(0.0, device=dev))
+            return res.hist + poison.to(res.hist.dtype)
 
     @staticmethod
     def backward(ctx, grad_hist):
-        prob = ctx.prob
-        want = ctx.needs_input_grad[1:]
-        leaves = [t.detach().requires_grad_(w)
-                  for t, w in zip(ctx.saved_tensors, want)]
-        steps, scale = prob.steps, 1.0
-        if prob.bwd_fraction < 1.0:
-            # stochastic backward: the engine runs on a random slot subset
-            # (keyed, so ordered step batches stay unbiased) and the
-            # gradient is scaled back: an unbiased minibatch estimate at
-            # bwd_fraction of the cost.  The primal is untouched.
-            sel, scale = bwd_subset(prob.key, int(steps.x.shape[0]),
-                                    prob.bwd_fraction)
-            sel = sel.to(steps.x.device)
-            steps = StepBatch(*[a[sel] for a in steps])
-        medium = replace_leaves(prob.medium, dict(zip(prob.paths, leaves)))
-        with torch.enable_grad():
-            res = E.propagate(steps, medium, prob.geo, prob.spectra, 0,
-                              prob.cfg, max_iterations=prob.n_iterations,
-                              uniforms=prob.uniforms, key=prob.key)
-            wanted = [t for t, w in zip(leaves, want) if w]
-            grads = iter(torch.autograd.grad(
-                res.hist, wanted, grad_outputs=grad_hist * scale,
-                allow_unused=True)) if wanted else iter(())
-        return (None,) + tuple(next(grads) if w else None for w in want)
+        # on CUDA tensors autograd runs this on its device thread, where
+        # the span is a root
+        with P.span("fit_backward"):
+            prob = ctx.prob
+            want = ctx.needs_input_grad[1:]
+            leaves = [t.detach().requires_grad_(w)
+                      for t, w in zip(ctx.saved_tensors, want)]
+            steps, scale = prob.steps, 1.0
+            if prob.bwd_fraction < 1.0:
+                # stochastic backward: the engine runs on a random slot
+                # subset (keyed, so ordered step batches stay unbiased) and
+                # the gradient is scaled back: an unbiased minibatch
+                # estimate at bwd_fraction of the cost.  The primal is
+                # untouched.
+                sel, scale = bwd_subset(prob.key, int(steps.x.shape[0]),
+                                        prob.bwd_fraction)
+                sel = sel.to(steps.x.device)
+                steps = StepBatch(*[a[sel] for a in steps])
+            medium = replace_leaves(prob.medium,
+                                    dict(zip(prob.paths, leaves)))
+            with torch.enable_grad():
+                with P.span("fit_replay"):
+                    res = E.propagate(steps, medium, prob.geo, prob.spectra,
+                                      0, prob.cfg,
+                                      max_iterations=prob.n_iterations,
+                                      uniforms=prob.uniforms, key=prob.key)
+                wanted = [t for t, w in zip(leaves, want) if w]
+                with P.span("fit_vjp"):
+                    grads = iter(torch.autograd.grad(
+                        res.hist, wanted, grad_outputs=grad_hist * scale,
+                        allow_unused=True)) if wanted else iter(())
+            return (None,) + tuple(next(grads) if w else None for w in want)
 
 
 def propagate_expected_diff(steps: StepBatch, medium: MediumProperties,
