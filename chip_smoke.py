@@ -26,6 +26,14 @@
         # new, new, parent), one process a turn: simulate's wall and the
         # kernel launches' summed ms, medians of 5, each body's spread; a
         # checkout without repack runs its own loop as "off"
+    python3 chip_smoke.py --cell-turns LABEL:ROOT ... [--json PATH]
+        # the benchmark's stream cells (ic86-production's cascades and
+        # flashes, their first events) through Simulation.simulate with
+        # the package of each checkout in turns, one process a turn: K1's
+        # seconds a photon and its account (k1_stats: candidates and cull
+        # passes a slot-iteration, the cull's share of the cycles); a body
+        # with the card's cull table also runs the coarse lists, whose hits
+        # must equal its own; and the global plans' ptxas figures
     python3 chip_smoke.py --mesh N   # build, then phase 12b with N ranks
         # (NCCL with a card each when there are N cards, else gloo)
     python3 chip_smoke.py --oracle-matrix
@@ -1142,9 +1150,11 @@ OPS_RNG = {"philox": 28, "stream": 0, "threefry": 81}
 # The global plans (COLL 1, 2) and the tabulated media (MED 1, 2) count
 # their data-dependent work in the kernel's counters (kernel.py CNT_*), and
 # the bound charges only that: OPS_PER_PLAN for the cell lookup of a live
-# slot-iteration; OPS_PER_CAND (the SubPlan cull's 2-D point-to-segment
-# test) for each candidate of the cell's list (CNT_CAND: the padding after
-# the list is not read); OPS_ZPASS (z against the candidate's extent +- r)
+# slot-iteration and OPS_SECTOR for its azimuth sector (two |.|, the
+# CULL_MAX_SUB - 1 products, comparisons and sums, the quadrant, the clamp
+# and the list's index); OPS_PER_CAND (the SubPlan cull's 2-D
+# point-to-segment test) for each candidate of the (cell, sector)'s list
+# (CNT_CAND); OPS_ZPASS (z against the candidate's extent +- r)
 # for each that passes the 2-D cull (CNT_CULL); a round's set-up for each
 # string tested (CNT_TESTED); and one sphere test for each DOM tested
 # (CNT_ROWS): n_dom_cand ladder DOMs a string on the affine path (window
@@ -1156,6 +1166,7 @@ OPS_RNG = {"philox": 28, "stream": 0, "threefry": 81}
 # of them -+ the half-width, the clamps to the string's rows, the row
 # count).  The ranking of the passes into the rounds is not charged.
 OPS_ZPASS, OPS_ROUND_AFFINE, OPS_ROUND_GENERAL = 4, 12, 16
+OPS_SECTOR = 28
 OPS_SPHERE_AFFINE, OPS_SPHERE_GENERAL = 16, 23
 # A tabulated medium's spawn lerps its factors where the closed form takes
 # pow/exp: OPS_SPAWN holds the closed form's gs, pa, qa, ra (13: two powf,
@@ -1212,7 +1223,8 @@ def kernel_bound(spec, tables, counters, rng_mode, n_records=0):
     per_iter = (OPS_ITER + 4 * OPS_RNG[rng_mode]
                 + sum(OPS_PER_PLAN + OPS_PER_CAND * p.K_cand
                       for p in spec.sub_plans)
-                + (OPS_PER_PLAN if coll != K.COLL_SUBPLANS else 0)
+                + (OPS_PER_PLAN + OPS_SECTOR if coll != K.COLL_SUBPLANS
+                   else 0)
                 - (OPS_HG_LIU if tab_angle else 0)
                 + (OPS_ANISO if spec.aniso else 0)
                 + (OPS_TILT if spec.nz_tilt else 0))
@@ -1765,7 +1777,9 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL, state0=None):
     version on the inputs' shared stream, from fresh state or from
     `state0` (the steady shape): phase 2's checks (histogram L1 within
     l1_tol), with records 5a's, and the bound's counts (TALLIES) within
-    max(2, 1%); returns its times, error, bound, mode and account."""
+    max(2, 1%), the candidates loaded at most the plain version's (the
+    card's own lists); returns its times, error, bound, mode and
+    account."""
     from clsim_tpu_torch.propagate import kernel as K
     medium, geo, spectra, cfg, steps, uni = inputs
     N = int(steps.x.shape[0])
@@ -1814,7 +1828,9 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL, state0=None):
         f"slots x {PHASE2_T} iterations); bound {bound[0]:.4f} ms by "
         f"{bound[1]}; " + fmt_stats(st))
     for t, (a, b) in tallies.items():
-        if abs(a - b) > max(2.0, 0.01 * b):
+        # the card loads its own lists (card_cull_table), at most the
+        # plain version's coarse ones
+        if (a - b if t == "cand" else abs(a - b)) > max(2.0, 0.01 * b):
             raise AssertionError(f"{name}: kernel and plain {t} counts "
                                  "differ")
     return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound,
@@ -3971,6 +3987,129 @@ def k1_turns(turns, json_path=None):
     return results
 
 
+# the benchmark's stream cells at a small size (--cell-turns): the first
+# events of each traffic mix's pool on its configuration's world
+CELL_CONFIG = "ic86-production"
+CELL_EVENTS = {"cascades-40tev": 8, "flashes": 2}
+CELL_SEED = 2 ** 33 + 22
+
+
+@contextlib.contextmanager
+def coarse_cull_lists():
+    """Within the block, plans build the card's cull table with the JAX
+    package's coarse lists (card_cull_table's fallback, budget 0); kept
+    plans are dropped on entry and on exit."""
+    from clsim_tpu_torch.propagate import kernel as K
+    inner = K.card_cull_table
+    K.clear_plans()
+    K.card_cull_table = lambda *a, **kw: inner(*a, **dict(kw, budget=0))
+    try:
+        yield
+    finally:
+        K.card_cull_table = inner
+        K.clear_plans()
+
+
+def cell_turn_worker(root):
+    """One turn of --cell-turns: import the package at `root`, build its
+    kernels, then on the benchmark configuration's world (this checkout's
+    benchmark/) propagate the first CELL_EVENTS events of each stream
+    traffic with Simulation.simulate after one warm-up event: K1's launches'
+    seconds between CUDA events, the photons, the hits and the account
+    (k1_stats of the summed counters); where the body has the card's cull
+    table, the same events again with the coarse lists (coarse_cull_lists),
+    whose hits, counts and histograms must equal the card's.  Prints one
+    line 'CELL {json}'."""
+    sys.path.insert(0, os.path.abspath(root))
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(1, here)
+    import importlib
+    import torch
+    from clsim_tpu_torch import _build
+    from clsim_tpu_torch.propagate import kernel as K
+    from benchmark.world import PROGRAM, program_world
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.load()
+    out = dict(root=root, build_s=time.perf_counter() - t0,
+               k1_ptxas=k1_ptxas_modes(_build.BUILD_INFO["log"]), cases={})
+    bench = os.path.join(here, "benchmark")
+    with open(os.path.join(bench, "configs", CELL_CONFIG + ".json")) as f:
+        conf = json.load(f)
+    world = quiet(program_world, conf, device)
+    variants = {"card": contextlib.nullcontext}
+    if hasattr(K, "card_cull_table"):
+        variants["coarse"] = coarse_cull_lists
+    for traffic, n_ev in CELL_EVENTS.items():
+        with open(os.path.join(bench, "traffic", traffic + ".json")) as f:
+            tr = json.load(f)
+        src = importlib.import_module(f"benchmark.sources.{tr['source']}")
+        events = [src.sources(PROGRAM, world, d)
+                  for d in src.pool(tr, conf)[:n_ev + 1]]
+        runs = {}
+        for name, ctx in variants.items():
+            with ctx():
+                quiet(world.sim.simulate, events[0], seed=CELL_SEED)
+                totals, hists, hits = 0.0, [], []
+                with launch_times() as ks:
+                    t0 = time.perf_counter()
+                    for i, ev in enumerate(events[1:]):
+                        res = quiet(world.sim.simulate, ev,
+                                    seed=CELL_SEED + 1 + i)
+                        totals = totals + res.diag_totals.double().cpu()
+                        hists.append(res.hist.double().cpu())
+                        hits.append(float(res.n_hits))
+                    wall = time.perf_counter() - t0
+            photons = float(totals[K.CNT_GEN])
+            runs[name] = dict(k1_s=ks[0], wall=wall, photons=photons,
+                              ns_per_photon=ks[0] / photons * 1e9,
+                              hits=hits, counters=totals.tolist(),
+                              stats=k1_stats(totals), hists=hists)
+        if "coarse" in runs:
+            a, b = runs["card"], runs["coarse"]
+            same = [k for k in ("CNT_GEN", "CNT_HITS", "CNT_TESTED",
+                                "CNT_CULL", "CNT_ROWS", "CNT_WALK")
+                    if a["counters"][getattr(K, k)]
+                    != b["counters"][getattr(K, k)]]
+            l1 = max(float((x - y).abs().sum() / max(float(y.sum()), 1.0))
+                     for x, y in zip(a["hists"], b["hists"]))
+            if a["hits"] != b["hits"] or same or l1 > 1e-5:
+                raise AssertionError(
+                    f"{traffic}: the card's lists and the coarse lists "
+                    f"differ: hits {a['hits']} / {b['hits']}, counters "
+                    f"{same}, histogram L1 {l1:.3g}")
+            a["coarse_l1"] = l1
+        for r in runs.values():
+            del r["hists"]
+        out["cases"][traffic] = runs
+    print("CELL " + json.dumps(out), flush=True)
+
+
+def cell_turns(turns, json_path=None):
+    """--cell-turns LABEL:ROOT ...: cell_turn_worker for each turn in the
+    order given, printing each case's K1 seconds a photon and account and
+    the ptxas figures of the global plans' instantiations (COLL 1, 2)."""
+    def report(r, label, root, first, card):
+        for traffic, runs in r["cases"].items():
+            for name, v in runs.items():
+                log(f"turn {label} ({root}) {traffic} [{name} lists]: K1 "
+                    f"{v['k1_s']:.4f} s for {v['photons']:.0f} photons, "
+                    f"{v['ns_per_photon']:.4f} ns a photon, simulate "
+                    f"{v['wall']:.3f} s, hits {sum(v['hits']):.0f}; "
+                    + fmt_stats(v["stats"]))
+        if first:
+            for mode, d in sorted(r["k1_ptxas"].items(), key=lambda x:
+                                  int(x[0])):
+                if (int(mode) >> 5) & 3:
+                    log(f"  ptxas {label} K1 mode {mode}: "
+                        f"{d.get('registers')} registers, spill "
+                        f"{d.get('spill_stores', 0)}/"
+                        f"{d.get('spill_loads', 0)} bytes, "
+                        f"{d.get('blocks')} blocks a SM")
+
+    return run_turns("--cell-worker", "CELL ", turns, json_path, report)
+
+
 def tab_turn_worker(root):
     """One turn of --tab-turns: import the package at `root`, build its
     kernels, then time T1's kernel row (11a's first TAB_CMP_ITERS
@@ -5181,6 +5320,8 @@ def main():
         return host_split_worker(argv[1])
     if argv[:1] == ["--loop-worker"]:
         return loop_turn_worker(argv[1])
+    if argv[:1] == ["--cell-worker"]:
+        return cell_turn_worker(argv[1])
     if argv[:1] == ["--mesh-worker"]:
         return mesh_worker(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
     if argv[:1] == ["--mesh"]:
@@ -5188,15 +5329,15 @@ def main():
     if argv[:1] == ["--oracle-matrix"]:
         return oracle_matrix_only()
     if argv[:1] in (["--turns"], ["--host-split"], ["--tab-turns"],
-                    ["--loop-turns"]):
+                    ["--loop-turns"], ["--cell-turns"]):
         turns = argv[1:]
         json_path = None
         if "--json" in turns:
             i = turns.index("--json")
             json_path, turns = turns[i + 1], turns[:i] + turns[i + 2:]
         {"--turns": k1_turns, "--host-split": host_split_turns,
-         "--tab-turns": tab_turns,
-         "--loop-turns": loop_turns}[argv[0]](turns, json_path)
+         "--tab-turns": tab_turns, "--loop-turns": loop_turns,
+         "--cell-turns": cell_turns}[argv[0]](turns, json_path)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

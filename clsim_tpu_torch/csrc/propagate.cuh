@@ -74,14 +74,18 @@
 // barriers took 17-25% of each warp's cycles on the SubPlans and the
 // affine plan and 39-43% on the general plan and in water; the global
 // cull, one L2 read after another for 11-28 candidates a slot-iteration,
-// 39-50% on the global plans; the general plan's 57-59 DOM rows a tested
-// string 13-20%.  So: the compacted spawn stays where spawns are many and
-// the warp loop takes the fixed-horizon modes; a cell's cull entries are
-// consecutive 16-byte loads issued four at a time; the general plan tests
-// only the DOM rows of the segment's z-window (0.8-1.0 a tested string;
-// general_window in kernel.py proves the accept set unchanged); and a
-// third resident block a SM (80 registers) hides more latency than the
-// registers it spills cost.
+// 39-50% on the global plans, and still 23% once its entries were
+// consecutive, with over 95% of the candidates rejected; the general
+// plan's 57-59 DOM rows a tested string 13-20%.  So: the compacted spawn
+// stays where spawns are many and the warp loop takes the fixed-horizon
+// modes; the global cull reads a list per fine cell and azimuth sector,
+// the strings the segment's strip can reach (0.41-0.47 a slot-iteration
+// on the IC86 event streams, where the coarse cells' lists held 14-19,
+// and the cull 7-9% of the cycles), its entries consecutive 16-byte loads
+// issued four at a time; the general plan tests only the DOM rows of the
+// segment's z-window (0.8-1.0 a tested string; general_window in kernel.py
+// proves the accept set unchanged); and a third resident block a SM (80
+// registers) hides more latency than the registers it spills cost.
 //
 // Random numbers: Philox4x32-10 keyed by the wrapper's 64-bit seed, counter
 // (it0 + iteration, slot, block); or, in parity mode, an external (T, 8, N)
@@ -136,17 +140,27 @@
 //
 // Collision and media (the template's COLL and MED; the TPU kernel's
 // global plan, kernel.py:947-1003, :1270-1456, and media tables, :807-833,
-// :1606-1629).  COLL 0 is the SubPlan test above.  COLL 1 and 2 use one
-// global 2-D cell grid: a cell holds its candidate count and three blocks
-// of float4, one entry a candidate string each (position, cull radius, DOM
-// offset; z extent and DOM ladder; DOM count, string index, 1 / DOM spacing
-// and the z-window's half-width); the cull ranks by the static segment cap,
-// as the TPU kernel does, and the n_rounds closest culled strings stay in
-// sorted registers.  COLL 1 (affine: every DOM on its string's z0 + m*dz
+// :1606-1629).  COLL 0 is the SubPlan test above.  COLL 1 and 2 cull from
+// the card's own table (kernel.py card_cull_table), not the TPU kernel's
+// one list per coarse cell: the photon's fine cell and azimuth sector (its
+// quadrant by the signs of dx, dy, then |dy| against fixed multiples of
+// |dx|: comparisons only) select an (offset, count) pair, and the list's
+// entries (position, cull radius, string index) are every string whose
+// cull disc meets what a capped segment from that cell into that sector
+// can sweep, in ascending string index as the TPU kernel's lists are.  The
+// cull's test is the TPU kernel's, per string, so the strings that pass,
+// their ranking (ties keep the lower index) and the hits are those of the
+// coarse lists.  Per string the table holds its z extent and DOM ladder,
+// and its DOM count, DOM offset, 1 / DOM spacing and the z-window's
+// half-width.  The cull ranks by the static segment cap, as the TPU kernel
+// does, and the n_rounds closest culled strings stay in sorted registers.
+// A geometry whose refined table would not fit its budget gets the coarse
+// lists through the same code (one sector, the TPU kernel's cells).
+// COLL 1 (affine: every DOM on its string's z0 + m*dz
 // ladder) tests the n_dom_cand ladder DOMs of the segment's z-window; COLL 2
 // (surveyed positions) tests the DOM rows of the segment's z-window on the
 // string's fitted ladder, widened by the string's largest residual in z
-// (the cell entry's half-width), from an (S, M) float4 residual table beside
+// (the string's half-width entry), from an (S, M) float4 residual table beside
 // a float4 per string: a row the full test accepts has its entry point on
 // the segment inside the DOM's sphere, so it lies in the window (with
 // pancake_factor >= 1; otherwise the half-width keeps every row).
@@ -191,6 +205,8 @@
 #define MAX_PLANS 4
 #define MAX_ROUNDS 4
 #define MAX_TILT_D 16
+// the sector rule's thresholds (kernel.py CULL_MAX_SUB - 1)
+#define CULL_TAN 7
 #define BLOCK 256
 
 // parameter block, mirrored field for field by the ctypes structures in
@@ -216,10 +232,18 @@ struct Params {
   float horizon;               // fixed absorption horizon [abs. lengths]
   int soft, n_ang;             // soft binning; angular coefficients
   float pmt_ax, pmt_ay, pmt_az;  // PMT axis of the angular polynomial
-  // the global cell plan (COLL 1, 2): grid, candidates per cell, DOM-window
+  // the global cell plan (COLL 1, 2): the card's cull table (kernel.py
+  // card_cull_table): fine cells of 1 / c_inv_cell from (c_x0, c_y0),
+  // c_nx x c_ny of them, c_sectors azimuth sectors a cell (sector q *
+  // c_qmul + min(j, c_m - 1), q the quadrant and j the thresholds c_tan
+  // that |dy| exceeds times |dx|), and the rows of `cells` where the
+  // per-string ladder entries, the lists' (offset, count) pairs and their
+  // cull entries start (the per-string z extents at row 0); DOM-window
   // candidates (affine), test rounds, DOM rows per string (general)
-  float g_x0, g_y0, g_inv_cell;
-  int g_nx, g_ny, g_k_cand, n_dom_cand, n_rounds, m_rel;
+  float c_x0, c_y0, c_inv_cell;
+  int c_nx, c_ny, c_sectors, c_qmul, c_m, c_lad, c_hdr, c_ent;
+  float c_tan[CULL_TAN];
+  int n_dom_cand, n_rounds, m_rel;
   // tabulated media (MED 1, 2): the uniform wavelength grid, its points,
   // whether the phase/group index is tabulated, points of the angle CDF
   float wtab_x0, wtab_inv_dx;
@@ -923,25 +947,34 @@ propagate_kernel(const Params p, float* __restrict__ state,
       const unsigned int t_c0 = (unsigned int)clock();
       if (dxy2 > 0.0f) {
         const float inv_dxy2 = 1.0f / fmaxf(dxy2, 1e-20f);
-        const float cxi = fminf(fmaxf(floorf((x - p.g_x0) * p.g_inv_cell),
-                                      0.0f), (float)(p.g_nx - 1));
-        const float cyi = fminf(fmaxf(floorf((y - p.g_y0) * p.g_inv_cell),
-                                      0.0f), (float)(p.g_ny - 1));
-        // a cell: its candidate count, then three blocks of kb float4 (the
-        // cull's (sx, sy, maxr^2, dom offset), the z extent and ladder
-        // (minz, maxz, z0, dz), and (n doms, string index, 1 / dz, window
-        // half-width)), kb = K_cand rounded up to 4 (kernel.py
-        // global_cell_table)
-        const int kb = (p.g_k_cand + 3) & ~3;
-        const float4* __restrict__ cell =
-            cells + ((int)cxi * p.g_ny + (int)cyi) * (1 + 3 * kb);
-        const float4* __restrict__ cull = cell + 1;
-        const float4* __restrict__ zext = cull + kb;
-        const float4* __restrict__ lad = zext + kb;
-        const int n_c = (int)cell[0].x;
+        const float cxi = fminf(fmaxf(floorf((x - p.c_x0) * p.c_inv_cell),
+                                      0.0f), (float)(p.c_nx - 1));
+        const float cyi = fminf(fmaxf(floorf((y - p.c_y0) * p.c_inv_cell),
+                                      0.0f), (float)(p.c_ny - 1));
+        // the azimuth sector by comparisons alone (kernel.py cull_sector):
+        // the quadrant by the signs, within it the thresholds |dy| exceeds
+        // times |dx| (unused ones are BIG, and j stops at c_m - 1)
+        const float ax = fabsf(dx), ay = fabsf(dy);
+        int sub = 0;
+#pragma unroll
+        for (int q = 0; q < CULL_TAN; ++q) sub += ay > p.c_tan[q] * ax;
+        const int sec = ((dx < 0.0f) + 2 * (dy < 0.0f)) * p.c_qmul +
+                        min(sub, p.c_m - 1);
+        // the (cell, sector)'s list: its (offset, count) pair, then its
+        // cull entries (sx, sy, maxr^2, string index) consecutive; per
+        // string, (minz, maxz, z0, dz) at row sidx and (n doms, dom offset,
+        // 1 / dz, window half-width) at row c_lad + sidx (kernel.py
+        // card_cull_table)
+        const int2 hd = reinterpret_cast<const int2*>(cells + p.c_hdr)[
+            ((int)cxi * p.c_ny + (int)cyi) * p.c_sectors + sec];
+        const float4* __restrict__ cull = cells + p.c_ent + hd.x;
+        const float4* __restrict__ zext = cells;
+        const float4* __restrict__ lad = cells + p.c_lad;
+        const int n_c = hd.y;
         n_cand += n_c;
         // the cull ranks by the static segment cap; keep the n_rounds
-        // closest culled strings sorted (ties keep the earlier candidate)
+        // closest culled strings sorted (ties keep the earlier candidate,
+        // the lower string index, as in the JAX package's lists)
         float rd2[MAX_ROUNDS], rA2[MAX_ROUNDS], rBd[MAX_ROUNDS];
         int rci[MAX_ROUNDS];
 #pragma unroll
@@ -949,12 +982,14 @@ propagate_kernel(const Params p, float* __restrict__ state,
           rd2[r] = BIG; rA2[r] = 0.0f; rBd[r] = 0.0f; rci[r] = 0;
         }
         // four consecutive entries a load group, issued together so that
-        // their latencies overlap; the padding after the list (maxr^2 = -1)
-        // passes no cull
+        // their latencies overlap; past the list's end an entry with
+        // maxr^2 = -1 (not loaded) passes no cull
         for (int c0 = 0; c0 < n_c; c0 += 4) {
           float4 e4[4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) e4[q] = cull[c0 + q];
+          for (int q = 0; q < 4; ++q)
+            e4[q] = c0 + q < n_c ? cull[c0 + q]
+                                 : make_float4(0.0f, 0.0f, -1.0f, 0.0f);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const float4 e = e4[q];
@@ -965,13 +1000,13 @@ propagate_kernel(const Params p, float* __restrict__ state,
             float d2 = cx * cx + cy * cy;
             if (!(d2 <= e.z)) continue;
             ++n_cull;
-            const int c = c0 + q;
-            const float4 ez = zext[c];  // the candidate's z extent
+            const int sidx = (int)e.w;
+            const float4 ez = zext[sidx];  // the string's z extent
             if ((dz > 0.0f && z > ez.y + p.r) ||
                 (dz < 0.0f && z < ez.x - p.r))
               continue;
             float a2 = rx * rx + ry * ry, bd = bd2;
-            int ci = c;
+            int ci = sidx;
 #pragma unroll
             for (int r = 0; r < MAX_ROUNDS; ++r) {
               if (d2 < rd2[r]) {
@@ -989,12 +1024,12 @@ propagate_kernel(const Params p, float* __restrict__ state,
         for (int r = 0; r < MAX_ROUNDS; ++r) {
           if (r >= p.n_rounds || !(rd2[r] < BIG)) break;
           ++n_tested;
-          const int off = (int)cull[rci[r]].w;
+          const float4 e2 = lad[rci[r]];  // nd, dom offset, 1/dz, half
+          const int off = (int)e2.y;
           if constexpr (COLL == COLL_AFFINE) {
             // the n_dom_cand ladder DOMs of the z-window from the ceil
-            // anchor, each string's (z0, dz, n, 1 / dz) from its own entry
+            // anchor, each string's (z0, dz, n, 1 / dz) from its entries
             const float4 e1 = zext[rci[r]];
-            const float4 e2 = lad[rci[r]];
             const float nd = e2.x, inv_dzf = e2.z;
             const float z0 = e1.z, dzf = e1.w;
             const float m1 = (z - z0) * inv_dzf;
@@ -1023,8 +1058,7 @@ propagate_kernel(const Params p, float* __restrict__ state,
             // e2.w = (r + 1 + rz) / |dz| rows (kernel.py general_window:
             // every row the full test would accept is inside; BIG keeps
             // every row)
-            const float4 e2 = lad[rci[r]];  // nd, sidx, 1/dz, half
-            const int sidx = (int)e2.y;
+            const int sidx = rci[r];
             const float4 sf = strings[sidx];  // x, y, z0, dz
             const float4* __restrict__ rows = rel + (size_t)sidx * p.m_rel;
             const float m1 = (z - sf.z) * e2.z;

@@ -22,9 +22,11 @@ This module holds
     SubPlans and cell tables),
   * build_tables: flat float32 tables for the kernel (per-layer arrays,
     spectrum CDF, bias grid, tilt grid, per-SubPlan cell->candidate table
-    [sx, sy, maxr^2, dom_offset] or the global one of 12 floats per
-    candidate, the DOM residual and per-string tables, the wavelength
-    tables of a tabulated medium and the scattering-angle CDF),
+    [sx, sy, maxr^2, dom_offset] or the global plan's lists, per coarse
+    cell with 12 floats a candidate for the plain version and per fine
+    cell and azimuth sector for the card, the DOM residual and per-string
+    tables, the wavelength tables of a tabulated medium and the
+    scattering-angle CDF),
   * run_fused_iterations: the wrapper.  On CUDA tensors it launches the
     kernel (or raises); on CPU tensors it runs run_fused_iterations_plain,
     the same function in plain PyTorch built on engine._iteration,
@@ -719,13 +721,16 @@ class FusedTables(NamedTuple):
     tilt_zc: torch.Tensor         # (nd, nz) tilt z-corrections (or (1,))
     cells: torch.Tensor           # flat candidates: (sum n_cells*K_cand,
                                   # 4) per SubPlan, or the global plan's
-                                  # (n_cells * (1 + 3 kb), 4)
+                                  # card table (card_cull_table; its
+                                  # parameters in `scalars`)
     plan_cells: tuple             # per SubPlan: (n_cells, K_cand, 4) view
     plan_offsets: tuple           # per SubPlan: first candidate row
     doms: torch.Tensor            # (n_doms, 4) DOM centres x, y, z, 0
-    scalars: dict                 # float scalars of the parameter block
-    global_cells: Optional[torch.Tensor]  # (n_cells, 1 + 3 kb, 4) view of
-                                  # `cells` for the global plan
+    scalars: dict                 # values of the parameter block's
+                                  # fields, by name
+    global_cells: Optional[torch.Tensor]  # (n_cells, 1 + 3 kb, 4): the
+                                  # global plan's JAX-equal lists, which
+                                  # the plain version reads
                                   # (global_cell_table), else None
     rel: torch.Tensor             # (S, M, 4) DOM residuals dx, dy, dz, valid
                                   # (general path; else (1, 1, 4) zeros)
@@ -775,6 +780,248 @@ def global_cell_table(spec: FusedSpec, cell_tab: np.ndarray,
     return out
 
 
+# The card's cull table (COLL 1, 2).  The JAX-equal lists above hold every
+# string a segment from anywhere in a coarse cell could reach in any
+# direction; a string passes the cull only within string_max_r of the capped
+# segment in the photon's own direction, a strip.  So the card reads one
+# list per (fine cell, azimuth sector): every string whose cull disc meets
+# the region that segments from the closed cell, pointing into the closed
+# sector and at most max_segment_m long, sweep.  Candidates stay in
+# ascending string index, as in the JAX lists, so the kernel's ranking
+# picks the same strings.  The table must stay well inside the card's
+# 50 MB L2.
+CULL_TABLE_BUDGET = 8 << 20      # bytes
+# sub-sectors a quadrant at most: the kernel's c_tan holds one threshold
+# less (csrc/propagate.cuh Params)
+CULL_MAX_SUB = 8
+# widening of each cell, of the segment cap and of each string's cull disc
+# (m), and of each sector (rad), far beyond float32's rounding of the
+# kernel's cell index, sector comparisons and point-to-segment distance
+_CULL_EDGE = 0.01
+_CULL_ANGLE = 1e-4
+# the arc of a sector is bounded by chords of at most this angle (rad): the
+# region then overshoots by max_segment_m * (1 / cos(0.025) - 1), 3 cm at
+# 90 m
+_CULL_CHORD = 0.05
+
+
+def cull_sector_thresholds(m: int) -> np.ndarray:
+    """The kernel's c_tan for m sub-sectors a quadrant: float32 tan(k pi /
+    (2 m)) for k = 1 .. m - 1, then BIG up to CULL_MAX_SUB - 1 entries."""
+    t = np.full(CULL_MAX_SUB - 1, E.BIG, np.float32)
+    k = np.arange(1, m)
+    t[:m - 1] = np.tan(k * np.pi / (2 * m)).astype(np.float32)
+    return t
+
+
+def cull_sector(dx, dy, m: int) -> np.ndarray:
+    """The kernel's azimuth sector of 2-D directions (float32 arrays), with
+    m sub-sectors a quadrant (m = 0: one sector, 0).  Comparisons only: the
+    quadrant q = (dx < 0) + 2 (dy < 0), and within it j, the thresholds
+    c_tan that |dy| exceeds times |dx|, at most m - 1; sector q m + j."""
+    dx = np.asarray(dx, np.float32)
+    dy = np.asarray(dy, np.float32)
+    if m == 0:
+        return np.zeros(np.broadcast(dx, dy).shape, np.int64)
+    ax, ay = np.abs(dx), np.abs(dy)
+    t = cull_sector_thresholds(m)
+    j = sum((ay > np.float32(tk) * ax).astype(np.int64) for tk in t)
+    q = (dx < 0).astype(np.int64) + 2 * (dy < 0).astype(np.int64)
+    return q * m + np.minimum(j, m - 1)
+
+
+def _hull(p: np.ndarray) -> np.ndarray:
+    """The convex hull of points (n, 2), counter-clockwise (Andrew's monotone
+    chain)."""
+    p = p[np.lexsort((p[:, 1], p[:, 0]))]
+    cross = lambda o, a, b: ((a[0] - o[0]) * (b[1] - o[1])
+                             - (a[1] - o[1]) * (b[0] - o[0]))
+    half = []
+    for seq in (p, p[::-1]):
+        h = []
+        for q in seq:
+            while len(h) >= 2 and cross(h[-2], h[-1], q) <= 0.0:
+                h.pop()
+            h.append(q)
+        half.append(h[:-1])
+    return np.asarray(half[0] + half[1])
+
+
+def _sector_region(sector: int, m: int, h: float, seg: float) -> np.ndarray:
+    """The region, relative to a cell's lower corner, that segments from the
+    cell [0, h]^2 into the sector sweep, widened by _CULL_EDGE and
+    _CULL_ANGLE: the hull of the cell's corners plus a circumscribed fan of
+    the sector's disc slice (radius seg)."""
+    q, j = divmod(sector, m)
+    w = np.pi / (2 * m)
+    lo, hi = j * w - _CULL_ANGLE, (j + 1) * w + _CULL_ANGLE
+    # the folded angle th -> the azimuth: reflections by the signs of dx, dy
+    phi = {0: lambda th: th, 1: lambda th: np.pi - th,
+           2: lambda th: -th, 3: lambda th: np.pi + th}[q]
+    a, b = sorted((phi(lo), phi(hi)))
+    k = max(1, int(np.ceil((b - a) / _CULL_CHORD)))
+    r = (seg + _CULL_EDGE) / np.cos((b - a) / (2 * k))
+    ang = a + (b - a) * np.arange(k + 1) / k
+    fan = np.concatenate([[[0.0, 0.0]],
+                          r * np.stack([np.cos(ang), np.sin(ang)], 1)])
+    e = _CULL_EDGE
+    corners = np.array([[-e, -e], [h + e, -e], [h + e, h + e], [-e, h + e]])
+    return _hull((corners[:, None, :] + fan[None, :, :]).reshape(-1, 2))
+
+
+def _half_planes(poly: np.ndarray):
+    """(normals (E, 2), offsets (E,)) of a convex polygon's edges (CCW):
+    a point X is inside where normals @ X <= offsets."""
+    e = np.roll(poly, -1, 0) - poly
+    nrm = np.stack([e[:, 1], -e[:, 0]], 1) / np.hypot(e[:, 0],
+                                                      e[:, 1])[:, None]
+    return nrm, (nrm * poly).sum(1)
+
+
+def _sector_lists(sx, sy, reach, x0, y0, h, nx, ny, m, seg):
+    """(list index, string) of every candidate of the table with cells of
+    h from (x0, y0), nx x ny of them, and 4 m sectors: list (i ny + j) 4m +
+    sector holds the strings whose disc of radius reach (m) meets the
+    sector's region (_sector_region) from the cell's corner (x0 + i h,
+    y0 + j h).  Sorted by list, then string."""
+    S = 4 * m
+    ids, strs = [], []
+    n = sx.shape[0]
+    rr = reach + _CULL_EDGE
+    for sec in range(S):
+        poly = _sector_region(sec, m, h, seg)
+        nrm, off = _half_planes(poly)
+        (qx0, qy0), (qx1, qy1) = poly.min(0), poly.max(0)
+        # cells whose corner o has s - o inside the region's box +- reach
+        ilo = np.ceil((sx - qx1 - rr - x0) / h).astype(np.int64) - 1
+        jlo = np.ceil((sy - qy1 - rr - y0) / h).astype(np.int64) - 1
+        wi = int(np.ceil((qx1 - qx0 + 2 * rr.max()) / h)) + 3
+        wj = int(np.ceil((qy1 - qy0 + 2 * rr.max()) / h)) + 3
+        ci = ilo[:, None, None] + np.arange(wi)[None, :, None]
+        cj = jlo[:, None, None] + np.arange(wj)[None, None, :]
+        ci, cj = np.broadcast_arrays(ci, cj)
+        ok = (ci >= 0) & (ci < nx) & (cj >= 0) & (cj < ny)
+        s = np.broadcast_to(np.arange(n)[:, None, None], ok.shape)[ok]
+        ci, cj = ci[ok], cj[ok]
+        # every edge moved out by the string's reach: a superset of the
+        # points within reach of the region
+        px, py = sx[s] - (x0 + ci * h), sy[s] - (y0 + cj * h)
+        hit = (px[:, None] * nrm[:, 0] + py[:, None] * nrm[:, 1]
+               - off).max(1) <= rr[s]
+        ids.append((ci[hit] * ny + cj[hit]) * S + sec)
+        strs.append(s[hit])
+    ids, strs = np.concatenate(ids), np.concatenate(strs)
+    order = np.lexsort((strs, ids))
+    return ids[order], strs[order]
+
+
+def card_cull_table(spec: FusedSpec, cell_tab: np.ndarray,
+                    half: Optional[np.ndarray] = None,
+                    budget: int = CULL_TABLE_BUDGET):
+    """The card's cull table of the global plan and its parameters:
+    (rows, scalars), rows a (R, 4) float32 array, scalars the Params fields
+    c_* (csrc/propagate.cuh) by name.
+
+    Derived from the JAX-equal cell table `cell_tab` (plan_collision) and
+    its values: per string its (minz, maxz, z0, dzf) and (nd, dom offset,
+    float32(1 / dzf), half) (global_cell_table's second and third entries,
+    `half` the general plan's z-window or 0), then one (offset, count) pair
+    of int32 a list, then every list's cull entries (sx, sy, maxr2, string
+    index), consecutive and not padded.  The lists are per (fine cell,
+    azimuth sector) (_sector_lists, cull_sector): the cell size h (the JAX
+    cell over 2, 4, ... 32) and the sub-sectors a quadrant m (1, 2, 4, 8)
+    minimise the load groups a slot-iteration expects past the list's
+    header (ceil(count / 4) averaged over the sectors and the cells whose
+    centre a string's cull can reach) plus the table's bytes over `budget`
+    (a table of the budget costs a load group: the L1 misses a larger table
+    brings), among the tables that fit `budget`.  Where none fits, the
+    lists are the JAX package's, per coarse cell (m = 0: one sector)."""
+    K, nc = spec.K_cand, spec.n_cull_cells
+    blk = cell_tab[:10 * K, :nc].reshape(10, K, nc)
+    sidx = blk[9].astype(np.int64)
+    n_str = int(sidx.max()) + 1
+    per = np.zeros((n_str, 12), np.float32)
+    kk, cc = np.nonzero(sidx >= 0)
+    per[sidx[kk, cc], :10] = blk[:, kk, cc].T
+    per[:, 10] = 1.0 / per[:, 7].astype(np.float64)
+    if half is not None:
+        per[:, 11] = half[:n_str]
+    sx, sy = per[:, 0].astype(np.float64), per[:, 1].astype(np.float64)
+    reach = np.sqrt(per[:, 2].astype(np.float64))
+    seg = float(spec.cfg.max_segment_m)
+    cell_j = 1.0 / spec.inv_cell
+    x0, y0 = float(np.float32(spec.cell_x0)), float(np.float32(spec.cell_y0))
+    ext_x, ext_y = spec.cell_nx * cell_j, spec.cell_ny * cell_j
+    # where a segment can reach some string's cull disc
+    near = seg + reach.max() + _CULL_EDGE
+
+    def entry_rows(n_lists, n_ent):
+        return 2 * n_str + -(-n_lists // 2) + n_ent
+
+    def design(kh, km):
+        """(cost, ids, strings, inv_cell, nx, ny, m) of cells of the JAX
+        cell over 2^(kh + 1) and m = 2^km, or None beyond the budget."""
+        inv = float(np.float32(2 ** (kh + 1) / cell_j))
+        h = 1.0 / inv       # the cell the kernel's float32 index sees
+        m = 2 ** km
+        nx, ny = int(np.ceil(ext_x / h)), int(np.ceil(ext_y / h))
+        n_lists = nx * ny * 4 * m
+        if 16 * entry_rows(n_lists, 0) > budget:
+            return None
+        ids, strs = _sector_lists(sx, sy, reach, x0, y0, h, nx, ny, m, seg)
+        nbytes = 16 * entry_rows(n_lists, ids.size)
+        if nbytes > budget:
+            return None
+        cx = x0 + (np.arange(nx) + 0.5) * h
+        cy = y0 + (np.arange(ny) + 0.5) * h
+        near2 = ((cx[:, None, None] - sx) ** 2
+                 + (cy[None, :, None] - sy) ** 2).min(-1) <= near ** 2
+        cnt = np.bincount(ids, minlength=n_lists).reshape(nx * ny, -1)
+        groups = float((-(-cnt[near2.reshape(-1)] // 4)).mean())
+        return groups + nbytes / budget, ids, strs, inv, nx, ny, m
+
+    # descend on the grid of designs from (JAX cell / 8, 8 sectors) to the
+    # neighbour of least cost until none costs less
+    seen = {}
+    at, best = None, None
+    nxt = (2, 1)
+    while nxt is not None and nxt != at:
+        at, nxt = nxt, None
+        for kh, km in ((at[0], at[1]), (at[0] - 1, at[1]), (at[0] + 1, at[1]),
+                       (at[0], at[1] - 1), (at[0], at[1] + 1)):
+            if not (0 <= kh < 5 and 0 <= km < 4):
+                continue
+            if (kh, km) not in seen:
+                seen[kh, km] = design(kh, km)
+            d = seen[kh, km]
+            if d is not None and (best is None or d[0] < best[0]):
+                best, nxt = d, (kh, km)
+    if best is None:
+        # the JAX package's lists, one sector a coarse cell
+        lid, ks = np.nonzero(sidx.T >= 0)
+        strs = sidx.T[lid, ks]
+        best = (0.0, lid, strs, float(np.float32(spec.inv_cell)),
+                spec.cell_nx, spec.cell_ny, 0)
+    _, ids, strs, inv, nx, ny, m = best
+    S = max(4 * m, 1)
+    n_lists = nx * ny * S
+    cnt = np.bincount(ids, minlength=n_lists)
+    hdr = np.zeros((-(-n_lists // 2) * 2, 2), np.int32)
+    hdr[:n_lists, 1] = cnt
+    hdr[:n_lists, 0] = np.cumsum(cnt) - cnt
+    ent = np.zeros((strs.size, 4), np.float32)
+    ent[:, :3] = per[strs, :3]
+    ent[:, 3] = strs
+    lad = per[:, [8, 3, 10, 11]]        # nd, dom offset, 1 / dzf, half
+    rows = np.concatenate([per[:, 4:8], lad,
+                           hdr.reshape(-1, 4).view(np.float32), ent])
+    c_tan = cull_sector_thresholds(max(m, 1))
+    return rows, dict(
+        c_x0=x0, c_y0=y0, c_inv_cell=inv, c_nx=nx, c_ny=ny, c_sectors=S,
+        c_qmul=m, c_m=max(m, 1), c_lad=n_str, c_hdr=2 * n_str,
+        c_ent=2 * n_str + hdr.shape[0] // 2, c_tan=[float(t) for t in c_tan])
+
+
 def medium_tables(medium: MediumProperties) -> np.ndarray:
     """(rows, n_wtab) wavelength tables of a tabulated medium: the factors
     gs, pa, qa, ra (water: scattering, 0, absorption, 0), then the phase
@@ -797,8 +1044,9 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
     re-laid out from the JAX package's feature-major block per SubPlan
     ([sx|sy|maxr2|off] rows x cells) to [cell][candidate][4], so a thread
     reads its cell's candidates as consecutive 16-byte entries; the global
-    plan's to a count and three blocks a cell, the cull's entries
-    consecutive (global_cell_table).  The general path
+    plan's to a count and three blocks a cell for the plain version
+    (global_cell_table) and to the card's lists per fine cell and azimuth
+    sector for the kernel (card_cull_table).  The general path
     reads the DOM residuals as (S, M) float4 rows beside a float4 per
     string (clsim_tpu/propagate/kernel.py:2294-2306 builds the same from
     string_dom_rel and string_features)."""
@@ -841,12 +1089,20 @@ def geometry_tables(spec: FusedSpec, geo: DetectorGeometry,
         off += p.n_cells * p.K_cand
     global_cells = None
     general = kernel_coll(spec) == COLL_GENERAL
+    cfg = spec.cfg
+    sc = dict(
+        r=float(geo.collision_radius), r2=float(geo.collision_radius) ** 2,
+        inv_pancake=1.0 / cfg.pancake_factor,
+        max_seg=float(cfg.max_segment_m),
+        hist_t0=float(cfg.hist_t_min), hist_dt=float(cfg.hist_dt))
     if spec.sub_plans:
         cells = f32(np.concatenate(blocks))
     else:
         half = general_window(geo, spec.cfg)[0] if general else None
         global_cells = f32(global_cell_table(spec, cell_tab, half))
-        cells = global_cells.view(-1, 4)
+        rows, cull_sc = card_cull_table(spec, cell_tab, half)
+        cells = f32(rows)
+        sc.update(cull_sc)
     for p, o in zip(spec.sub_plans, offsets):
         views.append(cells[o:o + p.n_cells * p.K_cand].view(
             p.n_cells, p.K_cand, 4))
@@ -856,12 +1112,6 @@ def geometry_tables(spec: FusedSpec, geo: DetectorGeometry,
                if general else torch.zeros((1, 4), device=dev))
     ang = (f32(np.asarray(spec.ang_poly, np.float32)) if spec.ang_poly
            else torch.zeros(1, device=dev))
-    cfg = spec.cfg
-    sc = dict(
-        r=float(geo.collision_radius), r2=float(geo.collision_radius) ** 2,
-        inv_pancake=1.0 / cfg.pancake_factor,
-        max_seg=float(cfg.max_segment_m),
-        hist_t0=float(cfg.hist_t_min), hist_dt=float(cfg.hist_dt))
     return dict(
         cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
         doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
@@ -1466,9 +1716,11 @@ class _Params(ctypes.Structure):
                                          "horizon")]
         + [(n, ctypes.c_int) for n in ("soft", "n_ang")]
         + [(n, ctypes.c_float) for n in ("pmt_ax", "pmt_ay", "pmt_az")]
-        + [(n, ctypes.c_float) for n in ("g_x0", "g_y0", "g_inv_cell")]
-        + [(n, ctypes.c_int) for n in ("g_nx", "g_ny", "g_k_cand",
-                                       "n_dom_cand", "n_rounds", "m_rel")]
+        + [(n, ctypes.c_float) for n in ("c_x0", "c_y0", "c_inv_cell")]
+        + [(n, ctypes.c_int) for n in ("c_nx", "c_ny", "c_sectors", "c_qmul",
+                                       "c_m", "c_lad", "c_hdr", "c_ent")]
+        + [("c_tan", ctypes.c_float * (CULL_MAX_SUB - 1))]
+        + [(n, ctypes.c_int) for n in ("n_dom_cand", "n_rounds", "m_rel")]
         + [(n, ctypes.c_float) for n in ("wtab_x0", "wtab_inv_dx")]
         + [(n, ctypes.c_int) for n in ("n_wtab", "ref_table", "n_scat")]
         + [(n, ctypes.c_float) for n in (
@@ -1547,8 +1799,7 @@ def _params(spec: FusedSpec, tables: FusedTables, use_uniforms: bool,
     p.soft = int(spec.soft)
     p.n_ang = len(spec.ang_poly)
     p.pmt_ax, p.pmt_ay, p.pmt_az = spec.pmt_axis
-    p.g_x0, p.g_y0, p.g_inv_cell = spec.cell_x0, spec.cell_y0, spec.inv_cell
-    p.g_nx, p.g_ny, p.g_k_cand = spec.cell_nx, spec.cell_ny, spec.K_cand
+    p.c_tan[:] = tables.scalars.get("c_tan", [0.0] * (CULL_MAX_SUB - 1))
     p.n_dom_cand, p.n_rounds = spec.n_dom_cand, spec.n_string_rounds
     p.m_rel = tables.rel.shape[1]
     return p
@@ -1856,6 +2107,12 @@ def _run_fused(state, steps_p, tables: FusedTables, spec: FusedSpec, seed,
                 n_active = live_prefix(alive + min(donors, n - alive), n)
     with P.wait("totals"):
         totals[CNT_ALIVE] = alive
+        if P.recording_on() and not spec.sub_plans:
+            # the global plans' cull: candidates loaded and live
+            # slot-iterations, read after the last launch's alive count
+            cand, work = totals[[CNT_CAND, CNT_WORK]].tolist()
+            P.count("k1_candidates", cand)
+            P.count("k1_slot_iterations", work)
     rec = rec_count = None
     if spec.records:
         rows = torch.cat(chunks)

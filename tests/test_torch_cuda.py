@@ -823,3 +823,101 @@ def test_cuda_second_call_launches_on_the_kept_tables(monkeypatch):
     assert calls[0][:2] == (1, 0) and planning <= calls[0][2]
     assert calls[1][:2] == (0, 1) and not planning & calls[1][2]
     assert {"check", "alive"} <= calls[1][2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cascade", "flash", "expected,threefry",
+                                  "records"])
+def test_cuda_card_cull_lists_match_coarse_lists_and_plain(case):
+    """K1 on the benchmark's IC86 stand-in (ic86-production's world; the
+    first 16,384 slots of an event's first slot batch, 64 iterations) with
+    the card's cull table (kernel.card_cull_table) against the same kernel
+    with the JAX package's coarse lists (the table's fallback, budget 0):
+    the stream instantiation on a 40 TeV cascade and on a flash, the fit
+    forward's (expected, threefry) and the record mode.  Equal counts of
+    generated photons, hits, strings tested, cull passes, DOM rows and
+    walk steps; histograms equal up to the atomics' order (L1 <= 1e-5);
+    records equal record for record; the candidates loaded at most a fifth
+    of the coarse lists'.  And against its plain version (phase 2's
+    tolerances, generated counts within 1e-4), the candidates at most a
+    fifth of the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import dataclasses
+    import importlib
+    import json
+    from pathlib import Path
+    import numpy as np
+    import chip_smoke
+    from benchmark.world import PROGRAM, program_world
+    from clsim_tpu_torch.convert import steps_from_numpy
+    from clsim_tpu_torch.ops import rng
+    from clsim_tpu_torch.propagate import kernel as K
+    dev = torch.device("cuda", 0)
+    n, T = 16384, 64
+    bench = Path(__file__).resolve().parent.parent / "benchmark"
+    conf = json.loads((bench / "configs" / "ic86-production.json").read_text())
+    world = chip_smoke.quiet(program_world, conf, dev)
+    traffic = "flashes" if case == "flash" else "cascades-40tev"
+    tr = json.loads((bench / "traffic" / (traffic + ".json")).read_text())
+    src = importlib.import_module(f"benchmark.sources.{tr['source']}")
+    desc = src.pool(tr, conf)[0]
+    if case != "flash":
+        # the pool's cascade 7 m from string 0's axis, so that it lights
+        # DOMs within the test's iterations
+        x0, y0 = (float(v[0]) for v in (world.geometry.string_x,
+                                         world.geometry.string_y))
+        desc = dict(desc, pos=[x0 + 6.0, y0 + 4.0, 0.0])
+    event = src.sources(PROGRAM, world, desc)
+    batch = world.sim.steps_from_particles(event, np.random.default_rng(22))
+    steps = steps_from_numpy({k: v[:n] for k, v in batch[0]._asdict().items()},
+                             dev)
+    cfg = world.config
+    key = keys = uni = None
+    if case == "expected,threefry":
+        cfg = dataclasses.replace(cfg, estimator="expected", soft_binning=True,
+                                  fixed_abs_lens=8.0)
+        key = rng.as_key(chip_smoke.FIT_KEY)
+        keys = rng.key_table(key, T).to(dev)
+    else:
+        uni = torch.as_tensor(np.random.default_rng(7).random(
+            (T, 8, n)).astype(np.float32), device=dev)
+    records = case == "records"
+    cfg = dataclasses.replace(cfg, save_photons=records)
+    spec, cell_tab = chip_smoke.quiet(K.fused_spec, world.medium,
+                                      world.geometry, world.spectra, cfg, n, T,
+                                      threefry=key is not None)
+    assert K.kernel_coll(spec) == K.COLL_AFFINE
+    tables = K.build_tables(spec, world.medium, world.geometry, world.spectra,
+                            cell_tab)
+    assert tables.scalars["c_sectors"] > 1
+    rows, sc = K.card_cull_table(spec, cell_tab, None, budget=0)
+    coarse = tables._replace(cells=torch.as_tensor(rows, device=dev),
+                             scalars={**tables.scalars, **sc})
+    state0, steps_p = K.init_state(steps, records), K.pack_steps(steps)
+    run = lambda fn, t: fn(state0.clone(), steps_p, t, spec, uniforms=uni,
+                           keys=keys)
+    (_, h_a, c_a, *r_a) = run(K.run_fused_iterations, tables)
+    (_, h_b, c_b, *r_b) = run(K.run_fused_iterations, coarse)
+    (_, h_p, c_p, *_) = run(K.run_fused_iterations_plain, tables)
+    torch.cuda.synchronize()
+    for k in ("CNT_GEN", "CNT_HITS", "CNT_TESTED", "CNT_CULL", "CNT_ROWS",
+              "CNT_WALK", "CNT_ALIVE"):
+        assert float(c_a[getattr(K, k)]) == float(c_b[getattr(K, k)]), k
+    assert float(c_a[K.CNT_HITS]) > 20 and float(c_a[K.CNT_TESTED]) > 0
+    hb = h_b.double()
+    l1 = float((h_a.double() - hb).abs().sum() / hb.abs().sum())
+    assert l1 <= 1e-5
+    if records:
+        def rows_sorted(r):
+            r = r.double().cpu().numpy()
+            return r[np.lexsort(r.T[::-1])]
+        assert r_a[0].shape[0] == float(c_a[K.CNT_HITS])
+        np.testing.assert_array_equal(rows_sorted(r_a[0]),
+                                      rows_sorted(r_b[0]))
+    assert float(c_a[K.CNT_CAND]) <= float(c_b[K.CNT_CAND]) / 5
+    # generated within 1e-4: the kernel contracts FMAs, so a photon of
+    # ~40,000 may end a step earlier or later than in the plain version
+    chip_smoke.compare(f"card cull lists, {case}", c_a, h_a, c_p, h_p,
+                       gen_rtol=1e-4)
+    assert float(c_a[K.CNT_CAND]) <= float(c_p[K.CNT_CAND]) / 5
