@@ -1777,9 +1777,7 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL, state0=None):
     version on the inputs' shared stream, from fresh state or from
     `state0` (the steady shape): phase 2's checks (histogram L1 within
     l1_tol), with records 5a's, and the bound's counts (TALLIES) within
-    max(2, 1%), the candidates loaded at most the plain version's (the
-    card's own lists); returns its times, error, bound, mode and
-    account."""
+    max(2, 1%); returns its times, error, bound, mode and account."""
     from clsim_tpu_torch.propagate import kernel as K
     medium, geo, spectra, cfg, steps, uni = inputs
     N = int(steps.x.shape[0])
@@ -1828,9 +1826,7 @@ def check_instantiation(name, inputs, records, l1_tol=L1_TOL, state0=None):
         f"slots x {PHASE2_T} iterations); bound {bound[0]:.4f} ms by "
         f"{bound[1]}; " + fmt_stats(st))
     for t, (a, b) in tallies.items():
-        # the card loads its own lists (card_cull_table), at most the
-        # plain version's coarse ones
-        if (a - b if t == "cand" else abs(a - b)) > max(2.0, 0.01 * b):
+        if abs(a - b) > max(2.0, 0.01 * b):
             raise AssertionError(f"{name}: kernel and plain {t} counts "
                                  "differ")
     return dict(ms=ms_k, plain_ms=ms_p, err=err, bound=bound,

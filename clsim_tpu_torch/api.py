@@ -50,7 +50,8 @@ from .ops.spectrum import (WavelengthSpectrum, check_source_types,
                            make_cherenkov_spectrum, source_type_range,
                            stack_spectra)
 from .parallel.mesh import make_sharded_propagate, shard_steps
-from .propagate.dispatch import check_diagnostics, propagate_auto
+from .parallel.pipeline import batch_seed, propagate_batch
+from .propagate.dispatch import check_diagnostics
 from .propagate.engine import PropagationResult
 from .sources.convert import (MuonSlicerPropagator, SourceConverter,
                               default_parameterizations)
@@ -181,10 +182,11 @@ class Simulation:
     def run_steps(self, slot_batches: List[StepBatch], seed: int
                   ) -> Optional[PropagationResult]:
         """Propagate pre-assigned slot batches; accumulates over batches.
-        Batch i's random stream is seeded from (seed, i) with numpy's
-        SeedSequence; on a mesh, by the threefry key fold_in(PRNGKey(seed),
-        i), as the JAX package keys it, and each rank propagates its slot
-        slice of every batch (parallel/mesh.shard_steps).
+        Batch i goes through pipeline.propagate_batch, its random stream
+        seeded from (seed, i) with numpy's SeedSequence (batch_seed); on a
+        mesh, by the threefry key fold_in(PRNGKey(seed), i), as the JAX
+        package keys it, and each rank propagates its slot slice of every
+        batch (parallel/mesh.shard_steps).
 
         With config.save_photons the records of every batch are kept,
         compacted to the flat (1, R) contract and concatenated.  (The JAX
@@ -202,13 +204,9 @@ class Simulation:
                     self.geometry, self.spectra,
                     RNG.fold_in(RNG.base_key(seed), i))
             else:
-                bseed = int(np.random.SeedSequence(
-                    [int(seed), i]).generate_state(1, np.uint64)[0]
-                    & np.uint64(2 ** 63 - 1))
-                steps = steps_from_numpy(batch._asdict(), self.device)
-                res = propagate_auto(steps, self.medium, self.geometry,
-                                     self.spectra, bseed, self.config,
-                                     backend=self.backend, **self.fused_opts)
+                res = propagate_batch(
+                    self, steps_from_numpy(batch._asdict(), self.device),
+                    seed, i)
             if res.rec is not None:
                 records.append(compact_records(res.rec, res.rec_count))
             if total is None:
@@ -245,11 +243,10 @@ class Simulation:
         return self.run_steps(slot_batches, seed)
 
     def _mcpe_generator(self, seed: int) -> torch.Generator:
-        """The MCPE sampler's generator, seeded from (seed, MCPE_SALT)."""
+        """The MCPE sampler's generator, seeded from (seed, MCPE_SALT) by
+        the batch-seed rule."""
         g = torch.Generator(device=self.device)
-        g.manual_seed(int(np.random.SeedSequence(
-            [int(seed), MCPE_SALT]).generate_state(1, np.uint64)[0]
-            & np.uint64(2 ** 63 - 1)))
+        g.manual_seed(batch_seed(seed, MCPE_SALT))
         return g
 
     def simulate_hits(self, particles: Sequence[Particle], seed: int,

@@ -16,10 +16,10 @@ device, at most `max_in_flight` batches ahead in a bounded queue.  The
 feeder alone draws from the one np.random.Generator, event by event in
 submission order, so every event's steps are the ones a synchronous run
 makes, bit for bit; results come back in submission order.  On CUDA the
-feeder copies on a side stream and the harvester's stream waits on a CUDA
+feeder copies on a side stream and the propagating stream waits on a CUDA
 event recorded after the copy (no host sync orders them).  With
-`max_in_flight=1` there is no thread: every event is prepared first, then
-each batch is propagated and harvested in turn (the synchronous loop).
+`max_in_flight=1` there is no thread: the feeder propagates and harvests
+each batch itself as soon as it has copied it (the synchronous loop).
 An exception on the harvester is raised again from `process` with its
 traceback, and the thread is joined before `process` returns or raises.
 Events stay attributed through the step identifier, event k's source i
@@ -27,10 +27,10 @@ carrying k * IDENT_STRIDE + i (the reference's particleCache,
 I3CLSimModule.cxx:1039-1296).
 
 Two choices differ from the JAX pipeline:
-  * dispatch goes through propagate_auto with the Simulation's `backend`
-    and `fused_opts`, as Simulation.run_steps does (the JAX pipeline drops
-    both, clsim_tpu/parallel/pipeline.py:151-152), and batch k draws from
-    the seed SeedSequence([seed, k]), as run_steps' batches do;
+  * dispatch goes through propagate_batch, as Simulation.run_steps' does:
+    propagate_auto with the Simulation's `backend` and `fused_opts` (the
+    JAX pipeline drops both, clsim_tpu/parallel/pipeline.py:151-152),
+    batch k drawing from the seed SeedSequence([seed, k]);
   * device time: a batch's span runs from a CUDA event recorded before its
     propagate_auto to one recorded after it, on the harvester's stream (on
     CPU tensors, the host clock around that call), and every span is read
@@ -51,8 +51,9 @@ util/profiling.recording(), `process` records the program's spans
 conversion, "convert", and slot assignment, "assign", then its batches'
 copies and hand-over) and the "photons" counter; on the harvester
 "queue_wait" (waiting for the feeder) and a "batch" span per slot batch,
-with the call loop's "plan" and "repack" under it; on both a "wait" span
-at each host read of a device value, by site.  Spans carry the event's
+with the call loop's "plan" and "repack" under it (with max_in_flight=1
+the "batch" spans are the feeder's, inside their event's span); on both a
+"wait" span at each host read of a device value, by site.  Spans carry the event's
 identifier and, on the harvester, the batch index k; a "merge" span covers
 the feeder's sum of the batches into the events' results at the end.
 """
@@ -91,10 +92,20 @@ class EventResult:
 
 
 def batch_seed(seed: int, k: int) -> int:
-    """The seed of the pipeline's k-th slot batch (Simulation.run_steps'
-    rule)."""
+    """The seed of a call's k-th slot batch (Simulation.run_steps' and
+    EventPipeline's rule)."""
     return int(np.random.SeedSequence([int(seed), int(k)]).generate_state(
         1, np.uint64)[0] & np.uint64(2 ** 63 - 1))
+
+
+def propagate_batch(sim, steps: StepBatch, seed: int, k: int):
+    """A call's k-th slot batch (its steps on the device) through
+    propagate_auto with the Simulation's `backend` and `fused_opts`, seeded
+    batch_seed(seed, k): Simulation.run_steps off a mesh and EventPipeline
+    both propagate here."""
+    return propagate_auto(steps, sim.medium, sim.geometry, sim.spectra,
+                          batch_seed(seed, k), sim.config,
+                          backend=sim.backend, **sim.fused_opts)
 
 
 class _Harvester:
@@ -139,6 +150,20 @@ class _Harvester:
         self._cancel = cancel
         self._queue.put(None)
         self._thread.join()
+
+
+class _Inline:
+    """_Harvester's interface on the calling thread (max_in_flight=1): each
+    item's work runs, or raises, when it is submitted."""
+
+    def __init__(self, work):
+        self._work, self.outputs, self.error = work, [], None
+
+    def submit(self, item):
+        self.outputs.append(self._work(item))
+
+    def close(self, cancel: bool):
+        pass
 
 
 class EventPipeline:
@@ -207,7 +232,7 @@ class EventPipeline:
         sim = self.sim
         n_tables = int(sim.spectra.x.shape[0])
         # a pulse without its stacked spectrum is refused before any batch
-        # is dispatched, as when every event is prepared first
+        # is dispatched
         for sources in events:
             for src in sources:
                 if isinstance(src, FlasherPulse):
@@ -222,33 +247,21 @@ class EventPipeline:
             clock["ref"] = torch.cuda.Event(enable_timing=True)
             clock["ref"].record()
 
-        def open_event(ev_id, per_particle):
-            results[ev_id] = EventResult(
-                event_id=ev_id,
-                hist=np.zeros((sim.geometry.n_doms, sim.config.hist_n_bins),
-                              np.float32),
-                n_generated=0.0, n_hits=0.0, weight_hits=0.0,
-                per_particle=per_particle)
-
         def work(item):
             """Propagate one batch and read it back (a sync): the
-            harvester's job, or the loop's own with max_in_flight=1."""
+            harvester's job, or the feeder's own with max_in_flight=1."""
             ev_id, k, steps, ready = item
             with P.span("batch", event=ev_id, batch=k):
                 if cuda:
                     stream = torch.cuda.current_stream(steps.x.device)
-                    if ready is not None:
-                        stream.wait_event(ready)
-                        for t in steps:
-                            t.record_stream(stream)
+                    stream.wait_event(ready)
+                    for t in steps:
+                        t.record_stream(stream)
                     ev = [torch.cuda.Event(enable_timing=True)
                           for _ in range(2)]
                     ev[0].record(stream)
                 t_start = time.perf_counter()
-                res = propagate_auto(steps, sim.medium, sim.geometry,
-                                     sim.spectra, batch_seed(seed, k),
-                                     sim.config, backend=sim.backend,
-                                     **sim.fused_opts)
+                res = propagate_batch(sim, steps, seed, k)
                 t_end = time.perf_counter()
                 if cuda:
                     ev[1].record(stream)
@@ -268,27 +281,16 @@ class EventPipeline:
                                   diag.get("abandoned", 0.0)),
                             span=span, harvested=time.perf_counter())
 
-        if self.max_in_flight == 1:
-            prepared = self.prepare(events, rng)
-            outputs, k = [], 0
-            for ev_id, slot_batches, per_particle in prepared:
-                open_event(ev_id, per_particle)
-            for ev_id, slot_batches, _ in prepared:
-                for batch in slot_batches:
-                    with P.wait("steps_h2d", len(batch)):
-                        steps = steps_from_numpy(batch._asdict(), sim.device)
-                    outputs.append(work((ev_id, k, steps, None)))
-                    k += 1
-        else:
-            outputs = self._overlapped(events, rng, open_event, work, cuda)
+        outputs = self._feed(events, rng, results, work, cuda)
         with P.span("merge"):
             self._merge(outputs, results, clock)
         return [results[k] for k in sorted(results)]
 
-    def _overlapped(self, events, rng, open_event, work, cuda):
+    def _feed(self, events, rng, results, work, cuda):
         """The feeder loop: each event prepared in turn on this thread, its
-        batches copied (on a side stream on CUDA) and handed to the
-        harvester; returns the harvester's outputs in submission order."""
+        result opened, its batches copied (_to_device) and handed over, to
+        the harvester or, with max_in_flight=1, run here at once; returns
+        the outputs of `work` in submission order."""
         sim = self.sim
         copy_stream = torch.cuda.Stream(sim.device) if cuda else None
 
@@ -297,36 +299,44 @@ class EventPipeline:
                 torch.cuda.set_device(item[2].x.device)
             return work(item)
 
-        harvester = _Harvester(harvest, self.max_in_flight)
+        sink = (_Inline(work) if self.max_in_flight == 1
+                else _Harvester(harvest, self.max_in_flight))
         failed = True
         try:
             k = 0
             for ev_id, sources in enumerate(events):
                 with P.span("event", event=ev_id):
-                    ev_id, slot_batches, per_particle = self._prepare_event(
+                    _, slot_batches, per_particle = self._prepare_event(
                         ev_id, sources, rng)
-                    open_event(ev_id, per_particle)
+                    results[ev_id] = EventResult(
+                        event_id=ev_id, hist=np.zeros(
+                            (sim.geometry.n_doms, sim.config.hist_n_bins),
+                            np.float32),
+                        n_generated=0.0, n_hits=0.0, weight_hits=0.0,
+                        per_particle=per_particle)
                     for batch in slot_batches:
-                        ready = None
-                        if cuda:
-                            with torch.cuda.stream(copy_stream):
-                                with P.wait("steps_h2d", len(batch)):
-                                    steps = steps_from_numpy(
-                                        batch._asdict(), sim.device)
-                                ready = torch.cuda.Event()
-                                ready.record(copy_stream)
-                        else:
-                            with P.wait("steps_h2d", len(batch)):
-                                steps = steps_from_numpy(batch._asdict(),
-                                                         sim.device)
-                        harvester.submit((ev_id, k, steps, ready))
+                        sink.submit((ev_id, k,
+                                     *self._to_device(batch, copy_stream)))
                         k += 1
             failed = False
         finally:
-            harvester.close(cancel=failed)
-        if harvester.error is not None:
-            raise harvester.error
-        return harvester.outputs
+            sink.close(cancel=failed)
+        if sink.error is not None:
+            raise sink.error
+        return sink.outputs
+
+    def _to_device(self, batch: StepBatch, copy_stream):
+        """(steps, ready): a host slot batch's steps on the Simulation's
+        device, copied under a "steps_h2d" wait, on CUDA on `copy_stream`
+        with `ready` the CUDA event recorded after the copy (else None)."""
+        with torch.cuda.stream(copy_stream):
+            with P.wait("steps_h2d", len(batch)):
+                steps = steps_from_numpy(batch._asdict(), self.sim.device)
+            if copy_stream is None:
+                return steps, None
+            ready = torch.cuda.Event()
+            ready.record(copy_stream)
+        return steps, ready
 
     def _merge(self, outputs, results, clock):
         """Add each batch's output to its event's result and to

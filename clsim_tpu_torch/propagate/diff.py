@@ -32,25 +32,13 @@ from ..medium.properties import MediumProperties
 from ..ops import rng
 from ..ops.rng import make_uniform_stream
 from ..ops.spectrum import SpectrumTable
-from ..types import PropagationConfig, StepBatch
+from ..types import PropagationConfig, StepBatch, tensor_leaves
 from ..util import profiling as P
 from . import engine as E
 from . import kernel as K
 
 # fold_in salt of the backward's random slot subset (the JAX package's)
 BWD_SALT = 0x62776673
-
-
-def tensor_leaves(obj, prefix=()):
-    """[(path, tensor)] of every floating-point tensor in a (nested)
-    NamedTuple such as MediumProperties, in field order."""
-    out = []
-    for name, v in obj._asdict().items():
-        if isinstance(v, torch.Tensor) and v.is_floating_point():
-            out.append((prefix + (name,), v))
-        elif hasattr(v, "_asdict"):
-            out.extend(tensor_leaves(v, prefix + (name,)))
-    return out
 
 
 def replace_leaves(obj, updates: dict):

@@ -22,11 +22,10 @@ This module holds
     SubPlans and cell tables),
   * build_tables: flat float32 tables for the kernel (per-layer arrays,
     spectrum CDF, bias grid, tilt grid, per-SubPlan cell->candidate table
-    [sx, sy, maxr^2, dom_offset] or the global plan's lists, per coarse
-    cell with 12 floats a candidate for the plain version and per fine
-    cell and azimuth sector for the card, the DOM residual and per-string
-    tables, the wavelength tables of a tabulated medium and the
-    scattering-angle CDF),
+    [sx, sy, maxr^2, dom_offset] or the global plan's card table, one
+    list per fine cell and azimuth sector, which the kernel and its plain
+    version both read, the DOM residual and per-string tables, the
+    wavelength tables of a tabulated medium and the scattering-angle CDF),
   * run_fused_iterations: the wrapper.  On CUDA tensors it launches the
     kernel (or raises); on CPU tensors it runs run_fused_iterations_plain,
     the same function in plain PyTorch built on engine._iteration,
@@ -94,7 +93,7 @@ from ..medium.properties import MediumProperties
 from ..ops import rng
 from ..ops.rotations import cart_to_sph
 from ..ops.spectrum import SpectrumTable, check_source_types
-from ..types import PropagationConfig, StepBatch
+from ..types import PropagationConfig, StepBatch, tensor_leaves
 from ..util import profiling as P
 from . import engine as E
 
@@ -722,16 +721,13 @@ class FusedTables(NamedTuple):
     cells: torch.Tensor           # flat candidates: (sum n_cells*K_cand,
                                   # 4) per SubPlan, or the global plan's
                                   # card table (card_cull_table; its
-                                  # parameters in `scalars`)
+                                  # parameters in `scalars`), which the
+                                  # plain version reads too (card_lists)
     plan_cells: tuple             # per SubPlan: (n_cells, K_cand, 4) view
     plan_offsets: tuple           # per SubPlan: first candidate row
     doms: torch.Tensor            # (n_doms, 4) DOM centres x, y, z, 0
     scalars: dict                 # values of the parameter block's
                                   # fields, by name
-    global_cells: Optional[torch.Tensor]  # (n_cells, 1 + 3 kb, 4): the
-                                  # global plan's JAX-equal lists, which
-                                  # the plain version reads
-                                  # (global_cell_table), else None
     rel: torch.Tensor             # (S, M, 4) DOM residuals dx, dy, dz, valid
                                   # (general path; else (1, 1, 4) zeros)
     strings: torch.Tensor         # (S, 4) string x, y, z0, dz of the fitted
@@ -743,53 +739,17 @@ class FusedTables(NamedTuple):
                                   # polynomial, ascending powers (or (1,))
 
 
-def cull_block(spec: FusedSpec) -> int:
-    """Entries of each of a cell's three blocks in the global cell table:
-    K_cand rounded up to 4, the kernel's cull load group."""
-    return -(-spec.K_cand // 4) * 4
-
-
-def global_cell_table(spec: FusedSpec, cell_tab: np.ndarray,
-                      half: Optional[np.ndarray] = None) -> np.ndarray:
-    """The global plan's cell table re-laid out from the JAX package's
-    feature-major (10 * K_cand, n_cells) block to (n_cells, 1 + 3 kb, 4),
-    kb = cull_block(spec): per cell a header (its candidate count, 0, 0, 0),
-    then three blocks of kb 16-byte entries, the cull's (sx, sy, maxr2, off)
-    of every candidate consecutive, then (minz, maxz, z0, dzf), then (nd,
-    sidx, 1 / dzf, half); entries past K_cand are padding (maxr2 = -1).
-    1 / dzf is float32(1 / dzf), the quotient torch's float32 division
-    gives; `half` is the general plan's z-window of the candidate's string
-    (general_window; 0 on the affine plan and for the padding).  The cull
-    reads a cell's candidates as consecutive entries, four at a time."""
-    K, nc, kb = spec.K_cand, spec.n_cull_cells, cull_block(spec)
-    blk = cell_tab[:10 * K, :nc].reshape(10, K, nc).transpose(2, 1, 0)
-    ent = np.zeros((nc, K, 12), np.float32)
-    ent[..., :10] = blk
-    ent[..., 10] = 1.0 / blk[..., 7].astype(np.float64)
-    if half is not None:
-        sidx = blk[..., 9].astype(np.int64)
-        ent[..., 11] = np.where(sidx >= 0, half[np.maximum(sidx, 0)], 0.0)
-    pad = np.zeros((nc, kb, 12), np.float32)
-    pad[..., 2], pad[..., 7], pad[..., 8], pad[..., 9] = -1.0, 1.0, 1.0, -1.0
-    pad[..., 10] = 1.0
-    pad[:, :K] = ent
-    out = np.zeros((nc, 1 + 3 * kb, 4), np.float32)
-    out[:, 0, 0] = (blk[..., 2] >= 0.0).sum(axis=1)
-    for q in range(3):
-        out[:, 1 + q * kb:1 + (q + 1) * kb] = pad[..., 4 * q:4 * q + 4]
-    return out
-
-
-# The card's cull table (COLL 1, 2).  The JAX-equal lists above hold every
-# string a segment from anywhere in a coarse cell could reach in any
-# direction; a string passes the cull only within string_max_r of the capped
-# segment in the photon's own direction, a strip.  So the card reads one
-# list per (fine cell, azimuth sector): every string whose cull disc meets
-# the region that segments from the closed cell, pointing into the closed
-# sector and at most max_segment_m long, sweep.  Candidates stay in
-# ascending string index, as in the JAX lists, so the kernel's ranking
-# picks the same strings.  The table must stay well inside the card's
-# 50 MB L2.
+# The card's cull table (COLL 1, 2).  The JAX package's lists
+# (plan_collision's cell table) hold every string a segment from anywhere
+# in a coarse cell could reach in any direction; a string passes the cull
+# only within string_max_r of the capped segment in the photon's own
+# direction, a strip.  So the card reads one list per (fine cell, azimuth
+# sector): every string whose cull disc meets the region that segments from
+# the closed cell, pointing into the closed sector and at most
+# max_segment_m long, sweep.  Candidates stay in ascending string index, as
+# in the JAX lists, so the ranking picks the same strings.  The kernel and
+# its plain version read the same table (card_lists).  It must stay well
+# inside the card's 50 MB L2.
 CULL_TABLE_BUDGET = 8 << 20      # bytes
 # sub-sectors a quadrant at most: the kernel's c_tan holds one threshold
 # less (csrc/propagate.cuh Params)
@@ -805,29 +765,51 @@ _CULL_ANGLE = 1e-4
 _CULL_CHORD = 0.05
 
 
-def cull_sector_thresholds(m: int) -> np.ndarray:
-    """The kernel's c_tan for m sub-sectors a quadrant: float32 tan(k pi /
+def sector_scalars(m: int) -> dict:
+    """The parameter block's sector fields for m sub-sectors a quadrant (m =
+    0: one sector): c_sectors, c_qmul, c_m and c_tan, float32 tan(k pi /
     (2 m)) for k = 1 .. m - 1, then BIG up to CULL_MAX_SUB - 1 entries."""
+    mm = max(m, 1)
     t = np.full(CULL_MAX_SUB - 1, E.BIG, np.float32)
-    k = np.arange(1, m)
-    t[:m - 1] = np.tan(k * np.pi / (2 * m)).astype(np.float32)
-    return t
+    t[:mm - 1] = np.tan(np.arange(1, mm) * np.pi / (2 * mm)).astype(
+        np.float32)
+    return dict(c_sectors=max(4 * m, 1), c_qmul=m, c_m=mm,
+                c_tan=[float(v) for v in t])
 
 
-def cull_sector(dx, dy, m: int) -> np.ndarray:
-    """The kernel's azimuth sector of 2-D directions (float32 arrays), with
-    m sub-sectors a quadrant (m = 0: one sector, 0).  Comparisons only: the
+def cull_sector(dx, dy, sc: dict) -> torch.Tensor:
+    """The kernel's azimuth sector of 2-D directions (float32 tensors) under
+    the sector fields of `sc` (sector_scalars).  Comparisons only: the
     quadrant q = (dx < 0) + 2 (dy < 0), and within it j, the thresholds
-    c_tan that |dy| exceeds times |dx|, at most m - 1; sector q m + j."""
-    dx = np.asarray(dx, np.float32)
-    dy = np.asarray(dy, np.float32)
-    if m == 0:
-        return np.zeros(np.broadcast(dx, dy).shape, np.int64)
-    ax, ay = np.abs(dx), np.abs(dy)
-    t = cull_sector_thresholds(m)
-    j = sum((ay > np.float32(tk) * ax).astype(np.int64) for tk in t)
-    q = (dx < 0).astype(np.int64) + 2 * (dy < 0).astype(np.int64)
-    return q * m + np.minimum(j, m - 1)
+    c_tan that |dy| exceeds times |dx|, at most c_m - 1; sector
+    q c_qmul + j."""
+    ax, ay = dx.abs(), dy.abs()
+    j = sum((ay > t * ax).to(torch.int64) for t in sc["c_tan"])
+    q = (dx < 0).to(torch.int64) + 2 * (dy < 0).to(torch.int64)
+    return q * sc["c_qmul"] + torch.clamp(j, max=sc["c_m"] - 1)
+
+
+def card_lists(cells: torch.Tensor, sc: dict, x, y, dx, dy):
+    """The card's cull lists that photons at (x, y) heading (dx, dy) read
+    (float32 tensors; `cells` card_cull_table's rows on their device, `sc`
+    its fields): the list of each photon's fine cell and sector, found as
+    the kernel finds it, gathered up to the longest list: (entries (N, L,
+    4): sx, sy, maxr2, string index; counts (N,)).  Past its list's count
+    an entry has maxr2 = -1, which passes no cull, and string 0."""
+    def cell(v, v0, n):
+        return torch.clamp(torch.floor((v - v0) * sc["c_inv_cell"]), 0,
+                           n - 1).to(torch.int64)
+    lid = ((cell(x, sc["c_x0"], sc["c_nx"]) * sc["c_ny"]
+            + cell(y, sc["c_y0"], sc["c_ny"])) * sc["c_sectors"]
+           + cull_sector(dx, dy, sc))
+    hd = cells[sc["c_hdr"]:sc["c_ent"]].view(torch.int32).reshape(-1, 2)[
+        lid].to(torch.int64)
+    k = torch.arange(max(sc["max_list"], 1), device=x.device)
+    ent = cells[torch.clamp(sc["c_ent"] + hd[:, :1] + k,
+                            max=cells.shape[0] - 1)]
+    ent = torch.where((k < hd[:, 1:])[..., None], ent,
+                      ent.new_tensor([0.0, 0.0, -1.0, 0.0]))
+    return ent, hd[:, 1]
 
 
 def _hull(p: np.ndarray) -> np.ndarray:
@@ -920,21 +902,22 @@ def card_cull_table(spec: FusedSpec, cell_tab: np.ndarray,
                     budget: int = CULL_TABLE_BUDGET):
     """The card's cull table of the global plan and its parameters:
     (rows, scalars), rows a (R, 4) float32 array, scalars the Params fields
-    c_* (csrc/propagate.cuh) by name.
+    c_* (csrc/propagate.cuh) by name and max_list, the longest list's
+    count.
 
-    Derived from the JAX-equal cell table `cell_tab` (plan_collision) and
-    its values: per string its (minz, maxz, z0, dzf) and (nd, dom offset,
-    float32(1 / dzf), half) (global_cell_table's second and third entries,
-    `half` the general plan's z-window or 0), then one (offset, count) pair
-    of int32 a list, then every list's cull entries (sx, sy, maxr2, string
-    index), consecutive and not padded.  The lists are per (fine cell,
-    azimuth sector) (_sector_lists, cull_sector): the cell size h (the JAX
-    cell over 2, 4, ... 32) and the sub-sectors a quadrant m (1, 2, 4, 8)
-    minimise the load groups a slot-iteration expects past the list's
-    header (ceil(count / 4) averaged over the sectors and the cells whose
-    centre a string's cull can reach) plus the table's bytes over `budget`
-    (a table of the budget costs a load group: the L1 misses a larger table
-    brings), among the tables that fit `budget`.  Where none fits, the
+    Derived from the JAX package's cell table `cell_tab` (plan_collision)
+    and its values: per string its (minz, maxz, z0, dzf) and (nd, dom
+    offset, float32(1 / dzf), half) (`half` the general plan's z-window or
+    0), then one (offset, count) pair of int32 a list, then every list's
+    cull entries (sx, sy, maxr2, string index), consecutive and not
+    padded.  The lists are per (fine cell, azimuth sector) (_sector_lists,
+    cull_sector): the cell size h (the JAX cell over 2, 4, ... 32) and the
+    sub-sectors a quadrant m (1, 2, 4, 8) minimise the load groups a
+    slot-iteration expects past the list's header (ceil(count / 4)
+    averaged over the sectors and the cells whose centre a string's cull
+    can reach) plus the table's bytes over `budget` (a table of the budget
+    costs a load group: the L1 misses a larger table brings), among the
+    tables that fit `budget`.  Where none fits, the
     lists are the JAX package's, per coarse cell (m = 0: one sector)."""
     K, nc = spec.K_cand, spec.n_cull_cells
     blk = cell_tab[:10 * K, :nc].reshape(10, K, nc)
@@ -1003,8 +986,8 @@ def card_cull_table(spec: FusedSpec, cell_tab: np.ndarray,
         best = (0.0, lid, strs, float(np.float32(spec.inv_cell)),
                 spec.cell_nx, spec.cell_ny, 0)
     _, ids, strs, inv, nx, ny, m = best
-    S = max(4 * m, 1)
-    n_lists = nx * ny * S
+    sectors = sector_scalars(m)
+    n_lists = nx * ny * sectors["c_sectors"]
     cnt = np.bincount(ids, minlength=n_lists)
     hdr = np.zeros((-(-n_lists // 2) * 2, 2), np.int32)
     hdr[:n_lists, 1] = cnt
@@ -1015,11 +998,10 @@ def card_cull_table(spec: FusedSpec, cell_tab: np.ndarray,
     lad = per[:, [8, 3, 10, 11]]        # nd, dom offset, 1 / dzf, half
     rows = np.concatenate([per[:, 4:8], lad,
                            hdr.reshape(-1, 4).view(np.float32), ent])
-    c_tan = cull_sector_thresholds(max(m, 1))
     return rows, dict(
-        c_x0=x0, c_y0=y0, c_inv_cell=inv, c_nx=nx, c_ny=ny, c_sectors=S,
-        c_qmul=m, c_m=max(m, 1), c_lad=n_str, c_hdr=2 * n_str,
-        c_ent=2 * n_str + hdr.shape[0] // 2, c_tan=[float(t) for t in c_tan])
+        c_x0=x0, c_y0=y0, c_inv_cell=inv, c_nx=nx, c_ny=ny, c_lad=n_str,
+        c_hdr=2 * n_str, c_ent=2 * n_str + hdr.shape[0] // 2,
+        max_list=int(cnt.max()), **sectors)
 
 
 def medium_tables(medium: MediumProperties) -> np.ndarray:
@@ -1044,9 +1026,8 @@ def build_tables(spec: FusedSpec, medium: MediumProperties,
     re-laid out from the JAX package's feature-major block per SubPlan
     ([sx|sy|maxr2|off] rows x cells) to [cell][candidate][4], so a thread
     reads its cell's candidates as consecutive 16-byte entries; the global
-    plan's to a count and three blocks a cell for the plain version
-    (global_cell_table) and to the card's lists per fine cell and azimuth
-    sector for the kernel (card_cull_table).  The general path
+    plan's to the card's lists per fine cell and azimuth sector
+    (card_cull_table).  The general path
     reads the DOM residuals as (S, M) float4 rows beside a float4 per
     string (clsim_tpu/propagate/kernel.py:2294-2306 builds the same from
     string_dom_rel and string_features)."""
@@ -1087,7 +1068,6 @@ def geometry_tables(spec: FusedSpec, geo: DetectorGeometry,
         blocks.append(blk.reshape(-1, 4))
         offsets.append(off)
         off += p.n_cells * p.K_cand
-    global_cells = None
     general = kernel_coll(spec) == COLL_GENERAL
     cfg = spec.cfg
     sc = dict(
@@ -1099,7 +1079,6 @@ def geometry_tables(spec: FusedSpec, geo: DetectorGeometry,
         cells = f32(np.concatenate(blocks))
     else:
         half = general_window(geo, spec.cfg)[0] if general else None
-        global_cells = f32(global_cell_table(spec, cell_tab, half))
         rows, cull_sc = card_cull_table(spec, cell_tab, half)
         cells = f32(rows)
         sc.update(cull_sc)
@@ -1116,7 +1095,7 @@ def geometry_tables(spec: FusedSpec, geo: DetectorGeometry,
         cells=cells, plan_cells=tuple(views), plan_offsets=tuple(offsets),
         doms=torch.nn.functional.pad(E.dom_centres(geo), (0, 1)).to(
             dev).contiguous(),
-        scalars=sc, global_cells=global_cells, rel=rel, strings=strings,
+        scalars=sc, rel=rel, strings=strings,
         ang=ang)
 
 
@@ -1211,7 +1190,6 @@ _PLAN_LOCK = threading.Lock()
 def _versions(objs: tuple) -> tuple:
     """The _version of every floating-point tensor of `objs` (NamedTuples
     of tensors): an in-place edit of any of them changes the tuple."""
-    from .diff import tensor_leaves
     return tuple(t._version for o in objs for _, t in tensor_leaves(o))
 
 
@@ -1407,8 +1385,9 @@ def _tally(tally: Optional[dict], key: str, n):
 def _check_collisions_global(state: E.SlotState, tables: FusedTables,
                              spec: FusedSpec, d_prop, active, tally=None):
     """The kernel's global-plan collision test in plain PyTorch: the slot's
-    cell selects <= K_cand candidate strings, the 2-D cull ranks them by
-    the static segment cap with the z pass of each candidate's extent
+    fine cell and azimuth sector select a list of the card's table
+    (card_lists), whose candidate strings the 2-D cull ranks by the static
+    segment cap with the z pass of each candidate's extent
     (clsim_tpu/propagate/kernel.py:947-1003), and the n_string_rounds
     closest get the ray-sphere test: against the n_dom_cand DOMs of the
     z-window from the ceil anchor on an affine geometry (:1270-1381), or
@@ -1425,26 +1404,21 @@ def _check_collisions_global(state: E.SlotState, tables: FusedTables,
     dir_xy2 = dx * dx + dy * dy
     live = active & (dir_xy2 > 0.0)
     inv_dir_xy2 = 1.0 / torch.clamp(dir_xy2, min=1e-20)
-    cxi = torch.clamp(torch.floor((x - spec.cell_x0) * spec.inv_cell), 0,
-                      spec.cell_nx - 1)
-    cyi = torch.clamp(torch.floor((y - spec.cell_y0) * spec.inv_cell), 0,
-                      spec.cell_ny - 1)
-    cand = tables.global_cells[(cxi * spec.cell_ny + cyi).to(torch.int64)]
-    K, kb = spec.K_cand, cull_block(spec)
-    f = lambda q, c: cand[:, 1 + q * kb:1 + q * kb + K, c]   # (N, K_cand)
-    rx = f(0, 0) - x[:, None]
-    ry = f(0, 1) - y[:, None]
+    ent, n_ent = card_lists(tables.cells, sc, x, y, dx, dy)    # (N, L, 4)
+    sidx = ent[..., 3].to(torch.int64)
+    zext = tables.cells[sidx]             # minz, maxz, z0, dzf a string
+    rx = ent[..., 0] - x[:, None]
+    ry = ent[..., 1] - y[:, None]
     bd2 = rx * dx[:, None] + ry * dy[:, None]
     A2 = rx * rx + ry * ry
-    pass_z = ~((dz[:, None] > 0) & (z[:, None] > f(1, 1) + R)) \
-        & ~((dz[:, None] < 0) & (z[:, None] < f(1, 0) - R))
+    pass_z = ~((dz[:, None] > 0) & (z[:, None] > zext[..., 1] + R)) \
+        & ~((dz[:, None] < 0) & (z[:, None] < zext[..., 0] - R))
     t2d = torch.clamp(bd2 * inv_dir_xy2[:, None], 0.0, max_seg)
     cx = rx - dx[:, None] * t2d
     cy = ry - dy[:, None] * t2d
     d2 = cx * cx + cy * cy
-    culled = (d2 <= f(0, 2)) & live[:, None]
-    # the cell's list: its padding (maxr2 = -1) fails every cull
-    _tally(tally, "cand", ((f(0, 2) >= 0.0) & live[:, None]).sum())
+    culled = (d2 <= ent[..., 2]) & live[:, None]
+    _tally(tally, "cand", torch.where(live, n_ent, 0).sum())
     _tally(tally, "cull", culled.sum())
     ranked = torch.where(culled & pass_z, d2, torch.full_like(d2, E.BIG))
     best_all = d_prop
@@ -1455,11 +1429,12 @@ def _check_collisions_global(state: E.SlotState, tables: FusedTables,
         ranked = ranked.scatter(1, k[:, None], E.BIG)
         ok = (mi < E.BIG)[:, None]
         _tally(tally, "tested", ok.sum())
-        pick = lambda a: a.gather(1, k[:, None])[:, 0]
-        off = pick(f(0, 3)).to(torch.int64)
+        s = sidx.gather(1, k[:, None])[:, 0]
+        # nd, dom offset, 1 / dzf, the z-window's half-width
+        nd, off, inv_dzf, half = tables.cells[sc["c_lad"] + s].unbind(1)
+        off = off.to(torch.int64)
         if spec.affine_doms:
-            z0, dzf, nd = pick(f(1, 2)), pick(f(1, 3)), pick(f(2, 0))
-            inv_dzf = 1.0 / dzf
+            z0, dzf = tables.cells[s, 2], tables.cells[s, 3]
             m1 = (z - z0) * inv_dzf
             m2 = m1 + dz * d_prop * inv_dzf
             mlo = torch.ceil(torch.minimum(m1, m2)
@@ -1469,15 +1444,13 @@ def _check_collisions_global(state: E.SlotState, tables: FusedTables,
                                             dtype=x.dtype), min=0.0),
                 (nd - 1.0)[:, None])                      # (N, n_dom_cand)
             oz = z0[:, None] + dzf[:, None] * m - z[:, None]
-            urdot = pick(bd2)[:, None] + oz * dz[:, None]
-            dr2 = pick(A2)[:, None] + oz * oz
+            urdot = bd2.gather(1, k[:, None]) + oz * dz[:, None]
+            dr2 = A2.gather(1, k[:, None]) + oz * oz
             valid = ok
         else:
             # the rows mlo..mhi of the segment's z-window on the string's
             # fitted ladder (general_window), n_win wide at most
-            s = torch.clamp(pick(f(2, 1)), min=0.0).to(torch.int64)
             st = tables.strings[s]                        # (N, 4)
-            nd, inv_dzf, half = pick(f(2, 0)), pick(f(2, 2)), pick(f(2, 3))
             m1 = (z - st[:, 2]) * inv_dzf
             m2 = m1 + dz * d_prop * inv_dzf
             mlo = torch.clamp(torch.ceil(torch.minimum(m1, m2) - half),

@@ -10,6 +10,8 @@ with convert.steps_from_numpy.  PropagationConfig is copied field for field
 from the JAX package: options that only the JAX package implements stay
 here so that a config built for one package means the same in the other,
 and the port raises NotImplementedError where it meets one.
+tensor_leaves lists the floating-point tensors of a NamedTuple of tensors
+such as MediumProperties (the fit's leaves, the plan cache's versions).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
+import torch
 
 
 class StepBatch(NamedTuple):
@@ -160,3 +163,15 @@ class PropagationConfig:
     @property
     def hist_dt(self) -> float:
         return (self.hist_t_max - self.hist_t_min) / self.hist_n_bins
+
+
+def tensor_leaves(obj, prefix=()):
+    """[(path, tensor)] of every floating-point tensor in a (nested)
+    NamedTuple such as MediumProperties, in field order."""
+    out = []
+    for name, v in obj._asdict().items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            out.append((prefix + (name,), v))
+        elif hasattr(v, "_asdict"):
+            out.extend(tensor_leaves(v, prefix + (name,)))
+    return out

@@ -139,35 +139,34 @@ def test_plan_collision_ic86_matches_jax():
 
 
 def test_global_table_layouts():
-    """The global cell table rebuilt from the JAX package's feature-major
-    cell table: per cell its candidate count, then three blocks of kb =
-    K_cand rounded up to 4 entries (the cull's (sx, sy, maxr2, off) of
-    every candidate consecutive, then (minz, maxz, z0, dzf), then (nd,
-    sidx, float32(1 / dzf), the string's z-window half-width)), padding
-    that passes no cull; and the DOM residual and per-string tables equal
+    """The global plan's tables rebuilt from the JAX package's: the card
+    table's per-string rows (card_cull_table: (minz, maxz, z0, dzf), then
+    (nd, dom offset, float32(1 / dzf), the string's z-window half-width))
+    and every cull entry (sx, sy, maxr2) of a string equal to the values
+    of each candidate of the JAX package's feature-major cell table, every
+    string in some list; and the DOM residual and per-string tables equal
     to the rows the JAX package's _build_tables builds
     (kernel.py:2294-2306)."""
     medium, geo, spectra, cfg, steps, u = workload("jittered")
     spec, tables, _ = port_spec((medium, geo, spectra, cfg, steps, u))
     assert KT.kernel_coll(spec) == KT.COLL_GENERAL
     cell_j, plan_j = quiet(KJ.plan_collision, geo, cfg)
-    K, nc, kb = spec.K_cand, spec.n_cull_cells, KT.cull_block(spec)
-    assert kb % 4 == 0 and K <= kb < K + 4
+    K, nc = spec.K_cand, spec.n_cull_cells
     half, _ = KT.general_window(geo, spec.cfg)
-    g = tables.global_cells.numpy()
-    assert g.shape == (nc, 1 + 3 * kb, 4)
-    for c in range(nc):
-        assert g[c, 0, 0] == (cell_j[2 * K:3 * K, c] >= 0.0).sum()
-        for k in range(kb):
-            e = np.concatenate([g[c, 1 + q * kb + k] for q in range(3)])
-            if k >= K:
-                assert e[2] == -1.0        # padding: no cull passes it
-                continue
-            np.testing.assert_array_equal(
-                e[:10], [cell_j[f * K + k, c] for f in range(10)])
-            assert e[10] == np.float32(1.0 / np.float64(cell_j[7 * K + k, c]))
-            s = int(cell_j[9 * K + k, c])
-            assert e[11] == (half[s] if s >= 0 else 0.0)
+    rows, sc = tables.cells.numpy(), tables.scalars
+    n_str, ent = sc["c_lad"], rows[sc["c_ent"]:]
+    blk = cell_j[:10 * K, :nc].reshape(10, K, nc)
+    assert n_str == int(blk[9].max()) + 1
+    for k, c in zip(*np.nonzero(blk[9] >= 0)):
+        v = blk[:, k, c]
+        s = int(v[9])
+        np.testing.assert_array_equal(rows[s], v[4:8])
+        np.testing.assert_array_equal(rows[n_str + s], [
+            v[8], v[3], np.float32(1.0 / np.float64(v[7])), half[s]])
+        mine = ent[ent[:, 3] == s, :3]
+        assert mine.shape[0] > 0
+        np.testing.assert_array_equal(mine, np.broadcast_to(v[:3],
+                                                            mine.shape))
     spec_j = quiet(KJ._build_spec, medium, geo, spectra, cfg, TK.N, TK.T, 1,
                    32, 1024, 2, True, True, plan=plan_j)
     rel_j = np.asarray(quiet(KJ._build_tables, spec_j, medium, geo, spectra,

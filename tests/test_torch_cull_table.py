@@ -1,10 +1,12 @@
 """The card's cull table of the global plans (kernel.card_cull_table): one
-list per fine cell and azimuth sector holds every string that the kernel's
-static-cap cull can pass from that cell and sector, in float32 as the
-kernel computes it, with and without fused multiply-adds; the lists ascend
-by string index, carry the JAX-equal table's values and fit their budget;
-the fallback is the JAX package's lists; and the call loop records the
-cull's two counters at a wait it already had.  On IC86 as the benchmark
+list per fine cell and azimuth sector, read through the program's reader
+(kernel.card_lists), holds every string that the kernel's static-cap cull
+can pass from that cell and sector, in float32 as the kernel computes it,
+with and without fused multiply-adds; the lists ascend by string index,
+carry the JAX package's values and fit their budget; the fallback is the
+JAX package's lists; the plain version's candidates are the lengths of
+the lists it reads; and the call loop records the cull's two counters at
+a wait it already had.  On IC86 as the benchmark
 builds it, as the JAX package's bench.py builds it, and surveyed (the
 general plan).
 
@@ -60,7 +62,7 @@ _PLANS = {}
 
 
 def plan(name):
-    """(spec's geometry fields, JAX-equal cell table, the general plan's
+    """(spec's geometry fields, the JAX package's cell table, the general plan's
     half-widths or None, the card's rows and parameters), built once."""
     if name not in _PLANS:
         geo, cfg = GEOMETRIES[name]()
@@ -76,8 +78,8 @@ def plan(name):
 
 
 def jax_strings(spec, cell_tab):
-    """Per string (sx, sy, maxr2) of the JAX-equal table, and per coarse
-    cell its list of string indices."""
+    """Per string (sx, sy, maxr2) of the JAX package's table, and per
+    coarse cell its list of string indices."""
     K, nc = spec.K_cand, spec.n_cull_cells
     blk = cell_tab[:10 * K, :nc].reshape(10, K, nc)
     sidx = blk[9].astype(np.int64)
@@ -93,17 +95,6 @@ def lists_of(rows, sc):
     """The card's (offset, count) pairs and its cull entries."""
     hdr = rows[sc["c_hdr"]:sc["c_ent"]].view(np.int32).reshape(-1, 2)
     return hdr, rows[sc["c_ent"]:]
-
-
-def card_list(rows, sc, x, y, dx, dy):
-    """The list index each photon's (cell, sector) reads, as the kernel
-    computes it in float32."""
-    cxi = np.clip(np.floor((x - F32(sc["c_x0"])) * F32(sc["c_inv_cell"])),
-                  0, sc["c_nx"] - 1).astype(np.int64)
-    cyi = np.clip(np.floor((y - F32(sc["c_y0"])) * F32(sc["c_inv_cell"])),
-                  0, sc["c_ny"] - 1).astype(np.int64)
-    sec = KT.cull_sector(dx, dy, sc["c_qmul"])
-    return (cxi * sc["c_ny"] + cyi) * sc["c_sectors"] + sec
 
 
 def culled(per, x, y, dx, dy, seg, fma):
@@ -194,11 +185,15 @@ def samples(kind, per, sc, m, seg, rng, n=20000):
 def test_card_lists_hold_every_string_the_cull_passes(name, kind):
     spec, cell_tab, _, rows, sc = plan(name)
     per, jlists = jax_strings(spec, cell_tab)
-    hdr, ent = lists_of(rows, sc)
     rng = np.random.default_rng(zlib.crc32(f"{name} {kind}".encode()))
     x, y, dx, dy = samples(kind, per, sc, sc["c_qmul"],
                            spec.cfg.max_segment_m, rng)
-    lid = card_list(rows, sc, x, y, dx, dy)
+    ent, cnt = KT.card_lists(torch.from_numpy(rows), sc,
+                             *map(torch.from_numpy, (x, y, dx, dy)))
+    ent, cnt = ent.numpy(), cnt.numpy()
+    # past its count a list's entries pass no cull
+    past = np.arange(ent.shape[1]) >= cnt[:, None]
+    assert np.all(ent[..., 2][past] == -1.0) and cnt.max() <= sc["max_list"]
     jx = np.clip(np.floor((x - F32(spec.cell_x0)) * F32(spec.inv_cell)), 0,
                  spec.cell_nx - 1).astype(np.int64)
     jy = np.clip(np.floor((y - F32(spec.cell_y0)) * F32(spec.inv_cell)), 0,
@@ -209,12 +204,11 @@ def test_card_lists_hold_every_string_the_cull_passes(name, kind):
         ph, st = culled(per, x, y, dx, dy, seg, fma)
         n_pass += ph.size
         for p, s in zip(ph, st):
-            o, n = hdr[lid[p]]
-            assert s in ent[o:o + n, 3].astype(np.int64), (p, s)
+            assert s in ent[p, :cnt[p], 3].astype(np.int64), (p, s)
             assert s in jlists[jx[p] * spec.cell_ny + jy[p]], (p, s)
     assert n_pass > 50
     # the card loads a small share of what the coarse lists load
-    card = hdr[lid, 1].mean()
+    card = cnt.mean()
     coarse = np.mean([len(jlists[c]) for c in jx * spec.cell_ny + jy])
     assert card < coarse / 5
 
@@ -222,9 +216,6 @@ def test_card_lists_hold_every_string_the_cull_passes(name, kind):
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
 def test_card_lists_ascend_carry_the_jax_values_and_fit(name):
     spec, cell_tab, half, rows, sc = plan(name)
-    g = KT.global_cell_table(types.SimpleNamespace(**vars(spec)), cell_tab,
-                             half)
-    kb = -(-spec.K_cand // 4) * 4
     hdr, ent = lists_of(rows, sc)
     assert rows.dtype == np.float32 and rows.nbytes <= KT.CULL_TABLE_BUDGET
     assert sc["c_sectors"] == 4 * sc["c_qmul"] > 0
@@ -232,23 +223,27 @@ def test_card_lists_ascend_carry_the_jax_values_and_fit(name):
     n_lists = sc["c_nx"] * sc["c_ny"] * sc["c_sectors"]
     assert hdr.shape[0] >= n_lists and hdr[n_lists:, 1].sum() == 0
     assert hdr[:n_lists, 1].sum() == ent.shape[0]
+    assert hdr[:n_lists, 1].max() == sc["max_list"]
     for o, n in hdr[:n_lists]:
         s = ent[o:o + n, 3].astype(np.int64)
         assert np.all(np.diff(s) > 0)
-    # every value the kernel reads equals the JAX-equal table's for the
-    # same string: the cull entry, the z extent and ladder, the DOM offset,
-    # 1 / dz and the z-window's half-width
+    # every value the kernel reads equals the JAX package's table's for
+    # the same string: the cull entry, the z extent and ladder, the DOM
+    # offset, 1 / dz and the z-window's half-width
+    K, nc = spec.K_cand, spec.n_cull_cells
+    blk = cell_tab[:10 * K, :nc].reshape(10, K, nc)
     n_str = sc["c_lad"]
-    for c in range(g.shape[0]):
-        for k in range(int(g[c, 0, 0])):
-            cull, zext, lad = (g[c, 1 + q * kb + k] for q in range(3))
-            s = int(lad[1])
-            np.testing.assert_array_equal(rows[s], zext)
-            np.testing.assert_array_equal(rows[n_str + s],
-                                          [lad[0], cull[3], lad[2], lad[3]])
-            np.testing.assert_array_equal(ent[ent[:, 3] == s][:, :3],
-                                          np.broadcast_to(cull[:3], (
-                                              (ent[:, 3] == s).sum(), 3)))
+    for k, c in zip(*np.nonzero(blk[9] >= 0)):
+        v = blk[:, k, c]
+        s = int(v[9])
+        np.testing.assert_array_equal(rows[s], v[4:8])
+        np.testing.assert_array_equal(rows[n_str + s], [
+            v[8], v[3], F32(1.0 / np.float64(v[7])),
+            0.0 if half is None else half[s]])
+        mine = ent[ent[:, 3] == s, :3]
+        assert mine.shape[0] > 0
+        np.testing.assert_array_equal(mine, np.broadcast_to(v[:3],
+                                                            mine.shape))
 
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
@@ -264,26 +259,25 @@ def test_card_table_past_its_budget_is_the_jax_lists(name):
         o, n = hdr[c]
         np.testing.assert_array_equal(ent[o:o + n, 3], jlists[c])
     # one sector: every direction reads sector 0
-    d = np.array([1.0, -1.0, 0.0, 0.5], F32)
-    assert not KT.cull_sector(d, d[::-1].copy(), 0).any()
+    d = torch.tensor([1.0, -1.0, 0.0, 0.5])
+    assert not KT.cull_sector(d, d.flip(0), sc).any()
 
 
 def test_sector_rule_by_comparisons():
     """The kernel's sectors on exact boundaries: quadrants by the signs
     (-0 counts as not negative), thresholds tan(k pi / 2m) exceeded
     strictly, the axes and the diagonals in the lower sector."""
-    m = 4
-    ang = np.arange(16) * np.pi / 8 + np.pi / 16         # sector centres
-    got = KT.cull_sector(np.cos(ang).astype(F32), np.sin(ang).astype(F32), m)
+    sc = KT.sector_scalars(4)
+    t = lambda *v: torch.tensor(v, dtype=torch.float32)
+    ang = torch.arange(16, dtype=torch.float64) * np.pi / 8 + np.pi / 16
+    got = KT.cull_sector(ang.cos().float(), ang.sin().float(), sc)
     want = [0, 1, 2, 3, 7, 6, 5, 4, 12, 13, 14, 15, 11, 10, 9, 8]
-    np.testing.assert_array_equal(got, want)
-    one = F32(1.0)
-    axes = KT.cull_sector(np.array([one, 0, -one, 0, -0.0, 0], F32),
-                          np.array([0, one, 0, -one, one, -0.0], F32), m)
-    np.testing.assert_array_equal(axes, [0, 3, 4, 11, 3, 0])
-    diag = KT.cull_sector(np.array([one, -one], F32), np.array([one, one],
-                                                                F32), 1)
-    np.testing.assert_array_equal(diag, [0, 1])
+    assert got.tolist() == want
+    axes = KT.cull_sector(t(1, 0, -1, 0, -0.0, 0), t(0, 1, 0, -1, 1, -0.0),
+                          sc)
+    assert axes.tolist() == [0, 3, 4, 11, 3, 0]
+    diag = KT.cull_sector(t(1, -1), t(1, 1), KT.sector_scalars(1))
+    assert diag.tolist() == [0, 1]
 
 
 def _stream_inputs(geo, n=1024, steps_per=8):
@@ -322,3 +316,32 @@ def test_call_loop_records_the_cull_counters_at_an_existing_wait(plan_kind):
         assert work == float(totals[KT.CNT_WORK]) > 0
     else:
         assert not any(c["name"].startswith("k1_") for c in rec.counters())
+
+
+@pytest.mark.parametrize("name", ["benchmark", "surveyed"])
+def test_plain_candidates_are_the_lengths_of_the_lists_read(name,
+                                                            monkeypatch):
+    """A launch of the plain version counts as CNT_CAND the summed counts
+    of the lists its live slot-iterations read (active, not vertical), as
+    the kernel counts them: on the benchmark's IC86 stand-in (the affine
+    plan) and on IC86 surveyed (the general plan)."""
+    geo, _ = GEOMETRIES[name]()
+    medium, spectra, steps, cfg = _stream_inputs(geo)
+    spec, cell_tab = chip_smoke.quiet(KT.fused_spec, medium, geo, spectra,
+                                      cfg, 1024, 16)
+    tables = KT.build_tables(spec, medium, geo, spectra, cell_tab)
+    read = []
+    inner = KT._check_collisions_global
+
+    def spy(state, tables, spec, d_prop, active, tally=None):
+        live = active & (state.dx * state.dx + state.dy * state.dy > 0.0)
+        _, cnt = KT.card_lists(tables.cells, tables.scalars, state.x,
+                               state.y, state.dx, state.dy)
+        read.append(int(cnt[live].sum()))
+        return inner(state, tables, spec, d_prop, active, tally)
+    monkeypatch.setattr(KT, "_check_collisions_global", spy)
+    _, _, c = KT.run_fused_iterations(KT.init_state(steps),
+                                      KT.pack_steps(steps), tables, spec)
+    assert len(read) == 16
+    assert float(c[KT.CNT_CAND]) == sum(read) > 0
+    assert float(c[KT.CNT_CULL]) > 0

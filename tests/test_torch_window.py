@@ -221,10 +221,9 @@ def test_window_keeps_the_plain_runs_hits():
                                       cfg, n, T)
     tables = KT.build_tables(spec, medium, geo, spectra, cell_tab)
     M = tables.rel.shape[1]
-    g = tables.global_cells.clone()
-    kb = KT.cull_block(spec)
-    g[:, 1 + 2 * kb:, 3] = E.BIG                # every half-width: no window
-    off = tables._replace(global_cells=g, cells=g.view(-1, 4))
+    rows, n_str = tables.cells.clone(), tables.scalars["c_lad"]
+    rows[n_str:2 * n_str, 3] = E.BIG         # every half-width: no window
+    off = tables._replace(cells=rows)
     runs = [KT.run_fused_iterations(KT.init_state(steps),
                                     KT.pack_steps(steps), t, s, uniforms=uni)
             for t, s in ((tables, spec), (off, spec._replace(n_win=M)))]
